@@ -1,0 +1,91 @@
+"""The port's vocoder CLI (``python -m wavernn_tpu_torch.gen_wavernn``) and
+its WAV writer.
+
+On the CPU the CLI runs the decode kernel's plain PyTorch version on the
+committed tiny RAW golden; the WAV it writes must hold exactly the int16
+samples the same ``Generator`` returns.  Without CUDA the default device
+(``cuda``) must raise rather than fall back.  The WAV writer must write the
+bytes the JAX package's writer writes."""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from wavernn_tpu.dsp import wavio as jax_wavio
+from wavernn_tpu_torch import gen_wavernn
+from wavernn_tpu_torch.config import hp
+from wavernn_tpu_torch.dsp import wavio
+from wavernn_tpu_torch.infer.wavernn import make_generator
+from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+REPO = Path(__file__).parent.parent
+GOLDEN = REPO / "tests" / "golden"
+WEIGHTS = GOLDEN / "tiny_wavernn_raw.msgpack"
+TINY = dict(voc_rnn_dims=32, voc_fc_dims=32, voc_compute_dims=16,
+            voc_res_out_dims=16, voc_res_blocks=2, voc_mode="RAW")
+
+
+@pytest.fixture()
+def cli_args(tmp_path):
+    """argv for a 24-frame mel and the tiny RAW golden, with an hp file
+    that takes the repository's hparams.py and sets the tiny dims."""
+    hp.reset()
+    mel_path = tmp_path / "m.npy"
+    np.save(mel_path, np.load(GOLDEN / "tiny_wavernn_raw_mel.npy")[:, :24])
+    hp_file = tmp_path / "hp_tiny.py"
+    hp_file.write_text(
+        "import runpy\n"
+        f"globals().update({{k: v for k, v in runpy.run_path("
+        f"{str(REPO / 'hparams.py')!r}).items() if not k.startswith('__')}})\n"
+        + "".join(f"{k} = {v!r}\n" for k, v in TINY.items()))
+    yield ["--file", str(mel_path), "--voc_weights", str(WEIGHTS),
+           "--hp_file", str(hp_file), "--output_dir", str(tmp_path / "out"),
+           "--target", "1000", "--overlap", "50", "--deterministic"]
+    hp.reset()
+
+
+def test_cli_vocodes_npy_on_cpu(cli_args):
+    out = gen_wavernn.main(cli_args + ["--device", "cpu"])
+    assert out.name == "__m__0k_steps_gen_batched_target1000_overlap50.wav"
+    x, sr = wavio.read_wav_raw(out)
+    assert sr == 22050 and x.shape == (23 * 275,)
+    blob = load_pytree(WEIGHTS)
+    cfg = WaveRNNConfig(rnn_dims=32, fc_dims=32, compute_dims=16,
+                        res_out_dims=16, res_blocks=2, mode="RAW")
+    gen = make_generator(cfg, {"params": blob["params"],
+                               "batch_stats": blob["batch_stats"]},
+                         "cpu", deterministic=True)
+    want = gen(np.load(cli_args[1]), batched=True, target=1000, overlap=50,
+               mu_law=True)
+    assert want.dtype == np.int16 and np.std(want) > 0
+    np.testing.assert_array_equal(np.round(x * 32768.0).astype(np.int16),
+                                  want)
+
+
+def test_cli_raises_without_cuda(cli_args, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gen_wavernn.main(cli_args)
+
+
+def test_cli_refuses_wav_input(cli_args, tmp_path):
+    args = list(cli_args)
+    args[1] = str(tmp_path / "speech.wav")
+    with pytest.raises(NotImplementedError, match="npy"):
+        gen_wavernn.main(args + ["--device", "cpu"])
+
+
+def test_wav_writer_matches_jax(tmp_path):
+    x = np.random.default_rng(0).uniform(-1.2, 1.2, 999).astype(np.float32)
+    wavio.save_wav(x, tmp_path / "port.wav", 22050)
+    jax_wavio.save_wav(x, tmp_path / "jax.wav", 22050)
+    assert ((tmp_path / "port.wav").read_bytes()
+            == (tmp_path / "jax.wav").read_bytes())
+    pcm = np.array([-32768, -1, 0, 1, 32767], np.int16)
+    wavio.save_pcm16(pcm, tmp_path / "pcm.wav", 16000)
+    y, sr = wavio.read_wav_raw(tmp_path / "pcm.wav")
+    assert sr == 16000
+    np.testing.assert_array_equal(np.round(y * 32768.0).astype(np.int16), pcm)

@@ -1,0 +1,84 @@
+"""Build the port's CUDA kernels from ``ops/csrc/*.cu`` and load them.
+
+``nvcc`` compiles the sources into one shared library with a plain C
+interface (no PyTorch headers, so a build takes seconds), under
+``build/kernels/`` at the repository root, named by a hash of the sources
+and flags: a changed source rebuilds, an unchanged one loads the library
+already built.  The library is loaded with ``ctypes``; every pointer and the
+stream are passed as ``c_void_p``.  Nothing is built at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC = Path(__file__).parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+
+_lib = None
+build_log = ""  # nvcc's messages of the last build in this process
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
+    return found
+
+
+def sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"wavernn_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build(verbose: bool = False) -> Path:
+    """Compile the sources if the library for their hash is missing.
+    ``verbose`` asks ptxas for each kernel's registers, shared memory and
+    spills (kept in ``build_log``)."""
+    global build_log
+    out = library_path()
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", str(tmp), *[str(s) for s in sources() if s.suffix == ".cu"]]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    build_log = proc.stdout + proc.stderr
+    os.replace(tmp, out)
+    return out
+
+
+def load_library():
+    """The built library, with its C entry points typed."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        lib.wavernn_decode.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                       ctypes.POINTER(ctypes.c_longlong),
+                                       ctypes.c_void_p]
+        lib.wavernn_decode.restype = ctypes.c_int
+        lib.wavernn_error_string.argtypes = [ctypes.c_int]
+        lib.wavernn_error_string.restype = ctypes.c_char_p
+        _lib = lib
+    return _lib
