@@ -3,29 +3,56 @@
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero and prints no result line:
+It drives both paths of the port, each through its hand-written kernel:
+copy-synthesis (mel -> wav, the WaveRNN decode kernel) and text -> wav
+(the Tacotron decoder-step kernel, then the WaveRNN kernel).  Phases, in
+order; any failure exits non-zero and prints no result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
    toolchain (torch, CUDA, nvcc).
-2. Builds the decode kernel from ``wavernn_tpu_torch/ops/csrc`` with nvcc.
-3. Holds the CUDA kernel against its plain PyTorch version on the card, on
-   real conditioning: the full-size golden MOL model (16 fold rows x 1024
-   steps of the golden eval mel) and the committed tiny RAW golden.
-   Deterministic decode, int8 recurrent matrices on and off: the first 64
-   steps within 1e-3 and at least 99% of all samples within 2e-2.  Sampling
-   with the shared counter-based bits: the first 64 steps within 1e-2 (the
-   rest is printed).  Then both versions are timed at the main path's shape
-   (48 folds x 12,100 steps, sampling, int8 recurrent matrices).
-4. Drives the main path: ``Generator`` on the golden MOL model, f16 mel in,
-   int16 PCM out, folds of 11,000 + 2 x 550 samples, serving three requests
-   through prestage/submit/prefetch/collect (the 1200-frame golden eval mel
-   and two 1920-frame mels from ``np.random.default_rng(0)``).  Every
-   result must be int16 of length (T_mel - 1) * 275 and not silence, the
-   kernel's launch counter must have risen once per request, and a short
-   deterministic request must agree with the same Generator run on the CPU
-   (at least 95% of samples within 655 LSB).  Prints kHz per request
-   (samples / wall-clock s).
+2. Builds the kernels from ``wavernn_tpu_torch/ops/csrc`` with nvcc, one
+   process per source.
+3. Holds the WaveRNN decode kernel against its plain PyTorch version on
+   the card, on real conditioning: the full-size golden MOL model (16 fold
+   rows x 1024 steps of the golden eval mel) and the committed tiny RAW
+   golden.  Deterministic decode, int8 recurrent matrices on and off: the
+   first 64 steps within 1e-3 and at least 99% of all samples within 2e-2.
+   Sampling with the shared counter-based bits: the first 64 steps within
+   1e-2 (the rest is printed).  Then both versions are timed at the main
+   path's shape (48 folds x 12,100 steps, sampling, int8 recurrent
+   matrices).
+4. Drives the copy-synthesis path: ``Generator`` on the golden MOL model,
+   f16 mel in, int16 PCM out, folds of 11,000 + 2 x 550 samples, serving
+   three requests through prestage/submit/prefetch/collect (the 1200-frame
+   golden eval mel and two 1920-frame mels from ``np.random.default_rng(0)``).
+   Every result must be int16 of length (T_mel - 1) * 275 and not silence,
+   the kernel's launch counter must have risen once per request, and a
+   short deterministic request must agree with the same Generator run on
+   the CPU (at least 95% of samples within 655 LSB).  Prints kHz per
+   request (samples / wall-clock s).
 5. Runs the vocoder CLI in a subprocess and parses the WAV it writes.
+6. Holds the Tacotron decoder-step kernel against its plain PyTorch
+   version on the card, bf16 packing: (a) the committed trained tiny
+   Tacotron golden on its eval text, 64 steps; (b) full width,
+   ``init_variables(TacotronConfig(), 0)``, a 60-symbol text from
+   ``np.random.default_rng(0)``, r=2, 750 steps.  The first 64 steps within
+   1e-3 on mels and scores, at least 99% of mel values within 2e-2.  Then
+   both versions are timed at (b).
+7. The TTS gate on the card: the tiny golden through
+   ``TTSGenerator(backend="kernel", steps=400, stop_patience=6)`` must pass
+   the bench's criteria (monotone >= 0.85, coverage >= 0.7, tempo in
+   (0.6, 1.5), mel L1 to ground truth < 1.5 x pinned + 0.1); the port's
+   float32 plain decoder on the card must give the pinned 116 frames.
+8. Drives the text -> wav path: ``TTSPipeline.stream_synthesize`` with the
+   tiny golden Tacotron and the golden MOL WaveRNN, int16 out, three texts.
+   Each wav must be int16 of length (frames - 1) * 275 and not silence; the
+   launch counters of both kernels are set to 0 just before and read just
+   after, and must show the TTS kernel once per 48-step chunk of every
+   utterance and the vocoder kernel once per utterance.  Prints kHz per
+   request, then the TTS rate at B=1 and full width (bench.py's
+   ``tts_frames_per_s_b1``: K=5 submits of a 60-symbol text, 1500 frames
+   each, median of 5 reps).
+9. Runs the text -> wav CLI in a subprocess and parses the WAV it writes.
 
 Float32 matmuls and convolutions run in full float32 (TF32 off).  The last
 two lines are the card's ``nvidia-smi`` name and power limit, then
@@ -45,6 +72,8 @@ import numpy as np
 REPO = Path(__file__).resolve().parent
 GOLDEN = REPO / "bench_assets" / "wavernn_mol_golden.msgpack"
 TINY_RAW = REPO / "tests" / "golden" / "tiny_wavernn_raw.msgpack"
+TACO_DIR = REPO / "tests" / "golden"
+TTS_CHUNK = 48   # TTSGenerator's kernel steps per launch
 TARGET, OVERLAP = 11_000, 550
 SMOKE_DIR = REPO / "build" / "chip_smoke"
 
@@ -99,7 +128,7 @@ def main():
     lib_path = build.build(verbose=True)
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("=="):
             print(f"  ptxas: {line.strip()}")
     cuda_decode.decode.launches = 0
 
@@ -281,7 +310,9 @@ def main():
         fail(f"CLI WAV: sr {sr}, shape {x.shape}")
     print(f"cli: {wavs[0].name} parses: {x.shape[0]} samples at {sr} Hz")
 
-    # -- 6. the record --------------------------------------------------
+    tts = tts_phases(dev, card, wavio, GOLDEN)
+
+    # -- 10. the record -------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
@@ -291,11 +322,232 @@ def main():
         "max_abs_err": max(errs),
         "ms": k_ms,
         "plain_ms": p_ms,
+    }, {
+        "name": "tacotron_decode",
+        "route": "cuda",
+        "source": "wavernn_tpu_torch/ops/csrc/tts_decode.cu",
+        "replaces": "wavernn_tpu/ops/pallas_tts.py:237",
+        "launches": tts["launches"],
+        "max_abs_err": tts["max_abs_err"],
+        "ms": tts["ms"],
+        "plain_ms": tts["plain_ms"],
     }]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def tts_phases(dev, card, wavio, voc_weights) -> dict:
+    """Phases 6-9: the Tacotron kernel against its plain version, the TTS
+    gate, the text -> wav path and its CLI.  Returns the kernel's record."""
+    import torch
+
+    from wavernn_tpu_torch.infer.gates import gates_pass, tts_gates
+    from wavernn_tpu_torch.infer.pipeline import TTSPipeline
+    from wavernn_tpu_torch.infer.tacotron import TTSGenerator
+    from wavernn_tpu_torch.models.tacotron import (
+        TacotronConfig, from_jax_variables, init_variables,
+    )
+    from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+    from wavernn_tpu_torch.ops import cuda_decode, cuda_tts
+    from wavernn_tpu_torch.ops.tts_decode import (
+        extract_tts_decode_weights, init_tts_decode_state, pack_tts_weights,
+        packed_dims, tts_decode_reference,
+    )
+    from wavernn_tpu_torch.text import text_to_sequence
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+    meta = json.loads((TACO_DIR / "tiny_tacotron_meta.json").read_text())
+    pinned = meta["pinned_gates_cpu_xla"]
+    blob = load_pytree(TACO_DIR / "tiny_tacotron.msgpack")
+    taco = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+    taco_cfg = TacotronConfig(**meta["dims"])
+    cleaners = ["english_cleaners"]
+    eval_seq = text_to_sequence(meta["eval_text"], cleaners)
+
+    # -- 6. the Tacotron kernel against its plain version ----------------
+    def kernel_inputs(cfg, variables, seq, L, r):
+        model = from_jax_variables(variables, cfg, dev)
+        x = torch.zeros(1, L, dtype=torch.long)
+        x[0, :len(seq)] = torch.tensor(seq)
+        with torch.no_grad():
+            enc, encp = model.encode(x.to(dev))
+        packed = pack_tts_weights(extract_tts_decode_weights(model), r,
+                                  cfg.n_mels)
+        return packed, enc[0].contiguous(), encp[0].contiguous()
+
+    def fresh_state(packed, L):
+        D, _, H, n_mels, _ = packed_dims(packed)
+        return init_tts_decode_state(D, H, L, n_mels, dev)
+
+    errs = []
+
+    def compare(tag, packed, enc, encp, n):
+        L = enc.shape[0]
+        mk, sk, _, _ = cuda_tts.tts_decode(packed, enc, encp,
+                                           fresh_state(packed, L), n)
+        torch.cuda.synchronize()
+        mp, sp, _, _ = tts_decode_reference(packed, enc, encp,
+                                            fresh_state(packed, L), n)
+        dm, ds = (mk - mp).abs(), (sk - sp).abs()
+        first = max(float(dm[:64].max()), float(ds[:64].max()))
+        agree = float((dm <= 2e-2).float().mean())
+        ok = first <= 1e-3 and agree >= 0.99
+        print(f"tts kernel vs plain [{tag}] L {L} steps {n}: first-64 "
+              f"max|d| mel {float(dm[:64].max()):.3g} score "
+              f"{float(ds[:64].max()):.3g}, mel within 2e-2 {agree:.5f}, "
+              f"max|d| mel {float(dm.max()):.3g} score {float(ds.max()):.3g}"
+              f" -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok or not torch.isfinite(mk).all():
+            fail(f"the TTS kernel disagrees with its plain version [{tag}]")
+        errs.append(first)
+
+    packed, enc, encp = kernel_inputs(taco_cfg, taco, eval_seq, 32,
+                                      meta["r"])
+    compare("tiny golden, eval text", packed, enc, encp, 64)
+    full = TacotronConfig()
+    full_vars = init_variables(full, 0)
+    rng = np.random.default_rng(0)
+    seq60 = [int(i) for i in rng.integers(1, full.num_chars, 60)]
+    packed, enc, encp = kernel_inputs(full, full_vars, seq60, 64, 2)
+    compare("full width, r=2", packed, enc, encp, 750)
+
+    def timed(fn):
+        state = fresh_state(packed, enc.shape[0])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(packed, enc, encp, state, 750)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    timed(cuda_tts.tts_decode)  # warm
+    plain_ms, kernel_ms = [], []
+    for fn, acc in ((tts_decode_reference, plain_ms),
+                    (cuda_tts.tts_decode, kernel_ms),
+                    (cuda_tts.tts_decode, kernel_ms),
+                    (tts_decode_reference, plain_ms)):
+        acc.append(timed(fn))
+    k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    print(f"tts decode time at L {enc.shape[0]}, r=2, 750 steps: kernel "
+          f"{[round(x, 3) for x in kernel_ms]} ms ({k_ms * 1e3 / 750:.2f} "
+          f"us/step), plain {[round(x, 1) for x in plain_ms]} ms "
+          f"({p_ms * 1e3 / 750:.2f} us/step) | {card}", flush=True)
+
+    # -- 7. the TTS gate through the kernel ------------------------------
+    gt = np.load(TACO_DIR / "tiny_tacotron_gt_mel.npy") * 8.0 - 4.0
+    frames = {}
+    for backend in ("kernel", "plain"):
+        gen = TTSGenerator(taco_cfg, taco, dev, steps=400, stop_patience=6,
+                           backend=backend)
+        mel, _, attn = gen(eval_seq, r=meta["r"])
+        gates = tts_gates(mel, attn, len(eval_seq), gt)
+        frames[backend] = mel.shape[1]
+        print(f"tts gate [{backend}{', bf16' if backend == 'kernel' else ', f32'}]"
+              f": {gates} -> {'pass' if gates_pass(gates, pinned['mel_gt_l1']) else 'FAIL'}",
+              flush=True)
+        if not gates_pass(gates, pinned["mel_gt_l1"]):
+            fail(f"the TTS gate fails through the {backend} decoder")
+    print(f"tts frames: kernel {frames['kernel']}, f32 plain "
+          f"{frames['plain']} (pinned {pinned['frames']}), delta "
+          f"{frames['kernel'] - frames['plain']}")
+    if frames["plain"] != pinned["frames"]:
+        fail(f"the f32 plain decoder gave {frames['plain']} frames, pinned "
+             f"{pinned['frames']}")
+
+    # -- 8. the text -> wav path -----------------------------------------
+    voc_blob = load_pytree(voc_weights)
+    voc_vars = {"params": voc_blob["params"],
+                "batch_stats": voc_blob["batch_stats"]}
+    voc_cfg = WaveRNNConfig()
+    pipe = TTSPipeline(taco_cfg, taco, voc_cfg, voc_vars, cleaners,
+                       r=meta["r"], device=dev, tts_steps=400,
+                       output_dtype="int16", input_dtype="float16")
+    texts = ["abcdeabcde", "edcba abcde", "abcde"]
+    want_frames, want_tts = [], 0
+    for t in texts:                      # the kernel decode is deterministic
+        m = pipe.tts(text_to_sequence(t, cleaners), r=meta["r"])[0]
+        want_frames.append(m.shape[1])
+        want_tts += -(-(m.shape[1] // meta["r"]) // TTS_CHUNK)
+    list(pipe.stream_synthesize(texts[:1], mu_law=False))          # warm
+    torch.cuda.synchronize()
+    cuda_tts.tts_decode.launches = 0
+    cuda_decode.decode.launches = 0
+    wavs, secs = [], []
+    for i, t in enumerate(texts):        # one request after the other
+        t1 = time.perf_counter()
+        wavs += list(pipe.stream_synthesize([t], mu_law=False, seed=i))
+        secs.append(time.perf_counter() - t1)
+    tts_launches = cuda_tts.tts_decode.launches
+    voc_launches = cuda_decode.decode.launches
+    total = sum(secs)
+    for i, (wav, f) in enumerate(zip(wavs, want_frames)):
+        n = (f - 1) * voc_cfg.hop_length
+        if wav.dtype != np.int16 or wav.shape != (n,):
+            fail(f"text {i}: got {wav.dtype} {wav.shape}, want int16 ({n},)")
+        std = float(np.std(wav.astype(np.float64)))
+        if not std > 0.01 * 32767:
+            fail(f"text {i}: silence (std {std:.1f} LSB)")
+        print(f"text->wav request {i} {texts[i]!r}: {f} frames -> {n} int16 "
+              f"samples in {secs[i]:.3f} s = {n / secs[i] / 1e3:.2f} kHz "
+              f"(std {std:.0f} LSB)", flush=True)
+    n_all = sum(len(w) for w in wavs)
+    print(f"text->wav path: {len(wavs)} requests, {n_all} samples in "
+          f"{total:.3f} s = {n_all / total / 1e3:.2f} kHz; launches: tts "
+          f"{tts_launches} (want {want_tts}), vocoder {voc_launches} "
+          f"(want {len(texts)}) | {card}")
+    if tts_launches != want_tts or voc_launches != len(texts):
+        fail("the text->wav path did not run through both kernels")
+
+    # TTS rate at B=1, full width (bench.py's tts_frames_per_s_b1)
+    gen = TTSGenerator(full, full_vars, dev, steps=1500)
+    gen(seq60, r=2)                       # warm (untrained: runs to the cap)
+    rates = []
+    for _ in range(5):
+        t1 = time.perf_counter()
+        outs = [gen.collect(gen.submit(seq60, r=2)) for _ in range(5)]
+        dt = time.perf_counter() - t1
+        rates.append(sum(o[0].shape[1] for o in outs) / dt)
+    print(f"tts B=1 full width, 1500 frames, K=5 submits: "
+          f"{[round(x, 1) for x in rates]} frames/s, median "
+          f"{float(np.median(rates)):.1f} | {card}", flush=True)
+
+    # -- 9. the text -> wav CLI ------------------------------------------
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    d = meta["dims"]
+    hp_file = SMOKE_DIR / "hp_tts.py"
+    hp_file.write_text(
+        "import runpy\n"
+        f"globals().update({{k: v for k, v in runpy.run_path("
+        f"{str(REPO / 'hparams.py')!r}).items() if not k.startswith('__')}})\n"
+        + "".join(f"tts_{k} = {d[k]!r}\n" for k in (
+            "embed_dims", "encoder_dims", "decoder_dims", "postnet_dims",
+            "encoder_K", "lstm_dims", "postnet_K", "num_highways"))
+        + "tts_schedule = [(2, 1e-4, 10_000, 8)]\n")
+    out_dir = SMOKE_DIR / "tts_cli_out"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavernn_tpu_torch.gen_tacotron",
+         "--input_text", meta["eval_text"], "--tts_weights",
+         str(TACO_DIR / "tiny_tacotron.msgpack"), "--hp_file", str(hp_file),
+         "--output_dir", str(out_dir), "wavernn", "--voc_weights",
+         str(voc_weights)],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    print("tts cli: " + " | ".join(proc.stdout.strip().splitlines()[-3:]))
+    if proc.returncode != 0:
+        fail(f"TTS CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    wavs = sorted(out_dir.glob("__input_*.wav"))
+    if len(wavs) != 1:
+        fail(f"TTS CLI wrote {wavs}")
+    x, sr = wavio.read_wav_raw(wavs[0])
+    if sr != 22050 or x.size == 0 or x.size % voc_cfg.hop_length:
+        fail(f"TTS CLI WAV: sr {sr}, shape {x.shape}")
+    print(f"tts cli: {wavs[0].name} parses: {x.shape[0]} samples at {sr} Hz")
+    return {"launches": tts_launches, "max_abs_err": max(errs),
+            "ms": k_ms, "plain_ms": p_ms}
 
 
 if __name__ == "__main__":

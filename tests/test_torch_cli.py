@@ -1,11 +1,13 @@
-"""The port's vocoder CLI (``python -m wavernn_tpu_torch.gen_wavernn``) and
-its WAV writer.
+"""The port's CLIs (``python -m wavernn_tpu_torch.gen_wavernn`` and
+``python -m wavernn_tpu_torch.gen_tacotron``) and its WAV writer.
 
-On the CPU the CLI runs the decode kernel's plain PyTorch version on the
-committed tiny RAW golden; the WAV it writes must hold exactly the int16
-samples the same ``Generator`` returns.  Without CUDA the default device
-(``cuda``) must raise rather than fall back.  The WAV writer must write the
-bytes the JAX package's writer writes."""
+On the CPU the vocoder CLI runs the decode kernel's plain PyTorch version on
+the committed tiny RAW golden; the WAV it writes must hold exactly the int16
+samples the same ``Generator`` returns.  The TTS CLI runs the tiny Tacotron
+golden into the same vocoder; its WAV must parse and hold (frames - 1) *
+hop samples.  Without CUDA the default device (``cuda``) must raise rather
+than fall back.  The WAV writer must write the bytes the JAX package's
+writer writes."""
 
 from pathlib import Path
 
@@ -89,3 +91,74 @@ def test_wav_writer_matches_jax(tmp_path):
     y, sr = wavio.read_wav_raw(tmp_path / "pcm.wav")
     assert sr == 16000
     np.testing.assert_array_equal(np.round(y * 32768.0).astype(np.int16), pcm)
+
+
+# -- the TTS CLI ----------------------------------------------------------
+
+TACO = GOLDEN / "tiny_tacotron.msgpack"
+
+
+@pytest.fixture()
+def tts_args(tmp_path):
+    """argv for the tiny Tacotron golden (r=2 at its 6000 steps) and the
+    tiny RAW WaveRNN golden, with an hp file that sets both models' dims."""
+    import json
+
+    hp.reset()
+    dims = json.loads((GOLDEN / "tiny_tacotron_meta.json").read_text())["dims"]
+    tts = dict(tts_embed_dims=dims["embed_dims"],
+               tts_encoder_dims=dims["encoder_dims"],
+               tts_decoder_dims=dims["decoder_dims"],
+               tts_postnet_dims=dims["postnet_dims"],
+               tts_encoder_K=dims["encoder_K"], tts_lstm_dims=dims["lstm_dims"],
+               tts_postnet_K=dims["postnet_K"],
+               tts_num_highways=dims["num_highways"],
+               tts_schedule=[(2, 1e-4, 10_000, 8)])
+    hp_file = tmp_path / "hp_tts.py"
+    hp_file.write_text(
+        "import runpy\n"
+        f"globals().update({{k: v for k, v in runpy.run_path("
+        f"{str(REPO / 'hparams.py')!r}).items() if not k.startswith('__')}})\n"
+        + "".join(f"{k} = {v!r}\n" for k, v in {**TINY, **tts}.items()))
+    yield ["--input_text", "abcdeabcde", "--tts_weights", str(TACO),
+           "--hp_file", str(hp_file), "--output_dir", str(tmp_path / "out")]
+    hp.reset()
+
+
+def test_tts_cli_writes_a_wav_on_cpu(tts_args):
+    from wavernn_tpu_torch import gen_tacotron
+    from wavernn_tpu_torch.infer.tacotron import TTSGenerator
+    from wavernn_tpu_torch.models.tacotron import TacotronConfig
+    from wavernn_tpu_torch.text import text_to_sequence
+    from wavernn_tpu_torch.text.symbols import symbols
+
+    (out,) = gen_tacotron.main(tts_args + [
+        "--device", "cpu", "wavernn", "--voc_weights", str(WEIGHTS),
+        "--target", "1000", "--overlap", "50"])
+    assert out.name == "__input_abcdeabcde_wavernn_batched_6k.wav"
+    x, sr = wavio.read_wav_raw(out)
+    cfg = TacotronConfig.from_hp(hp, num_chars=len(symbols))
+    blob = load_pytree(TACO)
+    mel, _, _ = TTSGenerator(cfg, {"params": blob["params"],
+                                   "batch_stats": blob["batch_stats"]},
+                             "cpu")(text_to_sequence("abcdeabcde",
+                                                     ["english_cleaners"]), r=2)
+    assert sr == 22050 and x.shape == ((mel.shape[1] - 1) * 275,)
+    assert np.std(x) > 0
+
+
+def test_tts_cli_refuses_what_is_not_ported(tts_args, monkeypatch):
+    from wavernn_tpu_torch import gen_tacotron
+
+    voc = ["wavernn", "--voc_weights", str(WEIGHTS)]
+    for extra, what in ((["griffinlim"], "griffinlim"),
+                        (["--save_attention"] + voc, "save_attention"),
+                        (["--mesh"] + voc, "mesh"),
+                        (["--int8"] + voc, "int8")):
+        hp.reset()
+        with pytest.raises(NotImplementedError, match=what):
+            gen_tacotron.main(tts_args + ["--device", "cpu"] + extra)
+    hp.reset()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        gen_tacotron.main(tts_args + voc)

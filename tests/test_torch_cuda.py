@@ -1,4 +1,5 @@
-"""The port's CUDA decode kernel on the card.
+"""The port's CUDA kernels (the WaveRNN decode and the Tacotron decoder
+steps) on the card.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit, carries the
 ``cuda`` marker and skips elsewhere.  The module imports no JAX, so that it
@@ -6,13 +7,18 @@ runs on a machine with the card, where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
-Weights are the port's own seeded initialization at a small width.  The
-kernel and its plain version (``cuda_decode.decode_reference``) sum the
-exact bf16 products of every dot in float64, so they agree to the bit
-nearly always; the tolerance is the one ``chip_smoke.py`` states: first
-64 steps within 1e-3, at least 99% of samples within 2e-2 (deterministic),
-first 64 steps within 1e-2 (sampling).
+Weights are the port's own seeded initialization at a small width.  Each
+kernel and its plain version (``cuda_decode.decode_reference``,
+``tts_decode.tts_decode_reference``) sum the exact bf16 products of every
+dot in float64, so they agree to the bit nearly always; the tolerance is
+the one ``chip_smoke.py`` states: first 64 steps within 1e-3, at least 99%
+of values within 2e-2 (deterministic), first 64 steps within 1e-2
+(sampling).
 """
+
+import json
+from pathlib import Path
+
 
 import numpy as np
 import pytest
@@ -21,7 +27,21 @@ import torch
 from wavernn_tpu_torch import set_float32_policy
 from wavernn_tpu_torch.models.wavernn import WaveRNN, WaveRNNConfig
 from wavernn_tpu_torch.ops import cuda_decode
+from wavernn_tpu_torch.infer.gates import gates_pass, tts_gates
+from wavernn_tpu_torch.infer.tacotron import TTSGenerator
+from wavernn_tpu_torch.models.tacotron import (
+    TacotronConfig, from_jax_variables as taco_from_jax, init_variables,
+)
+from wavernn_tpu_torch.ops import cuda_tts
 from wavernn_tpu_torch.ops.decode import Generator, extract_decode_weights
+from wavernn_tpu_torch.ops.tts_decode import (
+    STATE_FIELDS, extract_tts_decode_weights, init_tts_decode_state,
+    pack_tts_weights, tts_decode_reference,
+)
+from wavernn_tpu_torch.text import text_to_sequence
+from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+GOLDEN = Path(__file__).parent / "golden"
 
 pytestmark = pytest.mark.cuda
 
@@ -150,3 +170,96 @@ def test_generator_on_card_matches_cpu(cuda_device):
     assert out.dtype == np.int16 and out.shape == cpu.shape == (19 * 275,)
     lsb = np.abs(out.astype(np.int32) - cpu.astype(np.int32))
     assert np.mean(lsb <= 655) >= 0.95
+
+
+# -- the Tacotron decoder-step kernel ---------------------------------------
+
+SMALL_TACO = TacotronConfig(embed_dims=32, encoder_dims=32, decoder_dims=64,
+                            lstm_dims=128, postnet_dims=32, encoder_K=4,
+                            postnet_K=2, num_highways=1)
+
+
+def taco_inputs(device, r, L, dtype=torch.bfloat16):
+    """Packed weights and encoder outputs of a seeded small Tacotron."""
+    cfg = SMALL_TACO
+    model = taco_from_jax(init_variables(cfg, 0), cfg, device)
+    x = np.random.default_rng(L).integers(1, cfg.num_chars, (1, L))
+    with torch.no_grad():
+        enc, encp = model.encode(torch.from_numpy(x).to(device))
+    packed = pack_tts_weights(extract_tts_decode_weights(model), r,
+                              cfg.n_mels, dtype=dtype)
+    return packed, enc[0].contiguous(), encp[0].contiguous()
+
+
+def taco_run(fn, packed, enc, encp, n, chunks):
+    c = SMALL_TACO
+    state = init_tts_decode_state(c.decoder_dims, c.lstm_dims, enc.shape[0],
+                                  c.n_mels, enc.device)
+    outs = []
+    for _ in range(chunks):
+        *o, state = fn(packed, enc, encp, state, n // chunks)
+        outs.append(o)
+    return [torch.cat(x) for x in zip(*outs)] + [state]
+
+
+@pytest.mark.parametrize("chunks", [1, 2])
+@pytest.mark.parametrize("L", [24, 200], ids=["short", "long"])
+@pytest.mark.parametrize("r", [1, 2, 7])
+def test_tts_kernel_matches_plain_version(cuda_device, r, L, chunks):
+    packed, enc, encp = taco_inputs(cuda_device, r, L)
+    n = cuda_tts.tts_decode.launches
+    got = taco_run(cuda_tts.tts_decode, packed, enc, encp, 96, chunks)
+    torch.cuda.synchronize()
+    assert cuda_tts.tts_decode.launches == n + chunks
+    want = taco_run(tts_decode_reference, packed, enc, encp, 96, chunks)
+    assert got[0].shape == (96, r, 80) and got[1].shape == (96, L)
+    for a, b in zip(got[:3], want[:3]):
+        d = (a - b).abs()
+        assert float(d[:64].max()) <= 1e-3
+        assert float((d <= 2e-2).float().mean()) >= 0.99
+        assert torch.isfinite(a).all()
+    for f in STATE_FIELDS:
+        d = (getattr(got[3], f) - getattr(want[3], f)).abs()
+        assert float(d.max()) <= 2e-2, f
+
+
+def test_tts_kernel_rejects_what_it_does_not_take(cuda_device):
+    packed, enc, encp = taco_inputs(cuda_device, 2, 24)
+    c = SMALL_TACO
+    state = init_tts_decode_state(c.decoder_dims, c.lstm_dims, 24, c.n_mels,
+                                  cuda_device)
+    with pytest.raises(NotImplementedError, match="int8_lstm"):
+        cuda_tts.tts_decode(packed, enc, encp, state, 4, int8_lstm=True)
+    f32, _, _ = taco_inputs(cuda_device, 2, 24, dtype=torch.float32)
+    with pytest.raises(ValueError, match="bfloat16"):
+        cuda_tts.tts_decode(f32, enc, encp, state, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_tts.tts_decode(packed, enc.t().contiguous().t(), encp, state, 4)
+    bad = dict(packed, whh=packed["whh"].t().contiguous().t())
+    with pytest.raises(ValueError, match="contiguous"):
+        cuda_tts.tts_decode(bad, enc, encp, state, 4)
+    with pytest.raises(ValueError, match="packed"):
+        cuda_tts.tts_decode({k: t.cpu() for k, t in packed.items()}, enc,
+                            encp, state, 4)
+    with pytest.raises(ValueError, match="encp"):
+        cuda_tts.tts_decode(packed, enc, encp.double(), state, 4)
+
+
+def test_tts_generator_on_card_passes_the_tts_gate(cuda_device):
+    """The trained tiny golden through the kernel: one launch per 48-step
+    chunk, and the bench's TTS gate holds."""
+    meta = json.loads((GOLDEN / "tiny_tacotron_meta.json").read_text())
+    blob = load_pytree(GOLDEN / "tiny_tacotron.msgpack")
+    gen = TTSGenerator(TacotronConfig(**meta["dims"]),
+                       {"params": blob["params"],
+                        "batch_stats": blob["batch_stats"]},
+                       cuda_device, steps=400, stop_patience=6)
+    assert gen.backend == "kernel"
+    seq = text_to_sequence(meta["eval_text"], ["english_cleaners"])
+    n = cuda_tts.tts_decode.launches
+    mel, _, attn = gen(seq, r=meta["r"])
+    steps = mel.shape[1] // meta["r"]
+    assert cuda_tts.tts_decode.launches - n == (steps + 47) // 48
+    gt = np.load(GOLDEN / "tiny_tacotron_gt_mel.npy") * 8.0 - 4.0
+    g = tts_gates(mel, attn, len(seq), gt)
+    assert gates_pass(g, meta["pinned_gates_cpu_xla"]["mel_gt_l1"]), g

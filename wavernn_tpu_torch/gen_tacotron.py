@@ -1,0 +1,156 @@
+"""Text -> speech CLI of the PyTorch port: Tacotron mel -> WaveRNN
+waveform (ports ``gen_tacotron.py``).
+
+    python -m wavernn_tpu_torch.gen_tacotron --input_text "Hello there." \\
+        --tts_weights TACO.msgpack [--hp_file hparams.py] [--device cuda] \\
+        wavernn --voc_weights bench_assets/wavernn_mol_golden.msgpack
+
+Without ``--input_text`` every line of ``sentences.txt`` (in the working
+directory) is synthesized.  The device defaults to ``cuda`` and is never
+swapped for another: without CUDA the command fails.  ``--device cpu``
+runs the kernels' plain PyTorch versions instead, at CPU speed.
+
+Not ported yet (each raises): the ``griffinlim`` vocoder,
+``--save_attention``, ``--mesh`` and ``--int8``.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+
+from wavernn_tpu_torch.config import hp
+from wavernn_tpu_torch.dsp import wavio
+from wavernn_tpu_torch.infer.pipeline import mel_from_linear
+from wavernn_tpu_torch.infer.tacotron import TTSGenerator
+from wavernn_tpu_torch.infer.wavernn import make_generator
+from wavernn_tpu_torch.models.tacotron import TacotronConfig
+from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+from wavernn_tpu_torch.text import text_to_sequence
+from wavernn_tpu_torch.text.symbols import symbols
+from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+
+def r_for_step(step: int, schedule) -> int:
+    """The r of the curriculum session a step falls in: sessions are
+    (r, lr, max_step, batch_size)."""
+    for r, _, max_step, _ in schedule:
+        if step < max_step:
+            return r
+    return schedule[-1][0]
+
+
+def _variables(path):
+    blob = load_pytree(path)
+    return ({"params": blob["params"], "batch_stats": blob["batch_stats"]},
+            int(blob.get("step", 0)))
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="TTS generator of the PyTorch port")
+    parser.add_argument("--input_text", "-i", type=str,
+                        help="[string] the text to synthesize")
+    parser.add_argument("--tts_weights", type=str,
+                        help="[string/path] Tacotron weights (.msgpack as "
+                             "the JAX package writes them)")
+    parser.add_argument("--save_attention", "-a", dest="save_attn",
+                        action="store_true", help="save attention plots")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda)")
+    parser.add_argument("--tts_backend", choices=["auto", "kernel", "plain"],
+                        default="auto",
+                        help="decoder backend: the CUDA kernel (B=1) or the "
+                             "plain PyTorch decoder")
+    int8_group = parser.add_mutually_exclusive_group()
+    int8_group.add_argument("--int8", action="store_true",
+                            help="int8 gate weights in the vocoder kernel "
+                                 "(int8_gates)")
+    int8_group.add_argument("--no_int8", action="store_true",
+                            help="no int8 gate weights (the default)")
+    parser.add_argument("--mesh", "-m", action="store_true",
+                        help="shard the vocoder's folds over a device mesh")
+    parser.add_argument("--output_dir", type=str,
+                        help="where the WAVs go (default "
+                             "model_outputs/<tts_model_id>.tacotron)")
+    parser.add_argument("--hp_file", metavar="FILE", default="hparams.py",
+                        help="the file to use for the hyperparameters")
+    subparsers = parser.add_subparsers(required=True, dest="vocoder")
+    wr = subparsers.add_parser("wavernn", aliases=["wr"])
+    wr.add_argument("--batched", "-b", dest="batched", action="store_true")
+    wr.add_argument("--unbatched", "-u", dest="batched",
+                    action="store_false")
+    wr.add_argument("--overlap", "-o", type=int,
+                    help="[int] crossover samples")
+    wr.add_argument("--target", "-t", type=int,
+                    help="[int] samples per batch index")
+    wr.add_argument("--voc_weights", type=str,
+                    help="[string/path] WaveRNN weights")
+    wr.set_defaults(batched=None)
+    gl = subparsers.add_parser("griffinlim", aliases=["gl"])
+    gl.add_argument("--iters", type=int, default=32,
+                    help="[int] griffinlim iterations")
+    args = parser.parse_args(argv)
+
+    if args.vocoder in ("griffinlim", "gl"):
+        raise NotImplementedError("the griffinlim vocoder (device STFT) is "
+                                  "not ported yet")
+    for flag, what in (("save_attn", "--save_attention"), ("mesh", "--mesh"),
+                       ("int8", "--int8")):
+        if getattr(args, flag):
+            raise NotImplementedError(f"{what} is not ported yet")
+
+    hp.configure(args.hp_file)
+    target = hp.voc_target if args.target is None else args.target
+    overlap = hp.voc_overlap if args.overlap is None else args.overlap
+    batched = hp.voc_gen_batched if args.batched is None else args.batched
+    out_dir = Path(args.output_dir if args.output_dir else
+                   Path("model_outputs") / f"{hp.tts_model_id}.tacotron")
+
+    voc_cfg = WaveRNNConfig.from_hp(hp)
+    voc_path = Path(args.voc_weights if args.voc_weights else
+                    Path("checkpoints") / f"{hp.voc_model_id}.wavernn"
+                    / "latest_weights.msgpack")
+    voc_vars, voc_step = _variables(voc_path)
+    tts_cfg = TacotronConfig.from_hp(hp, num_chars=len(symbols))
+    tts_path = Path(args.tts_weights if args.tts_weights else
+                    Path("checkpoints") / f"{hp.tts_model_id}.tacotron"
+                    / "latest_weights.msgpack")
+    tts_vars, tts_step = _variables(tts_path)
+    r = r_for_step(tts_step, hp.tts_schedule)
+
+    if args.input_text:
+        texts = [args.input_text]
+    else:
+        with open("sentences.txt") as f:
+            texts = [line for line in f if line.strip()]
+
+    tts = TTSGenerator(tts_cfg, tts_vars, args.device,
+                       backend=args.tts_backend)
+    voc = make_generator(voc_cfg, voc_vars, args.device)
+    tts_k, voc_k = tts_step // 1000, voc_step // 1000
+    print(f"Using device: {tts.device} | Tacotron {tts_k}k, r={r}, "
+          f"{tts.backend} decode | WaveRNN {voc_k}k, "
+          f"{'batched' if batched else 'unbatched'} target {target} "
+          f"overlap {overlap}")
+    v_type = "wavernn_batched" if batched else "wavernn_unbatched"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    written = []
+    for i, text in enumerate(texts, 1):
+        print(f"| Generating {i}/{len(texts)}")
+        _, m, _ = tts(text_to_sequence(text.strip(), hp.tts_cleaner_names),
+                      r=r)
+        wav = voc(mel_from_linear(m), batched=batched, target=target,
+                  overlap=overlap, mu_law=hp.mu_law)
+        name = (f"__input_{args.input_text[:10]}_{v_type}_{tts_k}k.wav"
+                if args.input_text else f"{i}_{v_type}_{tts_k}k.wav")
+        wavio.save_pcm16(wav, out_dir / name, voc_cfg.sample_rate)
+        print(f"| {m.shape[1]} frames -> {len(wav)} samples: "
+              f"{out_dir / name}")
+        written.append(out_dir / name)
+    print("Done.")
+    return written
+
+
+if __name__ == "__main__":
+    main()

@@ -1,6 +1,7 @@
 """Build the port's CUDA kernels from ``ops/csrc/*.cu`` and load them.
 
-``nvcc`` compiles the sources into one shared library with a plain C
+``nvcc`` compiles each source into an object, all sources at once in
+parallel processes, and links them into one shared library with a plain C
 interface (no PyTorch headers, so a build takes seconds), under
 ``build/kernels/`` at the repository root, named by a hash of the sources
 and flags: a changed source rebuilds, an unchanged one loads the library
@@ -20,7 +21,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-lineinfo"]
 
 _lib = None
 build_log = ""  # nvcc's messages of the last build in this process
@@ -58,13 +59,35 @@ def build(verbose: bool = False) -> Path:
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), *[str(s) for s in sources() if s.suffix == ".cu"]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    build_log = proc.stdout + proc.stderr
+    tag = f"{out.stem}.{os.getpid()}"
+    cus = [s for s in sources() if s.suffix == ".cu"]
+    objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cus]
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    procs = [subprocess.Popen([nvcc_path(), *NVCC_FLAGS, *ptxas, "-c",
+                               "-o", str(o), str(s)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for s, o in zip(cus, objs)]
+    logs, failed = [], []
+    for s, proc in zip(cus, procs):
+        log = proc.communicate()[0]
+        logs.append(f"== {s.name}\n{log}")
+        if proc.returncode != 0:
+            failed.append(f"{s.name} ({proc.returncode}):\n{log}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        link = subprocess.run([nvcc_path(), *NVCC_FLAGS, "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
+    build_log = "\n".join(logs)
     os.replace(tmp, out)
     return out
 
@@ -78,6 +101,13 @@ def load_library():
                                        ctypes.POINTER(ctypes.c_longlong),
                                        ctypes.c_void_p]
         lib.wavernn_decode.restype = ctypes.c_int
+        lib.tts_decode.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                                   ctypes.POINTER(ctypes.c_longlong),
+                                   ctypes.c_void_p]
+        lib.tts_decode.restype = ctypes.c_int
+        lib.tts_decode_max_ctas.argtypes = [ctypes.POINTER(ctypes.c_int)] + [
+            ctypes.c_longlong] * 5
+        lib.tts_decode_max_ctas.restype = ctypes.c_int
         lib.wavernn_error_string.argtypes = [ctypes.c_int]
         lib.wavernn_error_string.restype = ctypes.c_char_p
         _lib = lib
