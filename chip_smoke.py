@@ -3,15 +3,18 @@
 
     python3 chip_smoke.py
 
-It drives both paths of the port, each through its hand-written kernel:
-copy-synthesis (mel -> wav, the WaveRNN decode kernel) and text -> wav
-(the Tacotron decoder-step kernel, then the WaveRNN kernel).  Phases, in
-order; any failure exits non-zero and prints no result line:
+It drives the three paths of the port, each through its hand-written
+kernels: copy-synthesis (mel -> wav, the WaveRNN decode kernel), text -> wav
+(the Tacotron decoder-step kernel, then the WaveRNN kernel) and the
+kernel-measurement path (the matmul floor and the decode kernel's
+variants).  Phases, in order; any failure exits non-zero and prints no
+result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
    toolchain (torch, CUDA, nvcc).
 2. Builds the kernels from ``wavernn_tpu_torch/ops/csrc`` with nvcc, one
-   process per source.
+   process per source, and prints ptxas' registers, shared memory and
+   spills for each kernel.
 3. Holds the WaveRNN decode kernel against its plain PyTorch version on
    the card, on real conditioning: the full-size golden MOL model (16 fold
    rows x 1024 steps of the golden eval mel) and the committed tiny RAW
@@ -53,11 +56,31 @@ order; any failure exits non-zero and prints no result line:
    ``tts_frames_per_s_b1``: K=5 submits of a 60-symbol text, 1500 frames
    each, median of 5 reps).
 9. Runs the text -> wav CLI in a subprocess and parses the WAV it writes.
+10. Holds the matmul floor kernel against its plain version at full width
+   (B=64, H=512, 64 steps from a seeded nonzero state): the state within
+   1e-5, the discarded columns' sum within 1e-9 of their absolute sum.
+11. Holds each ablated decode kernel (sample, gates, sample+gates,
+   cond_read, out_write) against the ablated plain version on 8 golden
+   rows x 64 steps, deterministic (within 1e-3) and sampling (within
+   1e-2); out_write is checked for shape and launch only.
+12. Drives the kernel-measurement path: ``tools.kernel_breakdown`` in
+   process at full width and reduced depth (B=64, T=2,048, K=2), with the
+   launch counters set to 0 just before and read just after; then times
+   the floor's plain version at the same shape.
+13. The sampling law of the kernel (``tools.kernel_sampling_stats``, 16 x
+   4,096 draws): fails if a TV exceeds 4x its noise floor.
+14. The fold-geometry probe (targets 16,500 / 11,000 / 8,250 / 5,500, one
+   1920-frame request each) and the TTS step probe (full width, 1500
+   frames, one pass of one submit per backend).
 
 Float32 matmuls and convolutions run in full float32 (TF32 off).  The last
 two lines are the card's ``nvidia-smi`` name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
-JSON record.
+JSON record, where ``bound_ms`` is the least time the card could take for
+the timed call (the larger of its operations over the H100's dense peak
+for their type and its bytes, each input read once and each output written
+once, over 3.35 TB/s) and ``library_ms`` is null: no single PyTorch call
+computes any of these T-step recurrences.
 """
 
 import json
@@ -76,6 +99,61 @@ TACO_DIR = REPO / "tests" / "golden"
 TTS_CHUNK = 48   # TTSGenerator's kernel steps per launch
 TARGET, OVERLAP = 11_000, 550
 SMOKE_DIR = REPO / "build" / "chip_smoke"
+# H100 SXM dense peaks at 700 W: bf16 and int8 tensor-core rates, HBM rate
+PEAK_BF16, PEAK_INT8, HBM_RATE = 989e12, 1979e12, 3.35e12
+BREAKDOWN_B, BREAKDOWN_T, BREAKDOWN_REPS = 64, 2048, 2
+
+
+def bound(ops, nbytes: int):
+    """(bound_ms, bound_by) of a call that does ``ops`` [(operations,
+    peak rate)] and must move ``nbytes``."""
+    ops_ms = sum(n / rate for n, rate in ops) * 1e3
+    bytes_ms = nbytes / HBM_RATE * 1e3
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms,
+                                                              "bytes")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def decode_bound(packed: dict, B: int, T: int, C: int):
+    """The decode kernel's bound for B rows x T steps: per row and step the
+    bf16 dots (the fused aux matrix counted by its nonzero blocks) and,
+    with int8_hh, the two int8 recurrent dots; bytes are the conditioning
+    read, the weights and the output."""
+    import torch
+
+    H, F = packed["b_hh1_n"].shape[0], packed["b_fc1"].shape[0]
+    d, K0 = packed["w_aux"].shape[0] // 3, packed["w_Im"].shape[0]
+    n_out = packed["b_fc3"].shape[0]
+    hh = 2 * H * 3 * H
+    bf16 = (K0 * 4 * H + H * 3 * H + d * (3 * H + 2 * F) + H * F + F * F
+            + F * n_out)
+    i8 = packed["w_hh1"].dtype == torch.int8
+    ops = [(2 * (bf16 + (0 if i8 else hh)) * B * T, PEAK_BF16),
+           (2 * (hh if i8 else 0) * B * T, PEAK_INT8)]
+    return bound(ops, nbytes(*packed.values()) + B * T * C * 2 + B * T * 4)
+
+
+def in_turns(run_plain, run_kernel):
+    """Run the plain version and the kernel in turns (plain, kernel, kernel,
+    plain), each timed with CUDA events.  Returns (plain output, kernel
+    output, plain ms, kernel ms), the ms as lists."""
+    import torch
+
+    outs, times = {}, {run_plain: [], run_kernel: []}
+    for fn in (run_plain, run_kernel, run_kernel, run_plain):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        outs[fn] = fn()
+        end.record()
+        torch.cuda.synchronize()
+        times[fn].append(start.elapsed_time(end))
+    return outs[run_plain], outs[run_kernel], times[run_plain], times[run_kernel]
 
 
 def fail(msg: str):
@@ -128,7 +206,8 @@ def main():
     lib_path = build.build(verbose=True)
     print(f"build: {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
+        if ("registers" in line or "spill" in line or "entry function" in line
+                or line.startswith("==")):
             print(f"  ptxas: {line.strip()}")
     cuda_decode.decode.launches = 0
 
@@ -199,30 +278,12 @@ def main():
     print(f"main-path kernel shape: cond {tuple(cond.shape)} "
           f"{cond.dtype}, {T} steps")
 
-    def timed(fn):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        out = fn()
-        end.record()
-        torch.cuda.synchronize()
-        return out, start.elapsed_time(end)
-
     run_k = lambda: cuda_decode.decode(gen.packed, cond, T, 7, "MOL", 30,
                                        False)
     run_p = lambda: cuda_decode.decode_reference(gen.packed, cond, T, 7,
                                                  "MOL", 30, False)
     run_k()  # warm
-    plain_ms, kernel_ms = [], []
-    for fn, acc in ((run_p, plain_ms), (run_k, kernel_ms),
-                    (run_k, kernel_ms), (run_p, plain_ms)):
-        out, ms = timed(fn)
-        acc.append(ms)
-        if fn is run_k:
-            out_k = out
-        else:
-            out_p = out
+    out_p, out_k, plain_ms, kernel_ms = in_turns(run_p, run_k)
     d = (out_k - out_p).abs()
     main_err = float(d[:, :64].max())
     print(f"kernel vs plain [main path, sampling int8_hh] rows "
@@ -310,9 +371,13 @@ def main():
         fail(f"CLI WAV: sr {sr}, shape {x.shape}")
     print(f"cli: {wavs[0].name} parses: {x.shape[0]} samples at {sr} Hz")
 
-    tts = tts_phases(dev, card, wavio, GOLDEN)
+    voc_bound = decode_bound(gen.packed, cond.shape[0], T, cond.shape[2])
 
-    # -- 10. the record -------------------------------------------------
+    tts = tts_phases(dev, card, wavio, GOLDEN)
+    floor = measurement_phases(dev, card, golden_cfg, gen, eval_mel,
+                               long_mels[0], errs)
+
+    # -- 15. the record -------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
@@ -322,6 +387,9 @@ def main():
         "max_abs_err": max(errs),
         "ms": k_ms,
         "plain_ms": p_ms,
+        "bound_ms": voc_bound[0],
+        "bound_by": voc_bound[1],
+        "library_ms": None,
     }, {
         "name": "tacotron_decode",
         "route": "cuda",
@@ -331,6 +399,15 @@ def main():
         "max_abs_err": tts["max_abs_err"],
         "ms": tts["ms"],
         "plain_ms": tts["plain_ms"],
+        "bound_ms": tts["bound_ms"],
+        "bound_by": tts["bound_by"],
+        "library_ms": None,
+    }, {
+        "name": "matmul_floor",
+        "route": "cuda",
+        "source": "wavernn_tpu_torch/ops/csrc/matmul_floor.cu",
+        "replaces": "tools/kernel_breakdown.py:27",
+        **floor,
     }]}))
     print(smi_line())
     print(json.dumps({"ok": True, "device": {
@@ -352,8 +429,8 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
     from wavernn_tpu_torch.ops import cuda_decode, cuda_tts
     from wavernn_tpu_torch.ops.tts_decode import (
-        extract_tts_decode_weights, init_tts_decode_state, pack_tts_weights,
-        packed_dims, tts_decode_reference,
+        MATRICES, extract_tts_decode_weights, init_tts_decode_state,
+        pack_tts_weights, packed_dims, tts_decode_reference,
     )
     from wavernn_tpu_torch.text import text_to_sequence
     from wavernn_tpu_torch.utils.checkpoints import load_pytree
@@ -432,6 +509,15 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
                     (tts_decode_reference, plain_ms)):
         acc.append(timed(fn))
     k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    # its bound: per step every matrix once, the folded location conv, the
+    # energies' v and the context at each of the L text positions
+    L, D = enc.shape[0], packed["W_q"].shape[0]
+    macs = (sum(packed[k].numel() for k in MATRICES if k not in ("M_loc", "v"))
+            + L * (packed["M_loc"].numel() + 2 * D))
+    r, n_mels = 2, full.n_mels
+    tts_bound = bound([(2 * macs * 750, PEAK_BF16)],
+                      nbytes(*packed.values(), enc, encp)
+                      + 750 * (r * n_mels + L + 1) * 4)
     print(f"tts decode time at L {enc.shape[0]}, r=2, 750 steps: kernel "
           f"{[round(x, 3) for x in kernel_ms]} ms ({k_ms * 1e3 / 750:.2f} "
           f"us/step), plain {[round(x, 1) for x in plain_ms]} ms "
@@ -547,7 +633,131 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
         fail(f"TTS CLI WAV: sr {sr}, shape {x.shape}")
     print(f"tts cli: {wavs[0].name} parses: {x.shape[0]} samples at {sr} Hz")
     return {"launches": tts_launches, "max_abs_err": max(errs),
-            "ms": k_ms, "plain_ms": p_ms}
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": tts_bound[0],
+            "bound_by": tts_bound[1]}
+
+
+def measurement_phases(dev, card, cfg, gen, eval_mel, long_mel,
+                       decode_errs: list) -> dict:
+    """Phases 10-14: the floor and the ablated decode kernels against their
+    plain versions, the kernel-measurement path, the sampling law, the
+    fold and TTS probes.  Returns the floor's record; the ablated decode
+    comparisons' errors go to ``decode_errs``."""
+    import torch
+
+    from wavernn_tpu_torch.ops import cuda_decode, cuda_tts
+    from wavernn_tpu_torch.ops import matmul_floor as mf
+    from wavernn_tpu_torch.tools import fold_geometry_probe, tts_step_probe
+    from wavernn_tpu_torch.tools.kernel_breakdown import run_breakdown
+    from wavernn_tpu_torch.tools.kernel_sampling_stats import sampling_stats
+
+    # -- 10. the matmul floor against its plain version ------------------
+    B, H = BREAKDOWN_B, mf.H_FLOOR
+    fw = mf.make_floor_weights(0, device=dev)
+    h0 = torch.from_numpy(np.random.default_rng(1).uniform(
+        -1, 1, (B, H)).astype(np.float32)).to(dev)
+    floor_errs = []
+
+    def floor_check(tag, got, want):
+        (h, sink, sabs), (hr, sr, sar) = got, want
+        dh = float((h - hr).abs().max())
+        ds = float(((sink - sr).abs() / sar).max())
+        dsa = float(((sabs - sar).abs() / sar).max())
+        ok = dh <= 1e-5 and ds <= 1e-9 and dsa <= 1e-9
+        print(f"floor kernel vs plain [{tag}]: max|d| h {dh:.3g} (|h| max "
+              f"{float(hr.abs().max()):.3f}), sink |d|/sum|.| {ds:.3g}, "
+              f"sink_abs {dsa:.3g} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok or not torch.isfinite(h).all():
+            fail(f"the floor kernel disagrees with its plain version [{tag}]")
+        floor_errs.append(dh)
+
+    got = mf.matmul_floor(fw, B, 64, h0)
+    torch.cuda.synchronize()
+    floor_check(f"B {B} H {H} 64 steps, nonzero h0", got,
+                mf.matmul_floor_reference(fw, B, 64, h0))
+
+    # -- 11. the ablated decode kernels against their plain versions -----
+    staged = gen.prestage(eval_mel, batched=True, target=TARGET,
+                          overlap=OVERLAP)
+    cond = gen.fold_conditioning(staged)[0][:8, :64].contiguous()
+    for ablate in cuda_decode.KERNEL_ABLATIONS[1:]:
+        name = "+".join(sorted(ablate))
+        for det in (True, False):
+            n = cuda_decode.decode.launches
+            out_k = cuda_decode.decode(gen.packed, cond, 64, 11, cfg.mode,
+                                       cfg.n_classes, det, ablate=ablate)
+            torch.cuda.synchronize()
+            tag = f"ablate {name}, {'deterministic' if det else 'sampling'}"
+            if (cuda_decode.decode.launches != n + 1
+                    or out_k.shape != (8, 64)):
+                fail(f"ablated kernel [{tag}]: shape {tuple(out_k.shape)}")
+            if "out_write" in ablate:
+                print(f"decode kernel [{tag}]: launched, shape "
+                      f"{tuple(out_k.shape)} (output unspecified)")
+                continue
+            out_p = cuda_decode.decode_reference(
+                gen.packed, cond, 64, 11, cfg.mode, cfg.n_classes, det,
+                ablate=ablate)
+            d = float((out_k - out_p).abs().max())
+            ok = d <= (1e-3 if det else 1e-2)
+            print(f"decode kernel vs plain [{tag}] rows 8 steps 64: max|d| "
+                  f"{d:.3g} -> {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok or not torch.isfinite(out_k).all():
+                fail(f"ablated kernel disagrees with its plain version "
+                     f"[{tag}]")
+            decode_errs.append(d)
+
+    # -- 12. the kernel-measurement path ----------------------------------
+    torch.cuda.synchronize()
+    mf.matmul_floor.launches = 0
+    cuda_decode.decode.launches = 0
+    cuda_tts.tts_decode.launches = 0
+    rec = run_breakdown(B, BREAKDOWN_T, dev, BREAKDOWN_REPS)
+    torch.cuda.synchronize()
+    floor_launches = mf.matmul_floor.launches
+    decode_launches = cuda_decode.decode.launches
+    per_variant = 1 + 2 * BREAKDOWN_REPS
+    print(f"kernel-measurement path: launches floor {floor_launches}, "
+          f"decode {decode_launches} (want {per_variant} and "
+          f"{per_variant * len(rec['variants'])}) | {card}")
+    if (floor_launches != per_variant
+            or decode_launches != per_variant * len(rec["variants"])):
+        fail("the kernel-measurement path did not run through its kernels")
+
+    T = BREAKDOWN_T
+    out_p, out_k, plain_ms, kernel_ms = in_turns(
+        lambda: mf.matmul_floor_reference(fw, B, T, h0),
+        lambda: mf.matmul_floor(fw, B, T, h0))
+    floor_check(f"B {B} H {H} {T} steps, nonzero h0", out_k, out_p)
+    k_ms, p_ms = rec["floor"]["ms_per_launch"], float(np.mean(plain_ms))
+    floor_bound = bound([(2 * mf.floor_macs(B, T), PEAK_BF16)],
+                        nbytes(*fw.values(), h0, *out_k))
+    print(f"floor time at B {B} x {T} steps: kernel {k_ms:.3f} ms "
+          f"(breakdown, best of 2 x {BREAKDOWN_REPS}; in turns "
+          f"{[round(x, 3) for x in kernel_ms]}), plain "
+          f"{[round(x, 1) for x in plain_ms]} ms; bound {floor_bound[0]:.4f} "
+          f"ms ({floor_bound[1]}) | {card}", flush=True)
+
+    # -- 13. the sampling law ---------------------------------------------
+    stats = sampling_stats(16, 4096, dev)
+    print("sampling law (kernel, 16 x 4096 draws): " + json.dumps(
+        {k: (round(v, 5) if isinstance(v, float) else v)
+         for k, v in stats.items()}), flush=True)
+    if not stats["ok"]:
+        fail("a sampling-law TV exceeds 4x its noise floor")
+
+    # -- 14. the fold-geometry and TTS step probes ------------------------
+    curve = fold_geometry_probe.probe(
+        gen, long_mel, [16500, 11000, 8250, 5500], OVERLAP, reps=1, utts=1)
+    print(f"fold curve (1920 frames, overlap {OVERLAP}): "
+          f"{json.dumps(curve)} | {card}", flush=True)
+    if not all(np.isfinite(c["khz"]) and c["khz"] > 0 for c in curve):
+        fail("the fold probe gave no rate")
+    tts_step_probe.main(["1500", "1", "--passes", "1", "--device",
+                         str(dev)])
+    return {"launches": floor_launches, "max_abs_err": max(floor_errs),
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": floor_bound[0],
+            "bound_by": floor_bound[1], "library_ms": None}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (the WaveRNN decode and the Tacotron decoder
-steps) on the card.
+"""The port's CUDA kernels (the WaveRNN decode with its ablations, the
+Tacotron decoder steps and the matmul floor) on the card.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit, carries the
 ``cuda`` marker and skips elsewhere.  The module imports no JAX, so that it
@@ -9,11 +9,12 @@ runs on a machine with the card, where JAX is absent:
 
 Weights are the port's own seeded initialization at a small width.  Each
 kernel and its plain version (``cuda_decode.decode_reference``,
-``tts_decode.tts_decode_reference``) sum the exact bf16 products of every
-dot in float64, so they agree to the bit nearly always; the tolerance is
-the one ``chip_smoke.py`` states: first 64 steps within 1e-3, at least 99%
-of values within 2e-2 (deterministic), first 64 steps within 1e-2
-(sampling).
+``tts_decode.tts_decode_reference``, ``matmul_floor.matmul_floor_reference``)
+sum the exact bf16 products of every dot in float64, so they agree to the
+bit nearly always; the tolerance is the one ``chip_smoke.py`` states: first
+64 steps within 1e-3, at least 99% of values within 2e-2 (deterministic),
+first 64 steps within 1e-2 (sampling); for the floor, 1e-5 on the state and
+1e-9 of the discarded columns' absolute sum on their sum.
 """
 
 import json
@@ -33,6 +34,7 @@ from wavernn_tpu_torch.models.tacotron import (
     TacotronConfig, from_jax_variables as taco_from_jax, init_variables,
 )
 from wavernn_tpu_torch.ops import cuda_tts
+from wavernn_tpu_torch.ops import matmul_floor as mf
 from wavernn_tpu_torch.ops.decode import Generator, extract_decode_weights
 from wavernn_tpu_torch.ops.tts_decode import (
     STATE_FIELDS, extract_tts_decode_weights, init_tts_decode_state,
@@ -151,6 +153,65 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         cuda_decode.decode(cpu_packed, cond, 16, 0, "MOL", 30, True)
     with pytest.raises(ValueError, match="n_classes"):
         cuda_decode.decode(packed, cond, 16, 0, "MOL", 31, True)
+
+
+@pytest.mark.parametrize("det", [True, False], ids=["argmax", "sampling"])
+@pytest.mark.parametrize("ablate", cuda_decode.KERNEL_ABLATIONS[1:],
+                         ids=lambda a: "+".join(sorted(a)))
+def test_ablated_kernel_matches_ablated_plain_version(cuda_device, ablate,
+                                                      det):
+    cfg, model = small("MOL")
+    packed = packed_on(model, cfg, cuda_device, True)
+    B, T = 5, 128
+    cond = conditioning(cfg, B, T, cuda_device)
+    n = cuda_decode.decode.launches
+    got = cuda_decode.decode(packed, cond, T, 3, "MOL", cfg.n_classes, det,
+                             ablate=ablate)
+    torch.cuda.synchronize()
+    assert cuda_decode.decode.launches == n + 1
+    assert got.shape == (B, T) and got.dtype == torch.float32
+    if "out_write" in ablate:        # the output is unspecified
+        return
+    want = cuda_decode.decode_reference(packed, cond, T, 3, "MOL",
+                                        cfg.n_classes, det, ablate=ablate)
+    d = (got - want).abs().cpu().numpy()
+    assert d[:, :64].max() <= (1e-3 if det else 1e-2)
+    assert torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("int8_hh", [True, False], ids=["int8_hh", "bf16"])
+def test_kernel_one_row_per_cta_matches_plain_version(cuda_device, int8_hh):
+    cfg, model = small("RAW")
+    packed = packed_on(model, cfg, cuda_device, int8_hh)
+    cond = conditioning(cfg, 3, 200, cuda_device)
+    got = cuda_decode.decode(packed, cond, 200, 5, "RAW", cfg.n_classes,
+                             False, rows_per_cta=1)
+    want = cuda_decode.decode_reference(packed, cond, 200, 5, "RAW",
+                                        cfg.n_classes, False)
+    assert float((got - want).abs()[:, :64].max()) <= 1e-2
+    with pytest.raises(ValueError, match="ablations"):
+        cuda_decode.decode(packed, cond, 200, 5, "RAW", cfg.n_classes, True,
+                           ablate=frozenset({"gates"}), rows_per_cta=1)
+
+
+@pytest.mark.parametrize("B", [5, 64])
+def test_floor_kernel_matches_plain_version(cuda_device, B):
+    w = mf.make_floor_weights(0, device=cuda_device)
+    h0 = torch.from_numpy(np.random.default_rng(B).uniform(
+        -1, 1, (B, mf.H_FLOOR)).astype(np.float32)).to(cuda_device)
+    n = mf.matmul_floor.launches
+    h, sink, sink_abs = mf.matmul_floor(w, B, 48, h0)
+    torch.cuda.synchronize()
+    assert mf.matmul_floor.launches == n + 1
+    hr, sr, sar = mf.matmul_floor_reference(w, B, 48, h0)
+    assert float((h - hr).abs().max()) <= 1e-5
+    assert float(h.abs().max()) > 0.1
+    assert bool(((sink - sr).abs() <= 1e-9 * sar).all())
+    assert bool(((sink_abs - sar).abs() <= 1e-9 * sar).all())
+    zero, _, zabs = mf.matmul_floor(w, B, 4)     # the JAX kernel's start
+    assert float(zero.abs().max()) == 0.0 and float(zabs.max()) == 0.0
+    with pytest.raises(ValueError, match="h0"):
+        mf.matmul_floor(w, B, 4, h0.cpu())
 
 
 def test_generator_on_card_matches_cpu(cuda_device):

@@ -97,14 +97,10 @@ def load_library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        lib.wavernn_decode.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                                       ctypes.POINTER(ctypes.c_longlong),
-                                       ctypes.c_void_p]
-        lib.wavernn_decode.restype = ctypes.c_int
-        lib.tts_decode.argtypes = [ctypes.POINTER(ctypes.c_void_p),
-                                   ctypes.POINTER(ctypes.c_longlong),
-                                   ctypes.c_void_p]
-        lib.tts_decode.restype = ctypes.c_int
+        for fn in (lib.wavernn_decode, lib.tts_decode, lib.matmul_floor):
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
+                           ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         lib.tts_decode_max_ctas.argtypes = [ctypes.POINTER(ctypes.c_int)] + [
             ctypes.c_longlong] * 5
         lib.tts_decode_max_ctas.restype = ctypes.c_int

@@ -34,6 +34,14 @@
 // shared memory, a cluster or grid barrier per phase, wide loads, wgmma)
 // is later work.
 //
+// Ablations (dev only, for the cost breakdown in
+// wavernn_tpu_torch/tools/kernel_breakdown.py): the template parameter MASK
+// drops named pieces of the step, with the meanings of the TPU kernel's
+// ``ablate`` knob.  AB_SAMPLE: the sample is tanh(logits[0]); AB_GATES: each
+// GRU update is 0.5*h + 0.01*(gi[r] + gh[r]) (all gate dots still run);
+// AB_COND_READ: the conditioning row is zeros; AB_OUT_WRITE: no output
+// store.  Production is MASK = 0, which compiles to the plain kernel.
+//
 // Random bits: a counter-based 32-bit hash of (seed, fold row, step, lane)
 // replaces the TPU's on-core PRNG; the plain version reproduces it.
 //
@@ -42,7 +50,7 @@
 //                      void* stream)
 // ptrs = cond, out, then the packed weights in cuda_decode.WEIGHT_ORDER;
 // dims = B, Tc, C, T, H, F, feat, aux_d, n_out, mode (0 RAW, 1 MOL),
-//        deterministic, int8_hh, rows_per_cta, seed.
+//        deterministic, int8_hh, rows_per_cta, seed, ablation mask.
 // Returns a cudaError_t (0 = launched).
 
 #include <cuda_bf16.h>
@@ -57,6 +65,7 @@ namespace {
 constexpr int NT = 512;
 constexpr int NWARP = NT / 32;
 constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
+constexpr int AB_SAMPLE = 1, AB_GATES = 2, AB_COND_READ = 4, AB_OUT_WRITE = 8;
 
 struct Params {
   const __nv_bfloat16* cond;  // (B, Tc, C) fold-major conditioning
@@ -185,7 +194,16 @@ __device__ __forceinline__ float gru(const float (&gi)[3], const float (&gh)[3],
   return add(mul(sub(1.0f, zz), nn), mul(zz, h));
 }
 
-template <int R, bool I8>
+// The ablated GRU update; ``keep`` takes the unused gate values, so that
+// their dots stay live.
+__device__ __forceinline__ float gru_ablated(const float (&gi)[3],
+                                             const float (&gh)[3], float h,
+                                             float& keep) {
+  keep = add(keep, add(add(gi[1], gi[2]), add(gh[1], gh[2])));
+  return add(mul(0.5f, h), mul(0.01f, add(gi[0], gh[0])));
+}
+
+template <int R, bool I8, int MASK>
 __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
   using TW = typename std::conditional<I8, int8_t, __nv_bfloat16>::type;
   using TH = typename std::conditional<I8, float, double>::type;
@@ -206,6 +224,7 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
   const TW* w_hh2 = static_cast<const TW*>(p.w_hh2);
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * R;
+  float keep = 0.f;  // AB_GATES only
 
   for (int i = tid; i < H * R; i += NT) { h1[i] = 0.f; h2[i] = 0.f; }
   for (int i = tid; i < R; i += NT) xs[i] = 0.f;
@@ -215,8 +234,12 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
     // conditioning row of each fold, and gru1's hidden operand
     for (int i = tid; i < C * R; i += NT) {
       const int r = i % R, c = i / R, b = b0 + r;
-      cond[i] = b < p.B
-          ? __bfloat162float(p.cond[((size_t)b * p.Tc + t) * C + c]) : 0.f;
+      if constexpr ((MASK & AB_COND_READ) != 0) {
+        cond[i] = 0.f;
+      } else {
+        cond[i] = b < p.B
+            ? __bfloat162float(p.cond[((size_t)b * p.Tc + t) * C + c]) : 0.f;
+      }
     }
     for (int i = tid; i < H * R; i += NT)
       opH[i] = I8 ? rintf(mul(h1[i], 127.f)) : bfr(h1[i]);
@@ -241,7 +264,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
                           mul(p.s_hh1[g * H + j], 1.0f / 127.0f))
                     : to_f32(gh[g][r]);
         }
-        const float hn = gru(a, h, p.b1, p.b_hh1_n, j, H, h1[j * R + r]);
+        const float hn = (MASK & AB_GATES)
+            ? gru_ablated(a, h, h1[j * R + r], keep)
+            : gru(a, h, p.b1, p.b_hh1_n, j, H, h1[j * R + r]);
         h1[j * R + r] = hn;
         const float v = add(add(add(mul(x, p.w_x[j]), to_f32(xi[0][r])),
                                 p.b_I[j]), hn);
@@ -272,7 +297,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
                           mul(p.s_hh2[g * H + j], 1.0f / 127.0f))
                     : to_f32(gh[g][r]);
         }
-        const float hn = gru(a, h, p.b2, p.b_hh2_n, j, H, h2[j * R + r]);
+        const float hn = (MASK & AB_GATES)
+            ? gru_ablated(a, h, h2[j * R + r], keep)
+            : gru(a, h, p.b2, p.b_hh2_n, j, H, h2[j * R + r]);
         h2[j * R + r] = hn;
         xr[j * R + r] = add(xr[j * R + r], hn);
       }
@@ -326,7 +353,9 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
       const int b = b0 + r;
       const float* lg = logits + r * NO;
       float sample;
-      if (p.mode == 0) {  // RAW: (Gumbel-)argmax over the classes
+      if constexpr ((MASK & AB_SAMPLE) != 0) {
+        sample = tanhf(lg[0]);
+      } else if (p.mode == 0) {  // RAW: (Gumbel-)argmax over the classes
         float best = -CUDART_INF_F;
         int bi = NO;
         for (int i = lane; i < NO; i += 32) {
@@ -364,32 +393,50 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
       }
       if (lane == 0) {
         xs[r] = sample;
-        if (b < p.B) p.out[(size_t)b * p.T + t] = sample;
+        if (!(MASK & AB_OUT_WRITE) && b < p.B)
+          p.out[(size_t)b * p.T + t] = sample;
       }
     }
     __syncthreads();
   }
+  // never true (the grid has ceil(B / R) CTAs), but the compiler cannot
+  // know it: the ablated gates' dots are not dead code
+  if ((MASK & AB_GATES) && b0 > p.B) p.out[0] = keep;
 }
 
-template <int R, bool I8>
+template <int R, bool I8, int MASK>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   const int W = p.H > p.F ? p.H : p.F;
   const size_t floats = (size_t)R * (p.C + 3 * p.H + 2 * W + p.n_out + 1);
   const size_t bytes = floats * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      decode_kernel<R, I8>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      decode_kernel<R, I8, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return e;
   const int grid = (p.B + R - 1) / R;
-  decode_kernel<R, I8><<<grid, NT, bytes, stream>>>(p);
+  decode_kernel<R, I8, MASK><<<grid, NT, bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool I8>
 cudaError_t launch_rows(const Params& p, int R, cudaStream_t s) {
   switch (R) {
-    case 1: return launch<1, I8>(p, s);
-    case 2: return launch<2, I8>(p, s);
+    case 1: return launch<1, I8, 0>(p, s);
+    case 2: return launch<2, I8, 0>(p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The ablations the breakdown runs, built for its configuration only:
+// int8 recurrent matrices, two rows per CTA.
+cudaError_t launch_ablated(const Params& p, int mask, cudaStream_t s) {
+  switch (mask) {
+    case AB_SAMPLE: return launch<2, true, AB_SAMPLE>(p, s);
+    case AB_GATES: return launch<2, true, AB_GATES>(p, s);
+    case AB_SAMPLE | AB_GATES:
+      return launch<2, true, AB_SAMPLE | AB_GATES>(p, s);
+    case AB_COND_READ: return launch<2, true, AB_COND_READ>(p, s);
+    case AB_OUT_WRITE: return launch<2, true, AB_OUT_WRITE>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -430,7 +477,12 @@ extern "C" int wavernn_decode(const void* const* ptrs, const long long* dims,
   const bool int8_hh = dims[11] != 0;
   const int R = (int)dims[12];
   p.seed = (uint32_t)dims[13];
+  const int mask = (int)dims[14];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mask != 0) {
+    if (!int8_hh || R != 2) return cudaErrorInvalidValue;
+    return launch_ablated(p, mask, s);
+  }
   return int8_hh ? launch_rows<true>(p, R, s) : launch_rows<false>(p, R, s);
 }
 

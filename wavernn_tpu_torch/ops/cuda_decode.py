@@ -24,6 +24,13 @@ operands whose exact products are summed in float64 and rounded to f32:
 The TPU kernel's random bits (``pltpu.prng_*``) become a counter-based hash
 of (seed, fold row, step, lane), so the plain version reproduces the
 kernel's draws exactly and a sampling-mode run compares as a trajectory.
+
+``ablate`` (dev only, for ``tools/kernel_breakdown.py``) drops named pieces
+of the step, with the JAX kernel's meanings: ``"gates"`` makes each GRU
+update ``0.5*h + 0.01*(gi[:, :H] + gh[:, :H])``, ``"cond_read"`` reads a
+zero conditioning row, ``"sample"`` makes ``tanh(logits[:, 0])`` the sample
+and the next x, and ``"out_write"`` stores no output (which is then
+unspecified).
 """
 
 from __future__ import annotations
@@ -42,6 +49,12 @@ _MODES = {"RAW": 0, "MOL": 1}
 # Fold rows per CTA.  Measured on an H100 (700 W) at 48 rows x 12,100
 # steps with int8_hh: 269 us/step at 1, 266 at 2, 326 at 4 (PERF.md).
 ROWS_PER_CTA = 2
+# the kernel's ablation bits (AB_* in csrc/decode.cu), and the masks it is
+# built for: production (0) and the breakdown's five
+ABLATIONS = {"sample": 1, "gates": 2, "cond_read": 4, "out_write": 8}
+KERNEL_ABLATIONS = (frozenset(), frozenset({"sample"}), frozenset({"gates"}),
+                    frozenset({"sample", "gates"}), frozenset({"cond_read"}),
+                    frozenset({"out_write"}))
 
 # pointer order of the C entry point after (cond, out)
 WEIGHT_ORDER = (
@@ -185,6 +198,16 @@ def _row_argmax(x: torch.Tensor) -> torch.Tensor:
 
 # -- the plain version ----------------------------------------------------
 
+def ablation_mask(ablate) -> int:
+    """The kernel's bitmask for a set of ablation names; unknown names
+    raise."""
+    unknown = set(ablate) - set(ABLATIONS)
+    if unknown:
+        raise ValueError(f"unknown ablations {sorted(unknown)}; known: "
+                         f"{sorted(ABLATIONS)}")
+    return sum(ABLATIONS[a] for a in set(ablate))
+
+
 def _check(packed: dict, cond: torch.Tensor, T: int, mode: str):
     if mode not in _MODES:
         raise ValueError(f"unknown mode {mode!r}")
@@ -201,8 +224,8 @@ def _check(packed: dict, cond: torch.Tensor, T: int, mode: str):
 
 
 def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
-                     mode: str, n_classes: int,
-                     deterministic: bool) -> torch.Tensor:
+                     mode: str, n_classes: int, deterministic: bool,
+                     ablate: frozenset = frozenset()) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (B, T) float32 samples.
 
     Each dot takes bf16-valued operands (rounded to bf16, held in a wider
@@ -215,7 +238,8 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
     model's sample loop carries such a difference forward.  The int8
     recurrent dot multiplies integers, exact while H*127**2 < 2**24.  The
     gate arithmetic is float32, one rounding per operation, in the
-    kernel's order."""
+    kernel's order.  ``ablate`` as in the module's docstring."""
+    ablation_mask(ablate)
     _check(packed, cond, T, mode)
     f = {k: (v.float() if v is not None and v.dtype != torch.int8 else v)
          for k, v in packed.items()}
@@ -240,6 +264,8 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
         return mm(bfr(h), name)
 
     def gates(gi, gh, h, b, b_hh_n):
+        if "gates" in ablate:
+            return 0.5 * h + 0.01 * (gi[:, :H] + gh[:, :H])
         sg = lambda v: 0.5 * torch.tanh(0.5 * v) + 0.5
         tot = gi + b
         r = sg(tot[:, :H] + gh[:, :H])
@@ -252,6 +278,8 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
     h2 = torch.zeros(B, H, device=dev)
     out = torch.empty(B, T, device=dev)
     condf = cond.float()
+    if "cond_read" in ablate:
+        condf = torch.zeros_like(condf)
     for t in range(T):
         seg0, seg1 = condf[:, t, :K0], condf[:, t, K0:]
         aux_all = mm(seg1, "w_aux")
@@ -268,7 +296,9 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
                         + f["b_fc2"])
         logits = mm(bfr(f2), "w_fc3") + f["b_fc3"]
 
-        if mode == "RAW":
+        if "sample" in ablate:
+            sample = torch.tanh(logits[:, :1])
+        elif mode == "RAW":
             scores = logits
             if not deterministic:
                 scores = logits + gumbel_from_bits(
@@ -295,7 +325,8 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
                 sample = mean + torch.exp(log_scale) * (
                     torch.log(u) - torch.log(1.0 - u))
             sample = torch.clamp(sample, -1.0, 1.0)
-        out[:, t] = sample[:, 0]
+        if "out_write" not in ablate:
+            out[:, t] = sample[:, 0]
         x = sample
     return out
 
@@ -303,17 +334,25 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
 # -- the kernel's wrapper -------------------------------------------------
 
 def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
-           n_classes: int, deterministic: bool) -> torch.Tensor:
+           n_classes: int, deterministic: bool,
+           ablate: frozenset = frozenset(),
+           rows_per_cta: int = ROWS_PER_CTA) -> torch.Tensor:
     """(B, T) float32 samples of the sample loop over fold-major bf16
     conditioning ``cond`` (B, >=T, C).  int8 recurrent matrices are used
-    when ``packed`` holds them.
+    when ``packed`` holds them.  ``rows_per_cta`` (1 or 2) is the kernel's
+    fold rows per CTA; ``ablate`` as in the module's docstring (the kernel
+    is built with the ablations in :data:`KERNEL_ABLATIONS`, for int8
+    recurrent matrices and two rows per CTA).
 
     A CUDA tensor launches the kernel (``csrc/decode.cu``) on the current
     stream; a CPU tensor runs :func:`decode_reference`.  ``decode.launches``
     counts kernel launches."""
+    mask = ablation_mask(ablate)
+    if rows_per_cta not in (1, 2):
+        raise ValueError(f"rows_per_cta must be 1 or 2, got {rows_per_cta}")
     if cond.device.type == "cpu":
         return decode_reference(packed, cond, T, seed, mode, n_classes,
-                                deterministic)
+                                deterministic, ablate)
     if cond.device.type != "cuda":
         raise ValueError(f"decode runs on CUDA or CPU tensors, got "
                          f"{cond.device}")
@@ -327,6 +366,13 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     int8_hh = packed["w_hh1"].dtype == torch.int8
     if n_out != n_classes:
         raise ValueError(f"fc3 has {n_out} outputs, n_classes={n_classes}")
+    if mask and (frozenset(ablate) not in KERNEL_ABLATIONS or not int8_hh
+                 or rows_per_cta != 2):
+        raise ValueError(
+            f"the kernel is built with the ablations "
+            f"{[sorted(a) for a in KERNEL_ABLATIONS[1:]]} for int8_hh and "
+            f"two rows per CTA; got {sorted(ablate)}, int8_hh={int8_hh}, "
+            f"rows_per_cta={rows_per_cta}")
     if mode == "MOL" and (n_out % 3 or n_out // 3 > 32):
         raise ValueError(f"MOL kernel takes 3*nm outputs with nm <= 32, "
                          f"got {n_out}")
@@ -365,7 +411,8 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
         packed[k].data_ptr() if packed.get(k) is not None else 0
         for k in WEIGHT_ORDER]
     dims = [B, Tc, C, T, H, F, K0 - d, d, n_out, _MODES[mode],
-            int(deterministic), int(int8_hh), ROWS_PER_CTA, seed & 0xFFFFFFFF]
+            int(deterministic), int(int8_hh), rows_per_cta, seed & 0xFFFFFFFF,
+            mask]
     stream = torch.cuda.current_stream(cond.device).cuda_stream
     with torch.cuda.device(cond.device):
         err = lib.wavernn_decode(

@@ -1,0 +1,55 @@
+"""Kernel-measurement tools of the PyTorch port (ports of ``tools/`` of the
+JAX package): ``kernel_breakdown``, ``kernel_sampling_stats``,
+``fold_geometry_probe`` and ``tts_step_probe``.
+
+Each runs as ``python -m wavernn_tpu_torch.tools.<name>``, on the card by
+default: ``--device cuda`` raises where CUDA is absent, and ``--device cpu``
+runs the kernels' plain versions at the size the caller gives, with every
+time labelled as a CPU host time.
+"""
+
+from __future__ import annotations
+
+import subprocess
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parents[2]
+GOLDEN = REPO / "bench_assets" / "wavernn_mol_golden.msgpack"
+
+
+def device_of(name: str) -> torch.device:
+    """The torch device a tool runs on; never chosen silently."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} asked for, but CUDA is not "
+                           "available (use --device cpu to run the plain "
+                           "versions)")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {name!r}")
+    return dev
+
+
+def card(dev: torch.device) -> str:
+    """The card's name and power limit as ``nvidia-smi`` gives them, or
+    ``"cpu"``."""
+    if dev.type != "cuda":
+        return "cpu"
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def metric(name: str, dev: torch.device) -> str:
+    """A timing key: the card's metric name on CUDA, a host-time name on the
+    CPU, so that no CPU number sits under a device metric's name."""
+    return name if dev.type == "cuda" else f"cpu_host_{name}"
+
+
+def load_variables(path) -> dict:
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+    blob = load_pytree(path)
+    return {"params": blob["params"], "batch_stats": blob["batch_stats"]}
