@@ -18,12 +18,13 @@ result line:
 3. Holds the WaveRNN decode kernel against its plain PyTorch version on
    the card, on real conditioning: the full-size golden MOL model (16 fold
    rows x 1024 steps of the golden eval mel) and the committed tiny RAW
-   golden.  Deterministic decode, int8 recurrent matrices on and off: the
-   first 64 steps within 1e-3 and at least 99% of all samples within 2e-2.
-   Sampling with the shared counter-based bits: the first 64 steps within
-   1e-2 (the rest is printed).  Then both versions are timed at the main
-   path's shape (48 folds x 12,100 steps, sampling, int8 recurrent
-   matrices).
+   golden: every production configuration (RAW and MOL, int8 recurrent
+   matrices on and off, deterministic and sampling, one and two rows per
+   CTA).  Deterministic: the first 64 steps within 1e-3 and at least 99%
+   of all samples within 2e-2.  Sampling with the shared counter-based
+   bits: the first 64 steps within 1e-2.  Each prints its max |d| over all
+   steps.  Then both versions are timed at the main path's shape (48 folds
+   x 12,100 steps, sampling, int8 recurrent matrices).
 4. Drives the copy-synthesis path: ``Generator`` on the golden MOL model,
    f16 mel in, int16 PCM out, folds of 11,000 + 2 x 550 samples, serving
    three requests through prestage/submit/prefetch/collect (the 1200-frame
@@ -224,9 +225,10 @@ def main():
     # -- 3. kernel against plain ----------------------------------------
     errs = []
 
-    def compare(tag, packed, cond, T, cfg, det, seed=0):
+    def compare(tag, packed, cond, T, cfg, det, seed, rows_per_cta):
         out_k = cuda_decode.decode(packed, cond, T, seed, cfg.mode,
-                                   cfg.n_classes, det)
+                                   cfg.n_classes, det,
+                                   rows_per_cta=rows_per_cta)
         torch.cuda.synchronize()
         out_p = cuda_decode.decode_reference(packed, cond, T, seed, cfg.mode,
                                              cfg.n_classes, det)
@@ -260,11 +262,11 @@ def main():
                             int8_hh=int8_hh)
             cond = real_cond(gen, mel, 16, 1024, *geom)
             q = "int8_hh" if int8_hh else "bf16"
-            compare(f"{tag} {q} deterministic", gen.packed, cond, 1024, cfg,
-                    True)
-            if int8_hh:
-                compare(f"{tag} {q} sampling", gen.packed, cond, 1024, cfg,
-                        False, seed=1234)
+            for rows in (1, 2):
+                for det in (True, False):
+                    kind = "deterministic" if det else "sampling"
+                    compare(f"{tag} {q} R={rows} {kind}", gen.packed, cond,
+                            1024, cfg, det, 0 if det else 1234, rows)
 
     # timing at the main path's shape: a 1920-frame mel, 48 folds
     rng = np.random.default_rng(0)

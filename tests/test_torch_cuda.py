@@ -191,7 +191,8 @@ def test_kernel_one_row_per_cta_matches_plain_version(cuda_device, int8_hh):
     assert float((got - want).abs()[:, :64].max()) <= 1e-2
     with pytest.raises(ValueError, match="ablations"):
         cuda_decode.decode(packed, cond, 200, 5, "RAW", cfg.n_classes, True,
-                           ablate=frozenset({"gates"}), rows_per_cta=1)
+                           ablate=frozenset({"gates"}),
+                           rows_per_cta=3 - cuda_decode.ROWS_PER_CTA)
 
 
 @pytest.mark.parametrize("B", [5, 64])
@@ -212,6 +213,72 @@ def test_floor_kernel_matches_plain_version(cuda_device, B):
     assert float(zero.abs().max()) == 0.0 and float(zabs.max()) == 0.0
     with pytest.raises(ValueError, match="h0"):
         mf.matmul_floor(w, B, 4, h0.cpu())
+
+
+# -- the split-K dots at widths that do not divide evenly -------------------
+
+def seeded_model(cfg):
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        return WaveRNN(cfg).eval()
+
+
+@pytest.mark.parametrize("rows_per_cta", [1, 2])
+@pytest.mark.parametrize("int8_hh", [True, False], ids=["int8_hh", "bf16"])
+@pytest.mark.parametrize("width,mode", [(48, "MOL"), (80, "RAW")])
+def test_kernel_uneven_splits_match_plain_version_exactly(
+        cuda_device, width, mode, int8_hh, rows_per_cta):
+    """H = F = 48 or 80: column groups (3H/16 int8, 3H/8 and F/8 bf16) and
+    K-slices that do not divide the CTA's threads evenly; K0 = 80 + 9, odd;
+    5 rows, not a multiple of R.  Held to max |d| 0 in both decode modes."""
+    cfg = WaveRNNConfig(rnn_dims=width, fc_dims=width, compute_dims=32,
+                        res_out_dims=36, res_blocks=2, mode=mode)
+    packed = packed_on(seeded_model(cfg), cfg, cuda_device, int8_hh)
+    assert packed["w_Im"].shape[0] == 89
+    B, T = 5, 200
+    cond = conditioning(cfg, B, T, cuda_device)
+    for det in (True, False):
+        got = cuda_decode.decode(packed, cond, T, 3, mode, cfg.n_classes,
+                                 det, rows_per_cta=rows_per_cta)
+        torch.cuda.synchronize()
+        want = cuda_decode.decode_reference(packed, cond, T, 3, mode,
+                                            cfg.n_classes, det)
+        assert got.shape == (B, T) and torch.isfinite(got).all()
+        assert float((got - want).abs().max()) == 0.0, f"det={det}"
+
+
+def test_kernel_rejects_what_the_wide_loads_do_not_take(cuda_device):
+    cfg = WaveRNNConfig(rnn_dims=40, fc_dims=40, compute_dims=32,
+                        res_out_dims=32, res_blocks=2, mode="MOL")
+    packed = packed_on(seeded_model(cfg), cfg, cuda_device, True)
+    cond = conditioning(cfg, 2, 16, cuda_device)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        cuda_decode.decode(packed, cond, 16, 0, "MOL", cfg.n_classes, True)
+    cfg, model = small("MOL")
+    packed = packed_on(model, cfg, cuda_device, True)
+    w = packed["w_fc2x"]
+    shifted = torch.empty(w.numel() + 1, dtype=w.dtype, device=w.device)
+    shifted[1:].copy_(w.flatten())
+    bad = dict(packed, w_fc2x=shifted[1:].view(w.shape))
+    cond = conditioning(cfg, 2, 16, cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        cuda_decode.decode(bad, cond, 16, 0, "MOL", cfg.n_classes, True)
+
+
+@pytest.mark.parametrize("B", [5, 64])
+def test_floor_kernel_state_matches_plain_version_exactly(cuda_device, B):
+    w = mf.make_floor_weights(1, device=cuda_device)
+    h0 = torch.from_numpy(np.random.default_rng(B + 1).uniform(
+        -1, 1, (B, mf.H_FLOOR)).astype(np.float32)).to(cuda_device)
+    h, _, _ = mf.matmul_floor(w, B, 32, h0)
+    torch.cuda.synchronize()
+    hr, _, _ = mf.matmul_floor_reference(w, B, 32, h0)
+    assert float((h - hr).abs().max()) == 0.0
+    shifted = torch.empty(w["w3"].numel() + 8, dtype=torch.bfloat16,
+                          device=cuda_device)
+    bad = dict(w, w3=shifted[1:1 + w["w3"].numel()].view(w["w3"].shape))
+    with pytest.raises(ValueError, match="aligned"):
+        mf.matmul_floor(bad, B, 4, h0)
 
 
 def test_generator_on_card_matches_cpu(cuda_device):

@@ -7,33 +7,46 @@
 // lays it out: no 128-lane padding, no chunked DMA double-buffering, no
 // on-core transpose.
 //
-// Design.  One CTA owns R fold rows for all T steps.  Its recurrent state
-// (x, h1, h2), the residual and the bf16-rounded operands of each dot live
-// in shared memory, stored k-major ([K][R]) so that one weight element,
-// loaded once, meets all R rows.  Each of the step's five dependent phases
-// (GRU1, GRU2, FC1, FC2, FC3 + sampling) spreads its output columns over
-// the threads, with a __syncthreads() between phases.
+// Design.  One CTA owns R fold rows for all T steps, with no communication
+// between CTAs.  Its recurrent state (x, h1, h2), the residual and the
+// operands of each dot live in shared memory, k-major ([K][R]) so that one
+// weight, loaded once, meets all R rows: the bf16-rounded operands as
+// double, converted once per step, the int8 ones packed four to a word.
+// The step has five dependent phases (GRU1, GRU2, FC1, FC2, FC3 +
+// sampling).  In each, every dot is split over the CTA's threads (1,024 at
+// R = 1, 512 at R = 2) by csrc/dot.cuh: a thread takes 8 bf16 or 16 int8
+// columns of one K-slice and reads them with 16-byte loads, coalesced
+// across its warp; the partial sums go to shared memory and the phase's
+// epilogue (gate math, residual, relu, bf16 rounding: one thread per
+// column) adds each column's slices in a fixed order.  FC3's n_out columns
+// (ldw not 16-byte aligned) take one column per task, K split over all
+// warps in slices of 16 rows.  The weights stay in global memory, resident
+// in the 50 MB L2: each is used once per CTA and step, so staging it
+// through shared memory adds instructions and saves nothing (a cp.async
+// ring of four rows per thread measured slower, PERF.md).
 //
 // Arithmetic.  A dot of bf16 operands sums its exact products in float64
-// and rounds the sum once to float32; the int8 recurrent dots sum integers,
-// exact in float32 (H * 127^2 < 2^24).  The order of the terms then hardly
-// matters, so this kernel and its plain version (float64 GEMMs) agree to
-// the bit nearly always, and a deterministic decode can be held to a tight
-// tolerance over thousands of steps.  The gate arithmetic is float32 with
-// one rounding per operation (the __f*_rn intrinsics keep nvcc from
-// contracting it into FMAs), in the plain version's order.
+// and rounds the sum once to float32, each dot on its own, as the plain
+// version does; the int8 recurrent dots sum integers with __dp4a, exact.
+// The order of the float64 terms then hardly matters, so this kernel and
+// its plain version (float64 GEMMs) agree to the bit nearly always, and a
+// deterministic decode can be held to a tight tolerance over thousands of
+// steps.  The gate arithmetic is float32 with one rounding per operation
+// (the __f*_rn intrinsics keep nvcc from contracting it into FMAs), in the
+// plain version's order.
 //
-// What bounds it.  The weights (about 5.2 MB at the full-size model with
-// int8 recurrent matrices and bf16 feed-forward matrices) are read from
-// global memory once per step per CTA; they stay resident in the 50 MB L2,
-// so each CTA streams ~5.2 MB per step from L2.  A thread loads one 1- or
-// 2-byte weight at a time, so the bytes in flight per SM, not the L2's
-// bandwidth, set the pace: the kernel is bound by L2 latency.  Few rows
-// per CTA put more SMs to work; two rows per CTA measured fastest.  The
-// faster design (a step's columns spread over all SMs with weights held in
-// shared memory, a cluster or grid barrier per phase, wide loads, wgmma)
-// is later work.
-//
+// What bounds it.  Per CTA and step the dots stream ~4.85 MB of weights
+// from L2 at the full-size model (1.64 M bf16 + 1.57 M int8).  Each bf16
+// weight costs ~4.8 issued instructions at R = 1 (the float64 FMA, and four
+// integer ops that build its double), so one CTA can take ~27 bf16 weights
+// a clock against the SM's 128 issue slots.  A thread issues its loads one
+// at a time, so each phase also lasts as long as its longest chain of L2
+// round trips; the splits (make_plan) keep those chains short.  On an H100
+// (700 W) the step takes 72.94 us at 64 rows x 2,048 steps (PR 3's design,
+// a thread per column walking K one 1- or 2-byte load at a time: 268.20),
+// and the matmul floor, the same dots alone, 102.33 us for 3.67 M weights
+// (PERF.md).
+
 // Ablations (dev only, for the cost breakdown in
 // wavernn_tpu_torch/tools/kernel_breakdown.py): the template parameter MASK
 // drops named pieces of the step, with the meanings of the TPU kernel's
@@ -58,12 +71,14 @@
 #include <math_constants.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "dot.cuh"
 
 namespace {
 
-constexpr int NT = 512;
-constexpr int NWARP = NT / 32;
+// Threads per CTA: a CTA of one row fits its registers in 64 a thread and
+// takes 1,024 threads, twice the warps to issue from (PERF.md: the matmul
+// floor 2.2x faster than at R = 2 and 512 threads).
+__host__ __device__ constexpr int threads(int R) { return R == 1 ? 1024 : 512; }
 constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
 constexpr int AB_SAMPLE = 1, AB_GATES = 2, AB_COND_READ = 4, AB_OUT_WRITE = 8;
 
@@ -80,36 +95,32 @@ struct Params {
   const __nv_bfloat16* w_aux; const __nv_bfloat16* w_fc3; const float* b_fc3;
   int B, Tc, C, T, H, F, feat, d, n_out, mode, det;
   uint32_t seed;
+  dot::Split sp[11];  // each dot's split (D_* order)
+  int off[11];        // each dot's partial sums in shared memory, in doubles
+  int scratch;        // doubles of partial sums, the largest phase's
 };
+
+// The step's dots, each summed on its own, in phase order: GRU1 (seg0 @
+// w_Im1, seg0 @ w_Im, h1 @ w_hh1), GRU2 (bf(xr) @ w_ih2x, a2 @ w_aux[:3H],
+// h2 @ w_hh2), FC1 (x, a3), FC2 (x, a4), FC3.
+enum { D_IM1, D_IM, D_HH1, D_IH2, D_AUX2, D_HH2, D_FC1, D_AUX3, D_FC2,
+       D_AUX4, D_FC3, ND };
 
 // float32 arithmetic with one rounding per operation
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 
-// acc + a*b for the dots: exact products, so fused or not is the same
-__device__ __forceinline__ double madd(double a, double b, double acc) {
-  return fma(a, b, acc);
-}
-__device__ __forceinline__ float madd(float a, float b, float acc) {
-  return fmaf(a, b, acc);
-}
-
-__device__ __forceinline__ float wload(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(__ldg(p + i));
-}
-__device__ __forceinline__ float wload(const int8_t* p, size_t i) {
-  return static_cast<float>(__ldg(p + i));
-}
 __device__ __forceinline__ float bfr(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
+}
+// a dot operand: bf16-rounded, held as double at the dots' scale
+__device__ __forceinline__ double bfr64(float v) {
+  return dot::act(static_cast<double>(bfr(v)));
 }
 __device__ __forceinline__ float sigm(float v) {
   return add(mul(0.5f, tanhf(mul(0.5f, v))), 0.5f);
 }
-__device__ __forceinline__ float to_f32(double v) { return __double2float_rn(v); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
   x ^= x >> 16; x *= 0x7feb352dU;
   x ^= x >> 15; x *= 0x846ca68bU;
@@ -128,35 +139,6 @@ __device__ __forceinline__ float uniform(uint32_t bits) {
 }
 __device__ __forceinline__ float gumbel(uint32_t bits) {
   return -logf(-logf(uniform(bits)));
-}
-
-// acc[g][r] += sum_k a[k][r] * w[k][j + g*gs], g < G, over a k-major
-// [K][R] activation buffer.  TA is the accumulator type: double for bf16
-// weights, float for the integer-valued int8 dots.
-template <int R, int G, typename TA, typename TW>
-__device__ __forceinline__ void dot(TA (&acc)[G][R], const float* a, int K,
-                                    const TW* w, int ldw, int j, int gs) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    TA wv[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      wv[g] = static_cast<TA>(wload(w, (size_t)k * ldw + j + g * gs));
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const TA v = static_cast<TA>(a[k * R + r]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) acc[g][r] = madd(v, wv[g], acc[g][r]);
-    }
-  }
-}
-
-template <int R, int G, typename TA>
-__device__ __forceinline__ void zero(TA (&acc)[G][R]) {
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[g][r] = TA(0);
 }
 
 // Warp argmax, first index on ties.
@@ -203,28 +185,75 @@ __device__ __forceinline__ float gru_ablated(const float (&gi)[3],
   return add(mul(0.5f, h), mul(0.01f, add(gi[0], gh[0])));
 }
 
+// __syncthreads(), and with ``want`` whether ``v`` held in any thread.
+__device__ __forceinline__ bool sync_or(bool v, bool want) {
+  if (want) return __syncthreads_or(v);
+  __syncthreads();
+  return false;
+}
+
 template <int R, bool I8, int MASK>
-__global__ void __launch_bounds__(NT) decode_kernel(Params p) {
-  using TW = typename std::conditional<I8, int8_t, __nv_bfloat16>::type;
-  using TH = typename std::conditional<I8, float, double>::type;
-  extern __shared__ __align__(16) float sm[];
+__global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
+  using dot::psum;
+  constexpr int NT = threads(R), NWARP = NT / 32;
+  // an ablated GRU update can leave (-1, 1), and its int8 operand the int8
+  // range: those dots then take a second byte plane
+  constexpr bool GATES = (MASK & AB_GATES) != 0;
+  extern __shared__ __align__(16) double sm[];
   const int H = p.H, F = p.F, C = p.C, d = p.d, NO = p.n_out;
   const int W = H > F ? H : F;
   const int K0 = p.feat + d;           // seg0 width: [mel | a1]
   const int H3 = 3 * H, NA = 3 * H + 2 * F;
-  float* cond = sm;                    // [C][R]
-  float* h1 = cond + C * R;            // [H][R]
+  // sm: the phase's partial sums, then
+  double* cond = sm + p.scratch;       // [C][R] conditioning row
+  double* opX = cond + C * R;          // [W][R] input-side dot operand
+  double* opH = opX + W * R;           // [W][R] bf16 hidden / fc2 operand
+  float* h1 = reinterpret_cast<float*>(opH + W * R);  // [H][R]
   float* h2 = h1 + H * R;              // [H][R]
   float* xr = h2 + H * R;              // [H][R]
-  float* opX = xr + H * R;             // [W][R] input-side dot operand
-  float* opH = opX + W * R;            // [W][R] hidden-side / fc2 operand
-  float* logits = opH + W * R;         // [R][NO]
+  float* logits = xr + H * R;          // [R][NO]
   float* xs = logits + R * NO;         // [R] previous sample
-  const TW* w_hh1 = static_cast<const TW*>(p.w_hh1);
-  const TW* w_hh2 = static_cast<const TW*>(p.w_hh2);
+  uint32_t* opQ = reinterpret_cast<uint32_t*>(xs + R);  // [H/4][R] int8
+  uint32_t* opQh = opQ + (H / 4) * R;  // [H/4][R] its high bytes (GATES)
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * R;
   float keep = 0.f;  // AB_GATES only
+
+  auto part = [&](int i) { return sm + p.off[i]; };
+  auto ipart = [&](int i) { return reinterpret_cast<int*>(sm + p.off[i]); };
+  // the recurrent dot's operand from h (int8 or bf16); with GATES, whether
+  // it left the int8 range
+  auto hidden_operand = [&](const float* h) {
+    if constexpr (I8) {
+      return dot::pack_i8<NT, R>(opQ, GATES ? opQh : nullptr, h, H);
+    } else {
+      for (int i = tid; i < H * R; i += NT) opH[i] = bfr64(h[i]);
+      return false;
+    }
+  };
+  auto hidden_dot = [&](int i, const void* w, bool wide, int& first) {
+    if constexpr (I8) {
+      const int8_t* w8 = static_cast<const int8_t*>(w);
+      if (GATES && wide)
+        dot::dot_i8<NT, R, GATES ? 2 : 1>(ipart(i), opQ, opQh, H, H3, w8,
+                                          H3, p.sp[i], first);
+      else
+        dot::dot_i8<NT, R, 1>(ipart(i), opQ, nullptr, H, H3, w8, H3,
+                              p.sp[i], first);
+    } else {
+      dot::dot_bf16<NT, R, 8>(part(i), opH, H, H3,
+                              static_cast<const __nv_bfloat16*>(w), H3,
+                              p.sp[i], first);
+    }
+  };
+  // gate g of column j of a recurrent dot, scaled back from int8
+  auto hidden_gate = [&](int i, const float* s_hh, int g, int j, int r) {
+    if constexpr (I8)
+      return mul(psum<R>(ipart(i), p.sp[i].S, H3, g * H + j, r),
+                 mul(s_hh[g * H + j], 1.0f / 127.0f));
+    else
+      return psum<R>(part(i), p.sp[i].S, H3, g * H + j, r);
+  };
 
   for (int i = tid; i < H * R; i += NT) { h1[i] = 0.f; h2[i] = 0.f; }
   for (int i = tid; i < R; i += NT) xs[i] = 0.f;
@@ -235,123 +264,127 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
     for (int i = tid; i < C * R; i += NT) {
       const int r = i % R, c = i / R, b = b0 + r;
       if constexpr ((MASK & AB_COND_READ) != 0) {
-        cond[i] = 0.f;
+        cond[i] = 0.0;
       } else {
-        cond[i] = b < p.B
-            ? __bfloat162float(p.cond[((size_t)b * p.Tc + t) * C + c]) : 0.f;
+        cond[i] = b < p.B ? dot::act(static_cast<double>(__bfloat162float(
+                                p.cond[((size_t)b * p.Tc + t) * C + c])))
+                          : 0.0;
       }
     }
-    for (int i = tid; i < H * R; i += NT)
-      opH[i] = I8 ? rintf(mul(h1[i], 127.f)) : bfr(h1[i]);
-    __syncthreads();
+    const bool wide1 = sync_or(hidden_operand(h1), GATES);
 
     // GRU1 (inputs precomposed through I) and the I projection
+    int first = 0;
+    dot::dot_bf16<NT, R, 8>(part(D_IM1), cond, K0, H3, p.w_Im1, H3,
+                            p.sp[D_IM1], first);
+    dot::dot_bf16<NT, R, 8>(part(D_IM), cond, K0, H, p.w_Im, H, p.sp[D_IM],
+                            first);
+    hidden_dot(D_HH1, p.w_hh1, wide1, first);
+    __syncthreads();
     for (int j = tid; j < H; j += NT) {
-      double gi[3][R], xi[1][R];
-      TH gh[3][R];
-      zero(gi); zero(xi); zero(gh);
-      dot<R, 3>(gi, cond, K0, p.w_Im1, H3, j, H);
-      dot<R, 1>(xi, cond, K0, p.w_Im, H, j, 0);
-      dot<R, 3>(gh, opH, H, w_hh1, H3, j, H);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float x = xs[r];
         float a[3], h[3];
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
-          a[g] = add(mul(x, p.u1[g * H + j]), to_f32(gi[g][r]));
-          h[g] = I8 ? mul(to_f32(gh[g][r]),
-                          mul(p.s_hh1[g * H + j], 1.0f / 127.0f))
-                    : to_f32(gh[g][r]);
+          a[g] = add(mul(x, p.u1[g * H + j]),
+                     psum<R>(part(D_IM1), p.sp[D_IM1].S, H3, g * H + j, r));
+          h[g] = hidden_gate(D_HH1, p.s_hh1, g, j, r);
         }
-        const float hn = (MASK & AB_GATES)
+        const float hn = GATES
             ? gru_ablated(a, h, h1[j * R + r], keep)
             : gru(a, h, p.b1, p.b_hh1_n, j, H, h1[j * R + r]);
         h1[j * R + r] = hn;
-        const float v = add(add(add(mul(x, p.w_x[j]), to_f32(xi[0][r])),
+        const float v = add(add(add(mul(x, p.w_x[j]),
+                                    psum<R>(part(D_IM), p.sp[D_IM].S, H, j, r)),
                                 p.b_I[j]), hn);
         xr[j * R + r] = v;
-        opX[j * R + r] = bfr(v);
+        opX[j * R + r] = bfr64(v);
       }
     }
-    __syncthreads();
-    for (int i = tid; i < H * R; i += NT)
-      opH[i] = I8 ? rintf(mul(h2[i], 127.f)) : bfr(h2[i]);
-    __syncthreads();
+    const bool wide2 = sync_or(hidden_operand(h2), GATES);
 
     // GRU2 on [xr | a2]
+    first = 0;
+    dot::dot_bf16<NT, R, 8>(part(D_IH2), opX, H, H3, p.w_ih2x, H3,
+                            p.sp[D_IH2], first);
+    dot::dot_bf16<NT, R, 8>(part(D_AUX2), cond + K0 * R, d, H3, p.w_aux, NA,
+                            p.sp[D_AUX2], first);
+    hidden_dot(D_HH2, p.w_hh2, wide2, first);
+    __syncthreads();
     for (int j = tid; j < H; j += NT) {
-      double gx[3][R], ga[3][R];
-      TH gh[3][R];
-      zero(gx); zero(ga); zero(gh);
-      dot<R, 3>(gx, opX, H, p.w_ih2x, H3, j, H);
-      dot<R, 3>(ga, cond + K0 * R, d, p.w_aux, NA, j, H);
-      dot<R, 3>(gh, opH, H, w_hh2, H3, j, H);
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float a[3], h[3];
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
-          a[g] = add(to_f32(gx[g][r]), to_f32(ga[g][r]));
-          h[g] = I8 ? mul(to_f32(gh[g][r]),
-                          mul(p.s_hh2[g * H + j], 1.0f / 127.0f))
-                    : to_f32(gh[g][r]);
+          a[g] = add(psum<R>(part(D_IH2), p.sp[D_IH2].S, H3, g * H + j, r),
+                     psum<R>(part(D_AUX2), p.sp[D_AUX2].S, H3, g * H + j, r));
+          h[g] = hidden_gate(D_HH2, p.s_hh2, g, j, r);
         }
-        const float hn = (MASK & AB_GATES)
+        const float hn = GATES
             ? gru_ablated(a, h, h2[j * R + r], keep)
             : gru(a, h, p.b2, p.b_hh2_n, j, H, h2[j * R + r]);
         h2[j * R + r] = hn;
-        xr[j * R + r] = add(xr[j * R + r], hn);
+        const float v = add(xr[j * R + r], hn);
+        xr[j * R + r] = v;
+        opX[j * R + r] = bfr64(v);
       }
     }
     __syncthreads();
-    for (int i = tid; i < H * R; i += NT) opX[i] = bfr(xr[i]);
-    __syncthreads();
 
     // FC1 on [xr | a3] -> opH
+    first = 0;
+    dot::dot_bf16<NT, R, 8>(part(D_FC1), opX, H, F, p.w_fc1x, F, p.sp[D_FC1],
+                            first);
+    dot::dot_bf16<NT, R, 8>(part(D_AUX3), cond + (K0 + d) * R, d, F,
+                            p.w_aux + (size_t)d * NA + H3, NA, p.sp[D_AUX3],
+                            first);
+    __syncthreads();
     for (int j = tid; j < F; j += NT) {
-      double ax[1][R], aa[1][R];
-      zero(ax); zero(aa);
-      dot<R, 1>(ax, opX, H, p.w_fc1x, F, j, 0);
-      dot<R, 1>(aa, cond + (K0 + d) * R, d, p.w_aux + (size_t)d * NA + H3,
-                NA, j, 0);
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        opH[j * R + r] = bfr(fmaxf(
-            add(add(to_f32(ax[0][r]), to_f32(aa[0][r])), p.b_fc1[j]), 0.f));
+        opH[j * R + r] = bfr64(fmaxf(
+            add(add(psum<R>(part(D_FC1), p.sp[D_FC1].S, F, j, r),
+                    psum<R>(part(D_AUX3), p.sp[D_AUX3].S, F, j, r)),
+                p.b_fc1[j]), 0.f));
     }
     __syncthreads();
 
     // FC2 on [f1 | a4] -> opX
+    first = 0;
+    dot::dot_bf16<NT, R, 8>(part(D_FC2), opH, F, F, p.w_fc2x, F, p.sp[D_FC2],
+                            first);
+    dot::dot_bf16<NT, R, 8>(part(D_AUX4), cond + (K0 + 2 * d) * R, d, F,
+                            p.w_aux + (size_t)2 * d * NA + H3 + F, NA,
+                            p.sp[D_AUX4], first);
+    __syncthreads();
     for (int j = tid; j < F; j += NT) {
-      double ax[1][R], aa[1][R];
-      zero(ax); zero(aa);
-      dot<R, 1>(ax, opH, F, p.w_fc2x, F, j, 0);
-      dot<R, 1>(aa, cond + (K0 + 2 * d) * R, d,
-                p.w_aux + (size_t)2 * d * NA + H3 + F, NA, j, 0);
 #pragma unroll
       for (int r = 0; r < R; ++r)
-        opX[j * R + r] = bfr(fmaxf(
-            add(add(to_f32(ax[0][r]), to_f32(aa[0][r])), p.b_fc2[j]), 0.f));
+        opX[j * R + r] = bfr64(fmaxf(
+            add(add(psum<R>(part(D_FC2), p.sp[D_FC2].S, F, j, r),
+                    psum<R>(part(D_AUX4), p.sp[D_AUX4].S, F, j, r)),
+                p.b_fc2[j]), 0.f));
     }
     __syncthreads();
 
-    // FC3 -> logits [R][NO]
-    for (int j = tid; j < NO; j += NT) {
-      double acc[1][R];
-      zero(acc);
-      dot<R, 1>(acc, opX, F, p.w_fc3, NO, j, 0);
-#pragma unroll
-      for (int r = 0; r < R; ++r)
-        logits[r * NO + j] = add(to_f32(acc[0][r]), p.b_fc3[j]);
-    }
+    // FC3 (ldw = n_out, not 16-byte aligned: one column per task)
+    first = 0;
+    dot::dot_bf16<NT, R, 1>(part(D_FC3), opX, F, NO, p.w_fc3, NO,
+                            p.sp[D_FC3], first);
     __syncthreads();
 
-    // sampling: one warp per fold row
+    // sampling: one warp per fold row, which first adds up its logits
     const int warp = tid / 32, lane = tid % 32;
     for (int r = warp; r < R; r += NWARP) {
       const int b = b0 + r;
-      const float* lg = logits + r * NO;
+      float* lg = logits + r * NO;
+      for (int i = lane; i < NO; i += 32)
+        lg[i] = add(psum<R>(part(D_FC3), p.sp[D_FC3].S, NO, i, r),
+                    p.b_fc3[i]);
+      __syncwarp();
       float sample;
       if constexpr ((MASK & AB_SAMPLE) != 0) {
         sample = tanhf(lg[0]);
@@ -401,20 +434,60 @@ __global__ void __launch_bounds__(NT) decode_kernel(Params p) {
   }
   // never true (the grid has ceil(B / R) CTAs), but the compiler cannot
   // know it: the ablated gates' dots are not dead code
-  if ((MASK & AB_GATES) && b0 > p.B) p.out[0] = keep;
+  if (GATES && b0 > p.B) p.out[0] = keep;
+}
+
+// Each dot's split over the CTA's threads and the place of its partial
+// sums; returns the kernel's shared memory bytes.
+size_t make_plan(Params& p, int R, bool i8) {
+  const int H = p.H, F = p.F, d = p.d, H3 = 3 * H, K0 = p.feat + p.d;
+  const int hv = i8 ? 16 : 8, ha = i8 ? 4 : 1;  // int8: 16 columns, 4 k rows
+  const int K[ND] = {K0, K0, H, H, d, H, H, d, F, d, F};
+  const int N[ND] = {H3, H, H3, H3, H3, H3, F, F, F, F, p.n_out};
+  const int V[ND] = {8, 8, hv, 8, 8, hv, 8, 8, 8, 8, 1};
+  const int A[ND] = {1, 1, ha, 1, 1, ha, 1, 1, 1, 1, 1};
+  const int phase[ND] = {0, 0, 0, 1, 1, 1, 2, 2, 3, 3, 4};
+  // FC3's one-column tasks take slices down to 8 rows: its 2-byte loads
+  // are each an L2 round trip, and a short slice is a short chain.
+  int min_rows[ND];
+  for (int i = 0; i < ND; ++i) min_rows[i] = V[i] == 1 ? 8 : 32;
+  // A dot too short for two slices (the aux blocks) takes one task per
+  // column group; where those tasks need at most a quarter of the threads,
+  // the phase's other dots split over the threads they leave, so that no
+  // thread carries such a task on top of a long slice.
+  const int nt = threads(R);
+  int small[5] = {0, 0, 0, 0, 0}, spare[5];
+  for (int i = 0; i < ND; ++i)
+    if (K[i] < 2 * min_rows[i]) small[phase[i]] += N[i] / V[i];
+  for (int ph = 0; ph < 5; ++ph)
+    spare[ph] = small[ph] <= nt / 4 ? nt - small[ph] : nt;
+  long long used = 0, top = 0;
+  for (int i = 0; i < ND; ++i) {
+    if (i > 0 && phase[i] != phase[i - 1]) used = 0;
+    p.sp[i] = dot::split(K[i], N[i] / V[i], spare[phase[i]], A[i], nt,
+                         min_rows[i]);
+    p.off[i] = (int)used;
+    long long n = (long long)p.sp[i].S * N[i] * R;  // partial sums
+    if (V[i] == 16) n = (n + 1) / 2;                // int32, two a double
+    used += (n + 1) / 2 * 2;                        // 16-byte aligned
+    top = used > top ? used : top;
+  }
+  p.scratch = (int)top;
+  const int W = H > F ? H : F;
+  return (size_t)(top + (size_t)(p.C + 2 * W) * R) * sizeof(double)
+         + (size_t)(3 * H + p.n_out + 1) * R * sizeof(float)
+         + (size_t)2 * (H / 4) * R * sizeof(uint32_t);
 }
 
 template <int R, bool I8, int MASK>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  const int W = p.H > p.F ? p.H : p.F;
-  const size_t floats = (size_t)R * (p.C + 3 * p.H + 2 * W + p.n_out + 1);
-  const size_t bytes = floats * sizeof(float);
+cudaError_t launch(Params p, cudaStream_t stream) {
+  const size_t bytes = make_plan(p, R, I8);
   cudaError_t e = cudaFuncSetAttribute(
       decode_kernel<R, I8, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return e;
   const int grid = (p.B + R - 1) / R;
-  decode_kernel<R, I8, MASK><<<grid, NT, bytes, stream>>>(p);
+  decode_kernel<R, I8, MASK><<<grid, threads(R), bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -428,15 +501,19 @@ cudaError_t launch_rows(const Params& p, int R, cudaStream_t s) {
 }
 
 // The ablations the breakdown runs, built for its configuration only:
-// int8 recurrent matrices, two rows per CTA.
+// int8 recurrent matrices, the production rows per CTA
+// (cuda_decode.ROWS_PER_CTA).
+constexpr int ABLATION_R = 1;
+
 cudaError_t launch_ablated(const Params& p, int mask, cudaStream_t s) {
+  constexpr int R = ABLATION_R;
   switch (mask) {
-    case AB_SAMPLE: return launch<2, true, AB_SAMPLE>(p, s);
-    case AB_GATES: return launch<2, true, AB_GATES>(p, s);
+    case AB_SAMPLE: return launch<R, true, AB_SAMPLE>(p, s);
+    case AB_GATES: return launch<R, true, AB_GATES>(p, s);
     case AB_SAMPLE | AB_GATES:
-      return launch<2, true, AB_SAMPLE | AB_GATES>(p, s);
-    case AB_COND_READ: return launch<2, true, AB_COND_READ>(p, s);
-    case AB_OUT_WRITE: return launch<2, true, AB_OUT_WRITE>(p, s);
+      return launch<R, true, AB_SAMPLE | AB_GATES>(p, s);
+    case AB_COND_READ: return launch<R, true, AB_COND_READ>(p, s);
+    case AB_OUT_WRITE: return launch<R, true, AB_OUT_WRITE>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -480,7 +557,7 @@ extern "C" int wavernn_decode(const void* const* ptrs, const long long* dims,
   const int mask = (int)dims[14];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask != 0) {
-    if (!int8_hh || R != 2) return cudaErrorInvalidValue;
+    if (!int8_hh || R != ABLATION_R) return cudaErrorInvalidValue;
     return launch_ablated(p, mask, s);
   }
   return int8_hh ? launch_rows<true>(p, R, s) : launch_rows<false>(p, R, s);

@@ -1,0 +1,285 @@
+// The weight-streaming dot of the sample-loop kernels (decode.cu and its
+// yardstick twin matmul_floor.cu), for Hopper (sm_90a).
+//
+// One CTA computes, for its R rows, the dot of an activation held in shared
+// memory (k-major, [K][R]) with a weight matrix in global memory (row-major
+// (K, N), leading dimension ldw).  The weights are read once per CTA and
+// call, and every weight meets all R rows.
+//
+// Split.  A task is a group of V consecutive output columns and a slice of
+// at most L consecutive k rows; the S slices of a column are S tasks.  Task
+// i takes column group i % G and slice i / G, so the 32 threads of a warp
+// read 32 neighbouring groups of one k row: with V = 8 bf16 or 16 int8
+// columns, one 16-byte load per thread and 512 contiguous bytes per warp.
+// The dots of one phase hand out their tasks in turn over the CTA's
+// threads, each dot starting at the thread after the last one's last task
+// (``first``), so that a small dot fills the threads a large one leaves
+// idle.  Each task writes its partial sums to shared memory ([S][N][R]); the
+// phase's epilogue adds a column's S partials in slice order (psum), so the
+// result does not depend on scheduling and is the same from run to run.
+//
+// Arithmetic.  bf16 dots: the activation is held as double (bf16-rounded,
+// converted once per step, scaled by ACT_SCALE), each weight is turned into
+// a double by integer ops and used for all R rows, and the exact products
+// are summed in float64; the epilogue rounds the column's sum once to
+// float32.  int8 dots: the activation is quantised to int8 and packed four
+// k rows to a 32-bit word, four k rows of 16 weight columns are transposed
+// into the same packing with byte permutes, and __dp4a sums the products
+// into int32: exact, so the result is the integer sum itself.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace dot {
+
+// S slices of L rows (the last one may be shorter).
+struct Split {
+  int S, L;
+};
+
+// The split of a K-row dot with G column groups over nt threads: as many
+// slices as leave each group's slices one thread each (nt / G), no slice
+// under ``min_rows`` rows, at most smax slices; L a multiple of ``align``.
+__host__ __device__ inline Split split(int K, int G, int nt, int align,
+                                       int smax, int min_rows) {
+  if (K <= 0) return {1, align};
+  int S = G > 0 ? nt / G : 1;
+  const int cap = K / min_rows;
+  if (S > cap) S = cap;
+  if (S > smax) S = smax;
+  if (S < 1) S = 1;
+  int L = (K + S - 1) / S;
+  L = (L + align - 1) / align * align;
+  return {(K + L - 1) / L, L};
+}
+
+// The first task of this thread when the dot's tasks start at thread
+// ``first``.
+template <int NT>
+__device__ __forceinline__ int first_task(int first) {
+  return ((int)threadIdx.x - first + NT) % NT;
+}
+
+// The activation's scale: a dot's operand is held as a * 2^896, so that a
+// weight w enters as the double w * 2^-896, whose bits are the bf16's own
+// bits shifted into place.  Exact for every finite bf16, subnormals and
+// zeros included (w * 2^-896 is then a subnormal double, which the float64
+// FMA takes at full rate), and a * 2^896 stays finite for every finite
+// bf16 a; each product (a * 2^896) * (w * 2^-896) is a * w exactly.
+constexpr double ACT_SCALE = 0x1p896;
+
+__device__ __forceinline__ double act(double a) { return a * ACT_SCALE; }
+
+// w * 2^-896 for the bf16 w in the high half of x, from two integer ops
+// (an arithmetic shift keeps the sign in bit 31 and clears the exponent's
+// top three bits; the mask drops the low half) instead of a conversion,
+// which would take four float64 FMAs' issue slots.
+__device__ __forceinline__ double bf_scaled(uint32_t x) {
+  const uint32_t hi = static_cast<uint32_t>(static_cast<int>(x) >> 3)
+                      & 0x8fffe000U;
+  return __hiloint2double(static_cast<int>(hi), 0);
+}
+__device__ __forceinline__ double lo_bf(uint32_t w) { return bf_scaled(w << 16); }
+__device__ __forceinline__ double hi_bf(uint32_t w) { return bf_scaled(w); }
+
+// One k row of a V-column group, as loaded: 8 bf16 in a uint4 or one in
+// the low half of a word.
+template <int V>
+using Raw = typename std::conditional<V == 8, uint4, uint32_t>::type;
+
+template <int V>
+__device__ __forceinline__ Raw<V> load_raw(const __nv_bfloat16* p) {
+  static_assert(V == 8 || V == 1, "8 columns (16 bytes) or one");
+  if constexpr (V == 8) {
+    return __ldg(reinterpret_cast<const uint4*>(p));
+  } else {
+    return __bfloat16_as_ushort(__ldg(p));
+  }
+}
+
+// acc[c][r] += a[r] * w[c] for the V weights of one loaded k row.
+template <int R, int V>
+__device__ __forceinline__ void fma_row(double (&acc)[V][R], Raw<V> q,
+                                        const double* a) {
+  double w[V], av[R];
+  if constexpr (V == 8) {
+    w[0] = lo_bf(q.x); w[1] = hi_bf(q.x);
+    w[2] = lo_bf(q.y); w[3] = hi_bf(q.y);
+    w[4] = lo_bf(q.z); w[5] = hi_bf(q.z);
+    w[6] = lo_bf(q.w); w[7] = hi_bf(q.w);
+  } else {
+    w[0] = lo_bf(q);
+  }
+#pragma unroll
+  for (int r = 0; r < R; ++r) av[r] = a[r];
+#pragma unroll
+  for (int c = 0; c < V; ++c)
+#pragma unroll
+    for (int r = 0; r < R; ++r) acc[c][r] = fma(av[r], w[c], acc[c][r]);
+}
+
+// part[s][n][r] = sum over k in slice s of a[k][r] * w[k][n], for the N
+// columns of a bf16 matrix, in V-column groups (V divides N; with V = 8,
+// w and ldw are 16-byte aligned); a holds act() of the operand.
+template <int NT, int R, int V>
+__device__ __forceinline__ void dot_bf16(double* part, const double* a,
+                                         int K, int N,
+                                         const __nv_bfloat16* w, int ldw,
+                                         Split sp, int& first) {
+  const int G = N / V, tasks = G * sp.S;
+  for (int i = first_task<NT>(first); i < tasks; i += NT) {
+    const int g = i % G, s = i / G;
+    const int k0 = s * sp.L, k1 = min(K, k0 + sp.L);
+    double acc[V][R];
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[c][r] = 0.0;
+    const __nv_bfloat16* wp = w + (size_t)k0 * ldw + g * V;
+#pragma unroll 4
+    for (int k = k0; k < k1; ++k, wp += ldw)
+      fma_row<R, V>(acc, load_raw<V>(wp), a + k * R);
+    double* o = part + ((size_t)s * N + g * V) * R;
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r) o[c * R + r] = acc[c][r];
+  }
+  first = (first + tasks) % NT;
+}
+
+// Four words of four int8 weights each (k rows k..k+3, columns c..c+3) ->
+// four words of one column each (k rows in bytes 0..3), as the activation
+// is packed.
+__device__ __forceinline__ void transpose4(uint32_t r0, uint32_t r1,
+                                           uint32_t r2, uint32_t r3,
+                                           uint32_t (&t)[4]) {
+  const uint32_t a = __byte_perm(r0, r1, 0x5140);  // r0c0 r1c0 r0c1 r1c1
+  const uint32_t b = __byte_perm(r0, r1, 0x7362);  // r0c2 r1c2 r0c3 r1c3
+  const uint32_t c = __byte_perm(r2, r3, 0x5140);
+  const uint32_t d = __byte_perm(r2, r3, 0x7362);
+  t[0] = __byte_perm(a, c, 0x5410);
+  t[1] = __byte_perm(a, c, 0x7632);
+  t[2] = __byte_perm(b, d, 0x5410);
+  t[3] = __byte_perm(b, d, 0x7632);
+}
+
+// acc[p][c][r] += the dot of four k rows of column c (q: four loaded k rows
+// of 16 columns) with the packed activation plane p of row r.
+template <int R, int NW>
+__device__ __forceinline__ void dp4a_rows(int (&acc)[NW][16][R],
+                                          const uint4 (&q)[4],
+                                          const uint32_t* aq,
+                                          const uint32_t* ah, int at) {
+  int av[NW][R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    av[0][r] = static_cast<int>(aq[at + r]);
+    if constexpr (NW == 2) av[1][r] = static_cast<int>(ah[at + r]);
+  }
+  uint32_t t[4][4];
+  transpose4(q[0].x, q[1].x, q[2].x, q[3].x, t[0]);
+  transpose4(q[0].y, q[1].y, q[2].y, q[3].y, t[1]);
+  transpose4(q[0].z, q[1].z, q[2].z, q[3].z, t[2]);
+  transpose4(q[0].w, q[1].w, q[2].w, q[3].w, t[3]);
+#pragma unroll
+  for (int p = 0; p < NW; ++p)
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        acc[p][c][r] = __dp4a(static_cast<int>(t[c / 4][c % 4]), av[p][r],
+                              acc[p][c][r]);
+}
+
+// part[s][n][r] = sum over k in slice s of q[k][r] * w[k][n], for the N
+// columns of an int8 matrix in 16-column groups (16 divides N and ldw, w
+// is 16-byte aligned, K and L are multiples of 4).  The activation q is
+// packed four k rows to a word: aq[k / 4][r].  With NW = 2 an activation
+// outside the int8 range is split as q = 256 * hi + lo over two planes (ah
+// holds the hi bytes) and the sum is 256 * sum(hi) + sum(lo), exact while
+// |q| < 2^15 and the sum fits int32.
+template <int NT, int R, int NW>
+__device__ __forceinline__ void dot_i8(int* part, const uint32_t* aq,
+                                       const uint32_t* ah, int K, int N,
+                                       const int8_t* w, int ldw, Split sp,
+                                       int& first) {
+  const int G = N / 16, tasks = G * sp.S;
+  for (int i = first_task<NT>(first); i < tasks; i += NT) {
+    const int g = i % G, s = i / G;
+    const int k0 = s * sp.L, k1 = min(K, k0 + sp.L);
+    int acc[NW][16][R];
+#pragma unroll
+    for (int p = 0; p < NW; ++p)
+#pragma unroll
+      for (int c = 0; c < 16; ++c)
+#pragma unroll
+        for (int r = 0; r < R; ++r) acc[p][c][r] = 0;
+    const int8_t* wp = w + (size_t)k0 * ldw + g * 16;
+#pragma unroll 2
+    for (int k = k0; k < k1; k += 4, wp += (size_t)4 * ldw) {
+      uint4 q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)j * ldw));
+      dp4a_rows<R, NW>(acc, q, aq, ah, (k / 4) * R);
+    }
+    int* o = part + ((size_t)s * N + g * 16) * R;
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        o[c * R + r] = NW == 2 ? acc[NW - 1][c][r] * 256 + acc[0][c][r]
+                               : acc[0][c][r];
+  }
+  first = (first + tasks) % NT;
+}
+
+// Column n, row r of a split dot: its S partial sums added in slice order,
+// rounded once to float32.
+template <int R>
+__device__ __forceinline__ float psum(const double* part, int S, int N,
+                                      int n, int r) {
+  double s = 0.0;
+  for (int i = 0; i < S; ++i) s += part[((size_t)i * N + n) * R + r];
+  return __double2float_rn(s);
+}
+template <int R>
+__device__ __forceinline__ float psum(const int* part, int S, int N, int n,
+                                      int r) {
+  int s = 0;
+  for (int i = 0; i < S; ++i) s += part[((size_t)i * N + n) * R + r];
+  return __int2float_rn(s);
+}
+
+// An int8 activation [K][R] (float, integer-valued after rintf(v * 127))
+// packed four k rows to a word, [K / 4][R]; ``hi`` gets the planes' high
+// bytes (q = 256 * hi + lo).  Returns whether any value left the int8 range.
+template <int NT, int R>
+__device__ __forceinline__ bool pack_i8(uint32_t* lo, uint32_t* hi,
+                                        const float* v, int K) {
+  bool wide = false;
+  for (int i = threadIdx.x; i < (K / 4) * R; i += NT) {
+    const int r = i % R, k = (i / R) * 4;
+    uint32_t l = 0, h = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) {
+      const int q = __float2int_rn(__fmul_rn(v[(k + b) * R + r], 127.f));
+      const int ql = static_cast<int8_t>(q & 0xff);
+      const int qh = (q - ql) >> 8;
+      wide |= qh != 0;
+      l |= static_cast<uint32_t>(ql & 0xff) << (8 * b);
+      h |= static_cast<uint32_t>(qh & 0xff) << (8 * b);
+    }
+    lo[i] = l;
+    if (hi != nullptr) hi[i] = h;
+  }
+  return wide;
+}
+
+}  // namespace dot

@@ -14,26 +14,28 @@
 // sum of their absolute values), so that no product can be dropped as
 // dead code and the floor times the same work as the TPU kernel.
 //
-// Design: the same structure as csrc/decode.cu, on purpose.  The floor's
-// job is to say what share of the decode step its weight-streaming dots
-// cost, so it streams its weights the way the decode kernel does: one
-// persistent CTA per R = 2 rows for all T steps, the bf16-rounded state
-// k-major ([H][R]) in shared memory so that one weight element, loaded
-// once, meets both rows, each thread owning output columns and walking K
-// one 2-byte weight at a time through L2, with float64 sums of the exact
-// bf16 products rounded once to float32.  The plain version
+// Design: the decode kernel's dots, on purpose.  The floor's job is to say
+// what share of the decode step its weight-streaming dots cost, so it
+// streams its weights with the same routine (csrc/dot.cuh) in the decode
+// kernel's production shape: one persistent CTA of 1,024 threads per row
+// (R = 1) for all T steps, the bf16-rounded state held as double in shared
+// memory, each thread loading 16 bytes (8 columns of one k row) at a time,
+// float64 sums of the exact products rounded once to float32.  Its six
+// dots are one phase, each column cut into at most two K-slices (the
+// 7,168 columns' partial sums take 115 KB of shared memory): 1,792 tasks
+// over 1,024 threads.  The plain version
 // (ops/matmul_floor.py::matmul_floor_reference) sums the same products in
 // float64 too, so the two agree to the bit nearly always.
 //
 // What bounds it: not the card's rates.  The work is bf16 tensor-core
-// bound at ~5.8 ms for B = 64, T = 12,160 (0.47 us per step; 7.3 MB of
-// weights); this kernel takes ~400 us per step on an H100 (PERF.md).  Each
-// CTA re-reads all the weights from L2 at every step, a thread walking its
-// columns' K one 2-byte load at a time, converting each weight and state
-// value to float64 and chaining float64 FMAs, on B / 2 of the 132 SMs: the
-// per-thread serial chain sets the pace, as in decode.cu.  A design that
-// approaches the bound (wgmma, weights resident across SMs) belongs to the
-// decode kernel's redesign.
+// bound at ~0.97 ms for B = 64, T = 2,048 (7.3 MB of weights); each CTA
+// turns every weight (3.67 M per step) into a double with integer ops and
+// runs a float64 FMA on it, ~4.8 issued instructions per weight, on B of
+// the 132 SMs, so the SM's instruction issue and each thread's chain of
+// L2 round trips (its loads go out one at a time) set the pace.  On an
+// H100 (700 W) it takes 102.33 us per step at B = 64, T = 2,048 (PR 3's
+// design, a thread per column walking K one 2-byte load at a time: 298.43
+// in the same PR's measurement).
 //
 // Entry point (plain C, bound with ctypes):
 //   int matmul_floor(const void* const* ptrs, const long long* dims,
@@ -46,55 +48,30 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dot.cuh"
+
 namespace {
 
-constexpr int NT = 512;
+constexpr int NT = 1024;  // the decode kernel's threads at one row per CTA
 constexpr int NWARP = NT / 32;
-constexpr int R = 2;
+constexpr int R = 1;
 
 struct Params {
   const float* h0;
   float* h;
   double* sink;
   double* sink_abs;
-  const __nv_bfloat16* w[4];
-  const __nv_bfloat16* wf[2];
+  const __nv_bfloat16* w[6];  // w1..w4, wf1, wf2
   int B, T, H;
+  dot::Split sp[6];
+  int off[6];                 // each dot's partial sums, in doubles
+  int scratch;                // doubles of partial sums
 };
 
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float bfr(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// acc[g][r] += sum_k a[k][r] * w[k][j + g*gs], g < G, over the k-major
-// [K][R] state; float64 sums of the exact bf16 products.
-template <int G>
-__device__ __forceinline__ void dot(double (&acc)[G][R], const float* a,
-                                    int K, const __nv_bfloat16* w, int ldw,
-                                    int j, int gs) {
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    double wv[G];
-#pragma unroll
-    for (int g = 0; g < G; ++g)
-      wv[g] = static_cast<double>(
-          __bfloat162float(__ldg(w + (size_t)k * ldw + j + g * gs)));
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      const double v = static_cast<double>(a[k * R + r]);
-#pragma unroll
-      for (int g = 0; g < G; ++g) acc[g][r] = fma(v, wv[g], acc[g][r]);
-    }
-  }
-}
-
-template <int G>
-__device__ __forceinline__ void zero(double (&acc)[G][R]) {
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int r = 0; r < R; ++r) acc[g][r] = 0.0;
+// the state as a dot operand: bf16-rounded, as double at the dots' scale
+__device__ __forceinline__ double bfr(float v) {
+  return dot::act(static_cast<double>(__bfloat162float(__float2bfloat16_rn(v))));
 }
 
 __device__ __forceinline__ double warp_sum(double v) {
@@ -104,17 +81,18 @@ __device__ __forceinline__ double warp_sum(double v) {
 }
 
 __global__ void __launch_bounds__(NT) floor_kernel(Params p) {
-  extern __shared__ __align__(16) float sm[];
+  extern __shared__ __align__(16) double sm[];
   const int H = p.H;
-  // sm: the state, [H][R] twice (read one buffer, write the other), then
-  // the block sums [NWARP][2R] as double
-  double* red = reinterpret_cast<double*>(sm + 2 * H * R);
+  // sm: the partial sums, the state [H][R] twice (read one buffer, write
+  // the other), then the block sums [NWARP][2R]
+  double* state = sm + p.scratch;
+  double* red = state + 2 * H * R;
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * R;
 
   for (int i = tid; i < H * R; i += NT) {
     const int r = i % R, k = i / R, b = b0 + r;
-    sm[i] = b < p.B ? bfr(p.h0[(size_t)b * H + k]) : 0.f;
+    state[i] = b < p.B ? bfr(p.h0[(size_t)b * H + k]) : 0.0;
   }
   double sink[R], sabs[R];
 #pragma unroll
@@ -122,33 +100,30 @@ __global__ void __launch_bounds__(NT) floor_kernel(Params p) {
   __syncthreads();
 
   for (int t = 0; t < p.T; ++t) {
-    const float* cur = sm + (t & 1) * H * R;
-    float* nxt = sm + ((t + 1) & 1) * H * R;
+    const double* cur = state + (t & 1) * H * R;
+    double* nxt = state + ((t + 1) & 1) * H * R;
+    int first = 0;
+#pragma unroll
+    for (int m = 0; m < 6; ++m)
+      dot::dot_bf16<NT, R, 8>(sm + p.off[m], cur, H, m < 4 ? 3 * H : H,
+                              p.w[m], m < 4 ? 3 * H : H, p.sp[m], first);
+    __syncthreads();
     for (int j = tid; j < H; j += NT) {
-      double g[4][3][R], f[2][1][R];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        zero(g[m]);
-        dot<3>(g[m], cur, H, p.w[m], 3 * H, j, H);
-      }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        zero(f[m]);
-        dot<1>(f[m], cur, H, p.wf[m], H, j, 0);
-      }
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float v[4][3];
 #pragma unroll
         for (int m = 0; m < 4; ++m)
 #pragma unroll
-          for (int c = 0; c < 3; ++c) v[m][c] = __double2float_rn(g[m][c][r]);
+          for (int c = 0; c < 3; ++c)
+            v[m][c] = dot::psum<R>(sm + p.off[m], p.sp[m].S, 3 * H,
+                                   c * H + j, r);
         // the kept columns, added in the JAX order
         float a = add(v[0][0], v[1][1]);
         a = add(a, v[2][2]);
         a = add(a, v[3][0]);
-        a = add(a, __double2float_rn(f[0][0][r]));
-        a = add(a, __double2float_rn(f[1][0][r]));
+        a = add(a, dot::psum<R>(sm + p.off[4], p.sp[4].S, H, j, r));
+        a = add(a, dot::psum<R>(sm + p.off[5], p.sp[5].S, H, j, r));
         const float hn = tanhf(a);
         nxt[j * R + r] = bfr(hn);
         if (t == p.T - 1 && b0 + r < p.B) p.h[(size_t)(b0 + r) * H + j] = hn;
@@ -190,13 +165,19 @@ extern "C" int matmul_floor(const void* const* ptrs, const long long* dims,
   p.h = static_cast<float*>(const_cast<void*>(ptrs[1]));
   p.sink = static_cast<double*>(const_cast<void*>(ptrs[2]));
   p.sink_abs = static_cast<double*>(const_cast<void*>(ptrs[3]));
-  for (int m = 0; m < 4; ++m)
+  for (int m = 0; m < 6; ++m)
     p.w[m] = static_cast<const __nv_bfloat16*>(ptrs[4 + m]);
-  for (int m = 0; m < 2; ++m)
-    p.wf[m] = static_cast<const __nv_bfloat16*>(ptrs[8 + m]);
   p.B = (int)dims[0]; p.T = (int)dims[1]; p.H = (int)dims[2];
-  const size_t bytes = (size_t)2 * p.H * R * sizeof(float)
-                       + (size_t)NWARP * 2 * R * sizeof(double);
+  int off = 0;
+  for (int m = 0; m < 6; ++m) {
+    const int N = m < 4 ? 3 * p.H : p.H;
+    p.sp[m] = dot::split(p.H, N / 8, NT, 1, 2, 32);
+    p.off[m] = off;
+    off += p.sp[m].S * N * R;
+  }
+  p.scratch = off;
+  const size_t bytes = ((size_t)off + 2 * p.H * R + NWARP * 2 * R)
+                       * sizeof(double);
   cudaError_t e = cudaFuncSetAttribute(
       floor_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;

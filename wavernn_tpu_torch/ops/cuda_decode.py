@@ -46,9 +46,13 @@ if TYPE_CHECKING:
 
 LOG_SCALE_MIN = float(math.log(1e-14))
 _MODES = {"RAW": 0, "MOL": 1}
-# Fold rows per CTA.  Measured on an H100 (700 W) at 48 rows x 12,100
-# steps with int8_hh: 269 us/step at 1, 266 at 2, 326 at 4 (PERF.md).
-ROWS_PER_CTA = 2
+# Fold rows per CTA (the ablations are built for this one: ABLATION_R in
+# csrc/decode.cu).  Measured on an H100 (700 W) at 64 rows x 2,048 steps
+# with int8_hh: 72.94 us/step at 1 (1,024 threads), more than twice that
+# at 2 (512 threads; PERF.md): a CTA builds each weight's double once for
+# its R rows, but its float64 FMAs grow with R and it has half the
+# threads.  Up to 132 rows (one CTA per SM) one row per CTA is faster.
+ROWS_PER_CTA = 1
 # the kernel's ablation bits (AB_* in csrc/decode.cu), and the masks it is
 # built for: production (0) and the breakdown's five
 ABLATIONS = {"sample": 1, "gates": 2, "cond_read": 4, "out_write": 8}
@@ -342,7 +346,9 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     when ``packed`` holds them.  ``rows_per_cta`` (1 or 2) is the kernel's
     fold rows per CTA; ``ablate`` as in the module's docstring (the kernel
     is built with the ablations in :data:`KERNEL_ABLATIONS`, for int8
-    recurrent matrices and two rows per CTA).
+    recurrent matrices and :data:`ROWS_PER_CTA` rows per CTA).  The
+    kernel's 16-byte weight loads take H a multiple of 16 and F of 8, and
+    16-byte aligned weights; other shapes raise.
 
     A CUDA tensor launches the kernel (``csrc/decode.cu``) on the current
     stream; a CPU tensor runs :func:`decode_reference`.  ``decode.launches``
@@ -367,15 +373,18 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     if n_out != n_classes:
         raise ValueError(f"fc3 has {n_out} outputs, n_classes={n_classes}")
     if mask and (frozenset(ablate) not in KERNEL_ABLATIONS or not int8_hh
-                 or rows_per_cta != 2):
+                 or rows_per_cta != ROWS_PER_CTA):
         raise ValueError(
             f"the kernel is built with the ablations "
             f"{[sorted(a) for a in KERNEL_ABLATIONS[1:]]} for int8_hh and "
-            f"two rows per CTA; got {sorted(ablate)}, int8_hh={int8_hh}, "
-            f"rows_per_cta={rows_per_cta}")
+            f"{ROWS_PER_CTA} row(s) per CTA; got {sorted(ablate)}, "
+            f"int8_hh={int8_hh}, rows_per_cta={rows_per_cta}")
     if mode == "MOL" and (n_out % 3 or n_out // 3 > 32):
         raise ValueError(f"MOL kernel takes 3*nm outputs with nm <= 32, "
                          f"got {n_out}")
+    if H % 16 or F % 8:
+        raise ValueError(f"the kernel's 16-byte weight loads take H a "
+                         f"multiple of 16 and F of 8, got H={H}, F={F}")
     if not cond.is_contiguous():
         raise ValueError("cond must be contiguous")
     shapes = dict(
@@ -398,10 +407,12 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     for name, (shape, dtype) in shapes.items():
         t = packed[name]
         if (tuple(t.shape) != shape or t.dtype != dtype
-                or t.device != cond.device or not t.is_contiguous()):
+                or t.device != cond.device or not t.is_contiguous()
+                or t.data_ptr() % 16):
             raise ValueError(
-                f"packed[{name!r}]: want {shape} {dtype} contiguous on "
-                f"{cond.device}, got {tuple(t.shape)} {t.dtype} {t.device}")
+                f"packed[{name!r}]: want {shape} {dtype} contiguous and "
+                f"16-byte aligned on {cond.device}, got {tuple(t.shape)} "
+                f"{t.dtype} {t.device} at {t.data_ptr():#x}")
 
     from wavernn_tpu_torch.ops.build import load_library
 

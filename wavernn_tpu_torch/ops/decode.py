@@ -130,6 +130,25 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+def int8_ff_policy(int8_ff: Optional[bool], n_folds: int) -> bool:
+    """Whether a kernel dispatch over ``n_folds`` fold rows (the kernel
+    width the reference's rule reads) streams int8 feed-forward matrices
+    (GRU2's input matrix, FC1 and FC2).
+
+    The H100 policy: no, at every width, until the H100's crossover is
+    measured.  ``None`` is the reference's default ``"auto"``, which turns
+    them on once the kernel width reaches 64 rows
+    (``wavernn_tpu/ops/decode.py:1370-1384``, ``FF_AUTO_MIN_KERNEL_B``), a
+    crossover measured on the TPU; here it resolves to off, so the kernel
+    streams bf16 feed-forward matrices.  ``True`` raises: the int8
+    feed-forward path and its calibration are not ported."""
+    if int8_ff:
+        raise NotImplementedError(
+            "int8_ff (calibrated int8 feed-forward matrices) is not "
+            "ported yet")
+    return False
+
+
 class Prestaged(NamedTuple):
     """A :meth:`Generator.prestage` result: one utterance's padded mel on
     the device plus the fold geometry it was staged for."""
@@ -162,7 +181,10 @@ class Generator:
     ``prefetch`` -> ``collect``; everything between ingress and egress runs
     on ``device``.
 
-    Not ported yet (each raises): ``int8_ff`` and its calibration,
+    ``int8_ff=None`` (the reference's ``"auto"``) resolves to bf16
+    feed-forward matrices at every width: :func:`int8_ff_policy`.
+
+    Not ported yet (each raises): ``int8_ff=True`` and its calibration,
     ``int8_gates``, a decode ``mesh``, ``bfloat16``/``uint8`` ingress and
     ``mulaw8`` egress."""
 
@@ -178,10 +200,7 @@ class Generator:
                                "not available")
         if backend not in ("kernel", "scan"):
             raise ValueError(f"unknown backend {backend!r}")
-        if int8_ff:
-            raise NotImplementedError(
-                "int8_ff (calibrated int8 feed-forward matrices) is not "
-                "ported yet")
+        int8_ff_policy(int8_ff, fold_bucket)
         if int8_gates:
             raise NotImplementedError("int8_gates is not ported yet")
         if mesh is not None:

@@ -111,6 +111,11 @@ def matmul_floor(weights: dict, B: int, T: int,
         return matmul_floor_reference(weights, B, T, h0)
     if dev.type != "cuda":
         raise ValueError(f"matmul_floor runs on CUDA or CPU tensors, got {dev}")
+    misaligned = [k for k in WEIGHT_ORDER if weights[k].data_ptr() % 16]
+    if H % 8 or misaligned:
+        raise ValueError(f"the kernel's 16-byte weight loads take H a "
+                         f"multiple of 8 and 16-byte aligned weights, got "
+                         f"H={H}, misaligned {misaligned}")
 
     from wavernn_tpu_torch.ops.build import load_library
 

@@ -10,12 +10,13 @@ Defaults: B = 64 rows, T = 12,160 steps.  It runs
 
 * the matmul floor (``ops/matmul_floor.py``: six bf16 dots of a (B, 512)
   state per step, from a seeded nonzero state);
-* the full decode kernel: MOL sampling, int8 recurrent matrices, two rows
-  per CTA, on the committed trained golden
+* the full decode kernel: MOL sampling, int8 recurrent matrices, the
+  production rows per CTA, on the committed trained golden
   (``bench_assets/wavernn_mol_golden.msgpack``) over a seeded uniform bf16
   conditioning (B, T, 208), so that gates and sampling see trained
   activations;
-* int8_hh off, deterministic, the five ablations, one row per CTA.
+* int8_hh off, deterministic, the five ablations, the other rows per CTA
+  (1 or 2).
 
 On the card each variant is timed with CUDA events over K back-to-back
 launches after a short warm-up, best of 2 passes; the ablated variants
@@ -34,9 +35,11 @@ import time
 import numpy as np
 import torch
 
+from wavernn_tpu_torch.ops.cuda_decode import ROWS_PER_CTA
 from wavernn_tpu_torch.tools import GOLDEN, card, device_of, load_variables, metric
 
-FULL = "full kernel (MOL sampling, int8_hh, R=2)"
+FULL = f"full kernel (MOL sampling, int8_hh, R={ROWS_PER_CTA})"
+OTHER_R = 3 - ROWS_PER_CTA    # the other rows per CTA the kernel is built for
 VARIANTS = (
     (FULL, {}),
     ("int8_hh off (bf16 w_hh)", {"int8_hh": False}),
@@ -46,7 +49,7 @@ VARIANTS = (
     ("ablate sample+gates", {"ablate": frozenset({"sample", "gates"})}),
     ("ablate cond_read", {"ablate": frozenset({"cond_read"})}),
     ("ablate out_write", {"ablate": frozenset({"out_write"})}),
-    ("rows_per_cta=1", {"rows_per_cta": 1}),
+    (f"rows_per_cta={OTHER_R}", {"rows_per_cta": OTHER_R}),
 )
 WARM_T = 256     # steps of the warm-up launch
 
