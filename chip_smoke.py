@@ -39,9 +39,12 @@ result line:
    version on the card, bf16 packing: (a) the committed trained tiny
    Tacotron golden on its eval text, 64 steps; (b) full width,
    ``init_variables(TacotronConfig(), 0)``, a 60-symbol text from
-   ``np.random.default_rng(0)``, r=2, 750 steps.  The first 64 steps within
-   1e-3 on mels and scores, at least 99% of mel values within 2e-2.  Then
-   both versions are timed at (b).
+   ``np.random.default_rng(0)`` (L=64), r=2, 750 steps; (c) the same model
+   on a 256-symbol text (L=256, more text positions than CTAs), 96 steps.
+   The first 64 steps within 1e-3 on mels and scores, at least 99% of mel
+   values within 2e-2.  Then both versions are timed at (b), and
+   ``tools.tts_phase_spans`` prints the kernel's span per phase at (b) and
+   the cost of one bare grid barrier.
 7. The TTS gate on the card: the tiny golden through
    ``TTSGenerator(backend="kernel", steps=400, stop_patience=6)`` must pass
    the bench's criteria (monotone >= 0.85, coverage >= 0.7, tempo in
@@ -435,6 +438,7 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
         pack_tts_weights, packed_dims, tts_decode_reference,
     )
     from wavernn_tpu_torch.text import text_to_sequence
+    from wavernn_tpu_torch.tools import tts_phase_spans
     from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
     meta = json.loads((TACO_DIR / "tiny_tacotron_meta.json").read_text())
@@ -489,6 +493,9 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     full_vars = init_variables(full, 0)
     rng = np.random.default_rng(0)
     seq60 = [int(i) for i in rng.integers(1, full.num_chars, 60)]
+    seq256 = [int(i) for i in rng.integers(1, full.num_chars, 256)]
+    packed, enc, encp = kernel_inputs(full, full_vars, seq256, 256, 2)
+    compare("full width, r=2, 256 symbols", packed, enc, encp, 96)
     packed, enc, encp = kernel_inputs(full, full_vars, seq60, 64, 2)
     compare("full width, r=2", packed, enc, encp, 750)
 
@@ -524,6 +531,9 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
           f"{[round(x, 3) for x in kernel_ms]} ms ({k_ms * 1e3 / 750:.2f} "
           f"us/step), plain {[round(x, 1) for x in plain_ms]} ms "
           f"({p_ms * 1e3 / 750:.2f} us/step) | {card}", flush=True)
+    spans = tts_phase_spans.main(["--steps", "750", "--L", "64"])
+    if spans["max_abs_err"] > 1e-3:
+        fail("the spans launch disagrees with the plain version")
 
     # -- 7. the TTS gate through the kernel ------------------------------
     gt = np.load(TACO_DIR / "tiny_tacotron_gt_mel.npy") * 8.0 - 4.0

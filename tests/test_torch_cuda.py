@@ -330,10 +330,16 @@ def taco_run(fn, packed, enc, encp, n, chunks):
     return [torch.cat(x) for x in zip(*outs)] + [state]
 
 
+@pytest.mark.parametrize("grid", [None, 7], ids=["all_sms", "grid7"])
 @pytest.mark.parametrize("chunks", [1, 2])
 @pytest.mark.parametrize("L", [24, 200], ids=["short", "long"])
 @pytest.mark.parametrize("r", [1, 2, 7])
-def test_tts_kernel_matches_plain_version(cuda_device, r, L, chunks):
+def test_tts_kernel_matches_plain_version(cuda_device, r, L, chunks, grid,
+                                          monkeypatch):
+    """One CTA per SM (at D = 64 most CTAs own no GRU unit, and at L = 24
+    most own no text position) and 7 CTAs (each owning many units of each
+    phase)."""
+    monkeypatch.setattr(cuda_tts, "CTAS", grid)
     packed, enc, encp = taco_inputs(cuda_device, r, L)
     n = cuda_tts.tts_decode.launches
     got = taco_run(cuda_tts.tts_decode, packed, enc, encp, 96, chunks)
@@ -341,14 +347,49 @@ def test_tts_kernel_matches_plain_version(cuda_device, r, L, chunks):
     assert cuda_tts.tts_decode.launches == n + chunks
     want = taco_run(tts_decode_reference, packed, enc, encp, 96, chunks)
     assert got[0].shape == (96, r, 80) and got[1].shape == (96, L)
-    for a, b in zip(got[:3], want[:3]):
+    for name, a, b in zip(("mels", "scores", "stop"), got[:3], want[:3]):
         d = (a - b).abs()
+        print(f"grid {grid or 'all SMs'} r {r} L {L} chunks {chunks} "
+              f"{name}: max|d| {float(d.max()):.3g}")
         assert float(d[:64].max()) <= 1e-3
         assert float((d <= 2e-2).float().mean()) >= 0.99
         assert torch.isfinite(a).all()
     for f in STATE_FIELDS:
         d = (getattr(got[3], f) - getattr(want[3], f)).abs()
         assert float(d.max()) <= 2e-2, f
+
+
+def test_tts_spans_stamp_every_phase_of_every_step(cuda_device):
+    """The spans instantiation computes what the kernel computes and stamps
+    the clock, in increasing order, at the end of each of a step's ten
+    phases; it is not counted."""
+    packed, enc, encp = taco_inputs(cuda_device, 2, 24)
+    c = SMALL_TACO
+    state = lambda: init_tts_decode_state(c.decoder_dims, c.lstm_dims, 24,
+                                          c.n_mels, cuda_device)
+    n = cuda_tts.tts_decode.launches
+    (mels, scores, stop, _), spans = cuda_tts.tts_decode_spans(
+        packed, enc, encp, state(), 8)
+    assert cuda_tts.tts_decode.launches == n
+    want = cuda_tts.tts_decode(packed, enc, encp, state(), 8)
+    torch.cuda.synchronize()
+    assert torch.equal(mels, want[0]) and torch.equal(scores, want[1])
+    assert torch.equal(stop, want[2])
+    t = spans.cpu().numpy().reshape(-1)
+    assert spans.shape == (8, cuda_tts.PHASES_PER_STEP) == (8, 10)
+    assert (t > 0).all()
+    assert (np.diff(t) >= 0).all() and t[-1] > t[0]
+
+
+def test_tts_kernel_raises_for_a_text_that_does_not_fit(cuda_device):
+    packed, enc, encp = taco_inputs(cuda_device, 2, 24)
+    c = SMALL_TACO
+    L = 12000
+    enc, encp = enc.repeat(500, 1), encp.repeat(500, 1)
+    state = init_tts_decode_state(c.decoder_dims, c.lstm_dims, L, c.n_mels,
+                                  cuda_device)
+    with pytest.raises(ValueError, match=f"L={L}"):
+        cuda_tts.tts_decode(packed, enc, encp, state, 2)
 
 
 def test_tts_kernel_rejects_what_it_does_not_take(cuda_device):

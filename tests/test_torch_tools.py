@@ -19,7 +19,7 @@ from wavernn_tpu.utils import profiling as jax_profiling
 from wavernn_tpu_torch.config import hp
 from wavernn_tpu_torch.tools import (
     fold_geometry_probe, kernel_breakdown, kernel_sampling_stats,
-    tts_step_probe,
+    tts_phase_spans, tts_step_probe,
 )
 from wavernn_tpu_torch.utils import profiling
 
@@ -28,7 +28,8 @@ TINY_RAW = REPO / "tests" / "golden" / "tiny_wavernn_raw.msgpack"
 TOOLS = {"kernel_breakdown": kernel_breakdown,
          "kernel_sampling_stats": kernel_sampling_stats,
          "fold_geometry_probe": fold_geometry_probe,
-         "tts_step_probe": tts_step_probe}
+         "tts_step_probe": tts_step_probe,
+         "tts_phase_spans": tts_phase_spans}
 
 
 @pytest.fixture(autouse=True)
@@ -64,6 +65,7 @@ def cpu_argv(name, tmp_path):
                                 "1", "--voc_weights", str(TINY_RAW),
                                 "--hp_file", str(tiny_hp(tmp_path))],
         "tts_step_probe": ["8", "1", "--passes", "1"],
+        "tts_phase_spans": ["--L", "256"],
     }[name] + ["--device", "cpu"]
 
 
@@ -105,6 +107,10 @@ def test_tool_runs_plain_versions_on_cpu(name, tmp_path, capsys):
         assert [x["target"] for x in r] == [300, 150]
         assert [x["steps_per_launch"] for x in r] == [350, 200]
         assert r[1]["folds"] > r[0]["folds"] and r[0]["rows"] % 16 == 0
+    elif name == "tts_phase_spans":
+        # the plan alone: the spans and the barrier loop need the card
+        assert rec["grid"] == 132 and rec["smem_bytes"] == 137_456
+        assert "phase_us" not in rec and "barrier_us" not in rec
     else:
         assert rec["kernel"]["steps_per_call"] == 4
         assert rec["plain"]["steps_per_call"] == 4

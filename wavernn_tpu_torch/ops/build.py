@@ -97,13 +97,21 @@ def load_library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for fn in (lib.wavernn_decode, lib.tts_decode, lib.matmul_floor):
+        for fn in (lib.wavernn_decode, lib.tts_decode, lib.tts_decode_spans,
+                   lib.matmul_floor):
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
             fn.restype = ctypes.c_int
-        lib.tts_decode_max_ctas.argtypes = [ctypes.POINTER(ctypes.c_int)] + [
-            ctypes.c_longlong] * 5
+        lib.tts_decode_max_ctas.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                            ctypes.c_longlong]
         lib.tts_decode_max_ctas.restype = ctypes.c_int
+        lib.tts_decode_smem_bytes.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.tts_decode_smem_bytes.restype = ctypes.c_longlong
+        lib.tts_barrier_loop.argtypes = [ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_longlong, ctypes.c_void_p,
+                                         ctypes.c_void_p]
+        lib.tts_barrier_loop.restype = ctypes.c_int
         lib.wavernn_error_string.argtypes = [ctypes.c_int]
         lib.wavernn_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -11,49 +11,78 @@
 // Design.  A step is a chain of ten dependent phases (prenet1, prenet2,
 // attention GRU, query projection, location energies, scores + context,
 // rnn_input, LSTM1, LSTM2, mel projection).  At batch 1 no phase has a batch
-// to spread, so every phase spreads its OUTPUTS over all warps of a grid of a
-// few tens of CTAs, one CTA per SM, with a grid barrier between phases.  A
-// warp owns one output (one GRU or LSTM unit: its 3 or 4 gate columns) and
-// splits the dot's K over its lanes, each lane loading 8 bf16 weights (16
-// bytes) at a time from the matrix stored (out, in); the lanes' partial sums
-// meet in a shuffle reduction.  Activations pass between phases through a
-// small global scratch (read with ld.global.cg, so never from a stale L1);
-// each CTA copies a phase's input vector into shared memory first.  The
-// sigmoid-normalised scores need a sum over the whole text: every CTA
-// computes them all (L sigmoids), so the sum costs no extra barrier, and
-// every CTA keeps its own identical copy of the cumulative and previous
-// attention.  The location conv, folded with L into one (D, 62) matrix,
-// lives in shared memory as float64 for the whole launch.
+// to spread, so each phase spreads its OUTPUTS over a grid of one CTA per SM
+// (every SM that fits).  Each CTA owns a fixed contiguous range of every
+// phase's output units (a prenet, query, rnn_input or mel row; a GRU unit's
+// 3 + 3 rows; an LSTM unit's 4 rows), of the text positions (energies) and
+// of the context columns: the plan is ops/cuda_tts.py::tts_smem_plan, and
+// layout() below computes the same bytes.  At launch the CTA copies the bf16
+// weight rows of its units into shared memory, where they stay for all
+// steps (~80 KB at full width on 132 CTAs), with the folded location conv
+// (bf16 tap pairs), its text positions' encp rows and its context columns
+// of the encoder output: no per-step dot reads a weight from global memory.
+// Inside a CTA a unit's rows go to a group of 8 / units warps, each thread
+// taking 16-byte chunks of 8 columns; the phase's operand is held
+// chunk-major in shared memory, so a warp's loads of weights and operand are
+// free of bank conflicts.
+//
+// Between phases, no barrier: a value that crosses CTAs is written together
+// with its step (tag) in one 64-bit word, and a reader polls the words it
+// needs until each carries the step it waits for (fetch()); the words of a
+// phase's operand are loaded together, so a phase waits for its slowest
+// producer's store plus about one round trip through L2.  Activations sit
+// in two slots that alternate by step; one grid barrier per step (a counter
+// that only grows: red.release.gpu by each CTA, a spin of ld.acquire.gpu)
+// keeps a CTA from writing a slot another may still read.  State that only
+// its owner needs (the attention GRU's h, the LSTM cells) stays in shared
+// memory.  Every spin is bounded: a launch whose inputs never come traps.
+//
+// The location conv is off the critical path: ploc[l, :] depends only on
+// the cumulative and previous attention, final after phase 6, so a CTA
+// computes it for its own text positions (one column d per thread, the 62
+// taps in order) at the ends of phases 6-9, while its next input is still
+// on its way, and phase 5 only adds encp, the query and the bias, takes tanh
+// and reduces the v-dot.
 //
 // Arithmetic.  Every dot sums its exact products (bf16 x bf16 fits a double)
-// in float64 and rounds the sum once to float32; the order of the terms then
-// hardly matters, so this kernel and its plain version agree to the bit
+// in float64 and rounds the sum once to float32, in one fixed order per
+// output (a thread's chunks in order, the warp's shuffle tree, the group's
+// warps in order), so this kernel and its plain version agree to the bit
 // nearly always and an autoregressive decode can be held to a tight
-// tolerance over hundreds of steps.  Gate arithmetic is float32 with one
-// rounding per operation (the __f*_rn intrinsics keep nvcc from contracting
-// it), in the plain version's order; sigmoid(v) = 0.5 * tanhf(0.5 * v) + 0.5.
+// tolerance over hundreds of steps.  A weight (or a conv tap) becomes a
+// double by two integer ops against an operand held as a * 2^896
+// (dot.cuh's bf_scaled), not by a conversion on the float64 pipe.  Gate
+// arithmetic is float32 with one rounding per operation (the __f*_rn
+// intrinsics keep nvcc from contracting it), in the plain version's order;
+// sigmoid(v) = 0.5 * tanhf(0.5 * v) + 0.5.
 //
-// What bounds it.  About 5.2 M bf16 weights (10.3 MB at the full-size model)
-// are read once per step, spread over the grid, from the 50 MB L2 where they
-// stay: 0.2 TB/s at the 48 us per step measured on an H100, far from L2's
-// rate, and the float64 arithmetic is as far from its peak.  Latency sets
-// the pace: ten grid barriers per step, each a round trip through L2
-// atomics, and each phase's short dependent chain (64 CTAs measured best;
-// fewer are slower, more no faster).  Fewer phases (redundant small phases
-// per CTA), weights resident in shared memory and wgmma are later work.
+// What bounds it.  About 5.2 M bf16 weights (10.35 MB at the full-size
+// model) per step, spread over the grid's shared memory: a few hundred
+// cycles of float64 FMAs and integer ops per CTA and phase.  The bound of a
+// 48-step launch is its 10.35 MB read once (3.1 us at 3.35 TB/s).  Latency
+// sets the pace: per phase, the hand-over of its inputs through L2 (~1.7-2.7
+// us a phase on an H100, PERF.md, from the spans of tts_decode_spans), and
+// the step's barrier (~1 us bare, tts_barrier_loop).
 //
-// Entry point (plain C, bound with ctypes):
+// Entry points (plain C, bound with ctypes):
 //   int tts_decode(const void* const* ptrs, const long long* dims,
 //                  void* stream)
 // ptrs = the packed weights in cuda_tts.WEIGHT_ORDER, then enc_t (D, L),
 //        encp (L, D), state_in, state_out, mels, scores, stop, work, bar;
 // dims = n_steps, L, D, Dh, H, n_mels, r, ctas.
-// Returns a cudaError_t (0 = launched).
+// work is the tagged activations (zeroed), bar the step barrier's counter
+// (zeroed).  Returns a cudaError_t (0 = launched).  Beside it:
+// tts_decode_smem_bytes (the layout's bytes for dims), tts_decode_max_ctas
+// (co-resident CTAs for a layout), and, dev only, tts_decode_spans (one
+// more pointer after bar: n_steps x 10 uint64 stamps) and tts_barrier_loop
+// (bare barriers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include "dot.cuh"
 
 namespace {
 
@@ -62,6 +91,10 @@ constexpr int NW = NT / 32;
 constexpr int KTAPS = 31;
 constexpr int PADT = (KTAPS - 1) / 2;
 constexpr int NTAP2 = 2 * KTAPS;
+constexpr int MAXG = 6;      // the most sums of one unit (the GRU's 3 + 3)
+constexpr int NPHASE = 10;   // phases of a step
+constexpr int NWIN = 4;      // phase ends that hold the location conv
+constexpr long long SPIN_LIMIT = 1LL << 24;  // polls before a launch traps
 
 typedef __nv_bfloat16 bf16;
 
@@ -76,10 +109,66 @@ struct Params {
   float* mels;          // (n_steps, r * n_mels)
   float* scores;        // (n_steps, L)
   float* stop;          // (n_steps,)
-  float* work;          // activations passed between phases
-  unsigned* bar;        // grid barrier: arrival count, generation
+  unsigned long long* work;  // tagged activations passed between CTAs
+  unsigned* bar;        // the grid barrier's arrival counter
+  unsigned long long* spans;  // SPANS: %globaltimer at each phase's end
   int n_steps, L, D, Dh, H, n_mels, r;
 };
+
+// ---- the shared-memory plan (cuda_tts.tts_smem_plan computes the same) ----
+
+__host__ __device__ inline int most(int n, int g) { return (n + g - 1) / g; }
+__host__ __device__ inline int own0(int n, int i, int g) {
+  return (int)((long long)i * n / g);
+}
+__host__ __device__ inline size_t take(size_t& at, size_t bytes) {
+  const size_t o = at;
+  at += (bytes + 15) / 16 * 16;
+  return o;
+}
+
+// Weight regions, in order: prenet1, prenet2, attention GRU, query,
+// rnn_input, LSTM1, LSTM2, mel.
+enum { WP1, WP2, WG, WQ, WRI, WL1, WL2, WMEL, NWREG };
+
+struct Layout {
+  size_t op, encd, part, win, opf, cum, prv, sc, ploc, encp, own, ms;
+  size_t w[NWREG];
+  size_t total;
+};
+
+__host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
+                                         int r, int G) {
+  Layout y;
+  size_t at = 0;
+  int op_n = 2 * D + Dh;
+  if (2 * H > op_n) op_n = 2 * H;
+  if (NM > op_n) op_n = NM;
+  const size_t nl = most(L, G), nd = most(D, G), nh = most(H, G);
+  y.op = take(at, 8 * (size_t)op_n);
+  y.encd = take(at, 8 * nd * L);
+  y.part = take(at, 8 * NW * MAXG);
+  y.win = take(at, 8 * 64);
+  y.opf = take(at, 4 * (size_t)op_n);
+  y.cum = take(at, 4 * (size_t)L);
+  y.prv = take(at, 4 * (size_t)L);
+  y.sc = take(at, 4 * (size_t)L);
+  y.ploc = take(at, 4 * nl * D);
+  y.encp = take(at, 4 * nl * D);
+  y.own = take(at, 4 * (nd + 2 * nh));
+  y.ms = take(at, 4 * (size_t)KTAPS * D);
+  const size_t units[NWREG] = {nd, (size_t)most(Dh, G), nd, nd, nh, nh, nh,
+                               (size_t)most(r * NM, G)};
+  const size_t row[NWREG] = {(size_t)NM, (size_t)D,
+                             (size_t)(3 * (D + Dh) + 3 * D), (size_t)D,
+                             (size_t)(2 * D), (size_t)(8 * H), (size_t)(8 * H),
+                             (size_t)H};
+  for (int k = 0; k < NWREG; ++k) y.w[k] = take(at, 2 * units[k] * row[k]);
+  y.total = at;
+  return y;
+}
+
+// ---- arithmetic ----
 
 // float32 arithmetic with one rounding per operation
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -96,9 +185,32 @@ __device__ __forceinline__ float f32(double v) { return __double2float_rn(v); }
 // Data written by other CTAs during the launch: read it from L2.
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 
-// All CTAs meet; writes before it are visible to reads after it.  The grid
-// is co-resident (cooperative launch), so spinning cannot deadlock.
-__device__ __forceinline__ void grid_sync(unsigned* bar) {
+__device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffU, v, o);
+  return v;
+}
+
+// ---- grid barriers ----
+
+// The counter barrier: one release-add per CTA on a counter that only
+// grows, then a spin of acquire loads until it reaches ``target``.
+__device__ __forceinline__ void arrive(unsigned* bar) {
+  asm volatile("red.release.gpu.global.add.u32 [%0], 1;" ::"l"(bar) : "memory");
+}
+__device__ __forceinline__ void wait_for(const unsigned* bar, unsigned target) {
+  unsigned v;
+  for (long long spin = 0;; ++spin) {
+    asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                 : "=r"(v) : "l"(bar) : "memory");
+    if ((int)(v - target) >= 0) return;
+    if (spin > SPIN_LIMIT) __trap();
+  }
+}
+
+// The earlier barrier (an arrival count reset by the last CTA, a generation
+// word every CTA spins on), kept as the bare-barrier loop's yardstick.
+__device__ __forceinline__ void generation_sync(unsigned* bar) {
   __syncthreads();
   if (threadIdx.x == 0) {
     volatile unsigned* gen = bar + 1;
@@ -116,89 +228,237 @@ __device__ __forceinline__ void grid_sync(unsigned* bar) {
   __syncthreads();
 }
 
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffU, v, o);
-  return v;
+__device__ __forceinline__ unsigned long long globaltimer() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
 }
 
-// dst[i] = bf16-rounded src[i] as double, i < n (the whole CTA)
-__device__ __forceinline__ void load_op(double* dst, const float* src, int n) {
-  for (int i = threadIdx.x; i < n; i += NT) dst[i] = (double)bfr(ldcg(src + i));
+// ---- tagged activations ----
+
+// A value that crosses CTAs travels with the step that wrote it: one 64-bit
+// word, the float's bits low and the tag (step + 2; 1 for the state coming
+// in, 0 never written) high, stored and loaded whole at gpu scope, so a
+// reader that sees the tag it waits for holds that step's value and needs no
+// barrier or fence.
+__device__ __forceinline__ void put(unsigned long long* p, float v,
+                                    unsigned tag) {
+  const unsigned long long w =
+      ((unsigned long long)tag << 32) | __float_as_uint(v);
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
+}
+__device__ __forceinline__ unsigned long long peek(const unsigned long long* p) {
+  unsigned long long w;
+  asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
+  return w;
 }
 
-// acc[g] += sum_k w[(row0 + g*gs)*K + k] * op[k] over k < K (K % 8 == 0):
-// lanes take 8 consecutive k (one 16-byte load per row) at a time.
-template <int G>
-__device__ __forceinline__ void wdot(double (&acc)[G], const bf16* __restrict__ w,
-                                     int K, int row0, int gs, const double* op,
-                                     int lane) {
-  for (int k = lane * 8; k < K; k += 256) {
-    uint4 raw[G];
+// Values k = tid, tid + NT, ... < n of a phase's input, four a pass: a
+// thread loads its four words, then loads again the ones whose tag is not
+// yet the one src(k, word, tag) names until it is, and hands each value to
+// use(k, v).  A launch whose inputs never come traps.
+template <class Src, class Use>
+__device__ __forceinline__ void fetch(int n, Src src, Use use) {
+  for (int base = 0; base < n; base += 4 * NT) {
+    const unsigned long long* a[4];
+    unsigned want[4];
+    unsigned long long w[4];
 #pragma unroll
-    for (int g = 0; g < G; ++g)
-      raw[g] = __ldg(reinterpret_cast<const uint4*>(
-          w + (size_t)(row0 + g * gs) * K + k));
+    for (int j = 0; j < 4; ++j) {
+      const int k = base + j * NT + (int)threadIdx.x;
+      a[j] = nullptr;
+      want[j] = 0;
+      w[j] = 0;
+      if (k < n) {
+        src(k, a[j], want[j]);
+        w[j] = peek(a[j]);
+      }
+    }
+    for (long long spin = 0;; ++spin) {
+      bool ready = true;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (a[j] && (unsigned)(w[j] >> 32) != want[j]) {
+          ready = false;
+          w[j] = peek(a[j]);
+        }
+      if (ready) break;
+      if (spin > SPIN_LIMIT) __trap();
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (a[j]) use(base + j * NT + (int)threadIdx.x, __uint_as_float((unsigned)w[j]));
+  }
+}
+
+// ---- the dots ----
+
+// acc[OFF + g] += row g of w (K columns, rows K apart) . the operand's
+// chunks [c0, c0 + K / 8), over this thread's chunks t, t + TT, ...; opT
+// holds the operand chunk-major: element 8c + e at opT[e * NC + c].
+template <int G, int OFF, int N>
+__device__ __forceinline__ void seg_dot(double (&acc)[N], const bf16* w, int K,
+                                        int c0, const double* opT, int NC,
+                                        int t, int TT) {
+  const int nc = K / 8;
+  for (int c = t; c < nc; c += TT) {
     double x[8];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = op[k + e];
+    for (int e = 0; e < 8; ++e) x[e] = opT[e * NC + c0 + c];
 #pragma unroll
     for (int g = 0; g < G; ++g) {
-      const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw[g]);
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float2 f = __bfloat1622float2(h2[e]);
-        acc[g] = fma((double)f.x, x[2 * e], acc[g]);
-        acc[g] = fma((double)f.y, x[2 * e + 1], acc[g]);
-      }
+      const uint4 q = *reinterpret_cast<const uint4*>(w + (size_t)g * K + c * 8);
+      double a = acc[OFF + g];
+      a = fma(x[0], dot::lo_bf(q.x), a);
+      a = fma(x[1], dot::hi_bf(q.x), a);
+      a = fma(x[2], dot::lo_bf(q.y), a);
+      a = fma(x[3], dot::hi_bf(q.y), a);
+      a = fma(x[4], dot::lo_bf(q.z), a);
+      a = fma(x[5], dot::hi_bf(q.z), a);
+      a = fma(x[6], dot::lo_bf(q.w), a);
+      a = fma(x[7], dot::hi_bf(q.w), a);
+      acc[OFF + g] = a;
     }
   }
 }
 
-template <int G>
-__device__ __forceinline__ void wsum(double (&acc)[G]) {
+// The nu units a CTA owns in a phase: unit u has GA rows over the operand's
+// KA columns from chunk cA (at wA + u * GA * KA) and GB rows over KB columns
+// from chunk cB (at wB + u * GB * KB).  A group of S = 8 / nu warps (one if
+// nu >= 8) takes a unit; epi(u, sums) gets its GA + GB float64 sums, each
+// added in a fixed order: a thread's chunks, the warp's shuffle tree, the
+// group's warps in order.
+template <int GA, int GB, class Epi>
+__device__ __forceinline__ void units(int nu, const bf16* wA, int KA, int cA,
+                                      const bf16* wB, int KB, int cB,
+                                      const double* opT, int NC, double* part,
+                                      Epi epi) {
+  constexpr int G = GA + GB;
+  if (nu <= 0) return;
+  const int S = nu >= NW ? 1 : NW / nu;
+  const int groups = NW / S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, s = warp % S;
+  for (int u = warp / S; u < nu; u += groups) {
+    double acc[G];
 #pragma unroll
-  for (int g = 0; g < G; ++g) acc[g] = warp_sum(acc[g]);
+    for (int g = 0; g < G; ++g) acc[g] = 0.0;
+    seg_dot<GA, 0>(acc, wA + (size_t)u * GA * KA, KA, cA, opT, NC,
+                   s * 32 + lane, S * 32);
+    if constexpr (GB > 0)
+      seg_dot<GB, GA>(acc, wB + (size_t)u * GB * KB, KB, cB, opT, NC,
+                      s * 32 + lane, S * 32);
+#pragma unroll
+    for (int g = 0; g < G; ++g) acc[g] = warp_sum(acc[g]);
+    if (S == 1) {
+      if (lane == 0) epi(u, acc);
+    } else if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[(u * S + s) * G + g] = acc[g];
+    }
+  }
+  if (S > 1) {
+    __syncthreads();
+    const int u = threadIdx.x;
+    if (u < nu) {
+      double sum[G];
+#pragma unroll
+      for (int g = 0; g < G; ++g) sum[g] = 0.0;
+      for (int i = 0; i < S; ++i)
+#pragma unroll
+        for (int g = 0; g < G; ++g) sum[g] += part[(u * S + i) * G + g];
+      epi(u, sum);
+    }
+  }
 }
 
+// Copy the rows of nu units from global into shared memory: unit u's row g
+// is [a row | b row] (KA + KB bf16), source row g * N + u0 + u (the packed
+// matrices stack their gates).
+__device__ __forceinline__ void copy_units(bf16* dst, const bf16* a, int KA,
+                                           const bf16* b, int KB, int u0,
+                                           int nu, int G, int N) {
+  const int cpr = (KA + KB) / 8;
+  const int total = nu * G * cpr;
+  for (int i = threadIdx.x; i < total; i += NT) {
+    const int row = i / cpr, k = (i % cpr) * 8;
+    const size_t src = (size_t)(row % G) * N + u0 + row / G;
+    const bf16* p = k < KA ? a + src * KA + k : b + src * KB + (k - KA);
+    reinterpret_cast<uint4*>(dst)[i] = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+}
+
+// A segment of a phase's input: n tagged words at p, of step tag - 2.
+struct Seg {
+  const unsigned long long* p;
+  int n;
+  unsigned tag;
+};
+
+template <bool SPANS>
 __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   const int L = p.L, D = p.D, Dh = p.Dh, H = p.H, NM = p.n_mels;
   const int RM = p.r * NM;
+  const int G = gridDim.x, cta = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gw = blockIdx.x * NW + warp;          // this warp's grid index
-  const int TW = gridDim.x * NW;                  // warps in the grid
+  const Layout y = layout(L, D, Dh, H, NM, p.r, G);
 
-  // shared memory: doubles first, then floats
-  extern __shared__ __align__(16) double smd[];
-  int opn = 2 * D + Dh;
-  if (2 * H > opn) opn = 2 * H;
-  if (NM > opn) opn = NM;
-  double* op = smd;                     // [opn] a phase's input operand
-  double* Ms = op + opn;                // [62][D] folded location conv
-  double* win = Ms + NTAP2 * D;         // [NW][62] per-warp conv window
-  double* red = win + NW * NTAP2;       // [NW] block reduction
-  float* cum = reinterpret_cast<float*>(red + NW);  // [L]
-  float* prv = cum + L;                 // [L]
-  float* sc = prv + L;                  // [L] this step's scores
-  float* pq = sc + L;                   // [D] query projection
+  extern __shared__ __align__(16) unsigned char sm[];
+  double* opT = reinterpret_cast<double*>(sm + y.op);     // the operand
+  double* encd = reinterpret_cast<double*>(sm + y.encd);  // [nd][L]
+  double* part = reinterpret_cast<double*>(sm + y.part);  // partial sums
+  double* win = reinterpret_cast<double*>(sm + y.win);    // a conv window
+  float* opf = reinterpret_cast<float*>(sm + y.opf);      // operand, f32
+  float* cum = reinterpret_cast<float*>(sm + y.cum);
+  float* prv = reinterpret_cast<float*>(sm + y.prv);
+  float* sc = reinterpret_cast<float*>(sm + y.sc);
+  float* ploc = reinterpret_cast<float*>(sm + y.ploc);    // [nl][D]
+  float* encp = reinterpret_cast<float*>(sm + y.encp);    // [nl][D]
+  float* ha_own = reinterpret_cast<float*>(sm + y.own);
+  float* c1_own = ha_own + most(D, G);
+  float* c2_own = c1_own + most(H, G);
+  uint32_t* ms = reinterpret_cast<uint32_t*>(sm + y.ms);  // [31][D] tap pairs
+  bf16* w_p1 = reinterpret_cast<bf16*>(sm + y.w[WP1]);
+  bf16* w_p2 = reinterpret_cast<bf16*>(sm + y.w[WP2]);
+  bf16* w_gi = reinterpret_cast<bf16*>(sm + y.w[WG]);
+  bf16* w_gh = w_gi + (size_t)most(D, G) * 3 * (D + Dh);
+  bf16* w_q = reinterpret_cast<bf16*>(sm + y.w[WQ]);
+  bf16* w_ri = reinterpret_cast<bf16*>(sm + y.w[WRI]);
+  bf16* w_l1 = reinterpret_cast<bf16*>(sm + y.w[WL1]);
+  bf16* w_l2 = reinterpret_cast<bf16*>(sm + y.w[WL2]);
+  bf16* w_mel = reinterpret_cast<bf16*>(sm + y.w[WMEL]);
 
-  // global scratch
-  float* w_prev = p.work;               // [NM]
-  float* w_p1 = w_prev + NM;            // [D]
-  float* w_p2 = w_p1 + D;               // [Dh]
-  float* w_ha = w_p2 + Dh;              // [2][D]
-  float* w_pq = w_ha + 2 * D;           // [D]
-  float* w_u = w_pq + D;                // [L]
-  float* w_ctx = w_u + L;               // [D]
-  float* w_x = w_ctx + D;               // [H]
-  float* w_h1 = w_x + H;                // [2][H]
-  float* w_c1 = w_h1 + 2 * H;           // [2][H]
-  float* w_x1 = w_c1 + 2 * H;           // [H]
-  float* w_h2 = w_x1 + H;               // [2][H]
-  float* w_c2 = w_h2 + 2 * H;           // [2][H]
-  float* w_x2 = w_c2 + 2 * H;           // [H]
+  // what this CTA owns: [x0, x0 + nx)
+  const int p1_0 = own0(D, cta, G), n_p1 = own0(D, cta + 1, G) - p1_0;
+  const int p2_0 = own0(Dh, cta, G), n_p2 = own0(Dh, cta + 1, G) - p2_0;
+  const int d0 = own0(D, cta, G), nd = own0(D, cta + 1, G) - d0;  // GRU, W_q, context
+  const int l0 = own0(L, cta, G), nl = own0(L, cta + 1, G) - l0;
+  const int h0 = own0(H, cta, G), nh = own0(H, cta + 1, G) - h0;  // rnn_input, LSTMs
+  const int m0 = own0(RM, cta, G), nm = own0(RM, cta + 1, G) - m0;
 
-  // the state coming in
+  // tagged scratch, two slots (by step parity) of each activation
+  const size_t slot = (size_t)NM + 4 * D + Dh + L + 5 * H;
+  struct Acts {
+    unsigned long long *prev, *p1, *p2, *ha, *pq, *u, *ctx, *x, *h1, *x1, *h2,
+        *x2;
+  };
+  auto acts = [&](int parity) {
+    Acts t;
+    t.prev = p.work + parity * slot;      // [NM]
+    t.p1 = t.prev + NM;                   // [D]
+    t.p2 = t.p1 + D;                      // [Dh]
+    t.ha = t.p2 + Dh;                     // [D]
+    t.pq = t.ha + D;                      // [D]
+    t.u = t.pq + D;                       // [L]
+    t.ctx = t.u + L;                      // [D]
+    t.x = t.ctx + D;                      // [H]
+    t.h1 = t.x + H;                       // [H]
+    t.x1 = t.h1 + H;                      // [H]
+    t.h2 = t.x1 + H;                      // [H]
+    t.x2 = t.h2 + H;                      // [H]
+    return t;
+  };
+
+  // the state coming in and going out
   const float* s_prev = p.s_in;
   const float* s_ha = s_prev + NM;
   const float* s_h1 = s_ha + D;
@@ -208,32 +468,126 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   const float* s_ctx = s_c2 + H;
   const float* s_cum = s_ctx + D;
   const float* s_prv = s_cum + L;
+  float* o_prev = p.s_out;
+  float* o_ha = o_prev + NM;
+  float* o_h1 = o_ha + D;
+  float* o_c1 = o_h1 + H;
+  float* o_h2 = o_c1 + H;
+  float* o_c2 = o_h2 + H;
+  float* o_ctx = o_c2 + H;
+  float* o_cum = o_ctx + D;
+  float* o_prv = o_cum + L;
 
-  for (int i = tid; i < NTAP2 * D; i += NT) {     // Ms[t][d] = M_loc[d][t]
-    const int t = i / D, d = i % D;
-    Ms[i] = (double)__bfloat162float(p.M_loc[(size_t)d * NTAP2 + t]);
+  // ---- prologue: this CTA's weights, conv, encoder slices and state ----
+  copy_units(w_p1, p.p1_w, NM, nullptr, 0, p1_0, n_p1, 1, D);
+  copy_units(w_p2, p.p2_w, D, nullptr, 0, p2_0, n_p2, 1, Dh);
+  copy_units(w_gi, p.wih_c, D, p.wih_p, Dh, d0, nd, 3, D);
+  copy_units(w_gh, p.whh, D, nullptr, 0, d0, nd, 3, D);
+  copy_units(w_q, p.W_q, D, nullptr, 0, d0, nd, 1, D);
+  copy_units(w_ri, p.ri_c, D, p.ri_h, D, h0, nh, 1, H);
+  copy_units(w_l1, p.l1_ih, H, p.l1_hh, H, h0, nh, 4, H);
+  copy_units(w_l2, p.l2_ih, H, p.l2_hh, H, h0, nh, 4, H);
+  copy_units(w_mel, p.mel_w, H, nullptr, 0, m0, nm, 1, RM);
+  if (nl > 0) {
+    const uint16_t* m = reinterpret_cast<const uint16_t*>(p.M_loc);
+    for (int i = tid; i < KTAPS * D; i += NT) {   // ms[tp][d] = taps 2tp, 2tp+1
+      const int tp = i / D, d = i % D;
+      ms[i] = (uint32_t)m[(size_t)d * NTAP2 + 2 * tp] |
+              ((uint32_t)m[(size_t)d * NTAP2 + 2 * tp + 1] << 16);
+    }
+    for (int i = tid; i < nl * D; i += NT) encp[i] = __ldg(p.encp + (size_t)l0 * D + i);
   }
+  for (int i = tid; i < nd * L; i += NT)
+    encd[i] = (double)bfr(__ldg(p.enc_t + (size_t)d0 * L + i));
   for (int i = tid; i < L; i += NT) { cum[i] = s_cum[i]; prv[i] = s_prv[i]; }
+  for (int i = tid; i < nd; i += NT) ha_own[i] = s_ha[d0 + i];
+  for (int i = tid; i < nh; i += NT) { c1_own[i] = s_c1[h0 + i]; c2_own[i] = s_c2[h0 + i]; }
+  {  // the state coming in, each value by its owner, as step -1's (slot 1)
+    const Acts in = acts(1);
+    for (int i = tid; i < nd; i += NT) {
+      put(in.ha + d0 + i, s_ha[d0 + i], 1);
+      put(in.ctx + d0 + i, s_ctx[d0 + i], 1);
+    }
+    for (int i = tid; i < nh; i += NT) {
+      put(in.h1 + h0 + i, s_h1[h0 + i], 1);
+      put(in.h2 + h0 + i, s_h2[h0 + i], 1);
+    }
+    for (int i = tid; i < nm; i += NT)
+      if (m0 + i >= RM - NM)
+        put(in.prev + (m0 + i - (RM - NM)), s_prev[m0 + i - (RM - NM)], 1);
+  }
   __syncthreads();
 
-  for (int step = 0; step < p.n_steps; ++step) {
-    const int a = step & 1, b = a ^ 1;
-    const bool first = step == 0;
-    const float* prev_cur = first ? s_prev : w_prev;
-    const float* ctx_cur = first ? s_ctx : w_ctx;
-    const float* ha_cur = first ? s_ha : w_ha + b * D;
-    const float* h1_cur = first ? s_h1 : w_h1 + b * H;
-    const float* c1_cur = first ? s_c1 : w_c1 + b * H;
-    const float* h2_cur = first ? s_h2 : w_h2 + b * H;
-    const float* c2_cur = first ? s_c2 : w_c2 + b * H;
-    float* ha_nxt = w_ha + a * D;
-    float* h1_nxt = w_h1 + a * H;
-    float* c1_nxt = w_c1 + a * H;
-    float* h2_nxt = w_h2 + a * H;
-    float* c2_nxt = w_c2 + a * H;
+  // ploc[jl][:] of text position l0 + jl from cum and prv: one column d per
+  // thread, the 62 taps in order (all threads)
+  auto ploc_row = [&](int jl) {
+    const int l = l0 + jl;
+    if (tid < NTAP2) {
+      const int src = l + (tid < KTAPS ? tid : tid - KTAPS) - PADT;
+      const float* row = tid < KTAPS ? cum : prv;
+      win[tid] = (src >= 0 && src < L) ? dot::act((double)bfr(row[src])) : 0.0;
+    }
+    __syncthreads();
+    for (int d = tid; d < D; d += NT) {
+      double s = 0.0;
+#pragma unroll
+      for (int tp = 0; tp < KTAPS; ++tp) {
+        const uint32_t w2 = ms[tp * D + d];
+        s = fma(dot::lo_bf(w2), win[2 * tp], s);
+        s = fma(dot::hi_bf(w2), win[2 * tp + 1], s);
+      }
+      ploc[jl * D + d] = f32(s);
+    }
+    __syncthreads();
+  };
+  for (int jl = 0; jl < nl; ++jl) ploc_row(jl);
 
-    // the previous step's stop value: max over its r mel frames
-    if (!first && blockIdx.x == 0 && warp == NW - 1) {
+  // CTA 0 stamps the clock when phase k + 1's input has come (k = 9: the
+  // step's barrier)
+  auto stamp = [&](int step, int k) {
+    if (SPANS && cta == 0 && tid == 0)
+      p.spans[(size_t)step * NPHASE + k] = globaltimer();
+  };
+
+  // the phase's operand, up to three tagged segments concatenated: f32 in
+  // opf, act(bf16(v)) chunk-major in opT.  The block first meets, so that no
+  // thread still reads the last phase's operand.
+  auto load_op = [&](Seg s0, Seg s1, Seg s2) {
+    const int n = s0.n + s1.n + s2.n, NC = n / 8;
+    __syncthreads();
+    fetch(n,
+          [&](int k, const unsigned long long*& w, unsigned& tag) {
+            const Seg& g = k < s0.n ? s0 : k < s0.n + s1.n ? s1 : s2;
+            w = g.p + (k < s0.n ? k : k < s0.n + s1.n ? k - s0.n : k - s0.n - s1.n);
+            tag = g.tag;
+          },
+          [&](int k, float v) {
+            opf[k] = v;
+            opT[(k % 8) * NC + k / 8] = dot::act((double)bfr(v));
+          });
+    __syncthreads();
+  };
+  const Seg none{nullptr, 0, 0};
+
+  unsigned nbar = 0;
+  for (int step = 0; step < p.n_steps; ++step) {
+    const bool first = step == 0, last = step == p.n_steps - 1;
+    const unsigned tag = step + 2, tag_cur = step + 1;   // this step, the last
+    const Acts nx = acts(step & 1), cur = acts((step & 1) ^ 1);
+    // the next step's conv, spread over the ends of phases 6-9
+    auto conv_window = [&](int w) {
+      if (!last)
+        for (int jl = w; jl < nl; jl += NWIN) ploc_row(jl);
+    };
+
+    // 1. prenet fc1 on the previous mel frame
+    load_op({cur.prev, NM, tag_cur}, none, none);
+    units<1, 0>(n_p1, w_p1, NM, 0, nullptr, 0, 0, opT, NM / 8, part,
+                [&](int u, const double* s) {
+                  const int j = p1_0 + u;
+                  put(nx.p1 + j, fmaxf(add(f32(s[0]), p.p1_b[j]), 0.f), tag);
+                });
+    if (!first && cta == 0 && warp == NW - 1) {   // the last step's stop
       float m = -CUDART_INF_F;
       for (int k = lane; k < RM; k += 32)
         m = fmaxf(m, ldcg(p.mels + (size_t)(step - 1) * RM + k));
@@ -243,190 +597,178 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
       if (lane == 0) p.stop[step - 1] = m;
     }
 
-    // 1. prenet fc1 on the previous mel frame
-    load_op(op, prev_cur, NM);
-    __syncthreads();
-    for (int j = gw; j < D; j += TW) {
-      double acc[1] = {0.0};
-      wdot<1>(acc, p.p1_w, NM, j, 0, op, lane);
-      wsum(acc);
-      if (lane == 0) __stcg(w_p1 + j, fmaxf(add(f32(acc[0]), p.p1_b[j]), 0.f));
-    }
-    grid_sync(p.bar);
-
     // 2. prenet fc2
-    load_op(op, w_p1, D);
-    __syncthreads();
-    for (int j = gw; j < Dh; j += TW) {
-      double acc[1] = {0.0};
-      wdot<1>(acc, p.p2_w, D, j, 0, op, lane);
-      wsum(acc);
-      if (lane == 0) __stcg(w_p2 + j, fmaxf(add(f32(acc[0]), p.p2_b[j]), 0.f));
-    }
-    grid_sync(p.bar);
+    load_op({nx.p1, D, tag}, none, none);
+    stamp(step, 0);
+    units<1, 0>(n_p2, w_p2, D, 0, nullptr, 0, 0, opT, D / 8, part,
+                [&](int u, const double* s) {
+                  const int j = p2_0 + u;
+                  put(nx.p2 + j, fmaxf(add(f32(s[0]), p.p2_b[j]), 0.f), tag);
+                });
 
     // 3. attention GRU: gi = [context | p2] @ wih, gh = h_attn @ whh
-    load_op(op, ctx_cur, D);
-    load_op(op + D, w_p2, Dh);
-    load_op(op + D + Dh, ha_cur, D);
-    __syncthreads();
-    for (int j = gw; j < D; j += TW) {
-      double gi[3] = {0.0, 0.0, 0.0}, gh[3] = {0.0, 0.0, 0.0};
-      wdot<3>(gi, p.wih_c, D, j, D, op, lane);
-      wdot<3>(gi, p.wih_p, Dh, j, D, op + D, lane);
-      wdot<3>(gh, p.whh, D, j, D, op + D + Dh, lane);
-      wsum(gi);
-      wsum(gh);
-      if (lane == 0) {
-        float fi[3], fh[3];
+    load_op({cur.ctx, D, tag_cur}, {nx.p2, Dh, tag}, {cur.ha, D, tag_cur});
+    stamp(step, 1);
+    units<3, 3>(nd, w_gi, D + Dh, 0, w_gh, D, (D + Dh) / 8, opT,
+                (2 * D + Dh) / 8, part, [&](int u, const double* s) {
+                  const int j = d0 + u;
+                  float fi[3], fh[3];
 #pragma unroll
-        for (int g = 0; g < 3; ++g) {
-          fi[g] = add(f32(gi[g]), p.b_attn[g * D + j]);
-          fh[g] = f32(gh[g]);
-        }
-        const float rg = sg(add(fi[0], fh[0]));
-        const float zg = sg(add(fi[1], fh[1]));
-        const float ng = tanhf(add(fi[2], mul(rg, add(fh[2], p.b_attn_hn[j]))));
-        __stcg(ha_nxt + j, add(mul(sub(1.0f, zg), ng), mul(zg, ldcg(ha_cur + j))));
-      }
-    }
-    grid_sync(p.bar);
+                  for (int g = 0; g < 3; ++g) {
+                    fi[g] = add(f32(s[g]), p.b_attn[g * D + j]);
+                    fh[g] = f32(s[3 + g]);
+                  }
+                  const float rg = sg(add(fi[0], fh[0]));
+                  const float zg = sg(add(fi[1], fh[1]));
+                  const float ng =
+                      tanhf(add(fi[2], mul(rg, add(fh[2], p.b_attn_hn[j]))));
+                  const float h = add(mul(sub(1.0f, zg), ng), mul(zg, ha_own[u]));
+                  ha_own[u] = h;
+                  put(nx.ha + j, h, tag);
+                  if (last) o_ha[j] = h;
+                });
 
     // 4. query projection pq = h_attn @ W
-    load_op(op, ha_nxt, D);
-    __syncthreads();
-    for (int j = gw; j < D; j += TW) {
-      double acc[1] = {0.0};
-      wdot<1>(acc, p.W_q, D, j, 0, op, lane);
-      wsum(acc);
-      if (lane == 0) __stcg(w_pq + j, f32(acc[0]));
-    }
-    grid_sync(p.bar);
+    load_op({nx.ha, D, tag}, none, none);
+    stamp(step, 2);
+    units<1, 0>(nd, w_q, D, 0, nullptr, 0, 0, opT, D / 8, part,
+                [&](int u, const double* s) { put(nx.pq + d0 + u, f32(s[0]), tag); });
 
     // 5. location energies u[l] = v . tanh(((ploc + encp) + pq) + b_q)
-    for (int i = tid; i < D; i += NT) pq[i] = ldcg(w_pq + i);
-    __syncthreads();
-    double* wv = win + warp * NTAP2;
-    for (int l = gw; l < L; l += TW) {
-      for (int t = lane; t < NTAP2; t += 32) {
-        const int src = l + (t < KTAPS ? t : t - KTAPS) - PADT;
-        const float* row = t < KTAPS ? cum : prv;
-        wv[t] = (src >= 0 && src < L) ? (double)bfr(row[src]) : 0.0;
+    load_op({nx.pq, D, tag}, none, none);    // pq in opf
+    stamp(step, 3);
+    for (int jl = 0; jl < nl; ++jl) {
+      double e = 0.0;
+      for (int d = tid; d < D; d += NT) {
+        const float targ = tanhf(add(add(add(ploc[jl * D + d], encp[jl * D + d]),
+                                         opf[d]), __ldg(p.b_q + d)));
+        e = fma((double)__bfloat162float(p.v[d]), (double)bfr(targ), e);
       }
-      __syncwarp();
-      double uacc = 0.0;
-      for (int d = lane; d < D; d += 32) {
-        double s = 0.0;
-#pragma unroll 2
-        for (int t = 0; t < NTAP2; ++t) s = fma(Ms[t * D + d], wv[t], s);
-        const float targ = tanhf(add(add(add(f32(s), __ldg(p.encp + (size_t)l * D + d)),
-                                         pq[d]), p.b_q[d]));
-        uacc = fma((double)__bfloat162float(p.v[d]), (double)bfr(targ), uacc);
+      e = warp_sum(e);
+      if (lane == 0) part[warp] = e;
+      __syncthreads();
+      if (tid == 0) {
+        double t = 0.0;
+        for (int w = 0; w < NW; ++w) t += part[w];
+        put(nx.u + l0 + jl, f32(t), tag);
       }
-      uacc = warp_sum(uacc);
-      if (lane == 0) __stcg(w_u + l, f32(uacc));
-      __syncwarp();
+      __syncthreads();
     }
-    grid_sync(p.bar);
 
     // 6. scores in every CTA (the sum is over all of L), then the context
-    double part = 0.0;
-    for (int l = tid; l < L; l += NT) {
-      const float s = sg(ldcg(w_u + l));
-      sc[l] = s;
-      part += (double)s;
-    }
-    part = warp_sum(part);
-    if (lane == 0) red[warp] = part;
-    __syncthreads();
-    double tot = 0.0;
-    for (int w = 0; w < NW; ++w) tot += red[w];
-    const float total = f32(tot);
-    for (int l = tid; l < L; l += NT) {
-      const float s = __fdiv_rn(sc[l], total);
-      sc[l] = s;
-      cum[l] = add(cum[l], s);
-      prv[l] = s;
-      if (blockIdx.x == 0) p.scores[(size_t)step * L + l] = s;
-    }
-    __syncthreads();
-    for (int d = gw; d < D; d += TW) {
-      double acc = 0.0;
-      const float* e = p.enc_t + (size_t)d * L;
-      for (int l = lane; l < L; l += 32)
-        acc = fma((double)bfr(sc[l]), (double)bfr(__ldg(e + l)), acc);
-      acc = warp_sum(acc);
-      if (lane == 0) __stcg(w_ctx + d, f32(acc));
-    }
-    grid_sync(p.bar);
-
-    // 7. rnn_input: x = [context | h_attn] @ ri + ri_b
-    load_op(op, w_ctx, D);
-    load_op(op + D, ha_nxt, D);
-    __syncthreads();
-    for (int j = gw; j < H; j += TW) {
-      double acc[1] = {0.0};
-      wdot<1>(acc, p.ri_c, D, j, 0, op, lane);
-      wdot<1>(acc, p.ri_h, D, j, 0, op + D, lane);
-      wsum(acc);
-      if (lane == 0) __stcg(w_x + j, add(f32(acc[0]), p.ri_b[j]));
-    }
-    grid_sync(p.bar);
-
-    // 8./9. the residual LSTMs
-    for (int layer = 0; layer < 2; ++layer) {
-      const float* xin = layer ? w_x1 : w_x;
-      const float* hc = layer ? h2_cur : h1_cur;
-      const float* cc = layer ? c2_cur : c1_cur;
-      float* hn = layer ? h2_nxt : h1_nxt;
-      float* cn = layer ? c2_nxt : c1_nxt;
-      float* xo = layer ? w_x2 : w_x1;
-      const bf16* w_ih = layer ? p.l2_ih : p.l1_ih;
-      const bf16* w_hh = layer ? p.l2_hh : p.l1_hh;
-      const float* bias = layer ? p.l2_b : p.l1_b;
-      load_op(op, xin, H);
-      load_op(op + H, hc, H);
+    {
       __syncthreads();
-      for (int j = gw; j < H; j += TW) {
-        double g4[4] = {0.0, 0.0, 0.0, 0.0};
-        wdot<4>(g4, w_ih, H, j, H, op, lane);
-        wdot<4>(g4, w_hh, H, j, H, op + H, lane);
-        wsum(g4);
+      double ps = 0.0;
+      fetch(L,
+            [&](int l, const unsigned long long*& w, unsigned& t) {
+              w = nx.u + l;
+              t = tag;
+            },
+            [&](int l, float v) {
+              const float s = sg(v);
+              sc[l] = s;
+              ps += (double)s;
+            });
+      stamp(step, 4);
+      ps = warp_sum(ps);
+      if (lane == 0) part[warp] = ps;
+      __syncthreads();
+      double tot = 0.0;
+      for (int w = 0; w < NW; ++w) tot += part[w];
+      const float total = f32(tot);
+      for (int l = tid; l < L; l += NT) {
+        const float s = __fdiv_rn(sc[l], total);
+        sc[l] = s;
+        cum[l] = add(cum[l], s);
+        prv[l] = s;
+        if (cta == 0) p.scores[(size_t)step * L + l] = s;
+      }
+      __syncthreads();
+      for (int jd = warp; jd < nd; jd += NW) {
+        double acc = 0.0;
+        for (int l = lane; l < L; l += 32)
+          acc = fma((double)bfr(sc[l]), encd[jd * L + l], acc);
+        acc = warp_sum(acc);
         if (lane == 0) {
-          float gv[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) gv[g] = add(f32(g4[g]), bias[g * H + j]);
-          const float ig = sg(gv[0]), fg = sg(gv[1]);
-          const float gg = tanhf(gv[2]), og = sg(gv[3]);
-          const float c = add(mul(fg, ldcg(cc + j)), mul(ig, gg));
-          const float h = mul(og, tanhf(c));
-          __stcg(cn + j, c);
-          __stcg(hn + j, h);
-          __stcg(xo + j, add(ldcg(xin + j), h));
+          const float c = f32(acc);
+          put(nx.ctx + d0 + jd, c, tag);
+          if (last) o_ctx[d0 + jd] = c;
         }
       }
-      grid_sync(p.bar);
+    }
+    conv_window(0);
+
+    // 7. rnn_input: x = [context | h_attn] @ ri + ri_b
+    load_op({nx.ctx, D, tag}, {nx.ha, D, tag}, none);
+    stamp(step, 5);
+    units<1, 0>(nh, w_ri, 2 * D, 0, nullptr, 0, 0, opT, 2 * D / 8, part,
+                [&](int u, const double* s) {
+                  const int j = h0 + u;
+                  put(nx.x + j, add(f32(s[0]), p.ri_b[j]), tag);
+                });
+    conv_window(1);
+
+    // 8./9. the residual LSTMs
+#pragma unroll 1
+    for (int layer = 0; layer < 2; ++layer) {
+      unsigned long long* xin = layer ? nx.x1 : nx.x;
+      unsigned long long* hc = layer ? cur.h2 : cur.h1;
+      unsigned long long* hn = layer ? nx.h2 : nx.h1;
+      unsigned long long* xo = layer ? nx.x2 : nx.x1;
+      float* c_own = layer ? c2_own : c1_own;
+      float* o_h = layer ? o_h2 : o_h1;
+      float* o_c = layer ? o_c2 : o_c1;
+      const bf16* w = layer ? w_l2 : w_l1;
+      const float* bias = layer ? p.l2_b : p.l1_b;
+      load_op({xin, H, tag}, {hc, H, tag_cur}, none);
+      stamp(step, 6 + layer);
+      units<4, 0>(nh, w, 2 * H, 0, nullptr, 0, 0, opT, 2 * H / 8, part,
+                  [&](int u, const double* s) {
+                    const int j = h0 + u;
+                    float gv[4];
+#pragma unroll
+                    for (int g = 0; g < 4; ++g) gv[g] = add(f32(s[g]), bias[g * H + j]);
+                    const float ig = sg(gv[0]), fg = sg(gv[1]);
+                    const float gg = tanhf(gv[2]), og = sg(gv[3]);
+                    const float c = add(mul(fg, c_own[u]), mul(ig, gg));
+                    const float h = mul(og, tanhf(c));
+                    c_own[u] = c;
+                    put(hn + j, h, tag);
+                    put(xo + j, add(opf[j], h), tag);
+                    if (last) { o_h[j] = h; o_c[j] = c; }
+                  });
+      conv_window(2 + layer);
     }
 
     // 10. mel projection: r frames; the last one feeds the next step
-    load_op(op, w_x2, H);
+    load_op({nx.x2, H, tag}, none, none);
+    stamp(step, 8);
+    units<1, 0>(nm, w_mel, H, 0, nullptr, 0, 0, opT, H / 8, part,
+                [&](int u, const double* s) {
+                  const int m = m0 + u;
+                  const float v = f32(s[0]);
+                  __stcg(p.mels + (size_t)step * RM + m, v);
+                  if (m >= RM - NM) {
+                    put(nx.prev + (m - (RM - NM)), v, tag);
+                    if (last) o_prev[m - (RM - NM)] = v;
+                  }
+                });
+
+    // the step's one grid barrier: no CTA starts a step before every CTA
+    // has read what the step before last wrote into the slots it reuses
     __syncthreads();
-    for (int m = gw; m < RM; m += TW) {
-      double acc[1] = {0.0};
-      wdot<1>(acc, p.mel_w, H, m, 0, op, lane);
-      wsum(acc);
-      if (lane == 0) {
-        const float v = f32(acc[0]);
-        __stcg(p.mels + (size_t)step * RM + m, v);
-        if (m >= RM - NM) __stcg(w_prev + (m - (RM - NM)), v);
-      }
+    ++nbar;
+    if (tid == 0) {
+      arrive(p.bar);
+      wait_for(p.bar, nbar * (unsigned)G);
     }
-    grid_sync(p.bar);
+    __syncthreads();
+    stamp(step, 9);
   }
 
-  // the last step's stop value and the state going out
-  if (blockIdx.x == 0) {
-    const int n = p.n_steps, last = (n - 1) & 1;
+  // the last step's stop value and the attention going out
+  if (cta == 0) {
+    const int n = p.n_steps;
     if (warp == 0) {
       float m = -CUDART_INF_F;
       for (int k = lane; k < RM; k += 32)
@@ -436,38 +778,35 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
         m = fmaxf(m, __shfl_xor_sync(0xffffffffU, m, o));
       if (lane == 0) p.stop[n - 1] = m;
     }
-    float* o = p.s_out;
-    for (int i = tid; i < NM; i += NT) o[i] = ldcg(w_prev + i);
-    o += NM;
-    for (int i = tid; i < D; i += NT) o[i] = ldcg(w_ha + last * D + i);
-    o += D;
-    for (int i = tid; i < H; i += NT) {
-      o[i] = ldcg(w_h1 + last * H + i);
-      o[H + i] = ldcg(w_c1 + last * H + i);
-      o[2 * H + i] = ldcg(w_h2 + last * H + i);
-      o[3 * H + i] = ldcg(w_c2 + last * H + i);
-    }
-    o += 4 * H;
-    for (int i = tid; i < D; i += NT) o[i] = ldcg(w_ctx + i);
-    o += D;
-    for (int i = tid; i < L; i += NT) { o[i] = cum[i]; o[L + i] = prv[i]; }
+    for (int i = tid; i < L; i += NT) { o_cum[i] = cum[i]; o_prv[i] = prv[i]; }
   }
 }
 
-// Dynamic shared memory of one CTA (the layout at the kernel's top).
-size_t smem_bytes(long long L, long long D, long long Dh, long long H,
-                  long long n_mels) {
-  long long opn = 2 * D + Dh;
-  if (2 * H > opn) opn = 2 * H;
-  if (n_mels > opn) opn = n_mels;
-  return sizeof(double) * (opn + NTAP2 * D + NW * NTAP2 + NW) +
-         sizeof(float) * (3 * L + D);
+// The bare-barrier loop: n barriers with no work between them, of the
+// earlier generation barrier (KIND 0) or the counter barrier (KIND 1).
+template <int KIND>
+__global__ void __launch_bounds__(NT, 1) barrier_loop(unsigned* bar, int n) {
+  for (int i = 0; i < n; ++i) {
+    if (KIND == 0) {
+      generation_sync(bar);
+    } else {
+      __syncthreads();
+      if (threadIdx.x == 0) {
+        arrive(bar);
+        wait_for(bar, (unsigned)(i + 1) * gridDim.x);
+      }
+      __syncthreads();
+    }
+  }
 }
 
-}  // namespace
+Layout layout_of(const long long* dims) {
+  return layout((int)dims[1], (int)dims[2], (int)dims[3], (int)dims[4],
+                (int)dims[5], (int)dims[6], (int)dims[7]);
+}
 
-extern "C" int tts_decode(const void* const* ptrs, const long long* dims,
-                          void* stream) {
+template <bool SPANS>
+int launch(const void* const* ptrs, const long long* dims, void* stream) {
   Params p;
   int i = 0;
   auto bw = [&]() { return static_cast<const bf16*>(ptrs[i++]); };
@@ -485,37 +824,57 @@ extern "C" int tts_decode(const void* const* ptrs, const long long* dims,
   p.mels = const_cast<float*>(fw());
   p.scores = const_cast<float*>(fw());
   p.stop = const_cast<float*>(fw());
-  p.work = const_cast<float*>(fw());
+  p.work = static_cast<unsigned long long*>(const_cast<void*>(ptrs[i++]));
   p.bar = static_cast<unsigned*>(const_cast<void*>(ptrs[i++]));
+  p.spans = SPANS ? static_cast<unsigned long long*>(const_cast<void*>(ptrs[i++]))
+                  : nullptr;
   p.n_steps = (int)dims[0]; p.L = (int)dims[1]; p.D = (int)dims[2];
   p.Dh = (int)dims[3]; p.H = (int)dims[4]; p.n_mels = (int)dims[5];
   p.r = (int)dims[6];
   const int ctas = (int)dims[7];
 
-  const size_t bytes = smem_bytes(p.L, p.D, p.Dh, p.H, p.n_mels);
+  const size_t bytes = layout_of(dims).total;
   cudaError_t e = cudaFuncSetAttribute(
-      tts_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tts_decode_kernel<SPANS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return e;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)tts_decode_kernel, dim3(ctas),
-                                  dim3(NT), args, bytes,
+  e = cudaLaunchCooperativeKernel((const void*)tts_decode_kernel<SPANS>,
+                                  dim3(ctas), dim3(NT), args, bytes,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
-extern "C" int tts_decode_max_ctas(int* out, long long L, long long D,
-                                   long long Dh, long long H,
-                                   long long n_mels) {
-  const size_t bytes = smem_bytes(L, D, Dh, H, n_mels);
+}  // namespace
+
+extern "C" int tts_decode(const void* const* ptrs, const long long* dims,
+                          void* stream) {
+  return launch<false>(ptrs, dims, stream);
+}
+
+// The same launch with one more pointer after ``bar``: spans, n_steps x 10
+// uint64, where CTA 0 writes %globaltimer at the end of each phase: when the
+// next phase's input has come, and after the step's barrier (dev only).
+extern "C" int tts_decode_spans(const void* const* ptrs, const long long* dims,
+                                void* stream) {
+  return launch<true>(ptrs, dims, stream);
+}
+
+// The dynamic shared memory of one CTA for dims (tts_decode's).
+extern "C" long long tts_decode_smem_bytes(const long long* dims) {
+  return (long long)layout_of(dims).total;
+}
+
+// How many CTAs with ``bytes`` of shared memory each can be co-resident.
+extern "C" int tts_decode_max_ctas(int* out, long long bytes) {
   cudaError_t e = cudaFuncSetAttribute(
-      tts_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tts_decode_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)bytes);
   if (e != cudaSuccess) return e;
   int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, tts_decode_kernel,
-                                                    NT, bytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &per_sm, tts_decode_kernel<false>, NT, (size_t)bytes);
   if (e != cudaSuccess) return e;
   e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -523,4 +882,19 @@ extern "C" int tts_decode_max_ctas(int* out, long long L, long long D,
   if (e != cudaSuccess) return e;
   *out = per_sm * sms;
   return cudaSuccess;
+}
+
+// n bare barriers of ``kind`` (0 generation, 1 counter) on a cooperative
+// grid of ``ctas`` CTAs of NT threads; bar: two zeroed uint32 (dev only).
+extern "C" int tts_barrier_loop(int kind, int ctas, long long n, void* bar,
+                                void* stream) {
+  void* b = bar;
+  int nn = (int)n;
+  void* args[] = {&b, &nn};
+  const void* fn = kind == 0 ? (const void*)barrier_loop<0>
+                             : (const void*)barrier_loop<1>;
+  cudaError_t e = cudaLaunchCooperativeKernel(
+      fn, dim3(ctas), dim3(NT), args, 0, static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
 }

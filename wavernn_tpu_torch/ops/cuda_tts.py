@@ -5,12 +5,15 @@ Hopper (``csrc/tts_decode.cu``; replaces
 :func:`tts_decode` launches the kernel for CUDA tensors and runs its plain
 PyTorch version (``tts_decode.tts_decode_reference``) for CPU tensors; it
 never falls back from one to the other.  ``tts_decode.launches`` counts
-kernel launches.
+kernel launches.  :func:`tts_smem_plan` is the kernel's shared-memory plan:
+which output units, text positions and context columns each CTA owns, and
+the bytes every CTA allocates; a text whose plan does not fit raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -28,10 +31,86 @@ WEIGHT_ORDER = (
     "l1_ih", "l1_hh", "l1_b", "l2_ih", "l2_hh", "l2_b",
     "mel_w",
 )
-# CTAs of the cooperative grid (one per SM), capped by what fits.  Measured
-# on an H100 (700 W), full width, L=64: 72.9 / 55.1 / 48.3 / 48.5 / 49.1 us
-# per step at 16 / 32 / 64 / 96 / 128 CTAs (PERF.md).
-CTAS = 64
+# CTAs of the cooperative grid: None is one per SM of the card (132 on an
+# H100), each holding its units' weights in shared memory for the launch;
+# an int pins the grid (the card tests set it to leave CTAs without units).
+# Every SM is used: a CTA's share of the weights shrinks with the grid while
+# the hand-over between CTAs barely grows (a bare grid barrier: 0.94 / 1.02
+# us at 64 / 132 CTAs on an H100, PERF.md).
+CTAS = None
+
+SMEM_LIMIT = 232_448   # shared memory one CTA may use on Hopper (227 KB)
+NW = 8                 # warps of a CTA (256 threads)
+MAXG = 6               # the most sums of one unit (the attention GRU's)
+NTAP2 = 62             # taps of the folded location conv: [cum | prv]
+PHASES_PER_STEP = 10   # phases of a decoder step (one span stamp each)
+# What a CTA owns (contiguous, [i*n // grid, (i+1)*n // grid)): its output
+# rows or units of each phase, its text positions (energies) and its
+# context columns; the weight rows of its units stay in its shared memory.
+OWNED = ("prenet1", "prenet2", "attn_gru", "query", "energies", "context",
+         "rnn_input", "lstm1", "lstm2", "mel")
+
+
+def owned(n: int, cta: int, grid: int) -> tuple:
+    """[start, stop) of the ``n`` units that CTA ``cta`` of ``grid`` owns."""
+    return cta * n // grid, (cta + 1) * n // grid
+
+
+def _align(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
+                  grid: int, limit: int | None = SMEM_LIMIT) -> dict:
+    """The kernel's shared-memory plan on ``grid`` CTAs: each phase's unit
+    count, each CTA's owned ranges, the layout every CTA allocates (sized
+    for the most units any CTA owns in each phase; the kernel computes the
+    same bytes and refuses a launch whose plan disagrees) and each CTA's
+    weight bytes.  Raises ``ValueError`` naming L when the layout exceeds
+    ``limit`` bytes (None: no check)."""
+    if grid < 1:
+        raise ValueError(f"grid must be >= 1, got {grid}")
+    units = dict(prenet1=D, prenet2=Dh, attn_gru=D, query=D, energies=L,
+                 context=D, rnn_input=H, lstm1=H, lstm2=H, mel=r * n_mels)
+    # bf16 weights per unit: the rows it owns, operand segments concatenated
+    row_w = dict(prenet1=n_mels, prenet2=D, attn_gru=3 * (D + Dh) + 3 * D,
+                 query=D, energies=0, context=0, rnn_input=2 * D,
+                 lstm1=4 * 2 * H, lstm2=4 * 2 * H, mel=H)
+    most = {k: -(-n // grid) for k, n in units.items()}
+    op_n = max(n_mels, 2 * D + Dh, 2 * H)
+    regions = [                                   # the kernel's order
+        ("operand", 8 * op_n),                    # act-scaled doubles
+        ("enc_cols", 8 * most["context"] * L),    # bf16-rounded doubles
+        ("partials", 8 * NW * MAXG),
+        ("window", 8 * 64),                       # one conv window
+        ("operand_f32", 4 * op_n),
+        ("cum", 4 * L), ("prv", 4 * L), ("scores", 4 * L),
+        ("ploc", 4 * most["energies"] * D),
+        ("encp_rows", 4 * most["energies"] * D),
+        ("own_state", 4 * (most["attn_gru"] + 2 * most["lstm1"])),
+        ("loc_conv", 4 * (NTAP2 // 2) * D),       # bf16 tap pairs
+    ] + [(f"w_{k}", 2 * most[k] * row_w[k]) for k in OWNED if row_w[k]]
+    nbytes = sum(_align(b) for _, b in regions)
+    ranges = {k: [owned(n, i, grid) for i in range(grid)]
+              for k, n in units.items()}
+    weight_bytes = [sum(2 * (ranges[k][i][1] - ranges[k][i][0]) * row_w[k]
+                        for k in OWNED) for i in range(grid)]
+    if limit is not None and nbytes > limit:
+        raise ValueError(
+            f"a text of L={L} symbols does not fit the TTS kernel on {grid} "
+            f"CTAs: it needs {nbytes} bytes of shared memory per CTA, the "
+            f"limit is {limit}")
+    return dict(grid=grid, units=units, most=most, ranges=ranges,
+                regions=dict(regions), bytes=nbytes,
+                weight_bytes=weight_bytes)
+
+
+@functools.lru_cache(maxsize=64)
+def _layout_bytes(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
+                  grid: int) -> int:
+    """The plan's bytes, once per shape: building the plan takes ~0.8 ms
+    on the host, as long as a 48-step launch's work on the card."""
+    return tts_smem_plan(D, Dh, H, n_mels, r, L, grid)["bytes"]
 
 
 def _shapes(D: int, Dh: int, H: int, n_mels: int, r: int) -> dict:
@@ -86,6 +165,28 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
         raise NotImplementedError("int8_lstm is not ported")
     if enc.device.type == "cpu":
         return tts_decode_reference(packed, enc, encp, state, n_steps)
+    out = _launch(packed, enc, encp, state, n_steps, None)
+    tts_decode.launches += 1
+    return out
+
+
+def tts_decode_spans(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
+                     state: TTSDecodeState, n_steps: int):
+    """Dev only: the kernel's instantiation that stamps the card's
+    nanosecond clock (``%globaltimer``, CTA 0) at the end of each of a
+    step's phases: when the next phase's input has come, and after the
+    step's grid barrier.  Returns :func:`tts_decode`'s outputs and the
+    stamps, (n_steps, PHASES_PER_STEP) int64 on the card.  Not counted in
+    ``tts_decode.launches``; nothing on the request path calls it."""
+    if enc.device.type != "cuda":
+        raise ValueError(f"the spans launch needs CUDA tensors, got "
+                         f"{enc.device}")
+    spans = torch.zeros(n_steps, PHASES_PER_STEP, dtype=torch.int64,
+                        device=enc.device)
+    return _launch(packed, enc, encp, state, n_steps, spans), spans
+
+
+def _launch(packed, enc, encp, state, n_steps, spans):
     if enc.device.type != "cuda":
         raise ValueError(f"tts_decode runs on CUDA or CPU tensors, got "
                          f"{enc.device}")
@@ -95,16 +196,23 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
 
     lib = load_library()
     dev = enc.device
+    grid = CTAS or torch.cuda.get_device_properties(dev).multi_processor_count
+    nbytes = _layout_bytes(D, Dh, H, n_mels, r, L, grid)
+    dims = [n_steps, L, D, Dh, H, n_mels, r, grid]
+    c_dims = (ctypes.c_longlong * len(dims))(*dims)
+    if lib.tts_decode_smem_bytes(c_dims) != nbytes:
+        raise RuntimeError(
+            f"tts_decode kernel: its layout takes "
+            f"{lib.tts_decode_smem_bytes(c_dims)} bytes, the plan {nbytes}")
     with torch.cuda.device(dev):
         fit = ctypes.c_int(0)
-        err = lib.tts_decode_max_ctas(ctypes.byref(fit), L, D, Dh, H, n_mels)
-        if err != 0:
+        err = lib.tts_decode_max_ctas(ctypes.byref(fit), nbytes)
+        if err != 0 or fit.value < grid:
             raise RuntimeError(
-                f"tts_decode kernel: no launch fits a text of {L} symbols: "
-                f"{lib.wavernn_error_string(err).decode()}")
-        grid = min(CTAS, fit.value)
-        if grid < 1:
-            raise RuntimeError(f"tts_decode kernel: no CTA fits at L={L}")
+                f"tts_decode kernel: {grid} CTAs of {nbytes} bytes "
+                f"do not fit the card at L={L} (co-resident: {fit.value}"
+                + (f"; {lib.wavernn_error_string(err).decode()}" if err
+                   else "") + ")")
         f32 = dict(dtype=torch.float32, device=dev)
         enc_t = enc.t().contiguous()
         state_in = torch.cat([getattr(state, f) for f in STATE_FIELDS])
@@ -112,21 +220,22 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
         mels = torch.empty(n_steps, r * n_mels, **f32)
         scores = torch.empty(n_steps, L, **f32)
         stop = torch.empty(n_steps, **f32)
-        work = torch.empty(n_mels + Dh + 5 * D + L + 11 * H, **f32)
-        bar = torch.zeros(2, dtype=torch.int32, device=dev)
+        # tagged activations, two slots; tag 0 is "not written yet"
+        work = torch.zeros(2 * (n_mels + 4 * D + Dh + L + 5 * H),
+                           dtype=torch.int64, device=dev)
+        bar = torch.zeros(1, dtype=torch.int32, device=dev)
         ptrs = [packed[k].data_ptr() for k in WEIGHT_ORDER] + [
             t.data_ptr() for t in (enc_t, encp, state_in, state_out, mels,
                                    scores, stop, work, bar)]
-        dims = [n_steps, L, D, Dh, H, n_mels, r, grid]
+        if spans is not None:
+            ptrs.append(spans.data_ptr())
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.tts_decode(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_longlong * len(dims))(*dims),
-            ctypes.c_void_p(stream))
+        entry = lib.tts_decode if spans is None else lib.tts_decode_spans
+        err = entry((ctypes.c_void_p * len(ptrs))(*ptrs), c_dims,
+                    ctypes.c_void_p(stream))
     if err != 0:
         raise RuntimeError(f"tts_decode kernel launch failed: "
                            f"{lib.wavernn_error_string(err).decode()}")
-    tts_decode.launches += 1
     sizes = [getattr(state, f).shape[0] for f in STATE_FIELDS]
     new_state = TTSDecodeState(*torch.split(state_out, sizes))
     return mels.view(n_steps, r, n_mels), scores, stop, new_state
