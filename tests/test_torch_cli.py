@@ -74,9 +74,35 @@ def test_cli_raises_without_cuda(cli_args, monkeypatch):
 
 
 def test_cli_refuses_wav_input(cli_args, tmp_path):
+    """The CLI once refused a ``.wav``; it now vocodes one (its mel
+    through ``dsp/audio.melspectrogram``), writes the input beside the
+    result, and still refuses other suffixes."""
+    from wavernn_tpu_torch.dsp import audio
+
+    t = np.arange(int(0.3 * 22050)) / 22050
+    x = (0.4 * np.sin(2 * np.pi * 330 * t) + 0.05 * np.random.default_rng(
+        0).standard_normal(t.shape)).astype(np.float32)
+    wav_path = tmp_path / "speech.wav"
+    wavio.save_wav(x, wav_path, 22050)
     args = list(cli_args)
-    args[1] = str(tmp_path / "speech.wav")
-    with pytest.raises(NotImplementedError, match="npy"):
+    args[1] = str(wav_path)
+    out = gen_wavernn.main(args + ["--device", "cpu"])
+    assert (out.parent / "__speech__0k_steps_target.wav").exists()
+    mel = audio.melspectrogram(audio.load_wav(wav_path))
+    got, sr = wavio.read_wav_raw(out)
+    assert sr == 22050 and got.shape == ((mel.shape[1] - 1) * 275,)
+    blob = load_pytree(WEIGHTS)
+    cfg = WaveRNNConfig(rnn_dims=32, fc_dims=32, compute_dims=16,
+                        res_out_dims=16, res_blocks=2, mode="RAW")
+    gen = make_generator(cfg, {"params": blob["params"],
+                               "batch_stats": blob["batch_stats"]},
+                         "cpu", deterministic=True)
+    want = gen(mel, batched=True, target=1000, overlap=50, mu_law=True)
+    np.testing.assert_array_equal(np.round(got * 32768.0).astype(np.int16),
+                                  want)
+    args[1] = str(tmp_path / "speech.mp3")
+    hp.reset()
+    with pytest.raises(ValueError, match="Expected .wav or .npy"):
         gen_wavernn.main(args + ["--device", "cpu"])
 
 

@@ -133,15 +133,19 @@ def test_padding_folds_are_masked():
 
 
 def test_pcm16_fade_and_clip():
-    from wavernn_tpu_torch.ops.decode import fade_and_pcm16
+    from wavernn_tpu_torch.ops.decode import fade_and_pack
 
     y = torch.tensor([2.0, -2.0, 0.5, 0.5, 0.5, 0.5])
-    out = fade_and_pcm16(y, wave_len=4, fade=2).numpy()
+    out = fade_and_pack(y, wave_len=4, fade=2).numpy()
     # clip after scaling keeps -32768 reachable; the fade covers the last
     # two real samples (1 -> 0) and zeroes what lies past wave_len
     np.testing.assert_array_equal(out, [32767, -32768, 16384, 0, 0, 0])
-    short = fade_and_pcm16(torch.ones(3), wave_len=3, fade=550).numpy()
+    short = fade_and_pack(torch.ones(3), wave_len=3, fade=550).numpy()
     np.testing.assert_array_equal(short, [32767, 16384, 0])
+    # a window that starts at waveform sample 2 takes its slice of the
+    # same envelope
+    np.testing.assert_array_equal(
+        fade_and_pack(y[2:], wave_len=4, fade=2, base=2).numpy(), out[2:])
 
 
 def test_cuda_generator_raises_without_cuda(monkeypatch):
@@ -155,9 +159,6 @@ def test_cuda_generator_raises_without_cuda(monkeypatch):
     (dict(int8_ff=True), NotImplementedError),
     (dict(int8_gates=True), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
-    (dict(input_dtype="bfloat16"), NotImplementedError),
-    (dict(input_dtype="uint8"), NotImplementedError),
-    (dict(output_dtype="mulaw8"), NotImplementedError),
     (dict(output_dtype="int8"), ValueError),
     (dict(backend="pallas"), ValueError),
 ])
@@ -165,6 +166,23 @@ def test_unported_options_raise(option, exc):
     kw, v = small("MOL")
     with pytest.raises(exc):
         Generator(WaveRNNConfig(**kw), v, device="cpu", **option)
+
+
+@pytest.mark.parametrize("option", [
+    dict(input_dtype="bfloat16"), dict(input_dtype="uint8"),
+    dict(output_dtype="mulaw8"),
+])
+def test_wire_options_serve(option):
+    """The wire formats that once raised construct and serve a short mel:
+    the right dtype and length, and not silence."""
+    kw, v = small("MOL")
+    gen = Generator(WaveRNNConfig(**kw), v, device="cpu",
+                    deterministic=True, **option)
+    out = gen(mel(6, seed=2), batched=True, target=TARGET, overlap=OVERLAP,
+              mu_law=False)
+    want = np.uint8 if option.get("output_dtype") == "mulaw8" else np.float64
+    assert out.dtype == want and out.shape == (5 * 275,)
+    assert np.ptp(out.astype(np.float64)) > 0
 
 
 def test_prestaged_geometry_mismatch_raises():

@@ -1,5 +1,5 @@
 """WaveRNN vocoder CLI of the PyTorch port: copy-synthesis of a ``.npy``
-mel (ports ``gen_wavernn.py --file``).
+mel or a ``.wav`` (ports ``gen_wavernn.py --file``).
 
     python -m wavernn_tpu_torch.gen_wavernn --file mel.npy \\
         --voc_weights bench_assets/wavernn_mol_golden.msgpack \\
@@ -34,7 +34,7 @@ def main(argv=None):
     parser.add_argument("--overlap", "-o", type=int,
                         help="[int] crossover samples")
     parser.add_argument("--file", "-f", type=str, required=True,
-                        help="[string/path] npy mel to vocode")
+                        help="[string/path] .npy mel or .wav to vocode")
     parser.add_argument("--voc_weights", "-w", type=str,
                         help="[string/path] WaveRNN weights (.msgpack as the "
                              "JAX package writes them)")

@@ -1,7 +1,7 @@
 """Vocoder inference entry points (ports ``wavernn_tpu/infer/wavernn.py``).
 
-``gen_from_file`` copy-synthesizes a ``.npy`` mel.  ``.wav`` input needs the
-STFT/mel front end, which this package does not have yet.
+``gen_from_file`` copy-synthesizes a ``.npy`` mel, or a ``.wav`` through the
+STFT/mel front end (``dsp/audio.py``, which reads ``hp``).
 """
 
 from __future__ import annotations
@@ -12,7 +12,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from wavernn_tpu_torch.dsp import wavio
+from wavernn_tpu_torch.dsp import audio, wavio
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.ops.decode import Generator
 
@@ -26,15 +26,14 @@ def make_generator(cfg: WaveRNNConfig, variables, device,
 
 
 def load_mel(path: Path, n_mels: int) -> np.ndarray:
-    """A normalized (n_mels, frames) mel from a ``.npy`` file, checked as
-    the JAX CLI checks it."""
+    """A normalized (n_mels, frames) mel: the mel of a ``.wav`` (loaded at
+    ``hp.sample_rate``), or a ``.npy`` file checked as the JAX CLI checks
+    it."""
     path = Path(path)
     if path.suffix == ".wav":
-        raise NotImplementedError(
-            ".wav input needs the STFT/mel front end, not ported yet; "
-            "pass a .npy mel")
+        return audio.melspectrogram(audio.load_wav(path))
     if path.suffix != ".npy":
-        raise ValueError(f"Expected .npy, got {path.suffix}!")
+        raise ValueError(f"Expected .wav or .npy, got {path.suffix}!")
     mel = np.load(path)
     if mel.ndim != 2 or mel.shape[0] != n_mels:
         raise ValueError(
@@ -49,15 +48,20 @@ def load_mel(path: Path, n_mels: int) -> np.ndarray:
 def gen_from_file(gen: Generator, load_path: Path, save_dir: Path,
                   batched: bool, target: int, overlap: int, mu_law: bool,
                   step: int = 0, seed: int = 0) -> Path:
-    """Vocode one ``.npy`` mel and write the WAV; returns its path.  Prints
-    the generation rate in kHz (samples / wall-clock s)."""
+    """Vocode one ``.npy`` mel or ``.wav`` and write the WAV (for a
+    ``.wav``, the input beside it as ``*_target.wav``); returns its path.
+    Prints the generation rate in kHz (samples / wall-clock s)."""
     load_path = Path(load_path)
     mel = load_mel(load_path, gen.cfg.feat_dims)
     batch_str = (f"gen_batched_target{target}_overlap{overlap}" if batched
                  else "gen_NOT_BATCHED")
     save_dir = Path(save_dir)
     save_dir.mkdir(parents=True, exist_ok=True)
-    out = save_dir / f"__{load_path.stem}__{step // 1000}k_steps_{batch_str}.wav"
+    stem = f"__{load_path.stem}__{step // 1000}k_steps"
+    if load_path.suffix == ".wav":
+        audio.save_wav(audio.load_wav(load_path),
+                       save_dir / f"{stem}_target.wav")
+    out = save_dir / f"{stem}_{batch_str}.wav"
 
     start = time.perf_counter()
     wav = gen(mel, batched=batched, target=target, overlap=overlap,

@@ -1,17 +1,29 @@
 """Autoregressive WaveRNN generation: the plain float32 decoder and the
-one-utterance serving ``Generator`` (ports ``wavernn_tpu/ops/decode.py``).
+serving ``Generator`` (ports ``wavernn_tpu/ops/decode.py``): one utterance
+per launch, co-batched utterances in one launch, and streaming with an
+incremental crossfade, over four ingress and four egress wire formats.
 
 ``backend='kernel'`` (the default) runs the sample loop through
 ``cuda_decode.decode``: the CUDA kernel for CUDA tensors, its plain PyTorch
 version for CPU tensors.  ``backend='scan'`` runs :func:`decode_scan`, the
 float32 reference decoder.  Frame and fold bucketing follow the JAX package
-exactly, so both packages decode the same folds of the same lengths.
+exactly, so both packages decode the same folds of the same lengths; the
+kernel's conditioning is exactly ``target + 2*overlap`` steps long (no TPU
+chunk rounding).
+
+Every launch, finalize and host copy is queued on the current CUDA stream,
+and nothing on the serving paths waits for the card except ``collect``:
+uploads and the fold-start vectors go through pinned memory
+(``non_blocking``), results come back into pinned memory with a recorded
+event (:class:`HostCopy`).
 """
 
 from __future__ import annotations
 
+import math
+from collections import deque
 from dataclasses import dataclass
-from typing import NamedTuple, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -149,6 +161,31 @@ def int8_ff_policy(int8_ff: Optional[bool], n_folds: int) -> bool:
     return False
 
 
+def fold_spans(needed: int, group: int, first_group: Optional[int] = None):
+    """Fold-group spans for streaming decode: ``first_group`` (when set and
+    smaller than ``group``) carves a small leading group so the first audio
+    chunk arrives after decoding only a few folds.  Shared by
+    :meth:`Generator.stream` and :meth:`Generator.stream_oneshot`, so the
+    parity oracle covers the ramped schedule too."""
+    spans, g0 = [], 0
+    if first_group and first_group < min(group, needed):
+        spans.append((0, first_group))
+        g0 = first_group
+    while g0 < needed:
+        g1 = min(g0 + group, needed)
+        spans.append((g0, g1))
+        g0 = g1
+    return spans
+
+
+INPUT_DTYPES = ("float32", "float16", "bfloat16", "uint8")
+OUTPUT_DTYPES = ("float64", "float32", "int16", "mulaw8")
+_OUTPUT_NP = {"float64": np.float64, "float32": np.float32,
+              "int16": np.int16, "mulaw8": np.uint8}
+# uint8 ingress: one step of the [0, 1] mel, the float32 nearest to 1/255
+_U8_STEP = float(np.float32(1.0 / 255.0))
+
+
 class Prestaged(NamedTuple):
     """A :meth:`Generator.prestage` result: one utterance's padded mel on
     the device plus the fold geometry it was staged for."""
@@ -161,32 +198,211 @@ class Prestaged(NamedTuple):
     overlap: int
 
 
+class PrestagedBatch(NamedTuple):
+    """A :meth:`Generator.prestage_batch` result: every utterance's mel
+    padded to one frame count, on the device, with each one's true sample
+    count, bucketed frame count and fold count."""
+
+    batch_dev: torch.Tensor
+    wave_lens: tuple
+    t_buckets: tuple
+    fold_counts: tuple
+    target: int
+    overlap: int
+
+
+class HostCopy:
+    """A device tensor's copy into pinned host memory, queued on the
+    current stream with an event that marks its end.  The pinned buffer is
+    read only after that event, and never reused; a CPU tensor is its own
+    copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self.done = None
+        if t.device.type != "cuda":
+            self.host = t
+            return
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        self.host.copy_(t, non_blocking=True)
+        self.done = torch.cuda.Event()
+        self.done.record()
+
+    def numpy(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.host.numpy()
+
+
 @dataclass
 class Pending:
     """A :meth:`Generator.submit` handle: the device result, the true
     sample count and, after :meth:`Generator.prefetch`, the host copy in
-    flight with the event that marks its end."""
+    flight."""
 
     out_dev: torch.Tensor
     wave_len: int
-    host: Optional[torch.Tensor] = None
-    done: Optional[torch.cuda.Event] = None
+    copy: Optional[HostCopy] = None
+
+
+@dataclass
+class PendingBatch:
+    """A :meth:`Generator.submit_batch` handle: the flat device output of
+    every utterance (utterance i takes ``fold_counts[i]*stride + overlap``
+    samples of it, ``wave_lens[i]`` of them real) and its host copy."""
+
+    out_dev: torch.Tensor
+    wave_lens: tuple
+    fold_counts: tuple
+    target: int
+    overlap: int
+    copy: Optional[HostCopy] = None
+
+
+@dataclass
+class StreamSession:
+    """One utterance's streaming front-end (:meth:`Generator.
+    open_stream_session`): the conditioning its fold rows are decoded
+    from, in any grouping, by its own :meth:`Generator.stream` or
+    multiplexed with other sessions' rows (``infer/stream_server.py``)."""
+
+    needed_folds: int   # real folds to decode (folds of padding skipped)
+    stride: int         # fold k's conditioning starts at row k*stride
+    fold_T: int         # decode steps per fold = target + 2*overlap
+    wave_len: int       # true output sample count
+    # kernel: one (rows, C) bf16 conditioning stream; fold rows are
+    # gathered from it by start row
+    packed: Optional[torch.Tensor] = None
+    # scan: folded sample-rate conditioning (on the host with host_rows)
+    mels_f: Optional[torch.Tensor] = None
+    aux_f: Optional[torch.Tensor] = None
+
+
+class _IncrementalUnfold:
+    """Incremental crossfade finalization for one streaming session.
+
+    Fold k-1 is the only earlier fold whose tail overlaps positions at or
+    beyond fold k's seam, so one raw fold of left context is all the state
+    needed: each feed finalizes its rows plus that context, and emits
+    exactly the samples that have become final (every fold overlapping
+    them decoded).  Shared by :meth:`Generator.stream` and
+    ``StreamServer``.
+
+    A feed is :meth:`feed_async` / :meth:`feed_async_dev` (queue the
+    finalize and its host copy, advance the cursor) and :meth:`collect`
+    (wait for that copy), so a caller can queue the next decode launch
+    before it waits.  With packed egress (int16 / mulaw8) the crossfade,
+    the slice of the tail fade that falls in the window and the
+    quantization all run on the device; float chunks get their slice of
+    the fade on the host.  The fade is in *global* waveform coordinates:
+    the last min(20*hop, wave_len) samples of the whole waveform, whatever
+    the chunk boundaries, so a stream equals its one-shot oracle."""
+
+    def __init__(self, gen: "Generator", needed_folds: int, stride: int,
+                 wave_len: int, overlap: int, mu_law: bool):
+        self.gen = gen
+        self.needed_folds = needed_folds
+        self.stride = stride
+        self.wave_len = wave_len
+        self.overlap = overlap
+        self.mu_law = mu_law
+        self.g_done = 0          # folds fed so far
+        self.emitted = 0         # samples emitted so far
+        self._prev_fold = None   # raw samples of the last fold fed (device)
+        self.packed = gen.packed_output
+        self._fade = min(gen.fade_len, wave_len)
+        self._env = None
+
+    @property
+    def done(self) -> bool:
+        return self.emitted >= self.wave_len
+
+    def feed(self, samples: np.ndarray) -> np.ndarray:
+        """Finalize raw fold rows for folds [g_done, g_done+len(samples));
+        return the newly final audio chunk (possibly empty)."""
+        return self.collect(self.feed_async(samples))
+
+    def feed_async(self, samples: np.ndarray):
+        """Upload host fold rows and :meth:`feed_async_dev` them."""
+        rows = self.gen._upload(torch.from_numpy(
+            np.ascontiguousarray(samples, dtype=np.float32)))
+        return self.feed_async_dev(rows, rows.shape[0])
+
+    def feed_async_dev(self, rows_dev: torch.Tensor, n: int,
+                       offset: int = 0):
+        """Queue the finalize of ``n`` device-resident fold rows (rows
+        ``offset`` .. ``offset+n`` of ``rows_dev``, e.g. one session's
+        share of a multiplexed launch) behind the device-held carry of the
+        previous fold, and the copy of its result to the host; returns a
+        token for :meth:`collect`.  The raw rows never leave the device."""
+        gen, g0 = self.gen, self.g_done
+        g1 = g0 + n
+        window = rows_dev[offset:offset + n]
+        base = 0
+        if self._prev_fold is not None:
+            window = torch.cat([self._prev_fold[None], window])
+            base = (g0 - 1) * self.stride
+        y = finalize(window, window.shape[0], mu_law=self.mu_law,
+                     batched=True, overlap=self.overlap,
+                     n_classes=gen.cfg.n_classes)
+        if self.packed:
+            y = fade_and_pack(y, self.wave_len, gen.fade_len,
+                              gen.output_dtype, base=base)
+        self._prev_fold = window[-1].clone()
+        final_upto = self.wave_len if g1 >= self.needed_folds else min(
+            self.wave_len, g1 * self.stride)
+        token = (HostCopy(y), base, self.emitted, final_upto)
+        self.emitted = final_upto
+        self.g_done = g1
+        return token
+
+    def collect(self, token) -> np.ndarray:
+        """Wait for a feed's host copy and return its newly final chunk:
+        wire bytes as they came (packed), or float64 with its slice of the
+        tail fade."""
+        copy, base, emitted, final_upto = token
+        out = copy.numpy()
+        if self.packed:
+            return out[emitted - base:final_upto - base].copy()
+        chunk = np.array(out[emitted - base:final_upto - base],
+                         dtype=np.float64)
+        fade_start = self.wave_len - self._fade
+        if self._fade and final_upto > fade_start:
+            a = max(emitted, fade_start)
+            if self._env is None:
+                self._env = np.linspace(1, 0, self._fade)
+            chunk[a - emitted:] *= self._env[a - fade_start:
+                                             final_upto - fade_start]
+        return chunk
 
 
 class Generator:
-    """End-to-end mel -> waveform generation for one utterance at a time.
+    """End-to-end mel -> waveform generation.
 
     ``device`` is required and is never chosen silently: ``"cuda"`` raises
-    when CUDA is absent.  Serving is ``prestage`` -> ``submit`` ->
-    ``prefetch`` -> ``collect``; everything between ingress and egress runs
-    on ``device``.
+    when CUDA is absent.  Everything between ingress and egress runs on
+    ``device``.  Serving paths:
+
+    * one utterance: ``prestage`` -> ``submit`` -> ``prefetch`` ->
+      ``collect`` (or ``__call__``);
+    * co-batched utterances, one decode launch for all of their folds:
+      ``prestage_batch`` -> ``submit_batch`` -> ``prefetch_batch`` ->
+      ``collect_batch`` (``generate_batch`` on a :class:`PrestagedBatch`);
+    * streaming: ``stream`` yields audio chunks as fold groups finish,
+      ``stream_oneshot`` decodes the same groups and finalizes once;
+      ``open_stream_session`` is the front-end the multi-session
+      ``infer.stream_server.StreamServer`` shares.
+
+    Wire formats: ``input_dtype`` float32 / float16 / bfloat16 (a cast,
+    round-to-nearest-even) / uint8 (``round(m*255)`` on the host, times
+    float32(1/255) on the device); ``output_dtype`` float64 / float32 (the
+    tail fade on the host) or int16 PCM / mulaw8 (8-bit mu-law labels,
+    mu = 256), faded and quantized on the device.
 
     ``int8_ff=None`` (the reference's ``"auto"``) resolves to bf16
     feed-forward matrices at every width: :func:`int8_ff_policy`.
 
-    Not ported yet (each raises): ``int8_ff=True`` and its calibration,
-    ``int8_gates``, a decode ``mesh``, ``bfloat16``/``uint8`` ingress and
-    ``mulaw8`` egress."""
+    Not ported (each raises): ``int8_ff=True`` and its calibration,
+    ``int8_gates``, a decode ``mesh``."""
 
     def __init__(self, cfg: WaveRNNConfig, variables, device,
                  backend: str = "kernel", fold_bucket: int = 4,
@@ -205,14 +421,9 @@ class Generator:
             raise NotImplementedError("int8_gates is not ported yet")
         if mesh is not None:
             raise NotImplementedError("mesh decode is not ported yet")
-        if input_dtype in ("bfloat16", "uint8"):
-            raise NotImplementedError(
-                f"input_dtype={input_dtype!r} is not ported yet")
-        if input_dtype not in ("float32", "float16"):
+        if input_dtype not in INPUT_DTYPES:
             raise ValueError(f"unsupported input_dtype {input_dtype!r}")
-        if output_dtype == "mulaw8":
-            raise NotImplementedError("output_dtype='mulaw8' is not ported yet")
-        if output_dtype not in ("float64", "float32", "int16"):
+        if output_dtype not in OUTPUT_DTYPES:
             raise ValueError(f"unsupported output_dtype {output_dtype!r}")
         set_float32_policy()
         self.cfg = cfg
@@ -221,16 +432,22 @@ class Generator:
         self.frame_bucket = frame_bucket
         self.deterministic = deterministic
         self.output_dtype = output_dtype
-        self.packed_output = output_dtype == "int16"
+        self.output_np_dtype = _OUTPUT_NP[output_dtype]
+        self.packed_output = output_dtype in ("int16", "mulaw8")
         self.input_dtype = input_dtype
         self.int8_hh = int8_hh
-        self.model = from_jax_variables(variables, cfg, self.device)
+        self.fade_len = 20 * cfg.hop_length
+        self.update_variables(variables)
+
+    def update_variables(self, variables) -> None:
+        """Swap in new model variables (e.g. a fresher checkpoint)."""
+        self.model = from_jax_variables(variables, self.cfg, self.device)
         self.weights = extract_decode_weights(self.model)
         self.packed = (cuda_decode.pack_weights(
-            self.weights, cfg.feat_dims, cfg.aux_dims, int8_hh=int8_hh)
-            if backend == "kernel" else None)
+            self.weights, self.cfg.feat_dims, self.cfg.aux_dims,
+            int8_hh=self.int8_hh) if self.backend == "kernel" else None)
 
-    # -- public API -----------------------------------------------------
+    # -- one utterance --------------------------------------------------
 
     def __call__(self, mels: np.ndarray, batched: bool, target: int,
                  overlap: int, mu_law: bool, seed: int = 0) -> np.ndarray:
@@ -243,23 +460,13 @@ class Generator:
                  overlap: int) -> Prestaged:
         """Pad (context pad + frame bucket) and upload one utterance's mel
         in the ingress dtype."""
-        c = self.cfg
-        mels = np.asarray(mels, dtype=np.float32)
-        if mels.ndim == 2:
-            mels = mels[None]
-        if mels.shape[0] != 1:
-            raise ValueError("generate expects a single utterance")
-        mels = np.transpose(mels, (0, 2, 1))  # (1, T_mel, feat)
-        wave_len = (mels.shape[1] - 1) * c.hop_length
-        t_bucket = _round_up(mels.shape[1] + 2 * c.pad, self.frame_bucket)
-        mels = np.pad(mels, ((0, 0), (c.pad, t_bucket - mels.shape[1] - c.pad),
-                             (0, 0)))
+        mels, wave_len, t_bucket = self._pad_mel(mels)
         if batched:
-            real_len = (t_bucket - 2 * c.pad) * c.hop_length
+            real_len = (t_bucket - 2 * self.cfg.pad) * self.cfg.hop_length
             num_folds, _ = fold_ops.fold_shape(real_len, target, overlap)
         else:
             num_folds = 1
-        return Prestaged(self._ingress_pack(mels).to(self.device), num_folds,
+        return Prestaged(self._upload(self._ingress_pack(mels)), num_folds,
                          wave_len, batched, target, overlap)
 
     def submit(self, mels, batched: bool, target: int, overlap: int,
@@ -286,38 +493,42 @@ class Generator:
         return Pending(out, mels.wave_len)
 
     def prefetch(self, handle: Pending) -> None:
-        """Start the device -> host copy of a :meth:`submit` result into
+        """Queue the device -> host copy of a :meth:`submit` result into
         pinned memory without blocking."""
-        if self.device.type != "cuda" or handle.host is not None:
-            return
-        handle.host = torch.empty(handle.out_dev.shape,
-                                  dtype=handle.out_dev.dtype, pin_memory=True)
-        handle.host.copy_(handle.out_dev, non_blocking=True)
-        handle.done = torch.cuda.Event()
-        handle.done.record()
+        if handle.copy is None:
+            handle.copy = HostCopy(handle.out_dev)
 
     def collect(self, handle: Pending) -> np.ndarray:
         """Resolve a handle to the waveform: float64/float32 with the tail
-        fade applied here, or int16 PCM faded and quantized on the device."""
-        if handle.host is not None:
-            handle.done.synchronize()
-            out = handle.host.numpy()
-        else:
-            out = handle.out_dev.cpu().numpy()
+        fade applied here, or wire bytes faded and quantized on the
+        device."""
+        self.prefetch(handle)
+        return self._egress(handle.copy.numpy(), handle.wave_len)
+
+    def _egress(self, out: np.ndarray, wave_len: int) -> np.ndarray:
+        """One utterance's host output: the real samples, with the host
+        tail fade unless the device already applied it."""
         if self.packed_output:
-            return out[:handle.wave_len].copy()
-        output = np.array(out, dtype=np.dtype(self.output_dtype))
-        output = output[:handle.wave_len]
-        fade_len = min(20 * self.cfg.hop_length, len(output))
+            return out[:wave_len].copy()
+        output = np.array(out[:wave_len], dtype=self.output_np_dtype)
+        fade_len = min(self.fade_len, len(output))
         if fade_len:
             output[-fade_len:] *= np.linspace(1, 0, fade_len)
         return output
 
+    # -- co-batched utterances ------------------------------------------
+
     def generate_batch(self, mels_list, target: int, overlap: int,
                        mu_law: bool, seed: int = 0):
-        """Serve several utterances as a per-utterance submit/collect
-        pipeline (no co-batching yet); utterance i uses the seed stream
+        """Serve several utterances.  A :class:`PrestagedBatch` is served
+        co-batched: one decode launch over every utterance's folds, seeded
+        by ``seed``.  A raw list is served as a per-utterance
+        submit/collect pipeline in which utterance i uses the seed stream
         (seed*1_000_003 + i) mod 2**31, as in the JAX package."""
+        if isinstance(mels_list, PrestagedBatch):
+            return self.collect_batch(self.submit_batch(
+                mels_list, target=target, overlap=overlap, mu_law=mu_law,
+                seed=seed))
         handles = []
         for i, mels in enumerate(mels_list):
             h = self.submit(mels, batched=True, target=target,
@@ -327,20 +538,251 @@ class Generator:
             handles.append(h)
         return [self.collect(h) for h in handles]
 
-    # -- the pipeline ---------------------------------------------------
+    def prestage_batch(self, mels_list, target: int,
+                       overlap: int) -> PrestagedBatch:
+        """Pad every utterance to one bucketed frame count and upload the
+        batch, so that it upsamples in one call; each utterance's true
+        region is cut back out after (the convolutions reach less than the
+        context pad, so the shared zero tail does not touch it)."""
+        c = self.cfg
+        padded = [self._pad_mel(m) for m in mels_list]
+        t_glob = max(t for _, _, t in padded)
+        batch = np.concatenate([np.pad(m, ((0, 0), (0, t_glob - t), (0, 0)))
+                                for m, _, t in padded])
+        t_buckets = tuple(t for _, _, t in padded)
+        fold_counts = tuple(
+            fold_ops.fold_shape((t - 2 * c.pad) * c.hop_length, target,
+                                overlap)[0] for t in t_buckets)
+        return PrestagedBatch(self._upload(self._ingress_pack(batch)),
+                              tuple(w for _, w, _ in padded), t_buckets,
+                              fold_counts, target, overlap)
+
+    def submit_batch(self, mels_list, target: int, overlap: int,
+                     mu_law: bool, seed: int = 0) -> PendingBatch:
+        """Queue one co-batched serve of several utterances (one decode
+        launch for all of their folds); returns a handle for
+        :meth:`collect_batch`.  ``mels_list`` is a list of raw mel arrays
+        or a :meth:`prestage_batch` result."""
+        mu_law = mu_law if self.cfg.mode == "RAW" else False
+        if not isinstance(mels_list, PrestagedBatch):
+            mels_list = self.prestage_batch(mels_list, target, overlap)
+        elif (mels_list.target, mels_list.overlap) != (target, overlap):
+            raise ValueError(
+                f"prestaged batch was built for target={mels_list.target}, "
+                f"overlap={mels_list.overlap}; submit_batch got "
+                f"target={target}, overlap={overlap} — the fold geometry "
+                "would be stale; re-prestage")
+        b = mels_list
+        with torch.no_grad():
+            out = self._batch_pipeline(
+                b.batch_dev, b.wave_lens, seed, t_buckets=b.t_buckets,
+                target=target, overlap=overlap, fold_counts=b.fold_counts,
+                mu_law=mu_law)
+        return PendingBatch(out, b.wave_lens, b.fold_counts, target,
+                            overlap)
+
+    def prefetch_batch(self, handle: PendingBatch) -> None:
+        """Queue the device -> host copy of a :meth:`submit_batch` result
+        (one transfer for the whole batch) without blocking."""
+        if handle.copy is None:
+            handle.copy = HostCopy(handle.out_dev)
+
+    def collect_batch(self, handle: PendingBatch) -> List[np.ndarray]:
+        """Resolve a :meth:`submit_batch` handle to the list of
+        waveforms, split on the host."""
+        self.prefetch_batch(handle)
+        flat = handle.copy.numpy()
+        stride = handle.target + handle.overlap
+        outputs, o = [], 0
+        for nf, wave_len in zip(handle.fold_counts, handle.wave_lens):
+            outputs.append(self._egress(flat[o:o + wave_len], wave_len))
+            o += nf * stride + handle.overlap
+        return outputs
+
+    # -- streaming ------------------------------------------------------
+
+    def open_stream_session(self, mels, target: int, overlap: int,
+                            pad_to: Optional[int] = None,
+                            host_rows: bool = False) -> StreamSession:
+        """Prepare one utterance's streaming front-end: pad and bucket the
+        mel, and build the conditioning its fold rows come from (kernel:
+        one packed bf16 stream; scan: the folded sample-rate
+        conditioning).  Folds that start at or past the waveform's end are
+        only padding and are not decoded.
+
+        ``pad_to`` (kernel only) pads the packed stream to that many rows,
+        so that a multi-session server can copy sessions into equal slots
+        of one buffer; it raises ``ValueError`` if the utterance needs
+        more.  ``host_rows`` (scan only) keeps the folded conditioning on
+        the host, where a server stacks rows of several sessions."""
+        c = self.cfg
+        mels, wave_len, t_bucket = self._pad_mel(mels)
+        real_len = (t_bucket - 2 * c.pad) * c.hop_length
+        num_folds, _ = fold_ops.fold_shape(real_len, target, overlap)
+        fold_T = target + 2 * overlap
+        stride = target + overlap
+        needed_folds = min(num_folds, -(-wave_len // stride))
+        geometry = dict(needed_folds=needed_folds, stride=stride,
+                        fold_T=fold_T, wave_len=wave_len)
+        with torch.no_grad():
+            mels_dev = self._ingress_f32(
+                self._upload(self._ingress_pack(mels)))
+            if self.backend == "kernel":
+                need = max(real_len, (needed_folds - 1) * stride + fold_T)
+                if pad_to is None:
+                    pad_to = need
+                elif pad_to < need:
+                    raise ValueError(
+                        f"utterance needs {need} conditioning rows but the "
+                        f"slot holds {pad_to} — raise the server's "
+                        "slot_seconds or shorten the utterance")
+                mels_up, aux_mel = self.model.upsample_parts(mels_dev)
+                packed = _pad_rows(cuda_decode.pack_stream(
+                    mels_up, aux_mel, c.total_scale), pad_to)
+                return StreamSession(packed=packed, **geometry)
+            mels_up, aux = self.model.upsample_only(mels_dev)
+            mels_f = fold_ops.fold_with_overlap(mels_up, target, overlap)
+            aux_f = fold_ops.fold_with_overlap(aux, target, overlap)
+        if host_rows:
+            mels_f, aux_f = mels_f.cpu(), aux_f.cpu()
+        return StreamSession(mels_f=mels_f, aux_f=aux_f, **geometry)
+
+    def _stream_setup(self, mels, target: int, overlap: int, seed: int):
+        """Open a session and build its group decoder; returns
+        ``(launch_group, drain_group, needed_folds, stride, wave_len)``.
+
+        ``launch_group(g0, g1)`` queues the decode of folds g0..g1 (one
+        launch, seed ``seed + g0``) and returns ``(device rows, n)``;
+        ``drain_group`` waits for the rows.  :meth:`stream` and
+        :meth:`stream_oneshot` decode through these same closures, so they
+        differ only in finalization."""
+        sess = self.open_stream_session(mels, target, overlap)
+        stride = sess.stride
+
+        def launch_group(g0: int, g1: int):
+            n = g1 - g0
+            with torch.no_grad():
+                if self.backend == "kernel":
+                    starts = np.zeros(self._pad_folds(n), np.int64)
+                    starts[:n] = np.arange(g0, g1) * stride
+                    return self._decode_rows(sess.packed, starts,
+                                             sess.fold_T, seed + g0), n
+                return self._scan_rows(sess.mels_f[g0:g1],
+                                       sess.aux_f[g0:g1], seed + g0), n
+
+        def drain_group(handle) -> np.ndarray:
+            dev, n = handle
+            return dev[:n].cpu().numpy()
+
+        return launch_group, drain_group, sess.needed_folds, stride, \
+            sess.wave_len
+
+    def stream(self, mels, target: int, overlap: int, mu_law: bool,
+               group: int = 16, seed: int = 0, lookahead: int = 2,
+               first_group: Optional[int] = None):
+        """Streaming synthesis: yield finalized audio chunks as fold groups
+        finish decoding (float64, or the packed wire dtype).
+
+        The first chunk arrives after one group of folds decodes; a ramped
+        ``first_group`` shrinks only the leading launch.  Up to
+        ``lookahead`` group launches stay queued on the device ahead of
+        the group being finalized and one finalize stays in flight behind
+        them; the raw rows never leave the device, only finished chunks
+        do.  Each group finalizes with the one raw fold before it as
+        context.  With deterministic decode the audio is sample for sample
+        :meth:`stream_oneshot`'s."""
+        mu_law = mu_law if self.cfg.mode == "RAW" else False
+        launch, _, needed_folds, stride, wave_len = self._stream_setup(
+            mels, target, overlap, seed)
+        fin = _IncrementalUnfold(self, needed_folds, stride, wave_len,
+                                 overlap, mu_law)
+        spans = fold_spans(needed_folds, group, first_group)
+        lookahead = max(1, lookahead)
+        decodes = deque()    # queued decode launches
+        finals = deque()     # queued finalize tokens
+        si = 0
+        while si < len(spans) or decodes or finals:
+            while si < len(spans) and len(decodes) < lookahead:
+                decodes.append(launch(*spans[si]))
+                si += 1
+            if decodes:
+                finals.append(fin.feed_async_dev(*decodes.popleft()))
+            # hold one finalize in flight while decode work remains
+            hold = 1 if (si < len(spans) or decodes) else 0
+            while len(finals) > hold:
+                chunk = fin.collect(finals.popleft())
+                if len(chunk):
+                    yield chunk
+
+    def stream_oneshot(self, mels, target: int, overlap: int, mu_law: bool,
+                       group: int = 16, seed: int = 0,
+                       first_group: Optional[int] = None) -> np.ndarray:
+        """Decode the same group launches :meth:`stream` makes (same fold
+        gathers, same seeds), but finalize all folds in one crossfade
+        unfold: the parity oracle of the stream's incremental
+        finalization.  Returns the whole waveform in the Generator's
+        output dtype (packed egress faded and quantized on the device, as
+        a stream's chunks are)."""
+        mu_law = mu_law if self.cfg.mode == "RAW" else False
+        launch, _, needed_folds, _, wave_len = self._stream_setup(
+            mels, target, overlap, seed)
+        rows = torch.cat([
+            dev[:n] for dev, n in (
+                launch(g0, g1)
+                for g0, g1 in fold_spans(needed_folds, group, first_group))])
+        y = self._finish(rows, rows.shape[0], wave_len, mu_law=mu_law,
+                         batched=True, overlap=overlap)
+        return self.collect(Pending(y, wave_len))
+
+    # -- the pipelines --------------------------------------------------
 
     def _pad_folds(self, n: int) -> int:
         """Fold-count bucket: the decode runs this many rows, the padding
         rows masked out by :func:`finalize`."""
         return _round_up(n, self.fold_bucket)
 
+    def _pad_mel(self, mels):
+        """(n_mels, T_mel) or (1, n_mels, T_mel) mel -> its (1, t_bucket,
+        feat) float32 host array (context pad + frame bucket), the true
+        sample count and t_bucket."""
+        c = self.cfg
+        mels = np.asarray(mels, dtype=np.float32)
+        if mels.ndim == 2:
+            mels = mels[None]
+        if mels.shape[0] != 1:
+            raise ValueError("expected a single utterance")
+        mels = np.transpose(mels, (0, 2, 1))  # (1, T_mel, feat)
+        wave_len = (mels.shape[1] - 1) * c.hop_length
+        t_bucket = _round_up(mels.shape[1] + 2 * c.pad, self.frame_bucket)
+        mels = np.pad(mels, ((0, 0), (c.pad, t_bucket - mels.shape[1] - c.pad),
+                             (0, 0)))
+        return mels, wave_len, t_bucket
+
+    def _upload(self, t: torch.Tensor) -> torch.Tensor:
+        """Host tensor -> ``device`` without waiting for the card (through
+        pinned memory)."""
+        if self.device.type != "cuda":
+            return t.to(self.device)
+        return t.pin_memory().to(self.device, non_blocking=True)
+
     def _ingress_pack(self, mels: np.ndarray) -> torch.Tensor:
-        """Host mel -> the wire dtype it is uploaded in."""
+        """Host float32 mel -> the wire dtype it is uploaded in: uint8
+        quantizes the [0, 1] mel to 8-bit steps, bfloat16 rounds to
+        nearest even (as ``jnp.bfloat16`` does), the others cast."""
+        if self.input_dtype == "uint8":
+            return torch.from_numpy(np.clip(
+                np.round(mels * 255.0), 0.0, 255.0).astype(np.uint8))
+        if self.input_dtype == "bfloat16":
+            return torch.from_numpy(
+                np.ascontiguousarray(mels, np.float32)).to(torch.bfloat16)
         return torch.from_numpy(mels.astype(self.input_dtype))
 
     def _ingress_f32(self, mels: torch.Tensor) -> torch.Tensor:
         """Uploaded wire mel -> float32 for the conditioning network."""
-        return mels.float()
+        mels = mels.float()
+        if self.input_dtype == "uint8":
+            mels = mels * _U8_STEP
+        return mels
 
     def fold_conditioning(self, staged: Prestaged):
         """The decode kernel's inputs for one prestaged utterance: the
@@ -361,44 +803,127 @@ class Generator:
             return packed[None].contiguous(), packed.shape[0]
         T = target + 2 * overlap
         stride = target + overlap
-        need = (num_folds_padded - 1) * stride + T
-        if need > packed.shape[0]:
-            packed = torch.nn.functional.pad(
-                packed, (0, 0, 0, need - packed.shape[0]))
+        packed = _pad_rows(packed, (num_folds_padded - 1) * stride + T)
         # padding folds read real stream rows; finalize masks their output
         starts = torch.arange(num_folds_padded, device=self.device) * stride
         return cuda_decode.fold_major_cond(packed, starts, T), T
 
+    def _decode_rows(self, packed: torch.Tensor, starts: np.ndarray,
+                     fold_T: int, seed: int) -> torch.Tensor:
+        """One kernel launch over fold rows gathered from a packed
+        conditioning stream at host-chosen start rows: (len(starts),
+        fold_T) samples.  The fold-major gather is freed as soon as the
+        launch is queued."""
+        cond = cuda_decode.fold_major_cond(
+            packed, self._upload(torch.from_numpy(starts)), fold_T)
+        return self._kernel(cond, fold_T, seed)
+
+    def _kernel(self, cond: torch.Tensor, T: int, seed: int):
+        c = self.cfg
+        return cuda_decode.decode(self.packed, cond, T, seed, mode=c.mode,
+                                  n_classes=c.n_classes,
+                                  deterministic=self.deterministic)
+
+    def _scan_rows(self, mels_f: torch.Tensor, aux_f: torch.Tensor,
+                   seed: int, bucket: bool = True) -> torch.Tensor:
+        """The float32 scan decoder over folded conditioning, padded to
+        the fold bucket (unless ``bucket`` is False): (rows, fold_T)
+        samples."""
+        pad = (self._pad_folds(mels_f.shape[0]) - mels_f.shape[0]
+               if bucket else 0)
+        mels_f = torch.nn.functional.pad(mels_f.to(self.device),
+                                         (0, 0, 0, 0, 0, pad))
+        aux_f = torch.nn.functional.pad(aux_f.to(self.device),
+                                        (0, 0, 0, 0, 0, pad))
+        c = self.cfg
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return decode_scan(self.weights, mels_f, aux_f, c.mode, c.n_classes,
+                           self.deterministic, gen)
+
+    def _finish(self, samples, num_folds: int, wave_len: int, *,
+                mu_law: bool, batched: bool, overlap: int):
+        """finalize, then the device-side fade and quantization of packed
+        egress."""
+        y = finalize(samples, num_folds, mu_law=mu_law, batched=batched,
+                     overlap=overlap, n_classes=self.cfg.n_classes)
+        if self.packed_output:
+            y = fade_and_pack(y, wave_len, self.fade_len, self.output_dtype)
+        return y
+
     def _full_pipeline(self, mels_padded, num_folds: int, wave_len: int,
                        seed: int, *, mu_law: bool, batched: bool,
                        target: int, overlap: int, num_folds_padded: int):
-        c = self.cfg
         mels = self._ingress_f32(mels_padded)
         if self.backend == "kernel":
             cond, T = self._fold_conditioning(
                 mels, batched=batched, target=target, overlap=overlap,
                 num_folds_padded=num_folds_padded)
-            samples = cuda_decode.decode(
-                self.packed, cond, T, seed, mode=c.mode,
-                n_classes=c.n_classes, deterministic=self.deterministic)
+            samples = self._kernel(cond, T, seed)
+            del cond
         else:
             mels_up, aux = self.model.upsample_only(mels)
             if batched:
-                mels_f = fold_ops.fold_with_overlap(mels_up, target, overlap)
-                aux_f = fold_ops.fold_with_overlap(aux, target, overlap)
-                pad = num_folds_padded - mels_f.shape[0]
-                mels_f = torch.nn.functional.pad(mels_f, (0, 0, 0, 0, 0, pad))
-                aux_f = torch.nn.functional.pad(aux_f, (0, 0, 0, 0, 0, pad))
-            else:
-                mels_f, aux_f = mels_up, aux
-            gen = torch.Generator(device=self.device).manual_seed(seed)
-            samples = decode_scan(self.weights, mels_f, aux_f, c.mode,
-                                  c.n_classes, self.deterministic, gen)
-        y = finalize(samples, num_folds, mu_law=mu_law, batched=batched,
-                     overlap=overlap, n_classes=c.n_classes)
-        if self.packed_output:
-            y = fade_and_pcm16(y, wave_len, 20 * c.hop_length)
-        return y
+                mels_up = fold_ops.fold_with_overlap(mels_up, target,
+                                                     overlap)
+                aux = fold_ops.fold_with_overlap(aux, target, overlap)
+            samples = self._scan_rows(mels_up, aux, seed, bucket=batched)
+        return self._finish(samples, num_folds, wave_len, mu_law=mu_law,
+                            batched=batched, overlap=overlap)
+
+    def _batch_pipeline(self, batch_dev, wave_lens, seed: int, *,
+                        t_buckets: tuple, target: int, overlap: int,
+                        fold_counts: tuple, mu_law: bool):
+        """Several utterances as one launch: one batched upsample, each
+        utterance's conditioning cut (kernel: its packed stream, cut or
+        padded to (nf-1)*stride + fold_T rows and concatenated with start
+        offsets; scan: its folds), one decode over every fold (one seed),
+        then each utterance's finalize and egress into one flat output."""
+        c = self.cfg
+        mels = self._ingress_f32(batch_dev)
+        fold_T = target + 2 * overlap
+        stride = target + overlap
+        if self.backend == "kernel":
+            mels_up, aux_mel = self.model.upsample_parts(mels)
+            streams, starts, off = [], [], 0
+            for i, (t_bucket, nf) in enumerate(zip(t_buckets, fold_counts)):
+                frames = t_bucket - 2 * c.pad
+                s = cuda_decode.pack_stream(
+                    mels_up[i:i + 1, :frames * c.hop_length],
+                    aux_mel[i:i + 1, :frames], c.total_scale)
+                need = (nf - 1) * stride + fold_T
+                streams.append(_pad_rows(s, need)[:need])
+                starts += [off + b * stride for b in range(nf)]
+                off += need
+            del mels_up, aux_mel
+            starts += [0] * (self._pad_folds(len(starts)) - len(starts))
+            samples = self._decode_rows(torch.cat(streams),
+                                        np.asarray(starts, np.int64),
+                                        fold_T, seed)
+        else:
+            mels_up, aux = self.model.upsample_only(mels)
+            mels_f, aux_f = [], []
+            for i, t_bucket in enumerate(t_buckets):
+                real_len = (t_bucket - 2 * c.pad) * c.hop_length
+                mels_f.append(fold_ops.fold_with_overlap(
+                    mels_up[i:i + 1, :real_len], target, overlap))
+                aux_f.append(fold_ops.fold_with_overlap(
+                    aux[i:i + 1, :real_len], target, overlap))
+            samples = self._scan_rows(torch.cat(mels_f), torch.cat(aux_f),
+                                      seed)
+        waves, o = [], 0
+        for nf, wave_len in zip(fold_counts, wave_lens):
+            waves.append(self._finish(
+                samples[o:o + nf], nf, wave_len, mu_law=mu_law,
+                batched=True, overlap=overlap))
+            o += nf
+        return torch.cat(waves)
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero-pad a (L, C) stream to at least ``rows`` rows."""
+    if rows <= x.shape[0]:
+        return x
+    return torch.nn.functional.pad(x, (0, 0, 0, rows - x.shape[0]))
 
 
 def finalize(samples: torch.Tensor, num_folds: int, *, mu_law: bool,
@@ -415,15 +940,31 @@ def finalize(samples: torch.Tensor, num_folds: int, *, mu_law: bool,
     return y[0]
 
 
-def fade_and_pcm16(y: torch.Tensor, wave_len: int,
-                   fade: int) -> torch.Tensor:
-    """Linear tail fade over the last min(fade, wave_len) samples of the
-    waveform, then 16-bit PCM (clipped after scaling, so -32768 stays
-    reachable)."""
+def pack_wire(y: torch.Tensor, wire: str) -> torch.Tensor:
+    """Float samples -> wire dtype: ``"int16"`` PCM (clipped after
+    scaling, so -32768 stays reachable, as ``dsp/wavio.save_wav``
+    quantizes) or ``"mulaw8"`` labels, sign(y)*log1p(255|y|)/log(256)
+    mapped to [0, 255] by ``dsp/audio.encode_mu_law``'s floor(+0.5)."""
+    if wire == "mulaw8":
+        fx = torch.sign(y) * torch.log1p(
+            255.0 * torch.clamp(torch.abs(y), 0.0, 1.0)) / math.log(256.0)
+        return torch.clamp(torch.floor((fx + 1.0) / 2.0 * 255.0 + 0.5),
+                           0.0, 255.0).to(torch.uint8)
+    if wire != "int16":
+        raise ValueError(f"unknown wire dtype {wire!r}")
+    return torch.round(
+        torch.clamp(y * 32767.0, -32768.0, 32767.0)).to(torch.int16)
+
+
+def fade_and_pack(y: torch.Tensor, wave_len: int, fade: int,
+                  wire: str = "int16", base: int = 0) -> torch.Tensor:
+    """The device side of packed egress: the linear tail fade over the
+    last min(fade, wave_len) samples of the waveform, then
+    :func:`pack_wire`.  ``y`` holds waveform samples ``base`` ..
+    ``base + len(y)``, so a streamed window takes its slice of the same
+    envelope a whole waveform does."""
     L = float(min(fade, wave_len))
-    j = (torch.arange(y.shape[0], device=y.device, dtype=torch.float32)
+    j = ((torch.arange(y.shape[0], device=y.device) + base).float()
          - float(wave_len - L))
     factor = torch.clamp(1.0 - j / max(L - 1.0, 1.0), 0.0, 1.0)
-    return torch.round(
-        torch.clamp(y * factor * 32767.0, -32768.0, 32767.0)
-    ).to(torch.int16)
+    return pack_wire(y * factor, wire)
