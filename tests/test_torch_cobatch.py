@@ -27,7 +27,7 @@ from wavernn_tpu.ops.decode import Generator as JaxGenerator
 from wavernn_tpu_torch.dsp import audio
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.ops.decode import Generator, PrestagedBatch
-from tests.test_torch_generator import small
+from tests.test_torch_cuda import small as torch_small, variables_of
 
 TARGET, OVERLAP = 200, 28
 FRAMES = (20, 9, 14)
@@ -44,8 +44,16 @@ def lsb_agreement(a, b):
                          <= 655))
 
 
+def small(mode):
+    cfg, model = torch_small(mode)
+    return (dict(rnn_dims=64, fc_dims=64, compute_dims=32, res_out_dims=32,
+                 res_blocks=2, mode=mode), variables_of(model, cfg))
+
+
 @pytest.fixture(scope="module")
 def model():
+    """A seeded small model (rnn 64) as the JAX Config's kwargs and the
+    JAX-layout weights both packages load."""
     return small("MOL")
 
 
