@@ -3,11 +3,13 @@
 
     python3 chip_smoke.py
 
-It drives the three paths of the port, each through its hand-written
-kernels: copy-synthesis (mel -> wav, the WaveRNN decode kernel), text -> wav
-(the Tacotron decoder-step kernel, then the WaveRNN kernel) and the
+It drives the paths of the port, each through its hand-written kernels:
+copy-synthesis (mel -> wav, the WaveRNN decode kernel), text -> wav (the
+Tacotron decoder-step kernel, then the WaveRNN kernel), the
 kernel-measurement path (the matmul floor and the decode kernel's
-variants).  Phases, in order; any failure exits non-zero and prints no
+variants) and the vocoder's serving paths (the MCD gate, the wire
+formats, co-batching, streaming and the multi-session StreamServer, all
+through the WaveRNN kernel).  Phases, in order; any failure exits non-zero and prints no
 result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
@@ -76,6 +78,41 @@ result line:
 14. The fold-geometry probe (targets 16,500 / 11,000 / 8,250 / 5,500, one
    1920-frame request each) and the TTS step probe (full width, 1500
    frames, one pass of one submit per backend).
+
+Phases 15-19 run the golden MOL at full width, f16 in, int16 out,
+``fold_bucket=16``, target 11,000 / overlap 550, unless they say otherwise:
+
+15. The MCD gate: ``infer.eval.copy_synthesis_mcd`` on the golden eval mel
+   (1200 frames), float64 out, sampling, seeds 0-2; the mean must be below
+   ``mcd_scan_mean + max(4 * mcd_scan_spread, 3)`` of
+   ``bench_assets/golden_meta.json`` (892.40).  Prints the deterministic
+   MCD beside it.
+16. The wire formats, deterministic: uint8 in must be bit-equal to float32
+   in of the requantized mel; mulaw8 out within 1 label of
+   ``dsp.audio.encode_mu_law`` of the float path.  Prints the MCD of
+   bfloat16 in and of mulaw8 out (sampling).
+17. Co-batching on five ``uniform(0, 1, (80, 1920))`` mels from
+   ``np.random.default_rng(0)``: the kernel against its plain version on
+   the co-batched conditioning (240 rows, first 64 steps, both modes),
+   the 240-row launch timed at one and two rows per CTA (in turns, CUDA
+   events), then three interleaved passes of one-shot ``generate_batch``,
+   the pipelined prestage/submit/prefetch/collect and the co-batched
+   steady state (three serves, each submitted before the one before it is
+   collected), each pass's kHz printed; each co-batched serve must be one
+   decode launch.  Deterministic co-batched utterances against their solo
+   submits: at least 99% of samples within 655 LSB.
+18. Streaming, a 1920-frame mel: ``stream`` with group 32 / first group 4
+   and with group 48, five runs each (``stream_khz`` and ``ttfc_ms``,
+   medians); each run's launches must equal its fold spans; a
+   deterministic stream must be byte-equal to ``stream_oneshot``.
+19. The StreamServer: four deterministic sessions of 1920 / 1200 / 600 /
+   300 frames at group 16, capacity 4, width 64 and 132; each session must
+   be byte-equal to its solo ``stream`` and the launches below the solo
+   streams' sum.  Prints the aggregate kHz.
+
+The decode kernel's launch counter is set to 0 just before each main-path
+run and read just after; the record's ``launches`` sums phase 4's and
+phases 15-19's.
 
 Float32 matmuls and convolutions run in full float32 (TF32 off).  The last
 two lines are the card's ``nvidia-smi`` name and power limit, then
@@ -381,14 +418,15 @@ def main():
     tts = tts_phases(dev, card, wavio, GOLDEN)
     floor = measurement_phases(dev, card, golden_cfg, gen, eval_mel,
                                long_mels[0], errs)
+    serving = serving_phases(dev, card, golden_cfg, golden, eval_mel, errs)
 
-    # -- 15. the record -------------------------------------------------
+    # -- 20. the record -------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
         "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
         "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
-        "launches": launches,
+        "launches": launches + serving["launches"],
         "max_abs_err": max(errs),
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -770,6 +808,291 @@ def measurement_phases(dev, card, cfg, gen, eval_mel, long_mel,
     return {"launches": floor_launches, "max_abs_err": max(floor_errs),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": floor_bound[0],
             "bound_by": floor_bound[1], "library_ms": None}
+
+
+def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
+                   frames: int = 1920) -> dict:
+    """Phases 15-19: the MCD gate, the wire formats, co-batching,
+    streaming and the StreamServer, on the golden MOL at full width, with
+    utterances of ``frames`` mel frames (the server's four sessions
+    ``frames`` x 1, 5/8, 5/16 and 5/32).  Kernel-vs-plain errors go to
+    ``errs``; returns the decode kernel's launches on these paths and what
+    was measured."""
+    import torch
+
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.dsp import audio
+    from wavernn_tpu_torch.infer.eval import copy_synthesis_mcd
+    from wavernn_tpu_torch.infer.stream_server import StreamServer
+    from wavernn_tpu_torch.ops import cuda_decode
+    from wavernn_tpu_torch.ops.decode import Generator, fold_spans
+
+    if not hp.is_configured():
+        hp.configure(REPO / "hparams.py")
+    geom = dict(target=TARGET, overlap=OVERLAP, mu_law=False)
+    launches = 0
+
+    def make(**kw):
+        kw = {"fold_bucket": 16, "input_dtype": "float16",
+              "output_dtype": "int16", **kw}
+        return Generator(cfg, golden, device=dev, **kw)
+
+    def counted(fn):
+        """Run ``fn`` with the decode counter set to 0 just before it;
+        return (its result, the launches it made)."""
+        torch.cuda.synchronize()
+        cuda_decode.decode.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        return out, cuda_decode.decode.launches
+
+    # -- 15 (a). the MCD gate --------------------------------------------
+    meta = json.loads((REPO / "bench_assets" / "golden_meta.json")
+                      .read_text())
+    threshold = meta["mcd_scan_mean"] + max(4 * meta["mcd_scan_spread"],
+                                            3.0)
+    gen_f = make(output_dtype="float64")
+    scores, n = counted(lambda: [copy_synthesis_mcd(
+        gen_f, eval_mel, batched=True, seed=s, **geom)[0]
+        for s in range(3)])
+    launches += n
+    det_mcd = copy_synthesis_mcd(make(output_dtype="float64",
+                                      deterministic=True), eval_mel,
+                                 batched=True, **geom)[0]
+    mcd = float(np.mean(scores))
+    print(f"mcd gate (golden eval mel, {eval_mel.shape[1]} frames, f16 in, "
+          f"float64 out, "
+          f"sampling, seeds 0-2): {[round(x, 4) for x in scores]} mean "
+          f"{mcd:.4f} threshold {threshold:.4f} -> "
+          f"{'pass' if mcd < threshold else 'FAIL'}; deterministic "
+          f"{det_mcd:.4f}", flush=True)
+    if not mcd < threshold:
+        fail(f"MCD gate: mean {mcd} >= {threshold}")
+
+    # -- 16 (b). the wire formats -----------------------------------------
+    q = (np.clip(np.round(eval_mel * 255.0), 0.0, 255.0)
+         * np.float32(1.0 / 255.0)).astype(np.float32)
+    u8 = make(input_dtype="uint8", deterministic=True)(eval_mel, True,
+                                                         **geom)
+    f32 = make(input_dtype="float32", deterministic=True)(q, True, **geom)
+    print(f"wire uint8 in (deterministic) vs float32 in of the requantized "
+          f"mel: {u8.shape[0]} samples, bit-equal {np.array_equal(u8, f32)}")
+    if not np.array_equal(u8, f32):
+        fail("uint8 ingress is not bit-equal to float32 of the "
+             "requantized mel")
+    w8 = make(output_dtype="mulaw8", deterministic=True)(eval_mel, True,
+                                                         **geom)
+    fl = make(output_dtype="float64", deterministic=True)(eval_mel, True,
+                                                          **geom)
+    d = np.abs(w8.astype(np.float64)
+               - audio.encode_mu_law(np.clip(fl, -1, 1), 256))
+    print(f"wire mulaw8 out (deterministic) vs encode_mu_law(float path): "
+          f"max {d.max():.0f} label, exact {np.mean(d == 0):.6f}")
+    if w8.dtype != np.uint8 or w8.shape != fl.shape or d.max() > 1:
+        fail("mulaw8 egress is more than 1 label from the float path")
+    bf_mcd = copy_synthesis_mcd(make(input_dtype="bfloat16",
+                                     output_dtype="float64"), eval_mel,
+                                batched=True, **geom)[0]
+    mu_mcd = copy_synthesis_mcd(
+        make(output_dtype="mulaw8"), eval_mel, batched=True, **geom,
+        to_float=lambda w: audio.decode_mu_law(w.astype(np.float64), 256))[0]
+    print(f"wire MCD (sampling, seed 0): bfloat16 in {bf_mcd:.4f}, mulaw8 "
+          f"out {mu_mcd:.4f} (gate {threshold:.4f})", flush=True)
+    if not (np.isfinite(bf_mcd) and np.isfinite(mu_mcd)):
+        fail("a wire format gave no MCD")
+
+    # -- 17 (c). co-batching -----------------------------------------------
+    rng = np.random.default_rng(0)
+    mels5 = [rng.uniform(0, 1, (cfg.feat_dims, frames)).astype(np.float32)
+             for _ in range(5)]
+    gen = make()
+    gen.generate_batch(mels5, **geom)                          # warm
+    gen.collect_batch(gen.submit_batch(mels5, **geom))
+    staged = gen.prestage_batch(mels5, TARGET, OVERLAP)
+    cond, T = gen.batch_conditioning(staged)
+    rows = cond.shape[0]
+    head = cond[:, :64].contiguous()
+    for det in (True, False):
+        out_k = cuda_decode.decode(gen.packed, head, 64, 3, cfg.mode,
+                                   cfg.n_classes, det)
+        torch.cuda.synchronize()
+        out_p = cuda_decode.decode_reference(gen.packed, head, 64, 3,
+                                             cfg.mode, cfg.n_classes, det)
+        err = float((out_k - out_p).abs().max())
+        print(f"kernel vs plain [co-batched conditioning, "
+              f"{'deterministic' if det else 'sampling'}] rows {rows} "
+              f"steps 64: max|d| {err:.3g}", flush=True)
+        if err > (1e-3 if det else 1e-2) or not torch.isfinite(out_k).all():
+            fail(f"kernel disagrees with its plain version at {rows} rows")
+        errs.append(err)
+    del head
+    step_us = {1: [], 2: []}
+    for r in (1, 2, 2, 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        cuda_decode.decode(gen.packed, cond, T, 9, cfg.mode, cfg.n_classes,
+                           False, rows_per_cta=r)
+        end.record()
+        torch.cuda.synchronize()
+        step_us[r].append(start.elapsed_time(end) * 1e3 / T)
+    del cond
+    print(f"decode step at {rows} x {T} (co-batched, sampling): one row per "
+          f"CTA {[round(x, 2) for x in step_us[1]]} us/step, two rows per "
+          f"CTA {[round(x, 2) for x in step_us[2]]} us/step | {card}",
+          flush=True)
+
+    def oneshot(p):
+        return gen.generate_batch(mels5, seed=1_000_000 + p, **geom)
+
+    def pipelined(p):
+        hs = []
+        for s, m in enumerate(mels5):
+            hs.append(gen.submit(gen.prestage(m, True, TARGET, OVERLAP),
+                                 True, seed=p * 5 + s + 1, **geom))
+        for h in hs:
+            gen.prefetch(h)
+        return [gen.collect(h) for h in hs]
+
+    co_k = 3
+    co_launches = []
+
+    def costeady(p):
+        """co_k co-batched serves, each one's successor submitted (and its
+        batch staged) before it is collected."""
+        waves = []
+        n0 = cuda_decode.decode.launches
+        b = gen.prestage_batch(mels5, TARGET, OVERLAP)
+        h = gen.submit_batch(b, seed=2_000_000 + p * co_k, **geom)
+        gen.prefetch_batch(h)
+        for k in range(1, co_k + 1):
+            h2 = None
+            if k < co_k:
+                b = gen.prestage_batch(mels5, TARGET, OVERLAP)
+                h2 = gen.submit_batch(b, seed=2_000_000 + p * co_k + k,
+                                      **geom)
+                gen.prefetch_batch(h2)
+            waves += gen.collect_batch(h)
+            h = h2
+        co_launches.append(cuda_decode.decode.launches - n0)
+        return waves
+
+    want = [(m.shape[1] - 1) * cfg.hop_length for m in mels5]
+    rates = {"oneshot": [], "pipelined": [], "cobatch_steady": []}
+
+    def serve_passes():
+        for p in range(3):
+            for name, fn in (("oneshot", oneshot), ("pipelined", pipelined),
+                             ("cobatch_steady", costeady)):
+                t0 = time.perf_counter()
+                waves = fn(p)
+                dt = time.perf_counter() - t0
+                for w, n in zip(waves, want * co_k):
+                    if w.dtype != np.int16 or w.shape != (n,) or not (
+                            np.abs(w.astype(np.int32)).max() > 256):
+                        fail(f"{name}: bad wave {w.dtype} {w.shape}")
+                rates[name].append(sum(len(w) for w in waves) / dt / 1e3)
+
+    _, n = counted(serve_passes)
+    launches += n
+    print(f"co-batching, 5 x {frames} frames, f16 in, int16 out, sampling, "
+          "3 interleaved passes: " + ", ".join(
+              f"{k} {[round(x, 1) for x in v]} kHz (median "
+              f"{float(np.median(v)):.1f})" for k, v in rates.items())
+          + f"; launches {n} (co-batched serves: {co_launches} for "
+          f"{co_k} each) | {card}", flush=True)
+    if co_launches != [co_k] * 3 or n != 3 * (5 + 5 + co_k):
+        fail("a co-batched serve was not exactly one decode launch")
+    gen_d = make(deterministic=True)
+    co = gen_d.generate_batch(gen_d.prestage_batch(mels5, TARGET, OVERLAP),
+                              **geom)
+    for i, (w, m) in enumerate(zip(co, mels5)):
+        solo = gen_d(m, True, **geom)
+        lsb = np.abs(w.astype(np.int32) - solo.astype(np.int32))
+        agree = float(np.mean(lsb <= 655))
+        print(f"co-batched vs solo, deterministic, utterance {i}: "
+              f"{agree:.6f} within 655 LSB, exact {np.mean(lsb == 0):.6f}, "
+              f"max {int(lsb.max())} LSB")
+        if w.shape != solo.shape or agree < 0.99:
+            fail("a co-batched utterance disagrees with its solo submit")
+
+    # -- 18 (d). streaming -------------------------------------------------
+    mel_s = np.random.default_rng(7).uniform(
+        0, 1, (cfg.feat_dims, frames)).astype(np.float32)
+    needed = gen.open_stream_session(mel_s, TARGET, OVERLAP).needed_folds
+    stream_rec = {}
+    for group in (32, 48):
+        kw = dict(geom, group=group, first_group=4)
+        n_spans = len(fold_spans(needed, group, 4))
+        for _ in gen.stream(mel_s, seed=0, **kw):                # warm
+            pass
+        ttfc, khz = [], []
+        for p in range(5):
+            torch.cuda.synchronize()
+            cuda_decode.decode.launches = 0
+            t0 = time.perf_counter()
+            first, total = None, 0
+            for chunk in gen.stream(mel_s, seed=p + 1, **kw):
+                if first is None:
+                    first = time.perf_counter() - t0
+                total += len(chunk)
+            dt = time.perf_counter() - t0
+            n = cuda_decode.decode.launches
+            launches += n
+            if n != n_spans:
+                fail(f"stream group {group}: {n} launches for {n_spans} "
+                     "fold spans")
+            if total != (mel_s.shape[1] - 1) * cfg.hop_length:
+                fail(f"stream group {group}: {total} samples")
+            ttfc.append(first * 1e3)
+            khz.append(total / dt / 1e3)
+        stream_rec[group] = (float(np.median(khz)), float(np.median(ttfc)))
+        print(f"stream {frames} frames, group {group}, first group 4, int16: "
+              f"stream_khz {[round(x, 1) for x in khz]} (median "
+              f"{stream_rec[group][0]:.1f}), ttfc_ms "
+              f"{[round(x, 1) for x in ttfc]} (median "
+              f"{stream_rec[group][1]:.1f}); launches per stream "
+              f"{n_spans} = fold spans | {card}", flush=True)
+    kw = dict(geom, group=32, first_group=4)
+    streamed = np.concatenate(list(gen_d.stream(mel_s, **kw)))
+    oneshot_w = gen_d.stream_oneshot(mel_s, **kw)
+    print(f"deterministic stream vs stream_oneshot: {streamed.shape[0]} "
+          f"samples, byte-equal {np.array_equal(streamed, oneshot_w)}")
+    if not np.array_equal(streamed, oneshot_w):
+        fail("stream differs from stream_oneshot")
+
+    # -- 19 (e). the StreamServer ------------------------------------------
+    rng = np.random.default_rng(11)
+    sess_mels = [rng.uniform(0, 1, (cfg.feat_dims, f)).astype(np.float32)
+                 for f in (frames, frames * 5 // 8, frames * 5 // 16,
+                           frames * 5 // 32)]
+    solo, solo_launches = counted(lambda: [np.concatenate(list(
+        gen_d.stream(m, group=16, **geom))) for m in sess_mels])
+    sizes = "/".join(str(m.shape[1]) for m in sess_mels)
+    server_rec = {}
+    for width in (64, 132):
+        srv = StreamServer(gen_d, group=16, width=width, capacity=4, **geom)
+        t0 = time.perf_counter()
+        got, n = counted(lambda: srv.run(sess_mels))
+        dt = time.perf_counter() - t0
+        launches += n
+        equal = all(np.array_equal(g, w) for g, w in zip(got, solo))
+        khz = sum(len(g) for g in got) / dt / 1e3
+        server_rec[width] = khz
+        print(f"stream server, 4 sessions ({sizes} frames), "
+              f"deterministic, group 16, width {width}: {khz:.1f} kHz "
+              f"aggregate, launches {srv.launches} (solo streams "
+              f"{solo_launches}), byte-equal to solo {equal} | {card}",
+              flush=True)
+        if not equal:
+            fail(f"a server session (width {width}) differs from its solo "
+                 "stream")
+        if srv.launches != n or srv.launches >= solo_launches:
+            fail(f"server launches {srv.launches} not below the solo "
+                 f"streams' {solo_launches}")
+    return {"launches": launches, "rows": rows, "step_us": step_us,
+            "mcd": mcd, "stream": stream_rec, "server": server_rec}
 
 
 if __name__ == "__main__":

@@ -78,6 +78,9 @@ def test_cobatched_matches_jax_and_solo(model, monkeypatch):
     staged = gen.prestage_batch(batch, TARGET, OVERLAP)
     assert isinstance(staged, PrestagedBatch)
     assert staged.batch_dev.dtype == torch.float16
+    cond, T = gen.batch_conditioning(staged)
+    assert T == TARGET + 2 * OVERLAP and cond.dtype == torch.bfloat16
+    assert cond.shape == (gen._pad_folds(sum(staged.fold_counts)), T, 112)
     got = gen.generate_batch(staged, target=TARGET, overlap=OVERLAP,
                              mu_law=False)
     solo = [gen(m, batched=True, target=TARGET, overlap=OVERLAP,

@@ -300,6 +300,96 @@ def test_generator_on_card_matches_cpu(cuda_device):
     assert np.mean(lsb <= 655) >= 0.95
 
 
+@pytest.mark.parametrize("rows_per_cta", [1, 2])
+def test_kernel_at_240_rows_matches_plain_version_exactly(cuda_device,
+                                                          rows_per_cta):
+    """Five co-batched 1920-frame requests make 240 fold rows: two waves
+    of one-row CTAs on 132 SMs.  Held to max |d| 0 over 64 steps in both
+    decode modes."""
+    cfg, model = small("MOL")
+    packed = packed_on(model, cfg, cuda_device, True)
+    B, T = 240, 64
+    cond = conditioning(cfg, B, T, cuda_device, seed=240)
+    for det in (True, False):
+        got = cuda_decode.decode(packed, cond, T, 5, "MOL", cfg.n_classes,
+                                 det, rows_per_cta=rows_per_cta)
+        torch.cuda.synchronize()
+        want = cuda_decode.decode_reference(packed, cond, T, 5, "MOL",
+                                            cfg.n_classes, det)
+        assert got.shape == (B, T) and torch.isfinite(got).all()
+        assert float((got - want).abs().max()) == 0.0, f"det={det}"
+
+
+def serving_generator(device, **kw):
+    cfg, model = small("MOL")
+    kw = {"deterministic": True, "input_dtype": "float16",
+          "output_dtype": "int16", "fold_bucket": 16, **kw}
+    return Generator(cfg, variables_of(model, cfg), device=device, **kw)
+
+
+def serving_mels(frames, seed=0):
+    rng = np.random.default_rng(seed)
+    return [rng.uniform(0, 1, (80, f)).astype(np.float32) for f in frames]
+
+
+def test_stream_equals_stream_oneshot_bytes_on_card(cuda_device):
+    """A deterministic stream (ramped first group) is byte for byte its
+    one-shot oracle, through one launch per fold span."""
+    from wavernn_tpu_torch.ops.decode import fold_spans
+
+    gen = serving_generator(cuda_device)
+    (mel,) = serving_mels([30])
+    kw = dict(target=200, overlap=28, mu_law=False, group=8, first_group=2)
+    n = cuda_decode.decode.launches
+    chunks = list(gen.stream(mel, **kw))
+    needed = -(-29 * 275 // 228)
+    assert cuda_decode.decode.launches - n == len(fold_spans(needed, 8, 2))
+    oneshot = gen.stream_oneshot(mel, **kw)
+    got = np.concatenate(chunks)
+    assert got.dtype == oneshot.dtype == np.int16
+    assert got.shape == oneshot.shape == (29 * 275,)
+    np.testing.assert_array_equal(got, oneshot)
+
+
+def test_stream_server_equals_solo_streams_on_card(cuda_device):
+    from wavernn_tpu_torch.infer.stream_server import StreamServer
+
+    gen = serving_generator(cuda_device)
+    mels = serving_mels([30, 12, 21], seed=1)
+    kw = dict(target=200, overlap=28, mu_law=False)
+    solo = [np.concatenate(list(gen.stream(m, group=4, **kw)))
+            for m in mels]
+    srv = StreamServer(gen, group=4, width=16, capacity=2, slot_seconds=1.0,
+                       **kw)
+    for got, want in zip(srv.run(mels), solo):
+        np.testing.assert_array_equal(got, want)
+    assert srv.launches < sum(-(-len(w) // 228 // 4) for w in solo)
+
+
+def test_uint8_ingress_bit_exact_on_card(cuda_device):
+    (mel,) = serving_mels([25], seed=2)
+    q = (np.clip(np.round(mel * 255.0), 0.0, 255.0)
+         * np.float32(1.0 / 255.0)).astype(np.float32)
+    kw = dict(batched=True, target=200, overlap=28, mu_law=False)
+    got = serving_generator(cuda_device, input_dtype="uint8")(mel, **kw)
+    want = serving_generator(cuda_device, input_dtype="float32")(q, **kw)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_cobatched_serve_is_one_launch_on_card(cuda_device):
+    gen = serving_generator(cuda_device)
+    mels = serving_mels([20, 9, 14], seed=3)
+    staged = gen.prestage_batch(mels, 200, 28)
+    n = cuda_decode.decode.launches
+    waves = gen.generate_batch(staged, target=200, overlap=28, mu_law=False)
+    assert cuda_decode.decode.launches == n + 1
+    for w, m in zip(waves, mels):
+        solo = gen(m, batched=True, target=200, overlap=28, mu_law=False)
+        assert w.dtype == np.int16 and w.shape == solo.shape
+        lsb = np.abs(w.astype(np.int32) - solo.astype(np.int32))
+        assert np.mean(lsb <= 655) >= 0.99
+
+
 # -- the Tacotron decoder-step kernel ---------------------------------------
 
 SMALL_TACO = TacotronConfig(embed_dims=32, encoder_dims=32, decoder_dims=64,

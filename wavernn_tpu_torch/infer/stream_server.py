@@ -96,11 +96,11 @@ class StreamServer:
         self._sessions: Dict[int, _Session] = {}
         self._next_sid = 0
         self._launches = 0
-        # one launch kept in flight ahead of the one being finalized:
-        # step() dispatches the next launch before it waits for the
-        # current one's chunks.  Scheduling reads each session's
-        # dispatched fold count, so no fold is decoded twice.
-        self._inflight = None     # (items, device rows) or None
+        # one launch kept in flight ahead of the one being collected:
+        # step() dispatches the next launch (and its finalizes) before it
+        # waits for the current one's chunks.  Scheduling reads each
+        # session's dispatched fold count, so no fold is decoded twice.
+        self._inflight = None     # [(session, feed token)] or None
 
         if gen.backend == "kernel":
             c = gen.cfg
@@ -182,9 +182,9 @@ class StreamServer:
         return items, used
 
     def _dispatch(self):
-        """Schedule and queue one multiplexed decode launch; returns
-        (items, device rows), or None when no session has undispatched
-        folds."""
+        """Schedule and queue one multiplexed decode launch, and behind it
+        each served session's finalize and host copy; returns [(session,
+        feed token)], or None when no session has undispatched folds."""
         items, used = self._schedule()
         if not items:
             return None
@@ -207,37 +207,36 @@ class StreamServer:
                     torch.cat([s.sess.mels_f[g0:g1] for s, g0, g1 in items]),
                     torch.cat([s.sess.aux_f[g0:g1] for s, g0, g1 in items]),
                     seed)
-        for s, _, g1 in items:
+        tokens, o = [], 0
+        for s, g0, g1 in items:
             s.dispatched = g1
-        return items, rows
+            tokens.append((s, s.fin.feed_async_dev(rows, g1 - g0, offset=o)))
+            o += g1 - g0
+        return tokens
 
     def step(self) -> Dict[int, np.ndarray]:
         """Serve one multiplexed launch and return each served session's
-        newly final audio chunk (a session that finished frees its slot).
-        Empty dict when idle.
+        newly final audio chunk (a session whose last chunk this is frees
+        its slot).  Empty dict when idle.
 
         The next launch is queued before this one's chunks are waited for,
-        and every session's finalize is queued before any chunk is read,
-        so the card decodes while the host takes chunks.  Each session's
-        rows and feed order are those of the unpipelined server."""
+        and each launch's finalizes are queued right behind it, so the
+        card decodes while the host takes chunks and a chunk waits only
+        for its own launch.  Each session's rows and feed order are those
+        of the unpipelined server."""
         if self._inflight is None:
             self._inflight = self._dispatch()
             if self._inflight is None:
                 return {}
-        items, rows_dev = self._inflight
+        tokens = self._inflight
         self._inflight = self._dispatch()  # queue the next before waiting
 
         chunks: Dict[int, np.ndarray] = {}
-        tokens, o = [], 0
-        for s, g0, g1 in items:
-            tokens.append(
-                (s, s.fin.feed_async_dev(rows_dev, g1 - g0, offset=o)))
-            o += g1 - g0
         for s, token in tokens:
             chunk = s.fin.collect(token)
             if len(chunk):
                 chunks[s.sid] = chunk
-            if s.fin.done:
+            if token.end >= s.fin.wave_len:   # the session's last chunk
                 if s.slot is not None:
                     self._free_slots.append(s.slot)
                 del self._sessions[s.sid]

@@ -258,6 +258,17 @@ class PendingBatch:
     copy: Optional[HostCopy] = None
 
 
+class FeedToken(NamedTuple):
+    """A queued :class:`_IncrementalUnfold` feed: the host copy of its
+    finalized window, the window's first waveform sample, and the
+    waveform samples [start, end) that the feed makes final."""
+
+    copy: HostCopy
+    base: int
+    start: int
+    end: int
+
+
 @dataclass
 class StreamSession:
     """One utterance's streaming front-end (:meth:`Generator.
@@ -333,7 +344,8 @@ class _IncrementalUnfold:
         ``offset`` .. ``offset+n`` of ``rows_dev``, e.g. one session's
         share of a multiplexed launch) behind the device-held carry of the
         previous fold, and the copy of its result to the host; returns a
-        token for :meth:`collect`.  The raw rows never leave the device."""
+        :class:`FeedToken` for :meth:`collect`.  The raw rows never leave
+        the device."""
         gen, g0 = self.gen, self.g_done
         g1 = g0 + n
         window = rows_dev[offset:offset + n]
@@ -350,17 +362,17 @@ class _IncrementalUnfold:
         self._prev_fold = window[-1].clone()
         final_upto = self.wave_len if g1 >= self.needed_folds else min(
             self.wave_len, g1 * self.stride)
-        token = (HostCopy(y), base, self.emitted, final_upto)
+        token = FeedToken(HostCopy(y), base, self.emitted, final_upto)
         self.emitted = final_upto
         self.g_done = g1
         return token
 
-    def collect(self, token) -> np.ndarray:
+    def collect(self, token: FeedToken) -> np.ndarray:
         """Wait for a feed's host copy and return its newly final chunk:
         wire bytes as they came (packed), or float64 with its slice of the
         tail fade."""
-        copy, base, emitted, final_upto = token
-        out = copy.numpy()
+        _, base, emitted, final_upto = token
+        out = token.copy.numpy()
         if self.packed:
             return out[emitted - base:final_upto - base].copy()
         chunk = np.array(out[emitted - base:final_upto - base],
@@ -684,35 +696,30 @@ class Generator:
         finish decoding (float64, or the packed wire dtype).
 
         The first chunk arrives after one group of folds decodes; a ramped
-        ``first_group`` shrinks only the leading launch.  Up to
-        ``lookahead`` group launches stay queued on the device ahead of
-        the group being finalized and one finalize stays in flight behind
-        them; the raw rows never leave the device, only finished chunks
-        do.  Each group finalizes with the one raw fold before it as
-        context.  With deterministic decode the audio is sample for sample
-        :meth:`stream_oneshot`'s."""
+        ``first_group`` shrinks only the leading launch.  Each group's
+        finalize is queued right behind its launch, and up to
+        ``lookahead`` more launches are queued before a chunk is waited
+        for, so the card never waits for the host and a chunk never waits
+        for a later launch.  The raw rows never leave the device, only
+        finished chunks do; each group finalizes with the one raw fold
+        before it as context.  With deterministic decode the audio is
+        sample for sample :meth:`stream_oneshot`'s."""
         mu_law = mu_law if self.cfg.mode == "RAW" else False
         launch, _, needed_folds, stride, wave_len = self._stream_setup(
             mels, target, overlap, seed)
         fin = _IncrementalUnfold(self, needed_folds, stride, wave_len,
                                  overlap, mu_law)
-        spans = fold_spans(needed_folds, group, first_group)
-        lookahead = max(1, lookahead)
-        decodes = deque()    # queued decode launches
-        finals = deque()     # queued finalize tokens
-        si = 0
-        while si < len(spans) or decodes or finals:
-            while si < len(spans) and len(decodes) < lookahead:
-                decodes.append(launch(*spans[si]))
-                si += 1
-            if decodes:
-                finals.append(fin.feed_async_dev(*decodes.popleft()))
-            # hold one finalize in flight while decode work remains
-            hold = 1 if (si < len(spans) or decodes) else 0
-            while len(finals) > hold:
-                chunk = fin.collect(finals.popleft())
+        tokens = deque()     # queued (launch, finalize) pairs
+        for span in fold_spans(needed_folds, group, first_group):
+            tokens.append(fin.feed_async_dev(*launch(*span)))
+            while len(tokens) > max(1, lookahead):
+                chunk = fin.collect(tokens.popleft())
                 if len(chunk):
                     yield chunk
+        while tokens:
+            chunk = fin.collect(tokens.popleft())
+            if len(chunk):
+                yield chunk
 
     def stream_oneshot(self, mels, target: int, overlap: int, mu_law: bool,
                        group: int = 16, seed: int = 0,
@@ -870,6 +877,43 @@ class Generator:
         return self._finish(samples, num_folds, wave_len, mu_law=mu_law,
                             batched=batched, overlap=overlap)
 
+    def batch_conditioning(self, staged: PrestagedBatch):
+        """The decode kernel's inputs for one prestaged batch: the
+        fold-major (padded total folds, T, C) bf16 conditioning of every
+        utterance's folds and the step count T, as the co-batched
+        pipeline builds them."""
+        with torch.no_grad():
+            stream, starts = self._batch_streams(
+                self._ingress_f32(staged.batch_dev),
+                t_buckets=staged.t_buckets, target=staged.target,
+                overlap=staged.overlap, fold_counts=staged.fold_counts)
+            T = staged.target + 2 * staged.overlap
+            return cuda_decode.fold_major_cond(
+                stream, self._upload(torch.from_numpy(starts)), T), T
+
+    def _batch_streams(self, mels, *, t_buckets: tuple, target: int,
+                       overlap: int, fold_counts: tuple):
+        """One batched upsample; then each utterance's packed stream, cut
+        or padded to (nf-1)*stride + fold_T rows, concatenated: the stream
+        and every fold's start row in it (padded to the fold bucket with
+        row 0)."""
+        c = self.cfg
+        fold_T = target + 2 * overlap
+        stride = target + overlap
+        mels_up, aux_mel = self.model.upsample_parts(mels)
+        streams, starts, off = [], [], 0
+        for i, (t_bucket, nf) in enumerate(zip(t_buckets, fold_counts)):
+            frames = t_bucket - 2 * c.pad
+            s = cuda_decode.pack_stream(
+                mels_up[i:i + 1, :frames * c.hop_length],
+                aux_mel[i:i + 1, :frames], c.total_scale)
+            need = (nf - 1) * stride + fold_T
+            streams.append(_pad_rows(s, need)[:need])
+            starts += [off + b * stride for b in range(nf)]
+            off += need
+        starts += [0] * (self._pad_folds(len(starts)) - len(starts))
+        return torch.cat(streams), np.asarray(starts, np.int64)
+
     def _batch_pipeline(self, batch_dev, wave_lens, seed: int, *,
                         t_buckets: tuple, target: int, overlap: int,
                         fold_counts: tuple, mu_law: bool):
@@ -880,25 +924,12 @@ class Generator:
         then each utterance's finalize and egress into one flat output."""
         c = self.cfg
         mels = self._ingress_f32(batch_dev)
-        fold_T = target + 2 * overlap
-        stride = target + overlap
         if self.backend == "kernel":
-            mels_up, aux_mel = self.model.upsample_parts(mels)
-            streams, starts, off = [], [], 0
-            for i, (t_bucket, nf) in enumerate(zip(t_buckets, fold_counts)):
-                frames = t_bucket - 2 * c.pad
-                s = cuda_decode.pack_stream(
-                    mels_up[i:i + 1, :frames * c.hop_length],
-                    aux_mel[i:i + 1, :frames], c.total_scale)
-                need = (nf - 1) * stride + fold_T
-                streams.append(_pad_rows(s, need)[:need])
-                starts += [off + b * stride for b in range(nf)]
-                off += need
-            del mels_up, aux_mel
-            starts += [0] * (self._pad_folds(len(starts)) - len(starts))
-            samples = self._decode_rows(torch.cat(streams),
-                                        np.asarray(starts, np.int64),
-                                        fold_T, seed)
+            stream, starts = self._batch_streams(
+                mels, t_buckets=t_buckets, target=target, overlap=overlap,
+                fold_counts=fold_counts)
+            samples = self._decode_rows(stream, starts, target + 2 * overlap,
+                                        seed)
         else:
             mels_up, aux = self.model.upsample_only(mels)
             mels_f, aux_f = [], []
