@@ -196,3 +196,27 @@ def test_copy_synthesis_mcd_matches_jax(both_hp):
         to_float=lambda w: seen.append(w.dtype) or w / 32767.0)
     assert seen == [np.int16]
     assert abs(got16 - got) <= 0.01 * got
+
+
+def test_eval_testset_mcd_scores_each_utterance(both_hp, capsys):
+    from wavernn_tpu_torch.infer.eval import copy_synthesis_mcd, \
+        eval_testset_mcd
+    from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+    from wavernn_tpu_torch.ops.decode import Generator
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+    blob = load_pytree(GOLDEN / "tiny_wavernn_raw.msgpack")
+    v = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+    cfg = WaveRNNConfig(rnn_dims=32, fc_dims=32, compute_dims=16,
+                        res_out_dims=16, res_blocks=2, mode="RAW")
+    mel = np.load(GOLDEN / "tiny_wavernn_raw_mel.npy")
+    test_set = [(mel[:, :12], None), (mel[:, 40:50], None), (mel, None)]
+    scores = eval_testset_mcd(cfg, v, test_set, samples=2, batched=True,
+                              target=200, overlap=28, device="cpu")
+    assert len(scores) == 2 and "mean copy-synthesis MCD" in \
+        capsys.readouterr().out
+    # sampling decode, seed 0: the same as one copy_synthesis_mcd call
+    want, _ = copy_synthesis_mcd(Generator(cfg, v, device="cpu"),
+                                 mel[:, :12], batched=True, target=200,
+                                 overlap=28, mu_law=True)
+    assert scores[0] == want

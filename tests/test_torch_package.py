@@ -23,6 +23,10 @@ def test_no_forbidden_import_in_the_source():
             for p in _sources() for m in FORBIDDEN.finditer(p.read_text())]
     assert not hits, hits
     assert len(_sources()) > 20
+    serving = {"dsp/audio.py", "dsp/metrics.py", "infer/eval.py",
+               "infer/stream_server.py"}
+    assert serving <= {str(p.relative_to(PORT)) for p in _sources()
+                       if PORT in p.parents}
 
 
 def test_every_port_module_imports_with_jax_blocked():

@@ -105,6 +105,15 @@ def test_streaming_tail_fade_spans_chunk_boundaries(model):
         oneshot = gen.stream_oneshot(m, group=group, **kw)
         assert streamed.shape == oneshot.shape == (wave_len,)
         np.testing.assert_array_equal(streamed, oneshot)
+        # host rows fed in two pieces finalize to the same bytes
+        from wavernn_tpu_torch.ops.decode import _IncrementalUnfold
+
+        launch, needed, stride, _ = gen._stream_setup(m, TARGET, OVERLAP, 0)
+        rows = launch(0, needed)[0][:needed].numpy()
+        fin = _IncrementalUnfold(gen, needed, stride, wave_len, OVERLAP, True)
+        fed = np.concatenate([fin.feed(rows[:5]), fin.feed(rows[5:])])
+        assert fin.done
+        np.testing.assert_array_equal(fed, oneshot)
         whole = gen(m, batched=True, **kw)   # one launch of every fold
         if output_dtype == "int16":
             assert agreement(streamed, whole) >= 0.99

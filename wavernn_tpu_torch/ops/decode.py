@@ -661,13 +661,12 @@ class Generator:
 
     def _stream_setup(self, mels, target: int, overlap: int, seed: int):
         """Open a session and build its group decoder; returns
-        ``(launch_group, drain_group, needed_folds, stride, wave_len)``.
+        ``(launch_group, needed_folds, stride, wave_len)``.
 
         ``launch_group(g0, g1)`` queues the decode of folds g0..g1 (one
-        launch, seed ``seed + g0``) and returns ``(device rows, n)``;
-        ``drain_group`` waits for the rows.  :meth:`stream` and
-        :meth:`stream_oneshot` decode through these same closures, so they
-        differ only in finalization."""
+        launch, seed ``seed + g0``) and returns ``(device rows, n)``.
+        :meth:`stream` and :meth:`stream_oneshot` decode through this same
+        closure, so they differ only in finalization."""
         sess = self.open_stream_session(mels, target, overlap)
         stride = sess.stride
 
@@ -682,12 +681,7 @@ class Generator:
                 return self._scan_rows(sess.mels_f[g0:g1],
                                        sess.aux_f[g0:g1], seed + g0), n
 
-        def drain_group(handle) -> np.ndarray:
-            dev, n = handle
-            return dev[:n].cpu().numpy()
-
-        return launch_group, drain_group, sess.needed_folds, stride, \
-            sess.wave_len
+        return launch_group, sess.needed_folds, stride, sess.wave_len
 
     def stream(self, mels, target: int, overlap: int, mu_law: bool,
                group: int = 16, seed: int = 0, lookahead: int = 2,
@@ -705,7 +699,7 @@ class Generator:
         before it as context.  With deterministic decode the audio is
         sample for sample :meth:`stream_oneshot`'s."""
         mu_law = mu_law if self.cfg.mode == "RAW" else False
-        launch, _, needed_folds, stride, wave_len = self._stream_setup(
+        launch, needed_folds, stride, wave_len = self._stream_setup(
             mels, target, overlap, seed)
         fin = _IncrementalUnfold(self, needed_folds, stride, wave_len,
                                  overlap, mu_law)
@@ -731,7 +725,7 @@ class Generator:
         output dtype (packed egress faded and quantized on the device, as
         a stream's chunks are)."""
         mu_law = mu_law if self.cfg.mode == "RAW" else False
-        launch, _, needed_folds, _, wave_len = self._stream_setup(
+        launch, needed_folds, _, wave_len = self._stream_setup(
             mels, target, overlap, seed)
         rows = torch.cat([
             dev[:n] for dev, n in (
