@@ -22,6 +22,7 @@ from wavernn_tpu.ops.decode import extract_decode_weights as jax_extract
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig, from_jax_variables
 from wavernn_tpu_torch.ops import cuda_decode
 from wavernn_tpu_torch.ops.decode import extract_decode_weights
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 KW = dict(rnn_dims=32, fc_dims=32, compute_dims=16, res_out_dims=16,
           res_blocks=2, mode="MOL")

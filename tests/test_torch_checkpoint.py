@@ -13,6 +13,7 @@ import pytest
 from flax import serialization
 
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).parent.parent
 CHECKPOINTS = [

@@ -22,6 +22,7 @@ from wavernn_tpu_torch.dsp import wavio
 from wavernn_tpu_torch.infer.wavernn import make_generator
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).parent.parent
 GOLDEN = REPO / "tests" / "golden"

@@ -33,6 +33,7 @@ from wavernn_tpu_torch.ops.decode import (
     Generator, decode_scan, extract_decode_weights,
 )
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).parent.parent
 GOLDEN = REPO / "tests" / "golden"

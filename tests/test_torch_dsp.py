@@ -25,6 +25,7 @@ from wavernn_tpu.dsp import audio as jax_audio
 from wavernn_tpu.dsp import metrics as jax_metrics
 from wavernn_tpu_torch.config import hp as port_hp
 from wavernn_tpu_torch.dsp import audio, metrics
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 REPO = Path(__file__).parent.parent

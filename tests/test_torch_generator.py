@@ -24,6 +24,7 @@ from wavernn_tpu.ops import pallas_decode
 from wavernn_tpu.ops.decode import Generator as JaxGenerator
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.ops.decode import Generator, Prestaged
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 TARGET, OVERLAP = 200, 28
 

@@ -13,6 +13,7 @@ import torch
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.ops.decode import Generator, int8_ff_policy
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 TINY_RAW = Path(__file__).parent / "golden" / "tiny_wavernn_raw.msgpack"
 CFG = WaveRNNConfig(rnn_dims=32, fc_dims=32, compute_dims=16,

@@ -27,6 +27,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 from tools import kernel_breakdown
 from wavernn_tpu_torch.ops import matmul_floor as mf
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 H = kernel_breakdown.H
 

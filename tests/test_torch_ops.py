@@ -18,6 +18,7 @@ from wavernn_tpu.ops import mol as jax_mol
 from wavernn_tpu.ops import rnn as jax_rnn
 from wavernn_tpu_torch.ops import fold, mol
 from wavernn_tpu_torch.ops.rnn import gru_cell_step
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 
 def test_gru_cell_step_matches_jax():

@@ -22,6 +22,7 @@ import torch
 from tools.kernel_sampling_stats import const_logit_weights as jax_weights
 from wavernn_tpu.ops.decode import decode_scan as jax_decode_scan
 from wavernn_tpu_torch.tools import kernel_sampling_stats as ks
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 H = F = 32
 B, T = 8, 512

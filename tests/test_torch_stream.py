@@ -22,6 +22,7 @@ from wavernn_tpu.ops import decode as jax_decode
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.ops.decode import Generator, fold_spans
 from tests.test_torch_cuda import small as torch_small, variables_of
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 TARGET, OVERLAP = 200, 28
 STRIDE = TARGET + OVERLAP

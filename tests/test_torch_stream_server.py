@@ -18,6 +18,7 @@ from wavernn_tpu_torch.infer.stream_server import StreamServer
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.ops.decode import Generator
 from tests.test_torch_stream import OVERLAP, TARGET, agreement, mel, small
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 SERVE = dict(target=TARGET, overlap=OVERLAP, mu_law=True)
 

@@ -28,6 +28,7 @@ from wavernn_tpu_torch.models.tacotron import (
 )
 from wavernn_tpu_torch.ops import rnn
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 META = json.loads((GOLDEN / "tiny_tacotron_meta.json").read_text())

@@ -12,6 +12,7 @@ from wavernn_tpu.text.symbols import symbols as jax_symbols
 from wavernn_tpu_torch import text
 from wavernn_tpu_torch.text import cleaners
 from wavernn_tpu_torch.text.symbols import symbols
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 TEXTS = [
     "I have 3 cats and 1,024 dogs.",

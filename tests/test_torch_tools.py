@@ -22,6 +22,7 @@ from wavernn_tpu_torch.tools import (
     tts_phase_spans, tts_step_probe,
 )
 from wavernn_tpu_torch.utils import profiling
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).parent.parent
 TINY_RAW = REPO / "tests" / "golden" / "tiny_wavernn_raw.msgpack"

@@ -25,6 +25,7 @@ from wavernn_tpu_torch.ops.tts_decode import (
     STATE_FIELDS, extract_tts_decode_weights, init_tts_decode_state,
     location_windows, pack_tts_weights, tts_decode_reference,
 )
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 N_STEPS = 8
 

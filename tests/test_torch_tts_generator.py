@@ -26,6 +26,7 @@ from wavernn_tpu_torch.models.tacotron import TacotronConfig
 from wavernn_tpu_torch.ops import cuda_tts
 from wavernn_tpu_torch.text import text_to_sequence
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 GOLDEN = Path(__file__).parent / "golden"
 META = json.loads((GOLDEN / "tiny_tacotron_meta.json").read_text())

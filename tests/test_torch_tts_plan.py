@@ -18,6 +18,7 @@ from pathlib import Path
 import pytest
 
 from wavernn_tpu_torch.ops.cuda_tts import SMEM_LIMIT, tts_smem_plan
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 META = json.loads((Path(__file__).parent / "golden"
                    / "tiny_tacotron_meta.json").read_text())

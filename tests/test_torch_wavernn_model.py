@@ -21,6 +21,7 @@ from wavernn_tpu_torch.models.wavernn import (
     WaveRNNConfig, from_jax_variables, stretch_time,
 )
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).parent.parent
 ATOL = 1e-4
