@@ -27,7 +27,7 @@ from wavernn_tpu.ops.decode import Generator as JaxGenerator
 from wavernn_tpu_torch.dsp import audio
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.ops.decode import Generator, PrestagedBatch
-from tests.test_torch_cuda import small as torch_small, variables_of
+from tests.test_torch_stream import small
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 TARGET, OVERLAP = 200, 28
@@ -43,12 +43,6 @@ def lsb_agreement(a, b):
     assert a.shape == b.shape and a.dtype == b.dtype == np.int16
     return float(np.mean(np.abs(a.astype(np.int32) - b.astype(np.int32))
                          <= 655))
-
-
-def small(mode):
-    cfg, model = torch_small(mode)
-    return (dict(rnn_dims=64, fc_dims=64, compute_dims=32, res_out_dims=32,
-                 res_blocks=2, mode=mode), variables_of(model, cfg))
 
 
 @pytest.fixture(scope="module")
