@@ -110,9 +110,47 @@ Phases 15-19 run the golden MOL at full width, f16 in, int16 out,
    be byte-equal to its solo ``stream`` and the launches below the solo
    streams' sum.  Prints the aggregate kHz.
 
+Phases 20-23 serve text over both kernels and run the Griffin-Lim
+vocoder:
+
+20. The two-stage server: ``TTSStreamServer`` on the tiny golden Tacotron
+   and the golden MOL, deterministic, f16 in, int16 out, three texts,
+   group 16.  Each session must be byte-equal to its solo two-stage stream
+   (text -> mel -> ``Generator.stream``), the vocoder launches below the
+   solo streams' sum and the TTS launches equal to the 48-step chunks of
+   all sessions.  Prints the aggregate kHz and each session's time to its
+   first chunk.
+21. The HTTP daemon at full width, in process on a loopback port:
+   ``SynthesisService`` over ``init_variables(TacotronConfig(), 0)``
+   (untrained, so it runs to its cap: ``tts_steps=800``, r=2, 400 decoder
+   steps, ~10 s of audio a request) and the golden MOL, f16 in, int16 out,
+   sampling, 4 sessions.  ``/health``, one warm-up of each endpoint, then
+   four concurrent ``/synthesize`` and four concurrent ``/stream`` of
+   distinct seeded texts; each WAV must parse and hold int16 of the length
+   of its text's mel, not silence; both kernels' counters are set to 0
+   just before the requests and must have risen (the TTS kernel once per
+   48-step chunk of every request).  Prints the aggregate kHz of each
+   batch of four (samples / wall s), the latency of each request, the
+   TTFB of each stream and ``/health``'s ``launches``; then a second
+   batch of four streams under ``torch.profiler`` gives the card's busy
+   share (the union of its kernels' spans over the batch's wall time) and
+   its longest idle gap.
+22. The serve CLI in a subprocess: ``python -m wavernn_tpu_torch.serve``
+   with the tiny golden Tacotron, the golden MOL and ``--deterministic``
+   on a free port.  ``/health`` is polled; ``/synthesize`` and ``/stream``
+   of one text must give byte-equal PCM; after SIGTERM the process must
+   exit 0.
+23. Griffin-Lim on the card: ``dsp.torch_audio.reconstruct_waveform`` of
+   the golden eval mel, 32 iterations, timed; the same NNLS and
+   Griffin-Lim on the card and on the CPU from one initial phase must
+   agree within 1e-3 relative RMS; a 440 Hz tone must come back with its
+   spectral centroid within 50 Hz of 440 and over 80% of its energy in
+   200-900 Hz; ``gen_tacotron ... griffinlim`` in a subprocess must write
+   a WAV that parses.
+
 The decode kernel's launch counter is set to 0 just before each main-path
 run and read just after; the record's ``launches`` sums phase 4's and
-phases 15-19's.
+phases 15-21's, and the TTS kernel's sums phase 8's and phases 20-21's.
 
 Float32 matmuls and convolutions run in full float32 (TF32 off).  The last
 two lines are the card's ``nvidia-smi`` name and power limit, then
@@ -126,6 +164,7 @@ computes any of these T-step recurrences.
 
 import json
 import os
+import signal
 import subprocess
 import sys
 import time
@@ -419,14 +458,17 @@ def main():
     floor = measurement_phases(dev, card, golden_cfg, gen, eval_mel,
                                long_mels[0], errs)
     serving = serving_phases(dev, card, golden_cfg, golden, eval_mel, errs)
+    text_serving = text_serving_phases(dev, card, golden_cfg, golden,
+                                       eval_mel)
 
-    # -- 20. the record -------------------------------------------------
+    # -- 24. the record -------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
         "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
         "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
-        "launches": launches + serving["launches"],
+        "launches": (launches + serving["launches"]
+                     + text_serving["decode_launches"]),
         "max_abs_err": max(errs),
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -438,7 +480,7 @@ def main():
         "route": "cuda",
         "source": "wavernn_tpu_torch/ops/csrc/tts_decode.cu",
         "replaces": "wavernn_tpu/ops/pallas_tts.py:237",
-        "launches": tts["launches"],
+        "launches": tts["launches"] + text_serving["tts_launches"],
         "max_abs_err": tts["max_abs_err"],
         "ms": tts["ms"],
         "plain_ms": tts["plain_ms"],
@@ -456,6 +498,23 @@ def main():
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def tts_hp_file(meta: dict) -> Path:
+    """An hp file: the repository's hparams.py (the golden MOL vocoder)
+    with the tiny golden Tacotron's dims and an r=2 schedule."""
+    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
+    d = meta["dims"]
+    hp_file = SMOKE_DIR / "hp_tts.py"
+    hp_file.write_text(
+        "import runpy\n"
+        f"globals().update({{k: v for k, v in runpy.run_path("
+        f"{str(REPO / 'hparams.py')!r}).items() if not k.startswith('__')}})\n"
+        + "".join(f"tts_{k} = {d[k]!r}\n" for k in (
+            "embed_dims", "encoder_dims", "decoder_dims", "postnet_dims",
+            "encoder_K", "lstm_dims", "postnet_K", "num_highways"))
+        + "tts_schedule = [(2, 1e-4, 10_000, 8)]\n")
+    return hp_file
 
 
 def tts_phases(dev, card, wavio, voc_weights) -> dict:
@@ -652,17 +711,7 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
           f"{float(np.median(rates)):.1f} | {card}", flush=True)
 
     # -- 9. the text -> wav CLI ------------------------------------------
-    SMOKE_DIR.mkdir(parents=True, exist_ok=True)
-    d = meta["dims"]
-    hp_file = SMOKE_DIR / "hp_tts.py"
-    hp_file.write_text(
-        "import runpy\n"
-        f"globals().update({{k: v for k, v in runpy.run_path("
-        f"{str(REPO / 'hparams.py')!r}).items() if not k.startswith('__')}})\n"
-        + "".join(f"tts_{k} = {d[k]!r}\n" for k in (
-            "embed_dims", "encoder_dims", "decoder_dims", "postnet_dims",
-            "encoder_K", "lstm_dims", "postnet_K", "num_highways"))
-        + "tts_schedule = [(2, 1e-4, 10_000, 8)]\n")
+    hp_file = tts_hp_file(meta)
     out_dir = SMOKE_DIR / "tts_cli_out"
     env = dict(os.environ, PYTHONPATH=str(REPO))
     proc = subprocess.run(
@@ -1093,6 +1142,376 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
                  f"streams' {solo_launches}")
     return {"launches": launches, "rows": rows, "step_us": step_us,
             "mcd": mcd, "stream": stream_rec, "server": server_rec}
+
+
+def http_get(port: int, path: str) -> dict:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = json.loads(resp.read())
+    conn.close()
+    if resp.status != 200:
+        fail(f"GET {path}: {resp.status} {body}")
+    return body
+
+
+def pcm_of(body: bytes, sample_rate: int) -> np.ndarray:
+    """The int16 samples of a 16-bit mono WAV body; fails on any other."""
+    import struct
+
+    if body[:4] != b"RIFF" or body[8:16] != b"WAVEfmt ":
+        fail(f"not a WAV: {body[:64]!r}")
+    _, fmt, ch, sr, _, _, bits = struct.unpack("<IHHIIHH", body[16:36])
+    if (fmt, ch, sr, bits) != (1, 1, sample_rate, 16) or \
+            body[36:40] != b"data":
+        fail(f"WAV header {(fmt, ch, sr, bits)}")
+    return np.frombuffer(body[44:], "<i2")
+
+
+def concurrently(fn, args) -> list:
+    """fn(a) for every a, each on its own thread; results in order."""
+    import threading
+
+    results = [None] * len(args)
+
+    def run(i):
+        results[i] = fn(args[i])
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(args))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(900)
+        if t.is_alive():
+            fail("a request thread did not finish in 900 s")
+    if any(r is None for r in results):
+        fail("a concurrent request failed")
+    return results
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
+    """Phases 20-23: the two-stage server, the HTTP daemon in process at
+    full width, the serve CLI and Griffin-Lim.  Returns both kernels'
+    launches on these paths."""
+    import threading
+
+    import torch
+
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.dsp import audio, torch_audio, wavio
+    from wavernn_tpu_torch.infer.http_server import (SynthesisService,
+                                                     make_http_server)
+    from wavernn_tpu_torch.infer.pipeline import TTSPipeline, mel_from_linear
+    from wavernn_tpu_torch.infer.stream_server import TTSStreamServer
+    from wavernn_tpu_torch.models.tacotron import (TacotronConfig,
+                                                   init_variables)
+    from wavernn_tpu_torch.ops import cuda_decode, cuda_tts
+    from wavernn_tpu_torch.text import text_to_sequence
+    from wavernn_tpu_torch.tools.http_serve_probe import post
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+    if not hp.is_configured():
+        hp.configure(REPO / "hparams.py")
+    meta = json.loads((TACO_DIR / "tiny_tacotron_meta.json").read_text())
+    blob = load_pytree(TACO_DIR / "tiny_tacotron.msgpack")
+    taco = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+    taco_cfg = TacotronConfig(**meta["dims"])
+    cleaners = ["english_cleaners"]
+    hop, sr = voc_cfg.hop_length, voc_cfg.sample_rate
+    decode_launches = tts_launches = 0
+
+    def chunks_of(frames: int, r: int) -> int:
+        """TTS kernel launches of a decode that gave ``frames`` frames."""
+        return -(-(frames // r) // TTS_CHUNK)
+
+    def reset_counters():
+        torch.cuda.synchronize()
+        cuda_decode.decode.launches = 0
+        cuda_tts.tts_decode.launches = 0
+
+    # -- 20. the two-stage server ----------------------------------------
+    r = meta["r"]
+    pipe = TTSPipeline(taco_cfg, taco, voc_cfg, golden, cleaners, r=r,
+                       device=dev, tts_steps=400, deterministic=True,
+                       output_dtype="int16", input_dtype="float16")
+    texts = ["abcdeabcde", "edcba abcde", "abcde"]
+    geom = dict(target=TARGET, overlap=OVERLAP, mu_law=False)
+    solo, want_tts = [], 0
+    reset_counters()
+    for t in texts:                      # the solo two-stage streams
+        m = pipe.tts(text_to_sequence(t, cleaners), r=r)[1]
+        want_tts += chunks_of(m.shape[1], r)
+        solo.append(np.concatenate(list(pipe.voc.stream(
+            mel_from_linear(m), group=16, **geom))))
+    torch.cuda.synchronize()
+    solo_launches = cuda_decode.decode.launches
+    srv = TTSStreamServer(pipe, group=16, width=64, capacity=4, **geom)
+    reset_counters()
+    t0 = time.perf_counter()
+    sids = [srv.add(t) for t in texts]
+    pieces = {sid: [] for sid in sids}
+    first = {}
+    while srv.active:
+        for sid, chunk in srv.step().items():
+            if isinstance(chunk, Exception):
+                fail(f"two-stage session {sid}: {chunk!r}")
+            first.setdefault(sid, time.perf_counter() - t0)
+            pieces[sid].append(chunk)
+    dt = time.perf_counter() - t0
+    voc_n, tts_n = cuda_decode.decode.launches, cuda_tts.tts_decode.launches
+    decode_launches += voc_n
+    tts_launches += tts_n
+    got = [np.concatenate(pieces[sid]) for sid in sids]
+    equal = all(g.dtype == np.int16 and np.array_equal(g, w)
+                for g, w in zip(got, solo))
+    khz = sum(len(g) for g in got) / dt / 1e3
+    print(f"two-stage server, 3 texts (tiny golden Tacotron -> golden MOL, "
+          f"deterministic, int16, group 16): {khz:.2f} kHz aggregate in "
+          f"{dt:.3f} s; time to first chunk "
+          f"{[round(first[s] * 1e3, 1) for s in sids]} ms; launches: "
+          f"vocoder {voc_n} (solo streams {solo_launches}), tts {tts_n} "
+          f"(want {want_tts}); byte-equal to solo {equal} | {card}",
+          flush=True)
+    if not equal:
+        fail("a two-stage session differs from its solo stream")
+    if not voc_n < solo_launches or tts_n != want_tts:
+        fail("the two-stage server's launches are not co-batched or miss "
+             "the TTS kernel")
+
+    # -- 21. the HTTP daemon at full width --------------------------------
+    full = TacotronConfig()
+    full_pipe = TTSPipeline(full, init_variables(full, 0), voc_cfg, golden,
+                            cleaners, r=2, device=dev, tts_steps=800,
+                            output_dtype="int16", input_dtype="float16")
+    rng = np.random.default_rng(21)
+    words = ["".join(rng.choice(list("abcdefghijklmnopqrstuvwxyz"),
+                                rng.integers(3, 9))) for _ in range(40)]
+    req_texts = [" ".join(words[10 * i:10 * i + 10]) + "." for i in range(4)]
+    want_len, want_tts = [], 0
+    for t in req_texts:                  # the kernel decode is deterministic
+        m = full_pipe.tts(text_to_sequence(t, cleaners), r=2)[1]
+        want_len.append((m.shape[1] - 1) * hop)
+        want_tts += 2 * chunks_of(m.shape[1], 2)
+    service = SynthesisService(full_pipe, target=TARGET, overlap=OVERLAP,
+                               mu_law=False, group=16, capacity=4)
+    httpd = make_http_server(service, "127.0.0.1", 0)
+    port = httpd.server_address[1]
+    server_thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    server_thread.start()
+    try:
+        health = http_get(port, "/health")
+        if health["ok"] is not True or health["sample_rate"] != sr:
+            fail(f"/health: {health}")
+        for path in ("/synthesize", "/stream"):                # warm
+            post(port, path, "warm up.")
+        reset_counters()
+        launches0 = http_get(port, "/health")["launches"]
+        batches = {}
+        for path in ("/synthesize", "/stream"):
+            t0 = time.perf_counter()
+            res = concurrently(lambda t: post(port, path, t), req_texts)
+            wall = time.perf_counter() - t0
+            for (body, _, _), n, t in zip(res, want_len, req_texts):
+                pcm = pcm_of(body, sr)
+                if pcm.shape != (n,) or not np.abs(pcm.astype(np.int32)
+                                                   ).max() > 256:
+                    fail(f"{path} {t!r}: {pcm.shape} samples (want {n}), "
+                         f"max |x| {np.abs(pcm.astype(np.int32)).max()}")
+            samples = sum(want_len)
+            batches[path] = (samples / wall / 1e3, wall,
+                             [x[2] for x in res], [x[1] for x in res])
+        torch.cuda.synchronize()
+        voc_n, tts_n = (cuda_decode.decode.launches,
+                        cuda_tts.tts_decode.launches)
+        health = http_get(port, "/health")
+        for path, (khz, wall, lat, ttfb) in batches.items():
+            print(f"http {path}, 4 concurrent requests (full-width untrained "
+                  f"Tacotron, tts_steps 800, r=2 -> golden MOL, f16 in, "
+                  f"int16 out, sampling, 4 sessions): {khz:.2f} kHz "
+                  f"aggregate ({sum(want_len)} samples in {wall:.3f} s); "
+                  f"latency {[round(x, 3) for x in lat]} s"
+                  + (f"; TTFB {[round(x * 1e3, 1) for x in ttfb]} ms"
+                     if path == "/stream" else "") + f" | {card}",
+                  flush=True)
+        print(f"http launches in the 8 requests: vocoder {voc_n}, tts "
+              f"{tts_n} (want {want_tts}); /health launches "
+              f"{health['launches']} (stream-server launches in the "
+              f"requests {health['launches'] - launches0}), served "
+              f"{health['served_sessions']} sessions, "
+              f"{health['served_audio_seconds']} s", flush=True)
+        decode_launches += voc_n
+        tts_launches += tts_n
+        if voc_n < 5 or tts_n != want_tts:
+            fail("the HTTP requests did not run through both kernels")
+
+        # the card's busy share over a batch of four streams
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        reset_counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = concurrently(lambda t: post(port, "/stream", t),
+                               req_texts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        decode_launches += cuda_decode.decode.launches
+        tts_launches += cuda_tts.tts_decode.launches
+        spans = sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events()
+                       if e.device_type == DeviceType.CUDA)
+        busy, gap, end = 0.0, 0.0, None
+        for a, b in spans:
+            if end is None or a > end:
+                if end is not None:
+                    gap = max(gap, a - end)
+                busy += b - a
+                end = b
+            elif b > end:
+                busy += b - end
+                end = b
+        if spans:
+            print(f"http /stream x 4 under torch.profiler: wall "
+                  f"{wall:.3f} s, {len(spans)} device events, busy "
+                  f"{busy / 1e6:.3f} s = {busy / 1e6 / wall:.4f} of the "
+                  f"wall time, longest idle gap {gap / 1e3:.1f} ms; TTFB "
+                  f"{[round(x[1] * 1e3, 1) for x in res]} ms | {card}",
+                  flush=True)
+        else:
+            print("http /stream x 4 under torch.profiler: no device "
+                  "events recorded; busy share not measured", flush=True)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    del full_pipe, service
+
+    # -- 22. the serve CLI -------------------------------------------------
+    hp_file = tts_hp_file(meta)
+    port = free_port()
+    log_path = SMOKE_DIR / "serve.log"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    with open(log_path, "w") as log:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "wavernn_tpu_torch.serve", "--hp_file",
+             str(hp_file), "--tts_weights",
+             str(TACO_DIR / "tiny_tacotron.msgpack"), "--voc_weights",
+             str(GOLDEN), "--deterministic", "--slot_seconds", "10",
+             "--port", str(port)],
+            cwd=REPO, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            up = None
+            while up is None:
+                if proc.poll() is not None:
+                    fail(f"serve exited {proc.returncode}:\n"
+                         f"{log_path.read_text()[-3000:]}")
+                if time.perf_counter() - t0 > 300:
+                    fail("serve did not answer /health in 300 s")
+                try:
+                    up = http_get(port, "/health")
+                except OSError:
+                    time.sleep(0.5)
+            ready = time.perf_counter() - t0
+            text = meta["eval_text"]
+            one, _, one_s = post(port, "/synthesize", text)
+            streamed, ttfb, stream_s = post(port, "/stream", text)
+            a, b = pcm_of(one, sr), pcm_of(streamed, sr)
+            print(f"serve CLI: /health after {ready:.1f} s; /synthesize "
+                  f"{len(a)} samples in {one_s:.3f} s, /stream {len(b)} "
+                  f"in {stream_s:.3f} s (TTFB {ttfb * 1e3:.1f} ms); "
+                  f"byte-equal {np.array_equal(a, b)} | {card}", flush=True)
+            if len(a) == 0 or not np.array_equal(a, b):
+                fail("the serve CLI's /stream and /synthesize PCM differ")
+            proc.send_signal(signal.SIGTERM)
+            code = proc.wait(timeout=60)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    print("serve CLI: " + " | ".join(
+        line.strip() for line in log_path.read_text().splitlines()
+        if "Warm-up" in line or "Using device" in line)
+        + f"; exit {code} after SIGTERM")
+    if code != 0:
+        fail(f"serve exited {code} after SIGTERM:\n"
+             f"{log_path.read_text()[-3000:]}")
+
+    # -- 23. Griffin-Lim on the card ---------------------------------------
+    torch_audio.reconstruct_waveform(eval_mel[:, :64], n_iter=2,
+                                     device=dev)                  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav = torch_audio.reconstruct_waveform(eval_mel, n_iter=32, device=dev)
+    gl_s = time.perf_counter() - t0
+    if wav.shape != ((eval_mel.shape[1] - 1) * hop,) or \
+            not np.isfinite(wav).all():
+        fail(f"Griffin-Lim gave {wav.shape}")
+    S = torch_audio.mel_to_linear(eval_mel, dev)
+    S_cpu = torch_audio.mel_to_linear(eval_mel, "cpu")
+    phase = torch.rand(S.shape, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(0)) * (2 * np.pi)
+    gl = dict(n_iter=32, hop_length=hp.hop_length,
+              win_length=hp.win_length)
+    with torch.no_grad():
+        on_card = torch_audio.griffinlim(S, phase, **gl).cpu().numpy()
+        on_cpu = torch_audio.griffinlim(S_cpu, phase.cpu(), **gl).numpy()
+    rel = float(np.linalg.norm(on_card - on_cpu) / np.linalg.norm(on_cpu))
+    s_rel = float((S.cpu() - S_cpu).norm() / S_cpu.norm())
+    t = np.arange(sr // 2) / sr
+    tone = torch_audio.reconstruct_waveform(audio.melspectrogram(
+        (0.5 * np.sin(2 * np.pi * 440 * t)).astype(np.float32)), n_iter=32,
+        device=dev)
+    spec = np.abs(np.fft.rfft(tone * np.hanning(len(tone))))
+    freqs = np.fft.rfftfreq(len(tone), 1 / sr)
+    band = (freqs > 200) & (freqs < 900)
+    centroid = float((freqs[band] * spec[band]).sum() / spec[band].sum())
+    share = float(spec[band].sum() / spec.sum())
+    print(f"griffin-lim on the card: golden eval mel ({eval_mel.shape[1]} "
+          f"frames), 32 iterations, {gl_s * 1e3:.1f} ms ({len(wav)} samples "
+          f"= {len(wav) / gl_s / 1e3:.1f} kHz); card vs cpu from one phase: "
+          f"NNLS rel {s_rel:.3g}, waveform rel RMS {rel:.3g}, max |d| "
+          f"{float(np.abs(on_card - on_cpu).max()):.3g}; 440 Hz tone: "
+          f"centroid {centroid:.1f} Hz, band share {share:.4f} | {card}",
+          flush=True)
+    if not rel <= 1e-3:
+        fail(f"Griffin-Lim on the card is {rel:.3g} (relative RMS) from "
+             "the CPU")
+    if not (abs(centroid - 440) < 50 and share > 0.8):
+        fail("Griffin-Lim does not give back the 440 Hz tone")
+    out_dir = SMOKE_DIR / "gl_cli_out"
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavernn_tpu_torch.gen_tacotron",
+         "--input_text", meta["eval_text"], "--tts_weights",
+         str(TACO_DIR / "tiny_tacotron.msgpack"), "--hp_file", str(hp_file),
+         "--output_dir", str(out_dir), "griffinlim"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    print("gl cli: " + " | ".join(proc.stdout.strip().splitlines()[-3:]))
+    if proc.returncode != 0:
+        fail(f"griffinlim CLI exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    wavs = sorted(out_dir.glob("__input_*_griffinlim_*.wav"))
+    if len(wavs) != 1:
+        fail(f"griffinlim CLI wrote {wavs}")
+    x, got_sr = wavio.read_wav_raw(wavs[0])
+    if got_sr != sr or x.size == 0 or x.size % hop or not np.isfinite(x).all():
+        fail(f"griffinlim CLI WAV: sr {got_sr}, shape {x.shape}")
+    print(f"gl cli: {wavs[0].name} parses: {x.shape[0]} samples at "
+          f"{got_sr} Hz")
+    return {"decode_launches": decode_launches,
+            "tts_launches": tts_launches}
 
 
 if __name__ == "__main__":

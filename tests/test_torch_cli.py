@@ -178,8 +178,7 @@ def test_tts_cli_refuses_what_is_not_ported(tts_args, monkeypatch):
     from wavernn_tpu_torch import gen_tacotron
 
     voc = ["wavernn", "--voc_weights", str(WEIGHTS)]
-    for extra, what in ((["griffinlim"], "griffinlim"),
-                        (["--save_attention"] + voc, "save_attention"),
+    for extra, what in ((["--save_attention"] + voc, "save_attention"),
                         (["--mesh"] + voc, "mesh"),
                         (["--int8"] + voc, "int8")):
         hp.reset()
@@ -189,3 +188,16 @@ def test_tts_cli_refuses_what_is_not_ported(tts_args, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         gen_tacotron.main(tts_args + voc)
+
+
+def test_tts_cli_griffinlim_writes_a_wav_on_cpu(tts_args):
+    """The griffinlim vocoder (``dsp/torch_audio.reconstruct_waveform``):
+    a float WAV of (frames - 1) * hop finite, non-silent samples."""
+    from wavernn_tpu_torch import gen_tacotron
+
+    (out,) = gen_tacotron.main(tts_args + ["--device", "cpu", "griffinlim",
+                                           "--iters", "4"])
+    assert out.name == "__input_abcdeabcde_griffinlim_6k.wav"
+    x, sr = wavio.read_wav_raw(out)
+    assert sr == 22050 and x.size > 0 and x.size % 275 == 0
+    assert np.isfinite(x).all() and np.std(x) > 0

@@ -522,3 +522,105 @@ def test_tts_generator_on_card_passes_the_tts_gate(cuda_device):
     gt = np.load(GOLDEN / "tiny_tacotron_gt_mel.npy") * 8.0 - 4.0
     g = tts_gates(mel, attn, len(seq), gt)
     assert gates_pass(g, meta["pinned_gates_cpu_xla"]["mel_gt_l1"]), g
+
+
+# -- text serving over both kernels and Griffin-Lim --------------------------
+
+def tiny_tts_pipeline(device, **kw):
+    """The tiny golden Tacotron into a seeded small MOL vocoder on
+    ``device``, deterministic, int16 out."""
+    from wavernn_tpu_torch.infer.pipeline import TTSPipeline
+
+    meta = json.loads((GOLDEN / "tiny_tacotron_meta.json").read_text())
+    blob = load_pytree(GOLDEN / "tiny_tacotron.msgpack")
+    cfg, model = small("MOL")
+    kw = {"deterministic": True, "output_dtype": "int16", "tts_steps": 400,
+          **kw}
+    return TTSPipeline(TacotronConfig(**meta["dims"]),
+                       {"params": blob["params"],
+                        "batch_stats": blob["batch_stats"]},
+                       cfg, variables_of(model, cfg), ["english_cleaners"],
+                       r=meta["r"], device=device, **kw)
+
+
+def test_http_service_serves_through_both_kernels_on_card(cuda_device):
+    """/synthesize and /stream through the daemon: both kernels launch,
+    and under deterministic decode the two bodies are byte-equal."""
+    import http.client
+    import threading
+
+    from wavernn_tpu_torch.infer.http_server import (SynthesisService,
+                                                     make_http_server)
+
+    service = SynthesisService(tiny_tts_pipeline(cuda_device), target=200,
+                               overlap=28, mu_law=False, group=4, width=16,
+                               capacity=2, slot_seconds=2.0,
+                               chunk_timeout=120.0)
+    httpd = make_http_server(service, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    bodies = {}
+    try:
+        n_voc, n_tts = cuda_decode.decode.launches, cuda_tts.tts_decode.launches
+        for path in ("/synthesize", "/stream"):
+            conn = http.client.HTTPConnection("127.0.0.1",
+                                              httpd.server_address[1],
+                                              timeout=120)
+            conn.request("POST", path,
+                         body=json.dumps({"text": "abcdeabcde"}).encode())
+            resp = conn.getresponse()
+            bodies[path] = resp.read()
+            conn.close()
+            assert resp.status == 200, bodies[path][:200]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+    assert cuda_decode.decode.launches > n_voc + 1
+    assert cuda_tts.tts_decode.launches >= n_tts + 2
+    one, streamed = bodies["/synthesize"][44:], bodies["/stream"][44:]
+    assert len(one) > 0 and len(one) % (2 * 275) == 0
+    assert one == streamed
+
+
+def test_two_stage_server_equals_solo_streams_on_card(cuda_device):
+    from wavernn_tpu_torch.infer.pipeline import mel_from_linear
+    from wavernn_tpu_torch.infer.stream_server import TTSStreamServer
+
+    pipe = tiny_tts_pipeline(cuda_device)
+    texts = ["abcdeabcde", "abcde", "edcba"]
+    kw = dict(target=200, overlap=28, mu_law=False)
+    solo = [np.concatenate(list(pipe.voc.stream(mel_from_linear(
+        pipe.tts(text_to_sequence(t, ["english_cleaners"]), r=2)[1]),
+        group=4, **kw))) for t in texts]
+    srv = TTSStreamServer(pipe, group=4, width=16, capacity=2,
+                          slot_seconds=2.0, **kw)
+    for got, want in zip(srv.run(texts), solo):
+        assert got.dtype == np.int16
+        np.testing.assert_array_equal(got, want)
+    assert srv.server.launches < sum(-(-len(w) // 228 // 4) for w in solo)
+
+
+def test_griffinlim_on_card_matches_cpu(cuda_device):
+    """The same NNLS and Griffin-Lim on the card and on the CPU from one
+    initial phase, within 1e-3 relative RMS."""
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.dsp import torch_audio
+
+    hp.reset()
+    hp.configure(Path(__file__).parent.parent / "hparams.py")
+    try:
+        mel = np.load(Path(__file__).parent.parent / "bench_assets"
+                      / "golden_eval_mel.npy")[:, :200]
+        S = torch_audio.mel_to_linear(mel, cuda_device)
+        S_cpu = torch_audio.mel_to_linear(mel, "cpu")
+        phase = torch.rand(S.shape, device=cuda_device) * (2 * np.pi)
+        with torch.no_grad():
+            a = torch_audio.griffinlim(S, phase, 16, 275, 1100).cpu()
+            b = torch_audio.griffinlim(S_cpu, phase.cpu(), 16, 275, 1100)
+        assert a.shape == b.shape == (199 * 275,)
+        assert float((a - b).norm() / b.norm()) <= 1e-3
+        wav = torch_audio.reconstruct_waveform(mel, n_iter=4,
+                                               device=cuda_device)
+        assert wav.shape == (199 * 275,) and np.isfinite(wav).all()
+    finally:
+        hp.reset()

@@ -24,7 +24,10 @@ def test_no_forbidden_import_in_the_source():
     assert not hits, hits
     assert len(_sources()) > 20
     serving = {"dsp/audio.py", "dsp/metrics.py", "infer/eval.py",
-               "infer/stream_server.py"}
+               "infer/stream_server.py", "infer/http_server.py", "serve.py",
+               "dsp/torch_audio.py", "utils/display.py",
+               "tools/http_serve_probe.py", "tools/stream_server_probe.py",
+               "tools/stream_latency.py", "tools/wire_format_probe.py"}
     assert serving <= {str(p.relative_to(PORT)) for p in _sources()
                        if PORT in p.parents}
 

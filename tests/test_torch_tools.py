@@ -18,8 +18,9 @@ import torch
 from wavernn_tpu.utils import profiling as jax_profiling
 from wavernn_tpu_torch.config import hp
 from wavernn_tpu_torch.tools import (
-    fold_geometry_probe, kernel_breakdown, kernel_sampling_stats,
-    tts_phase_spans, tts_step_probe,
+    fold_geometry_probe, http_serve_probe, kernel_breakdown,
+    kernel_sampling_stats, stream_latency, stream_server_probe,
+    tts_phase_spans, tts_step_probe, wire_format_probe,
 )
 from wavernn_tpu_torch.utils import profiling
 from tests.torch_cpu import one_torch_thread  # noqa: F401
@@ -30,7 +31,11 @@ TOOLS = {"kernel_breakdown": kernel_breakdown,
          "kernel_sampling_stats": kernel_sampling_stats,
          "fold_geometry_probe": fold_geometry_probe,
          "tts_step_probe": tts_step_probe,
-         "tts_phase_spans": tts_phase_spans}
+         "tts_phase_spans": tts_phase_spans,
+         "http_serve_probe": http_serve_probe,
+         "stream_server_probe": stream_server_probe,
+         "stream_latency": stream_latency,
+         "wire_format_probe": wire_format_probe}
 
 
 @pytest.fixture(autouse=True)
@@ -56,7 +61,23 @@ def tiny_hp(tmp_path) -> Path:
     return f
 
 
+def tiny_tts_hp(tmp_path) -> Path:
+    """``tiny_hp`` with the tiny golden Tacotron's dims and a short fold
+    geometry (target 200 / overlap 28)."""
+    dims = json.loads((REPO / "tests" / "golden"
+                       / "tiny_tacotron_meta.json").read_text())["dims"]
+    f = tiny_hp(tmp_path)
+    with open(f, "a") as out:
+        out.write("".join(f"tts_{k} = {dims[k]!r}\n" for k in (
+            "embed_dims", "encoder_dims", "decoder_dims", "postnet_dims",
+            "encoder_K", "lstm_dims", "postnet_K", "num_highways"))
+            + "voc_target = 200\nvoc_overlap = 28\n")
+    return f
+
+
 def cpu_argv(name, tmp_path):
+    tiny = ["--voc_weights", str(TINY_RAW), "--hp_file", str(tiny_hp(tmp_path)),
+            "--target", "200", "--overlap", "28"]
     return {
         "kernel_breakdown": ["2", "4", "--reps", "1",
                              "--trace", str(tmp_path / "trace")],
@@ -67,6 +88,17 @@ def cpu_argv(name, tmp_path):
                                 "--hp_file", str(tiny_hp(tmp_path))],
         "tts_step_probe": ["8", "1", "--passes", "1"],
         "tts_phase_spans": ["--L", "256"],
+        "http_serve_probe": ["--concurrent", "2", "--tts_steps", "40",
+                             "--tts_weights", str(REPO / "tests" / "golden"
+                                                  / "tiny_tacotron.msgpack"),
+                             "--voc_weights", str(TINY_RAW),
+                             "--hp_file", str(tiny_tts_hp(tmp_path))],
+        "stream_server_probe": ["--sessions", "2", "--frames", "24",
+                                "--group", "8", "--width", "16"] + tiny,
+        "stream_latency": ["--frames", "16", "--group", "16", "--reps",
+                           "1"] + tiny,
+        "wire_format_probe": ["--passes", "1", "--runs", "1", "--frames",
+                              "16", "--mcd_frames", "24"] + tiny,
     }[name] + ["--device", "cpu"]
 
 
@@ -108,6 +140,24 @@ def test_tool_runs_plain_versions_on_cpu(name, tmp_path, capsys):
         assert [x["target"] for x in r] == [300, 150]
         assert [x["steps_per_launch"] for x in r] == [350, 200]
         assert r[1]["folds"] > r[0]["folds"] and r[0]["rows"] % 16 == 0
+    elif name == "http_serve_probe":
+        assert rec["health_ok"] and rec["stream_equals_oneshot"]
+        assert rec["stream_repeats"] and rec["stream_samples"] == 39 * 275
+        assert len(rec["cpu_host_latency_s"]) == 2 and rec["launches"] >= 2
+    elif name == "stream_server_probe":
+        assert rec["parity_max_abs_diff"] == 0 and rec["parity_launches"] > 0
+        (s,) = rec["sweep"]
+        assert s["concurrent_sessions"] == 2 and s["launches"] > 0
+        assert s["audio_s_total"] == pytest.approx(2 * 23 * 275 / 22050)
+    elif name == "stream_latency":
+        assert rec["parity_max_abs_diff"] == 0
+        assert rec["audio_s"] == pytest.approx(15 * 275 / 22050)
+        assert rec["cpu_host_int16_g32_ramp4_ttfc_ms"] > 0
+    elif name == "wire_format_probe":
+        assert set(wire_format_probe.ARMS) == {
+            k[len("mcd_"):] for k in rec if k.startswith("mcd_")}
+        assert np.isfinite([rec[k] for k in rec if k.startswith("mcd_")]
+                           ).all()
     elif name == "tts_phase_spans":
         # the plan alone: the spans and the barrier loop need the card
         assert rec["grid"] == 132 and rec["smem_bytes"] == 137_456

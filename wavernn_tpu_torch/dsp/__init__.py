@@ -1,7 +1,9 @@
-"""Host-side DSP of the port (numpy, as in the JAX package):
+"""DSP of the port: on the host (numpy, as in the JAX package)
 :mod:`~wavernn_tpu_torch.dsp.audio` (STFT, Slaney mel, mu-law and label
 codecs, the hp-bound feature API), :mod:`~wavernn_tpu_torch.dsp.metrics`
-(MCD) and :mod:`~wavernn_tpu_torch.dsp.wavio` (WAV I/O)."""
+(MCD) and :mod:`~wavernn_tpu_torch.dsp.wavio` (WAV I/O); on the device
+:mod:`~wavernn_tpu_torch.dsp.torch_audio` (STFT, mel, the Griffin-Lim
+vocoder ``reconstruct_waveform``)."""
 
 from wavernn_tpu_torch.dsp.audio import (  # noqa: F401
     amp_to_db,
@@ -25,3 +27,4 @@ from wavernn_tpu_torch.dsp.audio import (  # noqa: F401
     split_signal,
     stft,
 )
+from wavernn_tpu_torch.dsp.torch_audio import reconstruct_waveform  # noqa: F401,E402

@@ -5,13 +5,18 @@ waveform (ports ``gen_tacotron.py``).
         --tts_weights TACO.msgpack [--hp_file hparams.py] [--device cuda] \\
         wavernn --voc_weights bench_assets/wavernn_mol_golden.msgpack
 
+    python -m wavernn_tpu_torch.gen_tacotron --input_text "Hello there." \\
+        --tts_weights TACO.msgpack griffinlim [--iters 32]
+
 Without ``--input_text`` every line of ``sentences.txt`` (in the working
 directory) is synthesized.  The device defaults to ``cuda`` and is never
 swapped for another: without CUDA the command fails.  ``--device cpu``
-runs the kernels' plain PyTorch versions instead, at CPU speed.
+runs the kernels' plain PyTorch versions instead, at CPU speed.  The
+``griffinlim`` vocoder is ``dsp/torch_audio.py::reconstruct_waveform``
+(NNLS mel inversion and Griffin-Lim on the device).
 
-Not ported yet (each raises): the ``griffinlim`` vocoder,
-``--save_attention``, ``--mesh`` and ``--int8``.
+Not ported yet (each raises): ``--save_attention``, ``--mesh`` and
+``--int8``.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ import argparse
 from pathlib import Path
 
 from wavernn_tpu_torch.config import hp
-from wavernn_tpu_torch.dsp import wavio
+from wavernn_tpu_torch.dsp import audio, wavio
+from wavernn_tpu_torch.dsp.torch_audio import reconstruct_waveform
 from wavernn_tpu_torch.infer.pipeline import mel_from_linear
 from wavernn_tpu_torch.infer.tacotron import TTSGenerator
 from wavernn_tpu_torch.infer.wavernn import make_generator
@@ -40,7 +46,11 @@ def r_for_step(step: int, schedule) -> int:
     return schedule[-1][0]
 
 
-def _variables(path):
+def load_weights(path, model_id: str, kind: str):
+    """(variables, step) of the weights at ``path``, or, where ``path`` is
+    None, of the latest checkpoint ``checkpoints/<model_id>.<kind>``."""
+    path = Path(path if path else Path("checkpoints") / f"{model_id}.{kind}"
+                / "latest_weights.msgpack")
     blob = load_pytree(path)
     return ({"params": blob["params"], "batch_stats": blob["batch_stats"]},
             int(blob.get("step", 0)))
@@ -92,62 +102,69 @@ def main(argv=None):
                     help="[int] griffinlim iterations")
     args = parser.parse_args(argv)
 
-    if args.vocoder in ("griffinlim", "gl"):
-        raise NotImplementedError("the griffinlim vocoder (device STFT) is "
-                                  "not ported yet")
     for flag, what in (("save_attn", "--save_attention"), ("mesh", "--mesh"),
                        ("int8", "--int8")):
         if getattr(args, flag):
             raise NotImplementedError(f"{what} is not ported yet")
 
     hp.configure(args.hp_file)
-    target = hp.voc_target if args.target is None else args.target
-    overlap = hp.voc_overlap if args.overlap is None else args.overlap
-    batched = hp.voc_gen_batched if args.batched is None else args.batched
     out_dir = Path(args.output_dir if args.output_dir else
                    Path("model_outputs") / f"{hp.tts_model_id}.tacotron")
-
-    voc_cfg = WaveRNNConfig.from_hp(hp)
-    voc_path = Path(args.voc_weights if args.voc_weights else
-                    Path("checkpoints") / f"{hp.voc_model_id}.wavernn"
-                    / "latest_weights.msgpack")
-    voc_vars, voc_step = _variables(voc_path)
     tts_cfg = TacotronConfig.from_hp(hp, num_chars=len(symbols))
-    tts_path = Path(args.tts_weights if args.tts_weights else
-                    Path("checkpoints") / f"{hp.tts_model_id}.tacotron"
-                    / "latest_weights.msgpack")
-    tts_vars, tts_step = _variables(tts_path)
+    tts_vars, tts_step = load_weights(args.tts_weights, hp.tts_model_id,
+                                      "tacotron")
     r = r_for_step(tts_step, hp.tts_schedule)
+    tts = TTSGenerator(tts_cfg, tts_vars, args.device,
+                       backend=args.tts_backend)
+    tts_k = tts_step // 1000
+    head = (f"Using device: {tts.device} | Tacotron {tts_k}k, r={r}, "
+            f"{tts.backend} decode | ")
+
+    if args.vocoder in ("griffinlim", "gl"):
+        v_type = "griffinlim"
+        print(head + f"Griffin-Lim, {args.iters} iterations")
+
+        def vocode(mel, path):
+            wav = reconstruct_waveform(mel, n_iter=args.iters,
+                                       device=args.device)
+            audio.save_wav(wav, path)
+            return wav
+    else:
+        target = hp.voc_target if args.target is None else args.target
+        overlap = hp.voc_overlap if args.overlap is None else args.overlap
+        batched = hp.voc_gen_batched if args.batched is None else args.batched
+        voc_cfg = WaveRNNConfig.from_hp(hp)
+        voc_vars, voc_step = load_weights(args.voc_weights, hp.voc_model_id,
+                                          "wavernn")
+        voc = make_generator(voc_cfg, voc_vars, args.device)
+        v_type = "wavernn_batched" if batched else "wavernn_unbatched"
+        print(head + f"WaveRNN {voc_step // 1000}k, "
+              f"{'batched' if batched else 'unbatched'} target {target} "
+              f"overlap {overlap}")
+
+        def vocode(mel, path):
+            wav = voc(mel, batched=batched, target=target, overlap=overlap,
+                      mu_law=hp.mu_law)
+            wavio.save_pcm16(wav, path, voc_cfg.sample_rate)
+            return wav
 
     if args.input_text:
         texts = [args.input_text]
     else:
         with open("sentences.txt") as f:
             texts = [line for line in f if line.strip()]
-
-    tts = TTSGenerator(tts_cfg, tts_vars, args.device,
-                       backend=args.tts_backend)
-    voc = make_generator(voc_cfg, voc_vars, args.device)
-    tts_k, voc_k = tts_step // 1000, voc_step // 1000
-    print(f"Using device: {tts.device} | Tacotron {tts_k}k, r={r}, "
-          f"{tts.backend} decode | WaveRNN {voc_k}k, "
-          f"{'batched' if batched else 'unbatched'} target {target} "
-          f"overlap {overlap}")
-    v_type = "wavernn_batched" if batched else "wavernn_unbatched"
     out_dir.mkdir(parents=True, exist_ok=True)
     written = []
     for i, text in enumerate(texts, 1):
         print(f"| Generating {i}/{len(texts)}")
         _, m, _ = tts(text_to_sequence(text.strip(), hp.tts_cleaner_names),
                       r=r)
-        wav = voc(mel_from_linear(m), batched=batched, target=target,
-                  overlap=overlap, mu_law=hp.mu_law)
-        name = (f"__input_{args.input_text[:10]}_{v_type}_{tts_k}k.wav"
-                if args.input_text else f"{i}_{v_type}_{tts_k}k.wav")
-        wavio.save_pcm16(wav, out_dir / name, voc_cfg.sample_rate)
-        print(f"| {m.shape[1]} frames -> {len(wav)} samples: "
-              f"{out_dir / name}")
-        written.append(out_dir / name)
+        path = out_dir / (f"__input_{args.input_text[:10]}_{v_type}_{tts_k}k"
+                          ".wav" if args.input_text
+                          else f"{i}_{v_type}_{tts_k}k.wav")
+        wav = vocode(mel_from_linear(m), path)
+        print(f"| {m.shape[1]} frames -> {len(wav)} samples: {path}")
+        written.append(path)
     print("Done.")
     return written
 

@@ -28,6 +28,9 @@ is byte for byte that session's own ``Generator.stream`` (a row's decode
 does not depend on the other rows of its launch).  Sampled output depends
 on the batch's composition: a launch's random bits are keyed by a row's
 index within it, and its seed is ``seed * 1000003 + launches``.
+
+:class:`TTSStreamServer` puts the Tacotron decode in front of the server:
+text in, each session's audio chunks out as they decode.
 """
 
 from __future__ import annotations
@@ -37,7 +40,9 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from wavernn_tpu_torch.infer.pipeline import TTSPipeline, mel_from_linear
 from wavernn_tpu_torch.ops.decode import Generator, _IncrementalUnfold
+from wavernn_tpu_torch.text import text_to_sequence
 
 
 class _Session:
@@ -257,3 +262,124 @@ class StreamServer:
             for sid, chunk in self.step().items():
                 pieces[sid].append(chunk)
         return [np.concatenate(pieces[sid]) for sid in sids]
+
+
+class TTSStreamServer:
+    """Multi-session two-stage streaming server: concurrent text -> speech
+    sessions on one card, audio chunks out as they decode (ports
+    ``TTSStreamServer`` of ``wavernn_tpu/infer/stream_server.py``).
+
+    Composes ``TTSGenerator.submit`` / ``collect`` (the text -> mel decode)
+    with a :class:`StreamServer` (every session's fold rows co-batched into
+    one decode launch per step).  :meth:`add` runs a text's mel decode;
+    :meth:`step` admits finished mels into free vocoder slots, oldest
+    first, then serves one co-batched vocoder launch and returns each
+    session's newly final audio.
+
+    Notes
+    -----
+    * The port's text -> mel decode reads each 48-step chunk's stop values
+      on the host, so :meth:`add` returns only when the mel is done (the
+      JAX package's returns once the decode is queued).  On one CUDA
+      stream its first stop read also waits for the vocoder launch the
+      server keeps in flight.
+    * A text whose mel has fewer than 2 frames completes with one empty
+      chunk rather than raising.
+    * ``deterministic`` generators make each session's audio that of the
+      unmultiplexed two-stage path (text -> mel -> ``Generator.stream``).
+    """
+
+    def __init__(self, pipeline: TTSPipeline, target: int, overlap: int,
+                 mu_law: bool, group: int = 16, width: int = 64,
+                 capacity: int = 4, slot_seconds: float = 30.0,
+                 seed: int = 0):
+        if not isinstance(pipeline, TTSPipeline):
+            raise TypeError(f"expected a TTSPipeline, got {type(pipeline)}")
+        self.pipeline = pipeline
+        self.server = StreamServer(
+            pipeline.voc, target=target, overlap=overlap, mu_law=mu_law,
+            group=group, width=width, capacity=capacity,
+            slot_seconds=slot_seconds, seed=seed)
+        self._tts_pending: List[tuple] = []   # (sid, tts handle), FIFO
+        self._voc_to_sid: Dict[int, int] = {}
+        self._next_sid = 0
+        # the empty chunk takes the vocoder's serving dtype
+        voc = pipeline.voc
+        self._zero = np.zeros(0, voc.output_np_dtype if voc.packed_output
+                              else np.float64)
+
+    def add(self, text: str) -> int:
+        """Admit a text and decode its mel; returns the session id."""
+        seq = text_to_sequence(text.strip(), self.pipeline.cleaners)
+        handle = self.pipeline.tts.submit(seq, r=self.pipeline.r)
+        sid = self._next_sid
+        self._next_sid += 1
+        self._tts_pending.append((sid, handle))
+        return sid
+
+    @property
+    def active(self) -> List[int]:
+        return sorted([sid for sid, _ in self._tts_pending]
+                      + list(self._voc_to_sid.values()))
+
+    @property
+    def active_count(self) -> int:
+        """In-flight session count: len() reads only, safe to call from
+        other threads while the scheduler thread changes the maps."""
+        return len(self._tts_pending) + len(self._voc_to_sid)
+
+    def reset(self) -> None:
+        """Drop every in-flight session (recovery after a failed
+        :meth:`step`)."""
+        self._tts_pending.clear()
+        self._voc_to_sid.clear()
+        self.server.reset()
+
+    def step(self) -> Dict[int, np.ndarray]:
+        """Admit finished mels into free vocoder slots, then serve one
+        co-batched vocoder launch.  Returns each served session's newly
+        final audio: an empty array marks a session whose mel was too
+        short to give any, an ``Exception`` value a session that failed
+        admission (e.g. its utterance exceeds ``slot_seconds``), terminal
+        for that session only."""
+        out: Dict[int, np.ndarray] = {}
+        while (self._tts_pending
+               and len(self.server.active) < self.server.capacity):
+            sid, handle = self._tts_pending.pop(0)
+            _, m_linear, _ = self.pipeline.tts.collect(handle)
+            mel = mel_from_linear(m_linear)
+            if mel.shape[-1] < 2:  # sub-hop mel: nothing to vocode
+                out[sid] = self._zero
+                continue
+            try:
+                voc_sid = self.server.add(mel)
+            except ValueError as e:
+                # fail this session only: the error is its terminal result
+                out[sid] = e
+                continue
+            self._voc_to_sid[voc_sid] = sid
+        served = self.server.step()
+        live = set(self.server.active)
+        for voc_sid in list(self._voc_to_sid):
+            sid = self._voc_to_sid[voc_sid]
+            if voc_sid in served:
+                out[sid] = served[voc_sid]
+            if voc_sid not in live:  # finished: unmap, and report the
+                # completion even when its last chunk is empty
+                del self._voc_to_sid[voc_sid]
+                out.setdefault(sid, self._zero)
+        return out
+
+    def run(self, texts) -> List[np.ndarray]:
+        """Admit every text, step until all sessions complete, and return
+        each text's waveform in input order.  A session's failure
+        raises."""
+        sids = [self.add(t) for t in texts]
+        pieces: Dict[int, List[np.ndarray]] = {sid: [] for sid in sids}
+        while self.active:
+            for sid, chunk in self.step().items():
+                if isinstance(chunk, Exception):
+                    raise chunk
+                pieces[sid].append(chunk)
+        return [np.concatenate(pieces[sid]) if pieces[sid] else self._zero
+                for sid in sids]

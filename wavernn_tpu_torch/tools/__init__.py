@@ -1,6 +1,8 @@
-"""Kernel-measurement tools of the PyTorch port (ports of ``tools/`` of the
-JAX package): ``kernel_breakdown``, ``kernel_sampling_stats``,
-``fold_geometry_probe`` and ``tts_step_probe``.
+"""Measurement tools of the PyTorch port (ports of ``tools/`` of the JAX
+package): the kernel-measurement tools ``kernel_breakdown``,
+``kernel_sampling_stats``, ``fold_geometry_probe``, ``tts_step_probe`` and
+``tts_phase_spans``, and the serving probes ``http_serve_probe``,
+``stream_server_probe``, ``stream_latency`` and ``wire_format_probe``.
 
 Each runs as ``python -m wavernn_tpu_torch.tools.<name>``, on the card by
 default: ``--device cuda`` raises where CUDA is absent, and ``--device cpu``
@@ -53,3 +55,24 @@ def load_variables(path) -> dict:
 
     blob = load_pytree(path)
     return {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+
+
+def voc_config(hp_file=None):
+    """The vocoder config of ``hp_file`` (configured into ``hp``), or the
+    default config (the golden's) when there is none."""
+    from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+
+    if hp_file is None:
+        return WaveRNNConfig()
+    from wavernn_tpu_torch.config import hp
+
+    hp.configure(hp_file)
+    return WaveRNNConfig.from_hp(hp)
+
+
+def sync_of(dev: torch.device):
+    """A function that waits for ``dev``'s queued work (a no-op on the
+    CPU)."""
+    if dev.type == "cuda":
+        return lambda: torch.cuda.synchronize(dev)
+    return lambda: None

@@ -27,16 +27,15 @@ import json
 import time
 
 import numpy as np
-import torch
 
-from wavernn_tpu_torch.tools import GOLDEN, card, device_of, load_variables, metric
+from wavernn_tpu_torch.tools import (GOLDEN, card, device_of, load_variables,
+                                     metric, sync_of, voc_config)
 
 
 def probe(gen, mel: np.ndarray, targets, overlap: int, reps: int,
           utts: int) -> list:
     dev = gen.device
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
-        else (lambda: None)
+    sync = sync_of(dev)
     ms_key, khz_key = metric("ms_per_utt", dev), metric("khz", dev)
     gen(mel, batched=True, target=targets[0], overlap=overlap, mu_law=False)
     sync()
@@ -85,16 +84,9 @@ def main(argv=None) -> dict:
     args = ap.parse_args(argv)
     dev = device_of(args.device)
 
-    from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
     from wavernn_tpu_torch.ops.decode import Generator
 
-    if args.hp_file is None:
-        cfg = WaveRNNConfig()
-    else:
-        from wavernn_tpu_torch.config import hp
-
-        hp.configure(args.hp_file)
-        cfg = WaveRNNConfig.from_hp(hp)
+    cfg = voc_config(args.hp_file)
     gen = Generator(cfg, load_variables(args.voc_weights), device=dev,
                     fold_bucket=16, input_dtype="float16",
                     output_dtype="int16")

@@ -22,9 +22,8 @@ import json
 import time
 
 import numpy as np
-import torch
 
-from wavernn_tpu_torch.tools import card, device_of, metric
+from wavernn_tpu_torch.tools import card, device_of, metric, sync_of
 
 R = 2
 
@@ -32,8 +31,7 @@ R = 2
 def step_time(gen, seq, K: int, passes: int) -> tuple:
     """(best seconds per decoder step, steps per call)."""
     dev = gen.device
-    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
-        else (lambda: None)
+    sync = sync_of(dev)
     mel, _, _ = gen(seq, r=R)                        # warm
     n_steps = mel.shape[1] // R
     best = float("inf")
