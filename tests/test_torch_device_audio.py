@@ -105,8 +105,8 @@ def test_griffinlim_from_jax_phase_matches_jax():
     S = np.abs(audio.stft_np(_signal(seed=3), N_FFT, HOP, WIN)).astype(
         np.float32)
     key = jax.random.PRNGKey(0)
-    phase = np.asarray(jax.random.uniform(key, S.shape, minval=0.0,
-                                          maxval=2 * jnp.pi))
+    phase = np.array(jax.random.uniform(key, S.shape, minval=0.0,
+                                        maxval=2 * jnp.pi))
     want = np.asarray(jax_audio.griffinlim(jnp.asarray(S), key, n_iter=8,
                                            hop_length=HOP, win_length=WIN))
     got = torch_audio.griffinlim(torch.from_numpy(S),
