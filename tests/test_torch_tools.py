@@ -9,6 +9,7 @@ the JAX package's meter gives on the same clock.
 """
 
 import json
+import time
 from pathlib import Path
 
 import numpy as np
@@ -62,8 +63,8 @@ def tiny_hp(tmp_path) -> Path:
 
 
 def tiny_tts_hp(tmp_path) -> Path:
-    """``tiny_hp`` with the tiny golden Tacotron's dims and a short fold
-    geometry (target 200 / overlap 28)."""
+    """``tiny_hp`` with the tiny golden Tacotron's dims and its r = 2
+    schedule."""
     dims = json.loads((REPO / "tests" / "golden"
                        / "tiny_tacotron_meta.json").read_text())["dims"]
     f = tiny_hp(tmp_path)
@@ -71,7 +72,7 @@ def tiny_tts_hp(tmp_path) -> Path:
         out.write("".join(f"tts_{k} = {dims[k]!r}\n" for k in (
             "embed_dims", "encoder_dims", "decoder_dims", "postnet_dims",
             "encoder_K", "lstm_dims", "postnet_K", "num_highways"))
-            + "voc_target = 200\nvoc_overlap = 28\n")
+            + "tts_schedule = [(2, 1e-4, 10_000, 8)]\n")
     return f
 
 
@@ -92,7 +93,8 @@ def cpu_argv(name, tmp_path):
                              "--tts_weights", str(REPO / "tests" / "golden"
                                                   / "tiny_tacotron.msgpack"),
                              "--voc_weights", str(TINY_RAW),
-                             "--hp_file", str(tiny_tts_hp(tmp_path))],
+                             "--hp_file", str(tiny_tts_hp(tmp_path)),
+                             "--target", "200", "--overlap", "28"],
         "stream_server_probe": ["--sessions", "2", "--frames", "24",
                                 "--group", "8", "--width", "16"] + tiny,
         "stream_latency": ["--frames", "16", "--group", "16", "--reps",
@@ -143,6 +145,11 @@ def test_tool_runs_plain_versions_on_cpu(name, tmp_path, capsys):
     elif name == "http_serve_probe":
         assert rec["health_ok"] and rec["stream_equals_oneshot"]
         assert rec["stream_repeats"] and rec["stream_samples"] == 39 * 275
+        assert rec["r"] == 2     # the tiny golden's step in its schedule
+        # chunks of 16 folds x 200 int16 samples, each under 64 KiB: the
+        # first lands while the later ones still decode (~75% of the time)
+        assert 0 < rec["cpu_host_stream_ttfb_ms"] < 0.95e3 * rec[
+            "cpu_host_stream_s"]
         assert len(rec["cpu_host_latency_s"]) == 2 and rec["launches"] >= 2
     elif name == "stream_server_probe":
         assert rec["parity_max_abs_diff"] == 0 and rec["parity_launches"] > 0
@@ -173,6 +180,43 @@ def test_tool_on_cuda_without_a_card_raises(name):
         pytest.skip("this machine has a card")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TOOLS[name].main(["--device", "cuda"])
+
+
+def test_post_times_the_first_pcm_chunk_not_64_kib():
+    """``http_serve_probe.post``'s TTFB is the time of the first chunk
+    past the WAV header, though that chunk is far under 64 KiB and the
+    next comes only 0.5 s later."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, HTTPServer
+
+    class Chunked(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def do_POST(self):
+            self.rfile.read(int(self.headers["Content-Length"]))
+            self.send_response(200)
+            self.send_header("Transfer-Encoding", "chunked")
+            self.end_headers()
+            for i, n in enumerate((44, 1000, 1000)):
+                if i == 2:
+                    time.sleep(0.5)
+                self.wfile.write(b"%x\r\n" % n + b"\1" * n + b"\r\n")
+                self.wfile.flush()
+            self.wfile.write(b"0\r\n\r\n")
+
+        def log_message(self, *args):
+            pass
+
+    httpd = HTTPServer(("127.0.0.1", 0), Chunked)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        body, first, total = http_serve_probe.post(
+            httpd.server_address[1], "/stream", "hi", timeout=10)
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    assert len(body) == 2044
+    assert first < 0.4 and total >= 0.5
 
 
 def test_trace_none_is_a_no_op(tmp_path, monkeypatch):

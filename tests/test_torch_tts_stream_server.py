@@ -15,7 +15,8 @@ small seeded MOL model, whose deterministic sample is a mixture mean): the
 tiny RAW golden's 512-way argmax has near-ties that float32 rounding
 flips, by up to 42 labels at isolated samples (98.9% of "abcde" within
 655 LSB on the same mel), while the two Tacotron decoders' mels agree to
-3e-6."""
+3e-6.  So the tiny RAW golden's pairing is held stage by stage: the
+serving mels within 1e-5, the sessions at least 95% within 655 LSB."""
 
 import json
 from pathlib import Path
@@ -106,6 +107,45 @@ def test_tts_server_matches_jax_server():
     for g, w in zip(got, want):
         assert len(g) > 1000
         assert agreement(g, w) >= 0.99
+
+
+def test_tts_server_matches_jax_server_on_the_raw_golden():
+    """The named pairing, the tiny golden Tacotron into the tiny RAW
+    golden, against the JAX server stage by stage: each text's serving mel
+    within 1e-5 of JAX's, and each int16 session at least 95% within 655
+    LSB of JAX's, the rate ``test_torch_stream.py`` holds a stream to where
+    the 512-way argmax's near-ties flip on rounding."""
+    from wavernn_tpu.infer.pipeline import TTSPipeline as JaxPipeline
+    from wavernn_tpu.infer.pipeline import mel_from_linear as jax_mel
+    from wavernn_tpu.infer.stream_server import TTSStreamServer as JaxServer
+    from wavernn_tpu.models.tacotron import TacotronConfig as JaxTaco
+    from wavernn_tpu.models.wavernn import WaveRNNConfig as JaxVoc
+
+    kw = dict(group=16, width=64, capacity=4, **SERVE)
+    texts = TEXTS[:2]
+    jax_pipe = JaxPipeline(
+        JaxTaco(**META["dims"]), variables("tiny_tacotron.msgpack"),
+        JaxVoc(**VOC), variables("tiny_wavernn_raw.msgpack"),
+        ["english_cleaners"], r=META["r"], backend="scan", tts_steps=400,
+        tts_backend="xla", deterministic=True, output_dtype="int16")
+    pipe = tiny_pipeline(backend="scan", tts_backend="plain",
+                         output_dtype="int16")
+    for t in texts:
+        seq = text_to_sequence(t, ["english_cleaners"])
+        want = jax_mel(jax_pipe.tts.collect(jax_pipe.tts.submit(
+            seq, r=META["r"]))[1])
+        got = mel_from_linear(pipe.tts.collect(pipe.tts.submit(
+            seq, r=META["r"]))[1])
+        assert got.shape == want.shape and got.shape[1] > 10
+        np.testing.assert_allclose(got, want, atol=1e-5)
+    jax_srv = JaxServer(jax_pipe, **kw)
+    want = jax_srv.run(texts)
+    srv = TTSStreamServer(pipe, **kw)
+    got = srv.run(texts)
+    assert srv.server.launches == jax_srv.server.launches
+    for g, w in zip(got, want):
+        assert len(g) > 1000
+        assert agreement(g, w) >= 0.95
 
 
 def test_tts_server_routes_admission_failure_to_its_session(monkeypatch):

@@ -3,7 +3,8 @@ ThreadingHTTPServer on a loopback port (ports ``tools/http_serve_probe.py``).
 
     python -m wavernn_tpu_torch.tools.http_serve_probe [--device cuda|cpu]
         [--concurrent 4] [--tts_steps 400] [--tts_weights PATH]
-        [--voc_weights PATH] [--hp_file FILE] [--r 2]
+        [--voc_weights PATH] [--hp_file FILE] [--target 11000]
+        [--overlap 550]
 
 Builds the two-stage pipeline (deterministic decode, int16 out), binds the
 server on port 0 and sends: ``/health``, one ``/synthesize`` warm-up (on
@@ -14,9 +15,11 @@ its PCM must equal the warm-up's one-shot PCM and repeat byte for byte;
 its time to the first PCM byte through HTTP is the TTFB.  The Tacotron
 defaults to ``TacotronConfig()`` with seeded weights
 (``init_variables(cfg, 0)``, untrained: every text runs to ``tts_steps``)
-and the vocoder to the committed golden MOL, folds of 11,000 + 2 x 550;
-``--hp_file`` gives the configs of other weights and their fold geometry
-(``voc_target``, ``voc_overlap``).  Prints one JSON line.
+at r = 2, and the vocoder to the committed golden MOL, in folds of
+``target`` + 2 x ``overlap``.  ``--tts_weights`` takes r from the
+checkpoint's step and the hparams' ``tts_schedule``, as the serve CLI
+does; ``--hp_file`` gives the configs of other weights.  Prints one JSON
+line.
 """
 
 from __future__ import annotations
@@ -27,19 +30,22 @@ import json
 import threading
 import time
 
-from wavernn_tpu_torch.tools import GOLDEN, card, device_of, metric, voc_config
+from wavernn_tpu_torch.tools import (GOLDEN, REPO, card, device_of, metric,
+                                     voc_config)
 
 
 def post(port: int, path: str, text: str, timeout: float = 600):
     """(body, seconds to the first PCM byte past the WAV header, seconds
-    in all) of one POST; raises on a status other than 200."""
+    in all) of one POST; raises on a status other than 200.  ``read1``
+    returns each chunk of a chunked body as it arrives, so the first PCM
+    byte is timed when its chunk lands, whatever the chunk's size."""
     conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
     t0 = time.perf_counter()
     conn.request("POST", path, body=json.dumps({"text": text}).encode())
     resp = conn.getresponse()
     body, first = b"", None
     while True:
-        blk = resp.read(65536)
+        blk = resp.read1(65536)
         if not blk:
             break
         body += blk
@@ -60,14 +66,16 @@ def main(argv=None) -> dict:
     ap.add_argument("--tts_weights", default=None,
                     help="Tacotron weights (default: seeded, untrained)")
     ap.add_argument("--voc_weights", default=str(GOLDEN))
+    ap.add_argument("--target", type=int, default=11_000)
+    ap.add_argument("--overlap", type=int, default=550)
     ap.add_argument("--hp_file", default=None,
                     help="hparams file with both models' configs (default: "
                          "the default configs)")
-    ap.add_argument("--r", type=int, default=2)
     args = ap.parse_args(argv)
     dev = device_of(args.device)
 
     from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.gen_tacotron import load_weights, r_for_step
     from wavernn_tpu_torch.infer.http_server import (SynthesisService,
                                                      make_http_server)
     from wavernn_tpu_torch.infer.pipeline import TTSPipeline
@@ -79,16 +87,20 @@ def main(argv=None) -> dict:
     voc_cfg = voc_config(args.hp_file)
     tts_cfg = (TacotronConfig.from_hp(hp, num_chars=len(symbols))
                if args.hp_file else TacotronConfig())
-    tts_vars = (load_variables(args.tts_weights) if args.tts_weights
-                else init_variables(tts_cfg, 0))
-    target = hp.voc_target if args.hp_file else 11_000
-    overlap = hp.voc_overlap if args.hp_file else 550
+    if args.tts_weights:
+        if not hp.is_configured():
+            hp.configure(REPO / "hparams.py")
+        tts_vars, step = load_weights(args.tts_weights, None, "tacotron")
+        r = r_for_step(step, hp.tts_schedule)
+    else:
+        tts_vars, r = init_variables(tts_cfg, 0), 2
     pipe = TTSPipeline(tts_cfg, tts_vars, voc_cfg,
                        load_variables(args.voc_weights),
-                       ["english_cleaners"], r=args.r, device=dev,
+                       ["english_cleaners"], r=r, device=dev,
                        tts_steps=args.tts_steps, deterministic=True,
                        output_dtype="int16")
-    service = SynthesisService(pipe, target=target, overlap=overlap,
+    service = SynthesisService(pipe, target=args.target,
+                               overlap=args.overlap,
                                mu_law=voc_cfg.mode == "RAW", group=16,
                                capacity=max(4, args.concurrent))
     httpd = make_http_server(service, "127.0.0.1", 0)
@@ -132,6 +144,7 @@ def main(argv=None) -> dict:
         "health_ok": health["ok"],
         "concurrent": args.concurrent,
         "tts_steps": args.tts_steps,
+        "r": r,
         metric("warmup_s", dev): warm_s,
         metric("concurrent_wall_s", dev): wall,
         metric("concurrent_khz", dev): samples / wall / 1e3,
