@@ -148,11 +148,47 @@ vocoder:
    200-900 Hz; ``gen_tacotron ... griffinlim`` in a subprocess must write
    a WAV that parses.
 
-The decode kernel's launch counter is set to 0 just before each main-path
-run and read just after; the record's ``launches`` sums phase 4's and
-phases 15-21's, and the TTS kernel's sums phase 8's and phases 20-21's.
+Phases 24-26 train the full-width MOL WaveRNN (``hparams.py``: 512-wide
+GRUs and FCs, batch 32, 1,375-sample windows, Adam at 1e-4, clip 4):
 
-Float32 matmuls and convolutions run in full float32 (TF32 off).  The last
+24. One train step on the card against the same step on the CPU: the
+   seeded model, B=4, two steps on batches from
+   ``np.random.default_rng(0)``, TF32 off.  Step 1: the loss within 1e-5
+   relative, each gradient within 5e-4 relative L2 and all of them
+   together within 2e-4, the BatchNorm running statistics within 1e-5;
+   step 2: the loss within 1e-4 relative.  The step-1 gradients again in
+   float64 on both (2 rows, 2 hops): each within 1e-9.
+25. The training path end to end on a synthetic corpus made here: 72
+   utterances of 44,000 samples (2.0 s, 160 hops) from
+   ``np.random.default_rng(0)``, sines of random pitch with harmonics plus
+   noise, written with ``metadata.csv``.  (a) ``python -m
+   wavernn_tpu_torch.preprocess`` in a subprocess; (b) ``voc_train_loop``
+   in process to step 30, a checkpoint with one audition every 15 steps:
+   every loss it fetched must be finite (the averages it logs), the decode
+   kernel's counter, set to 0 just before, must read 2 just after (one
+   launch per audition), each audition must be int16 PCM of its
+   utterance's length and not silence, a latest and a named pair must
+   exist and the written weights must equal the model's; (c) ``python -m
+   wavernn_tpu_torch.train_wavernn`` in a subprocess must restore that
+   pair, start at step 30 and stop at 40; (d) ``python -m
+   wavernn_tpu_torch.gen_wavernn`` on its latest weights must write a WAV
+   that parses.
+26. Training rate, all on one fixed batch of the corpus: 3 warm-up steps,
+   then ``voc_train_ms_per_step`` as the median of 20 steps timed by CUDA
+   events, and samples/s; the last loss must be below the first.  Then 5
+   steps under ``torch.profiler`` (the card's busy share and its top
+   kernels by time), and 10 steps with pruning engaged (masks every 5
+   steps, a 20-step ramp from the first) between two runs of 5 plain
+   steps: both medians, the measured sparsity, and pruned weights that
+   must be exactly zero.
+
+The decode kernel's launch counter is set to 0 just before each main-path
+run and read just after; the record's ``launches`` sums phase 4's,
+phases 15-21's and phase 25's, and the TTS kernel's sums phase 8's and
+phases 20-21's.
+
+Float32 matmuls, convolutions and cuDNN's GRU run in full float32 (TF32
+off).  The last
 two lines are the card's ``nvidia-smi`` name and power limit, then
 ``{"ok": true, "device": {...}}``; the line before them is the kernels'
 JSON record, where ``bound_ms`` is the least time the card could take for
@@ -460,15 +496,17 @@ def main():
     serving = serving_phases(dev, card, golden_cfg, golden, eval_mel, errs)
     text_serving = text_serving_phases(dev, card, golden_cfg, golden,
                                        eval_mel)
+    training = training_phases(dev, card)
 
-    # -- 24. the record -------------------------------------------------
+    # -- 27. the record -------------------------------------------------
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
         "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
         "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
         "launches": (launches + serving["launches"]
-                     + text_serving["decode_launches"]),
+                     + text_serving["decode_launches"]
+                     + training["decode_launches"]),
         "max_abs_err": max(errs),
         "ms": k_ms,
         "plain_ms": p_ms,
@@ -1192,6 +1230,26 @@ def concurrently(fn, args) -> list:
     return results
 
 
+def device_busy(prof):
+    """(device events, busy us, longest idle gap us) of a torch.profiler
+    run: busy is the union of the card's kernel spans."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, gap, end = 0.0, 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            if end is not None:
+                gap = max(gap, a - end)
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return len(spans), busy, gap
+
+
 def free_port() -> int:
     import socket
 
@@ -1356,7 +1414,6 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
             fail("the HTTP requests did not run through both kernels")
 
         # the card's busy share over a batch of four streams
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         reset_counters()
@@ -1369,22 +1426,10 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
             wall = time.perf_counter() - t0
         decode_launches += cuda_decode.decode.launches
         tts_launches += cuda_tts.tts_decode.launches
-        spans = sorted((e.time_range.start, e.time_range.end)
-                       for e in prof.events()
-                       if e.device_type == DeviceType.CUDA)
-        busy, gap, end = 0.0, 0.0, None
-        for a, b in spans:
-            if end is None or a > end:
-                if end is not None:
-                    gap = max(gap, a - end)
-                busy += b - a
-                end = b
-            elif b > end:
-                busy += b - end
-                end = b
-        if spans:
+        n_events, busy, gap = device_busy(prof)
+        if n_events:
             print(f"http /stream x 4 under torch.profiler: wall "
-                  f"{wall:.3f} s, {len(spans)} device events, busy "
+                  f"{wall:.3f} s, {n_events} device events, busy "
                   f"{busy / 1e6:.3f} s = {busy / 1e6 / wall:.4f} of the "
                   f"wall time, longest idle gap {gap / 1e3:.1f} ms; TTFB "
                   f"{[round(x[1] * 1e3, 1) for x in res]} ms | {card}",
@@ -1512,6 +1557,389 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
           f"{got_sr} Hz")
     return {"decode_launches": decode_launches,
             "tts_launches": tts_launches}
+
+
+# phases 24-26: hparams.py's vocoder (full width) unless a rehearsal on the
+# CPU shrinks it through TRAIN_HP; the corpus of phase 25
+TRAIN_HP = {}
+TRAIN_UTTS, TRAIN_SAMPLES = 72, 44_000
+
+
+def synthetic_corpus(wav_dir: Path, sr: int) -> None:
+    """TRAIN_UTTS utterances of TRAIN_SAMPLES samples from
+    ``np.random.default_rng(0)``: a sine of random pitch with 1-4
+    harmonics, plus noise, and an LJSpeech ``metadata.csv``."""
+    from wavernn_tpu_torch.dsp import wavio
+
+    rng = np.random.default_rng(0)
+    wav_dir.mkdir(parents=True)
+    t = np.arange(TRAIN_SAMPLES) / sr
+    lines = []
+    for i in range(TRAIN_UTTS):
+        f0 = rng.uniform(90, 300)
+        y = sum(rng.uniform(0.1, 0.4) / k * np.sin(2 * np.pi * k * f0 * t
+                                                   + rng.uniform(0, 6.3))
+                for k in range(1, int(rng.integers(1, 5)) + 1))
+        y = y + 0.02 * rng.standard_normal(TRAIN_SAMPLES)
+        y = 0.9 * y / max(1.0, np.abs(y).max())
+        wavio.save_wav(y.astype(np.float32), wav_dir / f"utt{i:03d}.wav", sr)
+        lines.append(f"utt{i:03d}|Sentence {i}.|Sentence {i}.")
+    (wav_dir / "metadata.csv").write_text("\n".join(lines) + "\n")
+
+
+def is_pcm16(path: Path) -> bool:
+    """The WAV's first chunk is a fmt chunk of 16-bit integer PCM."""
+    import struct
+
+    data = path.read_bytes()
+    fmt, _, _, _, _, bits = struct.unpack_from("<HHIIHH", data, 20)
+    return data[12:16] == b"fmt " and fmt == 1 and bits == 16
+
+
+def training_phases(dev, card) -> dict:
+    """Phases 24-26: the train step on the card against the CPU, the
+    training path end to end, and the training rate."""
+    import re
+    import shutil
+
+    import torch
+
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.data.dataset import get_vocoder_datasets
+    from wavernn_tpu_torch.dsp import wavio
+    from wavernn_tpu_torch.models.wavernn import (
+        WaveRNN, WaveRNNConfig, num_params, to_jax_variables,
+    )
+    from wavernn_tpu_torch.ops import cuda_decode
+    from wavernn_tpu_torch.paths import Paths
+    from wavernn_tpu_torch.pruning import (
+        PruneConfig, Pruner, measured_sparsity,
+    )
+    from wavernn_tpu_torch.training.state import (
+        Adam, make_optimizer, new_train_state,
+    )
+    from wavernn_tpu_torch.training.wavernn import (
+        batch_to, make_train_step, voc_train_loop,
+    )
+    from wavernn_tpu_torch.utils.checkpoints import (
+        load_pytree, restore_checkpoint,
+    )
+
+    work = SMOKE_DIR / "train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    overrides = dict(wav_path=str(work / "wavs"),
+                     data_path=str(work / "data"), voc_total_steps=30,
+                     voc_checkpoint_every=15, voc_gen_at_checkpoint=1,
+                     voc_test_samples=2, **TRAIN_HP)
+    hp_file = work / "hp_train.py"
+    hp_file.write_text(
+        "import runpy\n"
+        f"globals().update({{k: v for k, v in runpy.run_path("
+        f"{str(REPO / 'hparams.py')!r}).items() if not k.startswith('__')}})\n"
+        + "".join(f"{k} = {v!r}\n" for k, v in overrides.items()))
+    hp.reset()
+    hp.configure(hp_file)
+    cfg = WaveRNNConfig.from_hp(hp)
+    B, T = hp.voc_batch_size, hp.voc_seq_len
+    mel_win = T // hp.hop_length + 2 * hp.voc_pad
+
+    def seeded_model(device):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            return WaveRNN(cfg).to(device)
+
+    # -- 24. the train step on the card against the CPU -------------------
+    class KeepGrads(Adam):
+        def step(self, model, state):
+            self.grads = {n: p.grad.detach().cpu().clone()
+                          for n, p in model.named_parameters()}
+            return super().step(model, state)
+
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(2):
+        y = rng.uniform(-1, 1, (4, T + 1)).astype(np.float32)
+        batches.append((y[:, :-1], y[:, 1:], rng.uniform(
+            0, 1, (4, mel_win, cfg.feat_dims)).astype(np.float32)))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        opt = KeepGrads(hp.voc_lr, hp.voc_clip_grad_norm)
+        state = new_train_state(seeded_model(d), opt)
+        step = make_train_step(opt, cfg.mode)
+        t0 = time.perf_counter()
+        _, loss1, gn1 = step(state, *batches[0])
+        grads = opt.grads
+        stats = {n: b.detach().cpu().clone() for n, b in
+                 state.model.named_buffers() if "running" in n}
+        _, loss2, _ = step(state, *batches[1])
+        loss1, loss2, gn1 = float(loss1), float(loss2), float(gn1)
+        runs.append((loss1, loss2, gn1, grads, stats,
+                     time.perf_counter() - t0, num_params(state.model)))
+    (l1, l2, gn, g, st, secs, n_par), (c1, c2, cgn, cg, cst, csecs, _) = runs
+    d_loss1, d_loss2 = abs(l1 - c1) / abs(c1), abs(l2 - c2) / abs(c2)
+    rel = lambda a, b: float((a.double() - b.double()).norm()
+                             / b.double().norm().clamp_min(1e-300))
+    d_grad = {n: rel(g[n], cg[n]) for n in cg}
+    worst = max(d_grad, key=d_grad.get)
+    flat = lambda gs: torch.cat([gs[n].double().flatten() for n in cg])
+    d_global = rel(flat(g), flat(cg))
+    d_stats = max(float((st[n] - cst[n]).abs().max()) for n in cst)
+
+    # the same gradients in float64 on both: the same function, op for op
+    from wavernn_tpu_torch.ops.mol import discretized_mix_logistic_loss
+
+    hops = 2                          # a 2-row, 2-hop window keeps it short
+    x0, y0, m0 = batches[0]
+    small = (x0[:2, :hops * hp.hop_length], y0[:2, :hops * hp.hop_length],
+             m0[:2, :hops + 2 * hp.voc_pad])
+    gw = {}
+    for d in (dev, torch.device("cpu")):
+        for dt in (torch.float32, torch.float64):
+            model = seeded_model(d).to(dt).train()
+            x, y, mels = (torch.from_numpy(np.ascontiguousarray(a)).to(d, dt)
+                          for a in small)
+            discretized_mix_logistic_loss(model(x, mels), y).backward()
+            gw[d.type, dt] = {n: p.grad.cpu()
+                              for n, p in model.named_parameters()}
+    g64, c64 = gw[dev.type, torch.float64], gw["cpu", torch.float64]
+    d64 = max(rel(g64[n], c64[n]) for n in c64)
+    d32_64 = max(rel(gw[dev.type, torch.float32][n], c64[n]) for n in c64)
+    c32_64 = max(rel(gw["cpu", torch.float32][n], c64[n]) for n in c64)
+    print(f"train step card vs cpu ({n_par:.3f}M "
+          f"params, {cfg.mode}, B=4 x {T}, TF32 off): loss {l1:.6f} / "
+          f"{c1:.6f} (rel {d_loss1:.3g}), step-2 loss rel {d_loss2:.3g}, "
+          f"grad norm {gn:.6f} / {cgn:.6f}, gradients rel L2: worst tensor "
+          f"{d_grad[worst]:.3g} ({worst}), "
+          f"{sum(v > 1e-4 for v in d_grad.values())} of {len(d_grad)} "
+          f"tensors over 1e-4, all together {d_global:.3g}; 2 rows x "
+          f"{hops} hops: float64 card vs cpu worst {d64:.3g}, float32 vs "
+          f"float64 worst card {d32_64:.3g}, cpu {c32_64:.3g}; BatchNorm "
+          f"stats max|d| "
+          f"{d_stats:.3g}; two steps {secs:.2f} s on the card, {csecs:.2f} "
+          f"s on the CPU | {card}", flush=True)
+    # float32 gradients: 5e-4 per tensor, 2e-4 all together (the
+    # conditioning network's gradients carry ~1e-4 of float32 rounding on
+    # either device: ReLU masks flip where the forward's rounding crosses
+    # zero); float64: 1e-9, the same arithmetic
+    if not (d_loss1 <= 1e-5 and d_loss2 <= 1e-4 and d_stats <= 1e-5
+            and d_grad[worst] <= 5e-4 and d_global <= 2e-4 and d64 <= 1e-9):
+        fail("the train step on the card disagrees with the CPU")
+
+    # -- 25. the training path end to end ----------------------------------
+    synthetic_corpus(work / "wavs", hp.sample_rate)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavernn_tpu_torch.preprocess", "--hp_file",
+         str(hp_file)], cwd=work, env=env, capture_output=True, text=True,
+        timeout=600)
+    if proc.returncode != 0:
+        fail(f"preprocess exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    n_mels = len(list((work / "data" / "mel").glob("*.npy")))
+    print(f"train path (a): preprocess of {TRAIN_UTTS} utterances -> "
+          f"{n_mels} mels in {time.perf_counter() - t0:.1f} s", flush=True)
+    if n_mels != TRAIN_UTTS:
+        fail(f"preprocess wrote {n_mels} mels")
+
+    paths = Paths(hp.data_path, hp.voc_model_id, hp.tts_model_id, base=work)
+    opt = make_optimizer(hp.voc_lr, hp.voc_clip_grad_norm)
+    state = restore_checkpoint("voc", paths,
+                               new_train_state(seeded_model(dev), opt),
+                               create_if_missing=True)
+    train_set, test_set = get_vocoder_datasets(paths.data, B, False)
+    np.random.seed(0)
+    torch.cuda.synchronize()
+    cuda_decode.decode.launches = 0
+    t0 = time.perf_counter()
+    voc_train_loop(paths, cfg, state, opt, train_set, test_set,
+                   hp.voc_total_steps, lr=hp.voc_lr)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    decode_launches = cuda_decode.decode.launches
+    logged = [float(x) for x in re.findall(r"Loss: (\S+) \|",
+                                           paths.voc_log.read_text())]
+    print(f"\ntrain path (b): voc_train_loop to step {state.step} "
+          f"({len(train_set)} batches of {B} x {T} an epoch) in {secs:.1f} "
+          f"s with 2 checkpoints; logged mean losses {logged}; decode "
+          f"launches {decode_launches} | {card}", flush=True)
+    if state.step != hp.voc_total_steps:
+        fail(f"the loop stopped at step {state.step}")
+    if not logged or not np.isfinite(logged).all():
+        fail("a loss the loop fetched is not finite")
+    if decode_launches != 2:
+        fail(f"the auditions launched the decode kernel {decode_launches} "
+             "times, want 2")
+    test_id = test_set.dataset.metadata[0]      # the first audition's
+    want_len = len(np.load(paths.quant / f"{test_id}.npy"))
+    auditions = sorted(paths.voc_output.glob("0k_steps_1_gen_batched_*.wav"))
+    if len(auditions) != 1:
+        fail(f"auditions written: {auditions}")
+    pcm, sr = wavio.read_wav_raw(auditions[0])
+    lsb = float(np.std(pcm)) * 32768
+    print(f"train path (b): audition {auditions[0].name}: int16 "
+          f"{is_pcm16(auditions[0])}, {pcm.shape[0]} samples at {sr} Hz "
+          f"(utterance {want_len}), std {lsb:.0f} LSB", flush=True)
+    if not (is_pcm16(auditions[0]) and sr == hp.sample_rate
+            and pcm.shape == (want_len,) and lsb > 10):
+        fail("the audition WAV is not int16 of the utterance's length, or "
+             "is silence")
+    for name in ("latest", "wave_step0K"):
+        for kind in ("weights", "optim"):
+            if not (paths.voc_checkpoints / f"{name}_{kind}.msgpack").exists():
+                fail(f"missing {name}_{kind}.msgpack")
+    blob = load_pytree(paths.voc_latest_weights)
+    mine = to_jax_variables(state.model)
+    for tree in ("params", "batch_stats"):
+        stack = [(blob[tree], mine[tree])]
+        while stack:
+            a, b = stack.pop()
+            if isinstance(b, dict):
+                if set(a) != set(b):
+                    fail(f"written {tree} keys differ")
+                stack += [(a[k], b[k]) for k in b]
+            elif not np.array_equal(a, b):
+                fail(f"the written {tree} differ from the model's")
+    if int(blob["step"]) != hp.voc_total_steps:
+        fail(f"written step {blob['step']}")
+    print("train path (b): latest and wave_step0K pairs written; the "
+          "latest weights equal the model's", flush=True)
+
+    hp40 = work / "hp_train40.py"
+    hp40.write_text(hp_file.read_text() + "voc_total_steps = 40\n")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavernn_tpu_torch.train_wavernn",
+         "--hp_file", str(hp40), "--device", str(dev)], cwd=work, env=env,
+        capture_output=True, text=True, timeout=900)
+    start = re.search(r"Start Step \|\n.*\n\|.*\|\s+(\d+)\s+\|", proc.stdout)
+    print(f"train path (c): train_wavernn exit {proc.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + " | ".join(l.strip() for l in proc.stdout.splitlines()
+                       if "Restoring" in l or "Training Complete" in l),
+          flush=True)
+    if proc.returncode != 0:
+        fail(f"train_wavernn exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    if "Restoring from latest checkpoint" not in proc.stdout:
+        fail("train_wavernn did not restore the latest pair")
+    if start is None or int(start.group(1)) != hp.voc_total_steps:
+        fail(f"train_wavernn did not start at step {hp.voc_total_steps}")
+    step40 = int(load_pytree(paths.voc_latest_weights)["step"])
+    if step40 != 40:
+        fail(f"train_wavernn stopped at step {step40}")
+    mel = paths.mel / f"{test_id}.npy"
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavernn_tpu_torch.gen_wavernn", "--hp_file",
+         str(hp40), "--file", str(mel), "--output_dir", str(work / "gen"),
+         "--device", str(dev)], cwd=work, env=env, capture_output=True,
+        text=True, timeout=600)
+    if proc.returncode != 0:
+        fail(f"gen_wavernn exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    wavs = sorted((work / "gen").glob("*.wav"))
+    if len(wavs) != 1:
+        fail(f"gen_wavernn wrote {wavs}")
+    x, sr = wavio.read_wav_raw(wavs[0])
+    print(f"train path (d): gen_wavernn on the step-40 weights: "
+          f"{wavs[0].name} parses, {x.shape[0]} samples at {sr} Hz",
+          flush=True)
+    if sr != hp.sample_rate or x.shape != (want_len,):
+        fail(f"gen_wavernn WAV: sr {sr}, shape {x.shape}")
+
+    # -- 26. training rate ---------------------------------------------------
+    np.random.seed(1)
+    train_set.num_workers = 0
+    batch = batch_to(dev, *next(iter(train_set)))
+
+    def timed_steps(state, step, n, masks_at=None):
+        """n steps, each timed by CUDA events -> (ms list, losses)."""
+        events, losses, masks = [], [], None
+        for _ in range(n):
+            if masks_at is not None:
+                masks = masks_at(state, masks)
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _, loss, _ = step(state, *batch, masks)
+            b.record()
+            events.append((a, b))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        return ([a.elapsed_time(b) for a, b in events],
+                [float(x) for x in losses], masks)
+
+    opt = make_optimizer(hp.voc_lr, hp.voc_clip_grad_norm)
+    state = new_train_state(seeded_model(dev), opt)
+    step = make_train_step(opt, cfg.mode)
+    _, warm_losses, _ = timed_steps(state, step, 3)
+    ms, losses, _ = timed_steps(state, step, 20)
+    ms_step = float(np.median(ms))
+    print(f"voc_train_ms_per_step ({cfg.mode}, B={B} x {T}, "
+          f"{num_params(state.model):.3f}M params, TF32 off): median "
+          f"{ms_step:.2f} ms over 20 steps (min {min(ms):.2f}, max "
+          f"{max(ms):.2f}) = {B * T / ms_step * 1e3:.0f} samples/s; loss "
+          f"{warm_losses[0]:.4f} -> {losses[-1]:.4f} | {card}", flush=True)
+    if not losses[-1] < warm_losses[0]:
+        fail("the train step does not learn on the card")
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        timed_steps(state, step, 5)
+        wall = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+
+    n_events, busy, gap = device_busy(prof)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.end - e.time_range.start,
+                               n + 1)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    if n_events:
+        print(f"train step x 5 under torch.profiler: wall {wall:.3f} s, "
+              f"{n_events} device events, busy {busy / 1e6:.3f} s = "
+              f"{busy / 1e6 / wall:.4f} of the wall time, longest idle gap "
+              f"{gap / 1e3:.1f} ms | {card}", flush=True)
+        for name, (us, n) in top:
+            print(f"  {us / 1e3 / 5:9.2f} ms/step  {us / busy:.3f} of busy  "
+                  f"{n // 5} launches/step  {name[:100]}")
+    else:
+        print("train step under torch.profiler: no device events recorded; "
+              "busy share not measured", flush=True)
+
+    # pruning on the warm state, in turns with the plain step
+    pruner = Pruner(PruneConfig(start_step=state.step, prune_every=5,
+                                ramp_steps=20))
+
+    def masks_at(state, masks):
+        if masks is None:
+            masks = pruner.init_masks(state.model)
+        return pruner.maybe_update(masks, state.model, state.step + 1)
+
+    plain_ms, _, _ = timed_steps(state, step, 5)
+    ms, losses, masks = timed_steps(state, step, 10, masks_at)
+    sparsity = measured_sparsity(masks)
+    params = dict(state.model.named_parameters())
+    pruned = sum(int((m == 0).sum()) for m in masks.values())
+    nonzero = sum(int((params[n][m == 0] != 0).sum())
+                  for n, m in masks.items())
+    plain_ms += timed_steps(state, step, 5)[0]
+    print(f"pruned train step (masks every 5 steps, a 20-step ramp from "
+          f"the first): median {float(np.median(ms)):.2f} ms over 10 steps "
+          f"(mask updates at steps 5 and 10: {ms[4]:.2f}, {ms[9]:.2f} ms) "
+          f"against {float(np.median(plain_ms)):.2f} ms for 10 plain steps "
+          f"in turns; measured sparsity {sparsity:.4f} after 10 steps, "
+          f"{pruned} pruned weights, {nonzero} of them nonzero; loss "
+          f"{losses[-1]:.4f} | {card}", flush=True)
+    if not (sparsity > 0 and nonzero == 0 and np.isfinite(losses).all()):
+        fail("pruning did not zero the pruned weights")
+    hp.reset()
+    return {"decode_launches": decode_launches, "ms_per_step": ms_step}
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
 """The port's CUDA kernels (the WaveRNN decode with its ablations, the
-Tacotron decoder steps and the matmul floor) on the card.
+Tacotron decoder steps and the matmul floor) on the card, and the paths
+around them: serving, the train step (cuDNN's GRU) against the CPU, and
+the training loop's auditions through the decode kernel.
 
 Every test here needs an NVIDIA GPU with the CUDA toolkit, carries the
 ``cuda`` marker and skips elsewhere.  The module imports no JAX, so that it
@@ -26,7 +28,9 @@ import pytest
 import torch
 
 from wavernn_tpu_torch import set_float32_policy
-from wavernn_tpu_torch.models.wavernn import WaveRNN, WaveRNNConfig
+from wavernn_tpu_torch.models.wavernn import (
+    WaveRNN, WaveRNNConfig, to_jax_variables,
+)
 from wavernn_tpu_torch.ops import cuda_decode
 from wavernn_tpu_torch.infer.gates import gates_pass, tts_gates
 from wavernn_tpu_torch.infer.tacotron import TTSGenerator
@@ -65,41 +69,6 @@ def small(mode):
         torch.manual_seed(0)
         model = WaveRNN(cfg).eval()
     return cfg, model
-
-
-def variables_of(model: WaveRNN, cfg: WaveRNNConfig) -> dict:
-    """The JAX-layout numpy pytree of a port model (the inverse of
-    ``from_jax_variables``), for building a Generator from it."""
-    sd = {k: v.detach().numpy() for k, v in model.state_dict().items()}
-    conv = lambda w: np.transpose(w, (2, 1, 0))
-    bn = lambda pre: ({"scale": sd[f"{pre}.weight"], "bias": sd[f"{pre}.bias"]},
-                      {"mean": sd[f"{pre}.running_mean"],
-                       "var": sd[f"{pre}.running_var"]})
-    rp, rs = {}, {}
-    rp["conv_in"] = {"kernel": conv(sd["upsample.resnet.conv_in.weight"])}
-    rp["bn"], rs["bn"] = bn("upsample.resnet.bn")
-    for i in range(cfg.res_blocks):
-        pre = f"upsample.resnet.blocks.{i}"
-        bp, bs = {}, {}
-        bp["conv1"] = {"kernel": conv(sd[f"{pre}.conv1.weight"])}
-        bp["conv2"] = {"kernel": conv(sd[f"{pre}.conv2.weight"])}
-        bp["bn1"], bs["bn1"] = bn(f"{pre}.bn1")
-        bp["bn2"], bs["bn2"] = bn(f"{pre}.bn2")
-        rp[f"block{i}"], rs[f"block{i}"] = bp, bs
-    rp["conv_out"] = {"kernel": conv(sd["upsample.resnet.conv_out.weight"]),
-                      "bias": sd["upsample.resnet.conv_out.bias"]}
-    up = {f"up{i}_kernel": sd[f"upsample.up_kernels.{i}"]
-          for i in range(len(cfg.upsample_factors))}
-    up["resnet"] = rp
-    params = {"upsample": up}
-    for name in ("I", "fc1", "fc2", "fc3"):
-        params[name] = {"kernel": sd[f"{name}.weight"].T,
-                        "bias": sd[f"{name}.bias"]}
-    for name in ("rnn1", "rnn2"):
-        params[name] = {"cell": {
-            "w_ih": sd[f"{name}.weight_ih"].T, "w_hh": sd[f"{name}.weight_hh"].T,
-            "b_ih": sd[f"{name}.bias_ih"], "b_hh": sd[f"{name}.bias_hh"]}}
-    return {"params": params, "batch_stats": {"upsample": {"resnet": rs}}}
 
 
 def packed_on(model, cfg, device, int8_hh):
@@ -285,7 +254,7 @@ def test_generator_on_card_matches_cpu(cuda_device):
     """The slice on the card goes through the kernel, once per request,
     and gives the int16 PCM the same Generator gives on the CPU."""
     cfg, model = small("MOL")
-    v = variables_of(model, cfg)
+    v = to_jax_variables(model)
     kw = dict(deterministic=True, input_dtype="float16",
               output_dtype="int16", fold_bucket=16)
     mel = np.random.default_rng(0).uniform(0, 1, (80, 20)).astype(np.float32)
@@ -324,7 +293,7 @@ def serving_generator(device, **kw):
     cfg, model = small("MOL")
     kw = {"deterministic": True, "input_dtype": "float16",
           "output_dtype": "int16", "fold_bucket": 16, **kw}
-    return Generator(cfg, variables_of(model, cfg), device=device, **kw)
+    return Generator(cfg, to_jax_variables(model), device=device, **kw)
 
 
 def serving_mels(frames, seed=0):
@@ -539,7 +508,7 @@ def tiny_tts_pipeline(device, **kw):
     return TTSPipeline(TacotronConfig(**meta["dims"]),
                        {"params": blob["params"],
                         "batch_stats": blob["batch_stats"]},
-                       cfg, variables_of(model, cfg), ["english_cleaners"],
+                       cfg, to_jax_variables(model), ["english_cleaners"],
                        r=meta["r"], device=device, **kw)
 
 
@@ -622,5 +591,83 @@ def test_griffinlim_on_card_matches_cpu(cuda_device):
         wav = torch_audio.reconstruct_waveform(mel, n_iter=4,
                                                device=cuda_device)
         assert wav.shape == (199 * 275,) and np.isfinite(wav).all()
+    finally:
+        hp.reset()
+
+
+def train_batch(cfg, B, rng):
+    """A teacher-forcing batch at the model's hop (4 mel frames + pads)."""
+    T = 4 * cfg.hop_length
+    mels = rng.uniform(0, 1, (B, 4 + 2 * cfg.pad, cfg.feat_dims))
+    if cfg.mode == "RAW":
+        y = rng.integers(0, 2 ** cfg.bits, (B, T + 1))
+        return ((2 * y[:, :-1] / (2 ** cfg.bits - 1) - 1).astype(np.float32),
+                y[:, 1:], mels.astype(np.float32))
+    y = rng.uniform(-1, 1, (B, T + 1)).astype(np.float32)
+    return y[:, :-1], y[:, 1:], mels.astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["RAW", "MOL"])
+def test_train_step_on_card_matches_cpu(cuda_device, mode):
+    """Two clipped Adam steps of one seeded model on the card (cuDNN's GRU,
+    TF32 off) and on the CPU: the first loss within 1e-5 relative and the
+    second within 1e-4, the BatchNorm statistics after the first step
+    within 1e-5, every weight after both within 6*lr + 1e-6."""
+    from wavernn_tpu_torch.training.state import make_optimizer, \
+        new_train_state
+    from wavernn_tpu_torch.training.wavernn import make_train_step
+
+    cfg, model = small(mode)
+    states, losses, stats = [], [], []
+    for dev in (cuda_device, torch.device("cpu")):
+        m = WaveRNN(cfg)
+        m.load_state_dict(model.state_dict())
+        opt = make_optimizer(1e-3, 0.5)
+        state = new_train_state(m.to(dev), opt)
+        step = make_train_step(opt, mode)
+        rng = np.random.default_rng(0)
+        losses.append([float(step(state, *train_batch(cfg, 3, rng))[1])])
+        stats.append({n: b.cpu().double() for n, b in m.named_buffers()
+                      if "running" in n})
+        losses[-1].append(float(step(state, *train_batch(cfg, 3, rng))[1]))
+        states.append(state)
+    (card1, card2), (cpu1, cpu2) = losses
+    assert abs(card1 - cpu1) <= 1e-5 * abs(cpu1)
+    assert abs(card2 - cpu2) <= 1e-4 * abs(cpu2)
+    for name, t in stats[1].items():
+        assert float((stats[0][name] - t).abs().max()) <= 1e-5, name
+    card, cpu = (dict(s.model.named_parameters()) for s in states)
+    for name, t in cpu.items():
+        d = (card[name].detach().cpu().double() - t.detach().double())
+        assert float(d.abs().max()) <= 6e-3 + 1e-6, name
+
+
+def test_gen_testset_goes_through_the_kernel(cuda_device, tmp_path):
+    """Audition generation at a checkpoint vocodes each held-out utterance
+    with one decode-kernel launch and writes int16 WAVs of its length."""
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.infer.wavernn import gen_testset
+    from wavernn_tpu_torch.training.state import make_optimizer, \
+        new_train_state
+
+    hp.reset()
+    hp.configure(Path(__file__).parent.parent / "hparams.py",
+                 voc_mode="MOL")
+    try:
+        cfg, model = small("MOL")
+        state = new_train_state(model.to(cuda_device),
+                                make_optimizer(1e-4, 4.0))
+        rng = np.random.default_rng(0)
+        test_set = [(rng.uniform(0, 1, (80, 21)).astype(np.float32),
+                     rng.integers(0, 2 ** 16, 20 * 275)) for _ in range(3)]
+        n = cuda_decode.decode.launches
+        out = gen_testset(cfg, state, test_set, 2, True, 1100, 275, tmp_path)
+        torch.cuda.synchronize()
+        assert cuda_decode.decode.launches == n + 2
+        assert len(out) == 2
+        for p in out:
+            pcm = np.frombuffer(p.read_bytes()[44:], "<i2")
+            assert pcm.shape == (20 * 275,) and pcm.std() > 0
+        assert len(list(tmp_path.glob("*_target.wav"))) == 2
     finally:
         hp.reset()

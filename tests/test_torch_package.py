@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``wavernn_tpu_torch`` (nor
-``chip_smoke.py``) imports JAX, flax, msgpack or the JAX package, since
-the machine with the card has none of them."""
+``chip_smoke.py``) imports JAX, flax, optax, msgpack or the JAX package,
+since the machine with the card has none of them."""
 
 import re
 import subprocess
@@ -10,7 +10,8 @@ from pathlib import Path
 REPO = Path(__file__).parent.parent
 PORT = REPO / "wavernn_tpu_torch"
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|msgpack|wavernn_tpu)(?:[.\s,]|$)",
+    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|msgpack|wavernn_tpu)"
+    r"(?:[.\s,]|$)",
     re.M)
 
 
@@ -28,8 +29,13 @@ def test_no_forbidden_import_in_the_source():
                "dsp/torch_audio.py", "utils/display.py",
                "tools/http_serve_probe.py", "tools/stream_server_probe.py",
                "tools/stream_latency.py", "tools/wire_format_probe.py"}
-    assert serving <= {str(p.relative_to(PORT)) for p in _sources()
-                       if PORT in p.parents}
+    training = {"utils/files.py", "paths.py", "text/recipes.py",
+                "data/preprocess.py", "data/loader.py", "data/dataset.py",
+                "training/state.py", "training/wavernn.py", "pruning.py",
+                "preprocess.py", "train_wavernn.py", "utils/checkpoints.py"}
+    ported = {str(p.relative_to(PORT)) for p in _sources()
+              if PORT in p.parents}
+    assert serving <= ported and training <= ported
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -39,7 +45,7 @@ def test_every_port_module_imports_with_jax_blocked():
                   .removesuffix(".__init__") for p in PORT.rglob("*.py"))
     code = (
         "import importlib, importlib.abc, sys\n"
-        "NO = ('jax', 'jaxlib', 'flax', 'msgpack', 'wavernn_tpu')\n"
+        "NO = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'wavernn_tpu')\n"
         "for k in [k for k in sys.modules if k.split('.')[0] in NO]:\n"
         "    del sys.modules[k]\n"
         "class Block(importlib.abc.MetaPathFinder):\n"

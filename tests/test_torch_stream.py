@@ -19,9 +19,9 @@ import numpy as np
 import pytest
 
 from wavernn_tpu.ops import decode as jax_decode
-from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+from wavernn_tpu_torch.models.wavernn import WaveRNNConfig, to_jax_variables
 from wavernn_tpu_torch.ops.decode import Generator, fold_spans
-from tests.test_torch_cuda import small as torch_small, variables_of
+from tests.test_torch_cuda import small as torch_small
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 TARGET, OVERLAP = 200, 28
@@ -36,7 +36,7 @@ def mel(frames, seed=0):
 def small(mode):
     cfg, model = torch_small(mode)
     return (dict(rnn_dims=64, fc_dims=64, compute_dims=32, res_out_dims=32,
-                 res_blocks=2, mode=mode), variables_of(model, cfg))
+                 res_blocks=2, mode=mode), to_jax_variables(model))
 
 
 @pytest.fixture(scope="module")

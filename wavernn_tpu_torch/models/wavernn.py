@@ -1,34 +1,40 @@
-"""WaveRNN vocoder (fatchord variant): the conditioning network and the
-sample-loop parameters, in PyTorch.
+"""WaveRNN vocoder (fatchord variant) in PyTorch: the conditioning
+network, the teacher-forced training forward and the sample-loop parameters.
 
 Ports ``wavernn_tpu/models/wavernn.py``.  Public functions keep the JAX
 package's channel-last ``(B, T, C)`` layout so the two packages compare like
-with like; the convolutions run channel-first inside.  BatchNorm runs in
-eval mode with the running statistics (the generation path never trains).
+with like; the convolutions run channel-first inside.  In train mode the
+BatchNorm layers normalize with the batch statistics and update their
+running statistics as flax does (:class:`FlaxBatchNorm`).
 
-The teacher-forced forward pass belongs to the training path and is not
-ported yet; the sample loop lives in ``ops/decode.py`` (plain PyTorch) and
+The sample loop lives in ``ops/decode.py`` (plain PyTorch) and
 ``ops/cuda_decode.py`` (the CUDA kernel), which read this module's ``I``,
-``rnn1``, ``rnn2`` and ``fc1``-``fc3`` parameters.
+``rnn1``, ``rnn2`` and ``fc1``-``fc3`` parameters.  :func:`from_jax_variables`
+and :func:`to_jax_variables` move a model to and from the JAX package's
+pytree layout through one table of parameters (:func:`param_layout`).
 """
 
 from __future__ import annotations
 
+import warnings
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wavernn_tpu_torch.ops.rnn import gru_cell_step
+
 
 @dataclass(frozen=True)
 class WaveRNNConfig:
     """The model's shape.  The JAX config's XLA-scan tuning knobs
     (``seq_chunks``, ``chunk_warmup``, ``scan_unroll``, ``scan_remat``) and
-    its training precision knob (``compute_dtype``) have no counterpart
-    here: they shape training, which this package does not run yet."""
+    its reduced-precision training knob (``compute_dtype``) have no
+    counterpart here: the training CLI refuses the two that change results
+    (``training.wavernn.check_ported_options``)."""
 
     rnn_dims: int = 512
     fc_dims: int = 512
@@ -80,15 +86,38 @@ class WaveRNNConfig:
         )
 
 
+class FlaxBatchNorm(nn.BatchNorm1d):
+    """BatchNorm over (B, C, T) with flax's train-mode arithmetic
+    (``flax.linen.BatchNorm(momentum=0.9)``): the batch variance is
+    E[x^2] - E[x]^2 clipped at 0, and the running statistics move as
+    ``ra = 0.9 ra + 0.1 batch`` with that BIASED variance.
+    ``nn.BatchNorm1d`` would put the unbiased one into ``running_var``.
+    Eval mode is ``nn.BatchNorm1d``'s (same epsilon, 1e-5)."""
+
+    def __init__(self, dims: int):
+        super().__init__(dims, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        mean = x.mean(dim=(0, 2))
+        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(0.9).add_(0.1 * mean)
+            self.running_var.mul_(0.9).add_(0.1 * var)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
 class ResBlock(nn.Module):
     """1x1-conv residual block with batch norm, on (B, C, T)."""
 
     def __init__(self, dims: int):
         super().__init__()
         self.conv1 = nn.Conv1d(dims, dims, 1, bias=False)
-        self.bn1 = nn.BatchNorm1d(dims, eps=1e-5)
+        self.bn1 = FlaxBatchNorm(dims)
         self.conv2 = nn.Conv1d(dims, dims, 1, bias=False)
-        self.bn2 = nn.BatchNorm1d(dims, eps=1e-5)
+        self.bn2 = FlaxBatchNorm(dims)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.relu(self.bn1(self.conv1(x)))
@@ -104,7 +133,7 @@ class MelResNet(nn.Module):
         super().__init__()
         self.conv_in = nn.Conv1d(in_dims, compute_dims, 2 * pad + 1,
                                  bias=False)
-        self.bn = nn.BatchNorm1d(compute_dims, eps=1e-5)
+        self.bn = FlaxBatchNorm(compute_dims)
         self.blocks = nn.ModuleList(
             [ResBlock(compute_dims) for _ in range(res_blocks)])
         self.conv_out = nn.Conv1d(compute_dims, res_out_dims, 1)
@@ -200,8 +229,38 @@ class GRUCell(nn.Module):
         self.bias_hh = u(3 * hidden)
 
 
+def gru_sequence(cell: GRUCell, x: torch.Tensor) -> torch.Tensor:
+    """The GRU over a whole (B, T, I) sequence from a zero state ->
+    (B, T, H): cuDNN's fused GRU on the card, ATen's on the CPU.  Its
+    equations are the JAX scan's (``wavernn_tpu/ops/rnn.py:171-177``),
+    ``n = tanh(gi_n + r * (W_hn h + b_hn))`` with gates in r, z, n order;
+    :func:`gru_sequence_reference` is the same recurrence step by step."""
+    h0 = x.new_zeros(1, x.shape[0], cell.weight_hh.shape[1])
+    weights = [cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh]
+    with warnings.catch_warnings():
+        # the module's own tensors are not one flat cuDNN buffer: cuDNN
+        # copies them (4 small matrices) on each call, and warns so
+        warnings.filterwarnings("ignore", message="RNN module weights")
+        out, _ = torch._VF.gru(x, h0, weights, True, 1, 0.0,
+                               torch.is_grad_enabled(), False, True)
+    return out
+
+
+def gru_sequence_reference(cell: GRUCell, x: torch.Tensor) -> torch.Tensor:
+    """The plain version of :func:`gru_sequence`: a Python loop of cell
+    steps."""
+    h = x.new_zeros(x.shape[0], cell.weight_hh.shape[1])
+    w_ih, w_hh = cell.weight_ih.T, cell.weight_hh.T
+    ys = []
+    for t in range(x.shape[1]):
+        h = gru_cell_step(x[:, t], h, w_ih, w_hh, cell.bias_ih, cell.bias_hh)
+        ys.append(h)
+    return torch.stack(ys, dim=1)
+
+
 class WaveRNN(nn.Module):
-    """The vocoder's parameters and its conditioning path."""
+    """The vocoder's parameters, its conditioning path and its
+    teacher-forced forward."""
 
     def __init__(self, cfg: WaveRNNConfig):
         super().__init__()
@@ -218,6 +277,22 @@ class WaveRNN(nn.Module):
         self.fc2 = nn.Linear(c.fc_dims + d, c.fc_dims)
         self.fc3 = nn.Linear(c.fc_dims, c.n_classes)
 
+    def forward(self, x: torch.Tensor, mels: torch.Tensor) -> torch.Tensor:
+        """Teacher-forced logits (``wavernn_tpu/models/wavernn.py:310-354``).
+
+        x: (B, T) float samples; mels: (B, T/hop + 2*pad, feat) ->
+        (B, T, n_classes).  In train mode the BatchNorm layers use and
+        update the batch statistics."""
+        d = self.cfg.aux_dims
+        mels_up, aux = self.upsample(mels)
+        a1, a2, a3, a4 = (aux[..., i * d:(i + 1) * d] for i in range(4))
+        x = self.I(torch.cat([x.unsqueeze(-1), mels_up, a1], dim=-1))
+        x = x + gru_sequence(self.rnn1, x)
+        x = x + gru_sequence(self.rnn2, torch.cat([x, a2], dim=-1))
+        x = F.relu(self.fc1(torch.cat([x, a3], dim=-1)))
+        x = F.relu(self.fc2(torch.cat([x, a4], dim=-1)))
+        return self.fc3(x)
+
     def upsample_only(self, mels: torch.Tensor):
         """(B, T_mel, feat) mels -> (mels_up, aux), both at sample rate."""
         return self.upsample(mels)
@@ -228,58 +303,136 @@ class WaveRNN(nn.Module):
         return self.upsample(mels, stretch_aux=False)
 
 
+def num_params(model: nn.Module) -> float:
+    """Trainable parameter count in millions."""
+    return sum(p.numel() for p in model.parameters()) / 1_000_000
+
+
+# How a parameter moves between the layouts: a Dense kernel (in, out) is a
+# Linear weight (out, in), GRU ``w_ih``/``w_hh`` (in, 3H), already in torch
+# gate order, are ``weight_ih``/``weight_hh`` (3H, in), and a Conv kernel
+# (k, in, out) is (out, in, k).  Each move is its own inverse.
+_MOVES = {
+    "copy": lambda a: a,
+    "transpose": lambda a: a.T,
+    "conv": lambda a: np.transpose(a, (2, 1, 0)),
+}
+
+
+def param_layout(cfg: WaveRNNConfig) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """Every parameter as (torch name, flax path under ``params``, move)."""
+    out = [(f"upsample.up_kernels.{i}", ("upsample", f"up{i}_kernel"), "copy")
+           for i in range(len(cfg.upsample_factors))]
+    res = ("upsample", "resnet")
+
+    def bn(name, path):
+        out.append((f"{name}.weight", path + ("scale",), "copy"))
+        out.append((f"{name}.bias", path + ("bias",), "copy"))
+
+    out.append(("upsample.resnet.conv_in.weight",
+                res + ("conv_in", "kernel"), "conv"))
+    bn("upsample.resnet.bn", res + ("bn",))
+    for i in range(cfg.res_blocks):
+        pre, path = f"upsample.resnet.blocks.{i}", res + (f"block{i}",)
+        for conv, norm in (("conv1", "bn1"), ("conv2", "bn2")):
+            out.append((f"{pre}.{conv}.weight", path + (conv, "kernel"),
+                        "conv"))
+            bn(f"{pre}.{norm}", path + (norm,))
+    out.append(("upsample.resnet.conv_out.weight",
+                res + ("conv_out", "kernel"), "conv"))
+    out.append(("upsample.resnet.conv_out.bias", res + ("conv_out", "bias"),
+                "copy"))
+    for name in ("I", "fc1", "fc2", "fc3"):
+        out.append((f"{name}.weight", (name, "kernel"), "transpose"))
+        out.append((f"{name}.bias", (name, "bias"), "copy"))
+    for name in ("rnn1", "rnn2"):
+        for t, f, move in (("weight_ih", "w_ih", "transpose"),
+                           ("weight_hh", "w_hh", "transpose"),
+                           ("bias_ih", "b_ih", "copy"),
+                           ("bias_hh", "b_hh", "copy")):
+            out.append((f"{name}.{t}", (name, "cell", f), move))
+    return out
+
+
+def stats_layout(cfg: WaveRNNConfig) -> List[Tuple[str, Tuple[str, ...]]]:
+    """Every BatchNorm running statistic as (torch buffer name, flax path
+    under ``batch_stats``)."""
+    norms = [("upsample.resnet.bn", ("upsample", "resnet", "bn"))]
+    for i in range(cfg.res_blocks):
+        for norm in ("bn1", "bn2"):
+            norms.append((f"upsample.resnet.blocks.{i}.{norm}",
+                          ("upsample", "resnet", f"block{i}", norm)))
+    return [(f"{name}.{buf}", path + (leaf,)) for name, path in norms
+            for buf, leaf in (("running_mean", "mean"), ("running_var", "var"))]
+
+
+def to_jax_tree(tensors: Mapping[str, torch.Tensor],
+                cfg: WaveRNNConfig) -> dict:
+    """A dict of per-parameter tensors keyed by torch name (the parameters,
+    or an optimizer moment of each) -> the flax ``params`` pytree of
+    float32 numpy arrays."""
+    tree: dict = {}
+    for name, path, move in param_layout(cfg):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        a = tensors[name].detach().to("cpu", torch.float32).numpy()
+        node[path[-1]] = np.ascontiguousarray(_MOVES[move](a))
+    return tree
+
+
+def from_jax_tree(tree, cfg: WaveRNNConfig) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`to_jax_tree`: torch name -> float32 array."""
+    out = {}
+    for name, path, move in param_layout(cfg):
+        node = tree
+        for k in path:
+            node = node[k]
+        out[name] = np.ascontiguousarray(
+            _MOVES[move](np.asarray(node, np.float32)))
+    return out
+
+
+def to_jax_variables(model: WaveRNN) -> dict:
+    """The JAX-layout numpy pytree ``{"params", "batch_stats"}`` of a port
+    model (the inverse of :func:`from_jax_variables`), for a
+    ``Generator``, a checkpoint or the JAX package."""
+    cfg = model.cfg
+    stats: dict = {}
+    buffers = dict(model.named_buffers())
+    for name, path in stats_layout(cfg):
+        node = stats
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = buffers[name].detach().to("cpu", torch.float32) \
+            .numpy().copy()
+    return {"params": to_jax_tree(dict(model.named_parameters()), cfg),
+            "batch_stats": stats}
+
+
+def load_jax_variables(model: WaveRNN, variables) -> None:
+    """Copy the JAX package's numpy pytree ``{"params", "batch_stats"}``
+    (as ``utils.checkpoints.load_pytree`` reads it) into ``model`` in
+    place, on the model's device.  Raises on a missing or misshapen leaf."""
+    sd = {k: torch.from_numpy(v.copy()) for k, v in
+          from_jax_tree(variables["params"], model.cfg).items()}
+    for name, path in stats_layout(model.cfg):
+        node = variables["batch_stats"]
+        for k in path:
+            node = node[k]
+        sd[name] = torch.from_numpy(np.array(node, np.float32))
+    for name, buf in model.named_buffers():
+        if name.endswith("num_batches_tracked"):
+            sd[name] = buf
+    model.load_state_dict(sd, strict=True)
+
+
 def from_jax_variables(variables, cfg: WaveRNNConfig,
                        device) -> WaveRNN:
     """Build a :class:`WaveRNN` in eval mode on ``device`` from the JAX
-    package's numpy pytree ``{"params", "batch_stats"}`` (as
-    ``utils.checkpoints.load_pytree`` reads it).
-
-    Layout rules (the inverse of the JAX package's torch converter):
-    a Dense kernel (in, out) becomes a Linear weight (out, in); a Conv
-    kernel (k, in, out) becomes (out, in, k); GRU ``w_ih``/``w_hh`` (in, 3H),
-    already in torch gate order, become ``weight_ih``/``weight_hh``
-    (3H, in); BatchNorm scale/bias and the running mean/var map across
-    (flax's epsilon, 1e-5, is BatchNorm1d's)."""
-    p, s = variables["params"], variables["batch_stats"]
-    f32 = lambda a: np.asarray(a, np.float32)
-    t = lambda a: f32(a).T
-    conv = lambda a: np.transpose(f32(a), (2, 1, 0))
-    sd = {}
-
-    def bn(prefix, params, stats):
-        sd[f"{prefix}.weight"] = f32(params["scale"])
-        sd[f"{prefix}.bias"] = f32(params["bias"])
-        sd[f"{prefix}.running_mean"] = f32(stats["mean"])
-        sd[f"{prefix}.running_var"] = f32(stats["var"])
-        sd[f"{prefix}.num_batches_tracked"] = np.zeros((), np.int64)
-
-    up, ups = p["upsample"], s["upsample"]
-    for i in range(len(cfg.upsample_factors)):
-        sd[f"upsample.up_kernels.{i}"] = f32(up[f"up{i}_kernel"])
-    rp, rs = up["resnet"], ups["resnet"]
-    sd["upsample.resnet.conv_in.weight"] = conv(rp["conv_in"]["kernel"])
-    bn("upsample.resnet.bn", rp["bn"], rs["bn"])
-    for i in range(cfg.res_blocks):
-        bp, bs = rp[f"block{i}"], rs[f"block{i}"]
-        pre = f"upsample.resnet.blocks.{i}"
-        sd[f"{pre}.conv1.weight"] = conv(bp["conv1"]["kernel"])
-        bn(f"{pre}.bn1", bp["bn1"], bs["bn1"])
-        sd[f"{pre}.conv2.weight"] = conv(bp["conv2"]["kernel"])
-        bn(f"{pre}.bn2", bp["bn2"], bs["bn2"])
-    sd["upsample.resnet.conv_out.weight"] = conv(rp["conv_out"]["kernel"])
-    sd["upsample.resnet.conv_out.bias"] = f32(rp["conv_out"]["bias"])
-    for name in ("I", "fc1", "fc2", "fc3"):
-        sd[f"{name}.weight"] = t(p[name]["kernel"])
-        sd[f"{name}.bias"] = f32(p[name]["bias"])
-    for name in ("rnn1", "rnn2"):
-        cell = p[name]["cell"]
-        sd[f"{name}.weight_ih"] = t(cell["w_ih"])
-        sd[f"{name}.weight_hh"] = t(cell["w_hh"])
-        sd[f"{name}.bias_ih"] = f32(cell["b_ih"])
-        sd[f"{name}.bias_hh"] = f32(cell["b_hh"])
-
+    package's numpy pytree ``{"params", "batch_stats"}``; the layout rules
+    are :func:`param_layout`'s (flax's BatchNorm epsilon, 1e-5, is
+    BatchNorm1d's)."""
     model = WaveRNN(cfg)
-    model.load_state_dict(
-        {k: torch.tensor(v) for k, v in sd.items()},
-        strict=True)
+    load_jax_variables(model, variables)
     return model.to(device).eval()

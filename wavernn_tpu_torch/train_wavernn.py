@@ -1,0 +1,112 @@
+"""WaveRNN vocoder training CLI of the PyTorch port (ports
+``train_wavernn.py``).
+
+    python -m wavernn_tpu_torch.train_wavernn --hp_file hp.py \
+        [--lr LR] [--batch_size B] [--force_train] [--gta] \
+        [--profile DIR] [--device cuda]
+
+It trains on the features ``python -m wavernn_tpu_torch.preprocess`` wrote
+and resumes from the latest checkpoint pair of ``checkpoints/
+<voc_model_id>.wavernn/`` (the JAX package's file names and layout: a pair
+either package wrote resumes in either).  The device defaults to ``cuda``
+and is never swapped for another: without CUDA the command fails.
+``--device cpu`` trains on the CPU.  Float32 matmuls, convolutions and
+cuDNN's GRU run in full float32 (TF32 off), as the JAX package trains.
+
+Not ported (each raises): ``voc_seq_chunks > 1``, ``voc_compute_dtype``
+and multi-device data parallelism.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import torch
+
+from wavernn_tpu_torch import set_float32_policy
+from wavernn_tpu_torch.config import hp
+from wavernn_tpu_torch.data.dataset import get_vocoder_datasets
+from wavernn_tpu_torch.models.wavernn import WaveRNN, WaveRNNConfig, num_params
+from wavernn_tpu_torch.paths import Paths
+from wavernn_tpu_torch.training.state import make_optimizer, new_train_state
+from wavernn_tpu_torch.training.wavernn import (
+    check_ported_options, voc_train_loop,
+)
+from wavernn_tpu_torch.utils.checkpoints import restore_checkpoint
+from wavernn_tpu_torch.utils.display import simple_table
+from wavernn_tpu_torch.utils.profiling import trace
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device asked for; ``cuda`` without CUDA raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {name!r} asked for, but CUDA is not "
+                           "available (use --device cpu to train on the CPU)")
+    return dev
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(
+        description="Train the WaveRNN vocoder with the PyTorch port")
+    parser.add_argument("--lr", "-l", type=float, help="[float] override hparams.py learning rate")
+    parser.add_argument("--batch_size", "-b", type=int, help="[int] override hparams.py batch size")
+    parser.add_argument("--force_train", "-f", action="store_true",
+                        help="force the model to train past total steps")
+    parser.add_argument("--gta", "-g", action="store_true", help="train on GTA features")
+    parser.add_argument("--profile", metavar="DIR", default=None,
+                        help="write a torch.profiler trace of the run to "
+                             "DIR/trace.json")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device (default cuda)")
+    parser.add_argument("--hp_file", metavar="FILE", default="hparams.py",
+                        help="the file to use for the hyperparameters")
+    args = parser.parse_args(argv)
+
+    hp.configure(args.hp_file)
+    check_ported_options(hp)
+    if args.lr is None:
+        args.lr = hp.voc_lr
+    if args.batch_size is None:
+        args.batch_size = hp.voc_batch_size
+    dev = resolve_device(args.device)
+    set_float32_policy()
+
+    paths = Paths(hp.data_path, hp.voc_model_id, hp.tts_model_id)
+    print(f"Using device: {dev}")
+
+    print("\nInitialising Model...\n")
+    cfg = WaveRNNConfig.from_hp(hp)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)               # as the JAX CLI's PRNGKey(0)
+        model = WaveRNN(cfg).to(dev)
+    print("Trainable Parameters: %.3fM" % num_params(model))
+
+    optimizer = make_optimizer(args.lr, hp.voc_clip_grad_norm)
+    state = new_train_state(model, optimizer)
+    state = restore_checkpoint("voc", paths, state, create_if_missing=True)
+
+    train_set, test_set = get_vocoder_datasets(paths.data, args.batch_size, args.gta)
+
+    total_steps = 10_000_000 if args.force_train else hp.voc_total_steps
+
+    simple_table([
+        ("Remaining", str((total_steps - state.get_step()) // 1000) + "k Steps"),
+        ("Batch Size", args.batch_size),
+        ("LR", args.lr),
+        ("Sequence Len", hp.voc_seq_len),
+        ("GTA Train", args.gta),
+        ("Start Step", state.get_step()),
+    ])
+
+    with trace(args.profile):
+        voc_train_loop(paths, cfg, state, optimizer, train_set, test_set,
+                       total_steps, lr=args.lr)
+
+    print("Training Complete.")
+    print("To continue training increase voc_total_steps in hparams.py or use --force_train")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -1,9 +1,10 @@
-"""Reader for the msgpack checkpoints the JAX package writes.
+"""The msgpack checkpoints of the JAX package: reader, writer, and the
+training checkpoint pairs (ports ``wavernn_tpu/utils/checkpoints.py``).
 
 The JAX package saves pytrees with ``flax.serialization.msgpack_serialize``.
-The port must load them on machines with neither flax nor the ``msgpack``
-package, so this module decodes the subset of msgpack that flax writes, in
-pure Python:
+The port must read and write them on machines with neither flax nor the
+``msgpack`` package, so this module encodes and decodes the subset of
+msgpack that flax writes, in pure Python:
 
   * maps, arrays, str/bin, nil/bool, ints and floats (big-endian headers);
   * ext type 1, an ndarray: a packed ``(shape, dtype_name, bytes)`` triple,
@@ -12,16 +13,34 @@ pure Python:
 
 The chunked form flax uses for arrays above 1 GiB
 (``__msgpack_chunked_array__``) is refused: no checkpoint of this repository
-holds one.
+holds one.  The writer emits what flax would for the same state dict, byte
+for byte: map keys sorted (flax passes the tree through ``jax.tree_util``,
+which sorts them), ints and floats in msgpack's smallest
+encodings (floats as float64, as msgpack packs Python floats), and every
+array, 0-d ones included, as ext type 1.
+
+Training checkpoints keep the reference's contracts: weights and optimizer
+state live in paired files, exactly 0 or 2 of a pair may exist (anything
+else raises), a 'latest' pair is always rewritten and named snapshots are
+additive, ``create_if_missing`` bootstraps a fresh run, and the step
+counter travels with the weights.  The weights file is the JAX package's
+``_model_blob`` (``params``, ``batch_stats``, ``step``); the optimizer file
+holds the optax state's flax layout (``training.state.AdamState``), so a
+pair resumes in either package.
 """
 
 from __future__ import annotations
 
 import struct
 from pathlib import Path
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import numpy as np
+
+from wavernn_tpu_torch.models.wavernn import (
+    load_jax_variables, to_jax_variables,
+)
+from wavernn_tpu_torch.training.state import AdamState
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -125,3 +144,192 @@ def load_pytree(path: Union[str, Path]) -> dict:
     if r.pos != len(r.data):
         raise ValueError(f"{path}: trailing bytes after the msgpack object")
     return tree
+
+
+def _uint(n: int, fmts) -> bytes:
+    """The first of ``fmts`` [(limit, type byte, struct code)] that holds n."""
+    for limit, code, fmt in fmts:
+        if n <= limit:
+            return bytes([code]) + struct.pack(">" + fmt, n)
+    raise ValueError(f"length {n} too large for msgpack")
+
+
+_LEN32 = ((0xFF, 0, "B"), (0xFFFF, 1, "H"), (0xFFFFFFFF, 2, "I"))
+
+
+def _sized(base: int, n: int) -> bytes:
+    """A str/bin/ext header with an 8/16/32-bit length after ``base``."""
+    return _uint(n, [(lim, base + off, f) for lim, off, f in _LEN32])
+
+
+def _pack_int(n: int) -> bytes:
+    if 0 <= n < 0x80:
+        return bytes([n])
+    if -32 <= n < 0:
+        return struct.pack(">b", n)
+    if n >= 0:
+        return _uint(n, [(0xFF, 0xCC, "B"), (0xFFFF, 0xCD, "H"),
+                         (0xFFFFFFFF, 0xCE, "I"), (2 ** 64 - 1, 0xCF, "Q")])
+    for lo, code, fmt in ((-2 ** 7, 0xD0, "b"), (-2 ** 15, 0xD1, "h"),
+                          (-2 ** 31, 0xD2, "i"), (-2 ** 63, 0xD3, "q")):
+        if n >= lo:
+            return bytes([code]) + struct.pack(">" + fmt, n)
+    raise ValueError(f"int {n} too large for msgpack")
+
+
+def _pack_ext(code: int, data: bytes) -> bytes:
+    fixed = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    head = (bytes([fixed[len(data)]]) if len(data) in fixed
+            else _sized(0xC7, len(data)))
+    return head + struct.pack(">b", code) + data
+
+
+def _pack(v: Any, out: list) -> None:
+    if v is None:
+        out.append(b"\xc0")
+    elif isinstance(v, bool):
+        out.append(b"\xc3" if v else b"\xc2")
+    elif isinstance(v, np.ndarray):
+        if v.dtype.hasobject:
+            raise ValueError("object arrays cannot be saved")
+        payload: list = []
+        _pack((list(v.shape), v.dtype.name, v.tobytes("C")), payload)
+        out.append(_pack_ext(_EXT_NDARRAY, b"".join(payload)))
+    elif isinstance(v, np.generic):
+        payload = []
+        a = np.asarray(v)
+        _pack((list(a.shape), a.dtype.name, a.tobytes("C")), payload)
+        out.append(_pack_ext(_EXT_NPSCALAR, b"".join(payload)))
+    elif isinstance(v, int):
+        out.append(_pack_int(v))
+    elif isinstance(v, float):
+        out.append(b"\xcb" + struct.pack(">d", v))
+    elif isinstance(v, str):
+        b = v.encode("utf-8")
+        out.append((bytes([0xA0 | len(b)]) if len(b) < 32
+                    else _sized(0xD9, len(b))) + b)
+    elif isinstance(v, bytes):
+        out.append(_sized(0xC4, len(v)) + v)
+    elif isinstance(v, (list, tuple)):
+        n = len(v)
+        out.append(bytes([0x90 | n]) if n < 16 else _uint(
+            n, [(0xFFFF, 0xDC, "H"), (0xFFFFFFFF, 0xDD, "I")]))
+        for x in v:
+            _pack(x, out)
+    elif isinstance(v, dict):
+        n = len(v)
+        out.append(bytes([0x80 | n]) if n < 16 else _uint(
+            n, [(0xFFFF, 0xDE, "H"), (0xFFFFFFFF, 0xDF, "I")]))
+        for k, x in sorted(v.items()):
+            _pack(k, out)
+            _pack(x, out)
+    else:
+        raise TypeError(f"cannot save a {type(v).__name__} in a checkpoint")
+
+
+def pack_pytree(tree: dict) -> bytes:
+    """The msgpack bytes flax's ``msgpack_serialize`` gives a state dict
+    (nested dicts with str keys, numpy arrays and Python scalars): keys
+    sorted at every level."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
+
+
+def save_pytree(tree: dict, path: Union[str, Path]) -> None:
+    path = Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(pack_pytree(tree))
+
+
+# -- training checkpoints ---------------------------------------------------
+
+
+def get_checkpoint_paths(checkpoint_type: str, paths):
+    if checkpoint_type == "tts":
+        return paths.tts_latest_weights, paths.tts_latest_optim, paths.tts_checkpoints
+    if checkpoint_type == "voc":
+        return paths.voc_latest_weights, paths.voc_latest_optim, paths.voc_checkpoints
+    raise NotImplementedError(checkpoint_type)
+
+
+def _model_blob(state) -> dict:
+    """Model-only payload: weights + norm stats + step (no optimizer data,
+    matching the reference's model.save contract)."""
+    v = to_jax_variables(state.model)
+    return {"params": v["params"], "batch_stats": v["batch_stats"],
+            "step": np.asarray(state.step, np.int32)}
+
+
+def _pair(checkpoint_type: str, paths, name: Optional[str]):
+    weights_path, optim_path, checkpoint_path = get_checkpoint_paths(
+        checkpoint_type, paths)
+    if name:
+        return (checkpoint_path / f"{name}_weights.msgpack",
+                checkpoint_path / f"{name}_optim.msgpack", "named")
+    return weights_path, optim_path, "latest"
+
+
+def save_checkpoint(checkpoint_type: str, paths, state, *,
+                    name: Optional[str] = None, is_silent: bool = False) -> None:
+    """Write the latest pair (always) and optionally a named snapshot pair."""
+
+    def helper(w_path: Path, o_path: Path, s: str):
+        num_exist = sum(p.exists() for p in (w_path, o_path))
+        if num_exist not in (0, 2):
+            raise FileNotFoundError(
+                f"Expected both or neither file of the {s} checkpoint to "
+                "exist, but found exactly one!"
+            )
+        if not is_silent:
+            verb = "Creating" if num_exist == 0 else "Saving to existing"
+            print(f"{verb} {s} checkpoint...")
+            print(f"Saving {s} weights: {w_path}")
+        save_pytree(_model_blob(state), w_path)
+        if not is_silent:
+            print(f"Saving {s} optimizer state: {o_path}")
+        save_pytree({"opt_state": state.opt_state.state_dict(state.model)},
+                    o_path)
+
+    helper(*_pair(checkpoint_type, paths, None))
+    if name:
+        helper(*_pair(checkpoint_type, paths, name))
+
+
+def restore_checkpoint(checkpoint_type: str, paths, state, *,
+                       name: Optional[str] = None,
+                       create_if_missing: bool = False):
+    """Restore a training state from disk into ``state`` (a freshly
+    initialized one: its model and optimizer layout are the template).
+    Returns the restored state."""
+    w_path, o_path, s = _pair(checkpoint_type, paths, name)
+    num_exist = sum(p.exists() for p in (w_path, o_path))
+    if num_exist == 2:
+        print(f"Restoring from {s} checkpoint...")
+        print(f"Loading {s} weights: {w_path}")
+        load_weights(state, w_path)
+        print(f"Loading {s} optimizer state: {o_path}")
+        opt = load_pytree(o_path)["opt_state"]
+        state.opt_state = AdamState.from_state_dict(
+            opt, state.model, state.opt_state.chained)
+        return state
+    if create_if_missing:   # with one file of the pair, the save raises
+        save_checkpoint(checkpoint_type, paths, state, name=name,
+                        is_silent=False)
+        return state
+    raise FileNotFoundError(f"The {s} checkpoint could not be found!")
+
+
+def load_weights(state, path: Path):
+    """Load a weights-only file onto a state (inference path, ref
+    WaveRNN.load): parameters, BatchNorm statistics and step.  The
+    optimizer state is untouched."""
+    blob = load_pytree(path)
+    load_jax_variables(state.model, blob)
+    state.step = int(np.asarray(blob["step"]))
+    return state
+
+
+def save_weights(state, path: Path):
+    """Save a weights-only file (ref WaveRNN.save: no optimizer data)."""
+    save_pytree(_model_blob(state), path)

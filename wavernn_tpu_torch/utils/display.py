@@ -1,9 +1,25 @@
-"""Terminal display of the port: the boxed config table the CLIs print (a
-copy of ``simple_table`` of ``wavernn_tpu/utils/display.py``)."""
+"""Terminal display of the port: the in-place status line, the progress
+bar, the boxed config table the CLIs print and elapsed-time formatting
+(copies of ``progbar``, ``stream``, ``simple_table`` and ``time_since`` of
+``wavernn_tpu/utils/display.py``)."""
 
 from __future__ import annotations
 
+import sys
+import time
 from typing import Sequence, Tuple
+
+
+def progbar(i: int, n: int, size: int = 16) -> str:
+    """Block-character progress bar string for step ``i`` of ``n``."""
+    done = (i * size) // max(n, 1)
+    return "".join("█" if j <= done else "░" for j in range(size))
+
+
+def stream(message: str) -> None:
+    """In-place terminal status line."""
+    sys.stdout.write(f"\r{message}")
+    sys.stdout.flush()
 
 
 def simple_table(item_tuples: Sequence[Tuple[object, object]]) -> None:
@@ -37,3 +53,12 @@ def simple_table(item_tuples: Sequence[Tuple[object, object]]) -> None:
     print(body)
     print(border)
     print(" ")
+
+
+def time_since(started: float) -> str:
+    """Human-readable elapsed time since ``started`` (a time.time() stamp)."""
+    elapsed = time.time() - started
+    m, s = int(elapsed // 60), int(elapsed % 60)
+    if m >= 60:
+        return f"{m // 60}h {m % 60}m {s}s"
+    return f"{m}m {s}s"
