@@ -164,6 +164,7 @@ def test_save_pytree_bytes_equal_flax(tmp_path):
             "step": np.asarray(state.step, np.int32)}
     want = serialization.msgpack_serialize(serialization.to_state_dict(blob))
     assert pack_pytree(blob) == want
+    assert pack_pytree(state.weights_tree()) == want
     save_pytree(blob, tmp_path / "w.msgpack")
     assert (tmp_path / "w.msgpack").read_bytes() == want
     rng = np.random.default_rng(0)
@@ -264,3 +265,41 @@ def test_pair_integrity_and_create_if_missing(tmp_path):
         restore_checkpoint("voc", paths, state, create_if_missing=True)
     restored = restore_checkpoint("voc", paths, state, name="wave_step0K")
     assert restored.step == 7
+
+
+def test_checkpoint_module_knows_no_model(tmp_path):
+    """The pair rule works over any state that hands over its two trees;
+    the module imports nothing of the port's models or trainer."""
+    import ast
+
+    import wavernn_tpu_torch.utils.checkpoints as ckpt
+
+    imported = [n.module if isinstance(n, ast.ImportFrom) else a.name
+                for n in ast.walk(ast.parse(Path(ckpt.__file__).read_text()))
+                if isinstance(n, (ast.Import, ast.ImportFrom))
+                for a in n.names]
+    assert not [m for m in imported if m and m.startswith("wavernn_tpu")]
+
+    class Trees:
+        def __init__(self, k):
+            self.w = {"w": np.full(3, k, np.float32), "step": np.asarray(k)}
+            self.o = {"opt_state": {"count": np.asarray(k)}}
+
+        def weights_tree(self):
+            return self.w
+
+        def optim_tree(self):
+            return self.o
+
+        def load_weights_tree(self, tree):
+            self.w = tree
+
+        def load_optim_tree(self, tree):
+            self.o = tree
+
+    paths, _ = both_paths(tmp_path)
+    save_checkpoint("tts", paths, Trees(3), name="snap", is_silent=True)
+    got = restore_checkpoint("tts", paths, Trees(0), name="snap")
+    np.testing.assert_array_equal(got.w["w"], np.full(3, 3, np.float32))
+    assert int(got.w["step"]) == 3 and int(got.o["opt_state"]["count"]) == 3
+    assert paths.tts_latest_weights.exists()

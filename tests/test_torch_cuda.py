@@ -9,7 +9,8 @@ runs on a machine with the card, where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_cuda.py -m cuda -q
 
-Weights are the port's own seeded initialization at a small width.  Each
+Weights are the port's own seeded initialization at a small width (the
+float32 accuracy of the train step's gradients is held at full width).  Each
 kernel and its plain version (``cuda_decode.decode_reference``,
 ``tts_decode.tts_decode_reference``, ``matmul_floor.matmul_floor_reference``)
 sum the exact bf16 products of every dot in float64, so they agree to the
@@ -640,6 +641,58 @@ def test_train_step_on_card_matches_cpu(cuda_device, mode):
     for name, t in cpu.items():
         d = (card[name].detach().cpu().double() - t.detach().double())
         assert float(d.abs().max()) <= 6e-3 + 1e-6, name
+
+
+@pytest.mark.parametrize("cudnn_mode", ["default", "deterministic"])
+def test_train_gradients_on_card_are_float32_accurate(cuda_device,
+                                                      cudnn_mode):
+    """The full-width MOL step's gradients (B=4 x 1,375) in float32 on the
+    card, with every ReLU mask pinned to the float64 forward's, are each
+    within 1e-5 relative L2 of float64: no convolution, GEMM or cuDNN GRU
+    algorithm on the card loses float32 accuracy.  The plain float32 step
+    flips a mask or two at fc1/fc2 where rounding crosses zero, and that
+    alone moves the conditioning network's gradients by up to 5e-4."""
+    from chip_smoke import relu_masks
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.ops.mol import discretized_mix_logistic_loss
+
+    hp.reset()
+    hp.configure(Path(__file__).parent.parent / "hparams.py")
+    try:
+        cfg = WaveRNNConfig.from_hp(hp)
+        T = hp.voc_seq_len
+    finally:
+        hp.reset()
+    rng = np.random.default_rng(0)
+    y = rng.uniform(-1, 1, (4, T + 1))
+    mels = rng.uniform(0, 1, (4, T // cfg.hop_length + 2 * cfg.pad,
+                              cfg.feat_dims))
+
+    def gradients(dt, **masks):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = WaveRNN(cfg).to(cuda_device, dt).train()
+        x, t, m = (torch.tensor(a, dtype=dt, device=cuda_device)
+                   for a in (y[:, :-1], y[:, 1:], mels))
+        with relu_masks(**masks):
+            discretized_mix_logistic_loss(model(x, m), t).backward()
+        return {n: p.grad.double() for n, p in model.named_parameters()}
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = cudnn_mode == "deterministic"
+    try:
+        ref, seen = [], []
+        g64 = gradients(torch.float64, record=ref)
+        plain = gradients(torch.float32, record=seen)
+        pinned = gradients(torch.float32, pinned=ref)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    rel = {n: float((pinned[n] - g).norm() / g.norm())
+           for n, g in g64.items()}
+    assert max(rel.values()) <= 1e-5, max(rel.items(), key=lambda kv: kv[1])
+    flips = [int((a != b).sum()) for a, b in zip(seen, ref)]
+    assert max(float((plain[n] - g).norm() / g.norm())
+               for n, g in g64.items()) <= 5e-4, flips
 
 
 def test_gen_testset_goes_through_the_kernel(cuda_device, tmp_path):

@@ -34,7 +34,8 @@ import torch
 from torch import nn
 
 from wavernn_tpu_torch.models.wavernn import (
-    WaveRNN, from_jax_tree, to_jax_tree,
+    WaveRNN, from_jax_tree, load_jax_variables, to_jax_tree,
+    to_jax_variables,
 )
 
 _F32 = np.float32
@@ -170,6 +171,30 @@ class TrainState:
 
     def get_step(self) -> int:
         return self.step
+
+    # the two trees of a checkpoint pair (``utils.checkpoints``)
+
+    def weights_tree(self) -> dict:
+        """The JAX package's weights file (its ``_model_blob``): ``params``
+        and ``batch_stats`` in the flax layout, and the step as a 0-d
+        array; no optimizer data."""
+        v = to_jax_variables(self.model)
+        return {"params": v["params"], "batch_stats": v["batch_stats"],
+                "step": np.asarray(self.step, np.int32)}
+
+    def load_weights_tree(self, tree: dict) -> None:
+        """Parameters, BatchNorm statistics and step from a weights file."""
+        load_jax_variables(self.model, tree)
+        self.step = int(np.asarray(tree["step"]))
+
+    def optim_tree(self) -> dict:
+        return {"opt_state": self.opt_state.state_dict(self.model)}
+
+    def load_optim_tree(self, tree: dict) -> None:
+        """The optimizer file, as either package writes it, onto this
+        state's layout (clipped or not)."""
+        self.opt_state = AdamState.from_state_dict(
+            tree["opt_state"], self.model, self.opt_state.chained)
 
 
 def new_train_state(model: WaveRNN, optimizer: Adam) -> TrainState:

@@ -23,9 +23,15 @@ Training checkpoints keep the reference's contracts: weights and optimizer
 state live in paired files, exactly 0 or 2 of a pair may exist (anything
 else raises), a 'latest' pair is always rewritten and named snapshots are
 additive, ``create_if_missing`` bootstraps a fresh run, and the step
-counter travels with the weights.  The weights file is the JAX package's
-``_model_blob`` (``params``, ``batch_stats``, ``step``); the optimizer file
-holds the optax state's flax layout (``training.state.AdamState``), so a
+counter travels with the weights.  This module knows no model: a train
+state hands it the two ready-made trees and takes them back,
+
+  * ``state.weights_tree()`` / ``state.load_weights_tree(tree)``: the
+    weights file (params, norm statistics and step);
+  * ``state.optim_tree()`` / ``state.load_optim_tree(tree)``: the optimizer
+    file.
+
+``training.state.TrainState`` gives them the JAX package's layouts, so a
 pair resumes in either package.
 """
 
@@ -36,11 +42,6 @@ from pathlib import Path
 from typing import Any, Optional, Union
 
 import numpy as np
-
-from wavernn_tpu_torch.models.wavernn import (
-    load_jax_variables, to_jax_variables,
-)
-from wavernn_tpu_torch.training.state import AdamState
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
@@ -253,14 +254,6 @@ def get_checkpoint_paths(checkpoint_type: str, paths):
     raise NotImplementedError(checkpoint_type)
 
 
-def _model_blob(state) -> dict:
-    """Model-only payload: weights + norm stats + step (no optimizer data,
-    matching the reference's model.save contract)."""
-    v = to_jax_variables(state.model)
-    return {"params": v["params"], "batch_stats": v["batch_stats"],
-            "step": np.asarray(state.step, np.int32)}
-
-
 def _pair(checkpoint_type: str, paths, name: Optional[str]):
     weights_path, optim_path, checkpoint_path = get_checkpoint_paths(
         checkpoint_type, paths)
@@ -285,11 +278,10 @@ def save_checkpoint(checkpoint_type: str, paths, state, *,
             verb = "Creating" if num_exist == 0 else "Saving to existing"
             print(f"{verb} {s} checkpoint...")
             print(f"Saving {s} weights: {w_path}")
-        save_pytree(_model_blob(state), w_path)
+        save_pytree(state.weights_tree(), w_path)
         if not is_silent:
             print(f"Saving {s} optimizer state: {o_path}")
-        save_pytree({"opt_state": state.opt_state.state_dict(state.model)},
-                    o_path)
+        save_pytree(state.optim_tree(), o_path)
 
     helper(*_pair(checkpoint_type, paths, None))
     if name:
@@ -309,9 +301,7 @@ def restore_checkpoint(checkpoint_type: str, paths, state, *,
         print(f"Loading {s} weights: {w_path}")
         load_weights(state, w_path)
         print(f"Loading {s} optimizer state: {o_path}")
-        opt = load_pytree(o_path)["opt_state"]
-        state.opt_state = AdamState.from_state_dict(
-            opt, state.model, state.opt_state.chained)
+        state.load_optim_tree(load_pytree(o_path))
         return state
     if create_if_missing:   # with one file of the pair, the save raises
         save_checkpoint(checkpoint_type, paths, state, name=name,
@@ -322,14 +312,11 @@ def restore_checkpoint(checkpoint_type: str, paths, state, *,
 
 def load_weights(state, path: Path):
     """Load a weights-only file onto a state (inference path, ref
-    WaveRNN.load): parameters, BatchNorm statistics and step.  The
-    optimizer state is untouched."""
-    blob = load_pytree(path)
-    load_jax_variables(state.model, blob)
-    state.step = int(np.asarray(blob["step"]))
+    WaveRNN.load).  The optimizer state is untouched."""
+    state.load_weights_tree(load_pytree(path))
     return state
 
 
 def save_weights(state, path: Path):
     """Save a weights-only file (ref WaveRNN.save: no optimizer data)."""
-    save_pytree(_model_blob(state), path)
+    save_pytree(state.weights_tree(), path)
