@@ -9,7 +9,8 @@ Tacotron decoder-step kernel, then the WaveRNN kernel), the
 kernel-measurement path (the matmul floor and the decode kernel's
 variants) and the vocoder's serving paths (the MCD gate, the wire
 formats, co-batching, streaming and the multi-session StreamServer, all
-through the WaveRNN kernel).  Phases, in order; any failure exits non-zero and prints no
+through the WaveRNN kernel, whose int8 feed-forward variant ``int8_ff``
+the width policy turns on).  Phases, in order; any failure exits non-zero and prints no
 result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
@@ -25,8 +26,12 @@ result line:
    CTA).  Deterministic: the first 64 steps within 1e-3 and at least 99%
    of all samples within 2e-2.  Sampling with the shared counter-based
    bits: the first 64 steps within 1e-2.  Each prints its max |d| over all
-   steps.  Then both versions are timed at the main path's shape (48 folds
-   x 12,100 steps, sampling, int8 recurrent matrices).
+   steps.  Then the main path's Generator calibrates its int8_ff bounds on
+   the first 1920-frame request (``ff_ranges``, its wall time printed), and
+   both variants (bf16 and int8 feed-forward matrices) and their plain
+   versions are timed at the main path's shape (48 folds x 12,100 steps,
+   sampling, int8 recurrent matrices) in turns: plain, kernel, int8_ff
+   kernel, int8_ff kernel, kernel, int8_ff plain.
 4. Drives the copy-synthesis path: ``Generator`` on the golden MOL model,
    f16 mel in, int16 PCM out, folds of 11,000 + 2 x 550 samples, serving
    three requests through prestage/submit/prefetch/collect (the 1200-frame
@@ -85,8 +90,9 @@ Phases 15-19 run the golden MOL at full width, f16 in, int16 out,
 15. The MCD gate: ``infer.eval.copy_synthesis_mcd`` on the golden eval mel
    (1200 frames), float64 out, sampling, seeds 0-2; the mean must be below
    ``mcd_scan_mean + max(4 * mcd_scan_spread, 3)`` of
-   ``bench_assets/golden_meta.json`` (892.40).  Prints the deterministic
-   MCD beside it.
+   ``bench_assets/golden_meta.json`` (892.40), with bf16 feed-forward
+   matrices (phase 30 runs it with the int8 ones).  Prints the
+   deterministic MCD beside it.
 16. The wire formats, deterministic: uint8 in must be bit-equal to float32
    in of the requantized mel; mulaw8 out within 1 label of
    ``dsp.audio.encode_mu_law`` of the float path.  Prints the MCD of
@@ -99,7 +105,8 @@ Phases 15-19 run the golden MOL at full width, f16 in, int16 out,
    the pipelined prestage/submit/prefetch/collect and the co-batched
    steady state (three serves, each submitted before the one before it is
    collected), each pass's kHz printed; each co-batched serve must be one
-   decode launch.  Deterministic co-batched utterances against their solo
+   decode launch, and under int8_ff "auto" each launch must take the pack
+   the policy gives its width.  Deterministic co-batched utterances against their solo
    submits: at least 99% of samples within 655 LSB.
 18. Streaming, a 1920-frame mel: ``stream`` with group 32 / first group 4
    and with group 48, five runs each (``stream_khz`` and ``ttfc_ms``,
@@ -108,7 +115,8 @@ Phases 15-19 run the golden MOL at full width, f16 in, int16 out,
 19. The StreamServer: four deterministic sessions of 1920 / 1200 / 600 /
    300 frames at group 16, capacity 4, width 64 and 132; each session must
    be byte-equal to its solo ``stream`` and the launches below the solo
-   streams' sum.  Prints the aggregate kHz.
+   streams' sum; under int8_ff "auto" every launch takes the pack the
+   policy gives it.  Prints the aggregate kHz.
 
 Phases 20-23 serve text over both kernels and run the Griffin-Lim
 vocoder:
@@ -185,10 +193,33 @@ GRUs and FCs, batch 32, 1,375-sample windows, Adam at 1e-4, clip 4):
    steps: both medians, the measured sparsity, and pruned weights that
    must be exactly zero.
 
-The decode kernel's launch counter is set to 0 just before each main-path
-run and read just after; the record's ``launches`` sums phase 4's,
-phases 15-21's and phase 25's, and the TTS kernel's sums phase 8's and
-phases 20-21's.
+Phases 27-30 run the decode kernel's int8 feed-forward variant at full
+width (the golden MOL, f16 in, int16 out, ``fold_bucket=16``):
+
+27. The variant against its plain version, as phase 3: the golden MOL (16
+   rows x 1024 steps of the eval mel) and the tiny RAW golden, each with
+   bounds calibrated on its own mel; int8 recurrent matrices on and off,
+   deterministic and sampling, one and two rows per CTA; phase 3's
+   tolerances, max |d| printed.
+28. The crossover sweep: ``tools.step_opt_probe``'s interleaved A/B of
+   int8_hh against int8_hh + int8_ff at 1, 4, 16, 48, 64, 132 and 240
+   rows x 2,048 steps (3 passes of 2 launches, CUDA events), us/step per
+   arm; fails if the policy (``ops.decode.FF_AUTO_MIN_ROWS``) turns the
+   variant on at a width where it lost.
+29. Serving with the variant forced on: the kernel against its plain
+   version on five co-batched 1920-frame requests' conditioning (240
+   rows, 64 steps, both modes), then three co-batched serves of them, each
+   one launch that takes the int8 pack, kHz printed; a StreamServer at
+   width 132 (four deterministic sessions as in phase 19): every launch
+   takes the int8 pack and each session is byte-equal to its solo stream.
+30. The MCD gate with the variant forced: seeds 0-2 below 892.40, the
+   deterministic MCD printed.
+
+The decode kernel's launch counts (all launches, and those with int8
+feed-forward matrices) are set to 0 just before each main-path run and
+read just after; the record's ``launches`` sum phase 4's, phases 15-21's,
+phase 25's and phases 29-30's, split between the two variants, and the
+TTS kernel's sums phase 8's and phases 20-21's.
 
 Float32 matmuls, convolutions and cuDNN's GRU run in full float32 (TF32
 off).  The last
@@ -198,7 +229,9 @@ JSON record, where ``bound_ms`` is the least time the card could take for
 the timed call (the larger of its operations over the H100's dense peak
 for their type and its bytes, each input read once and each output written
 once, over 3.35 TB/s) and ``library_ms`` is null: no single PyTorch call
-computes any of these T-step recurrences.
+computes any of these T-step recurrences.  The decode kernel has two
+entries: ``wavernn_decode`` (bf16 feed-forward matrices) and
+``wavernn_decode_int8_ff``.
 """
 
 import contextlib
@@ -240,31 +273,34 @@ def nbytes(*tensors) -> int:
 
 def decode_bound(packed: dict, B: int, T: int, C: int):
     """The decode kernel's bound for B rows x T steps: per row and step the
-    bf16 dots (the fused aux matrix counted by its nonzero blocks) and,
-    with int8_hh, the two int8 recurrent dots; bytes are the conditioning
-    read, the weights and the output."""
+    bf16 dots (the fused aux matrix counted by its nonzero blocks), the
+    two recurrent dots (int8 with int8_hh) and the three feed-forward dots
+    (GRU2's input, FC1, FC2: int8 whenever ``w_ih2x`` is), each type at
+    its peak; bytes are the conditioning read, the weights and the
+    output."""
     import torch
 
     H, F = packed["b_hh1_n"].shape[0], packed["b_fc1"].shape[0]
     d, K0 = packed["w_aux"].shape[0] // 3, packed["w_Im"].shape[0]
     n_out = packed["b_fc3"].shape[0]
     hh = 2 * H * 3 * H
-    bf16 = (K0 * 4 * H + H * 3 * H + d * (3 * H + 2 * F) + H * F + F * F
-            + F * n_out)
+    ff = H * 3 * H + H * F + F * F
+    bf16 = K0 * 4 * H + d * (3 * H + 2 * F) + F * n_out
     i8 = packed["w_hh1"].dtype == torch.int8
-    ops = [(2 * (bf16 + (0 if i8 else hh)) * B * T, PEAK_BF16),
-           (2 * (hh if i8 else 0) * B * T, PEAK_INT8)]
+    i8_ff = packed["w_ih2x"].dtype == torch.int8
+    int8 = (hh if i8 else 0) + (ff if i8_ff else 0)
+    bf16 += (0 if i8 else hh) + (0 if i8_ff else ff)
+    ops = [(2 * bf16 * B * T, PEAK_BF16), (2 * int8 * B * T, PEAK_INT8)]
     return bound(ops, nbytes(*packed.values()) + B * T * C * 2 + B * T * 4)
 
 
-def in_turns(run_plain, run_kernel):
-    """Run the plain version and the kernel in turns (plain, kernel, kernel,
-    plain), each timed with CUDA events.  Returns (plain output, kernel
-    output, plain ms, kernel ms), the ms as lists."""
+def timed_in_order(order):
+    """Run each function of ``order`` in turn, each timed with CUDA events.
+    Returns ({fn: its last output}, {fn: [ms of each run]})."""
     import torch
 
-    outs, times = {}, {run_plain: [], run_kernel: []}
-    for fn in (run_plain, run_kernel, run_kernel, run_plain):
+    outs, times = {}, {fn: [] for fn in order}
+    for fn in order:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
@@ -273,7 +309,39 @@ def in_turns(run_plain, run_kernel):
         end.record()
         torch.cuda.synchronize()
         times[fn].append(start.elapsed_time(end))
+    return outs, times
+
+
+def in_turns(run_plain, run_kernel):
+    """Run the plain version and the kernel in turns (plain, kernel, kernel,
+    plain), each timed with CUDA events.  Returns (plain output, kernel
+    output, plain ms, kernel ms), the ms as lists."""
+    outs, times = timed_in_order((run_plain, run_kernel, run_kernel,
+                                  run_plain))
     return outs[run_plain], outs[run_kernel], times[run_plain], times[run_kernel]
+
+
+# the decode kernel's launches in the main path's runs (phases 4, 15-21, 25
+# and 29-30): all of them, and those with int8 feed-forward matrices
+MAIN_DECODE = {"all": 0, "int8_ff": 0}
+
+
+def zero_decode_counts():
+    """Set both of the decode wrapper's launch counts to 0."""
+    from wavernn_tpu_torch.ops import cuda_decode
+
+    cuda_decode.decode.launches = 0
+    cuda_decode.decode.launches_int8_ff = 0
+
+
+def count_main_decode() -> int:
+    """Add the decode launches since the counts were set to 0 to the main
+    path's tally; returns all of them."""
+    from wavernn_tpu_torch.ops import cuda_decode
+
+    MAIN_DECODE["all"] += cuda_decode.decode.launches
+    MAIN_DECODE["int8_ff"] += cuda_decode.decode.launches_int8_ff
+    return cuda_decode.decode.launches
 
 
 def fail(msg: str):
@@ -329,7 +397,7 @@ def main():
         if ("registers" in line or "spill" in line or "entry function" in line
                 or line.startswith("==")):
             print(f"  ptxas: {line.strip()}")
-    cuda_decode.decode.launches = 0
+    zero_decode_counts()
 
     def variables_of(path):
         blob = load_pytree(path)
@@ -398,34 +466,63 @@ def main():
     cond, T = gen.fold_conditioning(staged)
     print(f"main-path kernel shape: cond {tuple(cond.shape)} "
           f"{cond.dtype}, {T} steps")
+    # the int8 feed-forward bounds of the main path's Generator, calibrated
+    # on this request's conditioning (a 4,096-step B=1 decode), timed
+    with torch.no_grad():
+        mels_up, aux_mel = gen.model.upsample_parts(
+            gen._ingress_f32(staged.mels_dev))
+        stream = cuda_decode.pack_stream(mels_up, aux_mel,
+                                         golden_cfg.total_scale)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen._calibrate_ff(stream)
+        torch.cuda.synchronize()
+    cal_s = time.perf_counter() - t0
+    print(f"int8_ff calibration (ff_ranges, {min(stream.shape[0], 4096)} "
+          f"steps at B=1, golden MOL): {cal_s:.3f} s wall; bounds "
+          f"{[round(float(x), 4) for x in gen.ff_scales.cpu()]} | {card}",
+          flush=True)
 
-    run_k = lambda: cuda_decode.decode(gen.packed, cond, T, 7, "MOL", 30,
-                                       False)
-    run_p = lambda: cuda_decode.decode_reference(gen.packed, cond, T, 7,
-                                                 "MOL", 30, False)
-    run_k()  # warm
-    out_p, out_k, plain_ms, kernel_ms = in_turns(run_p, run_k)
-    d = (out_k - out_p).abs()
-    main_err = float(d[:, :64].max())
-    print(f"kernel vs plain [main path, sampling int8_hh] rows "
-          f"{cond.shape[0]} steps {T}: first-64 max|d| {main_err:.3g}, "
-          f"within 2e-2 {float((d <= 2e-2).float().mean()):.5f}")
-    if main_err > 1e-2 or not torch.isfinite(out_k).all():
-        fail("kernel disagrees with its plain version at the main shape")
-    errs.append(main_err)
-    k_ms, p_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
-    print(f"decode time at {cond.shape[0]} x {T}: kernel "
-          f"{[round(x, 3) for x in kernel_ms]} ms "
-          f"({k_ms * 1e3 / T:.2f} us/step), plain "
-          f"{[round(x, 1) for x in plain_ms]} ms "
-          f"({p_ms * 1e3 / T:.2f} us/step) | {card}", flush=True)
+    # both variants (bf16 and int8 feed-forward matrices) at the main
+    # path's shape, in turns with their plain versions
+    variants = {"bf16 ff": gen.packed, "int8_ff": gen.packed_ff}
+    runs = {v: (lambda p=p: cuda_decode.decode(p, cond, T, 7, "MOL", 30,
+                                               False),
+                lambda p=p: cuda_decode.decode_reference(p, cond, T, 7,
+                                                         "MOL", 30, False))
+            for v, p in variants.items()}
+    for run_k, _ in runs.values():
+        run_k()  # warm
+    (kb, pb), (kf, pf) = runs["bf16 ff"], runs["int8_ff"]
+    outs, times = timed_in_order((pb, kb, kf, kf, kb, pf))
+    main_ms = {}
+    errs_ff = []
+    for v, (run_k, run_p) in runs.items():
+        d = (outs[run_k] - outs[run_p]).abs()
+        main_err = float(d[:, :64].max())
+        print(f"kernel vs plain [main path, sampling int8_hh, {v}] rows "
+              f"{cond.shape[0]} steps {T}: first-64 max|d| {main_err:.3g}, "
+              f"within 2e-2 {float((d <= 2e-2).float().mean()):.5f}, "
+              f"max|d| {float(d.max()):.3g}")
+        if main_err > 1e-2 or not torch.isfinite(outs[run_k]).all():
+            fail(f"kernel disagrees with its plain version at the main "
+                 f"shape [{v}]")
+        (errs if v == "bf16 ff" else errs_ff).append(main_err)
+        k_ms, p_ms = (float(np.mean(times[f])) for f in (run_k, run_p))
+        main_ms[v] = (k_ms, p_ms)
+        print(f"decode time at {cond.shape[0]} x {T} [{v}]: kernel "
+              f"{[round(x, 3) for x in times[run_k]]} ms "
+              f"({k_ms * 1e3 / T:.2f} us/step), plain "
+              f"{[round(x, 1) for x in times[run_p]]} ms "
+              f"({p_ms * 1e3 / T:.2f} us/step) | {card}", flush=True)
+    del outs
 
     # -- 4. the main path -----------------------------------------------
     requests = [eval_mel] + long_mels
     gen(requests[0], batched=True, target=TARGET, overlap=OVERLAP,
         mu_law=False)                                   # warm
     torch.cuda.synchronize()
-    cuda_decode.decode.launches = 0
+    zero_decode_counts()
     rates = []
     for i, m in enumerate(requests):
         t0 = time.perf_counter()
@@ -447,7 +544,7 @@ def main():
         print(f"request {i}: {m.shape[1]} frames -> {n} int16 samples in "
               f"{secs:.3f} s = {rates[-1]:.1f} kHz (std {std:.0f} LSB)",
               flush=True)
-    launches = cuda_decode.decode.launches
+    launches = count_main_decode()
     print(f"main path: median {float(np.median(rates)):.1f} kHz over "
           f"{len(rates)} requests, decode kernel launches {launches} | "
           f"{card}")
@@ -492,7 +589,8 @@ def main():
         fail(f"CLI WAV: sr {sr}, shape {x.shape}")
     print(f"cli: {wavs[0].name} parses: {x.shape[0]} samples at {sr} Hz")
 
-    voc_bound = decode_bound(gen.packed, cond.shape[0], T, cond.shape[2])
+    voc_bound = {v: decode_bound(p, cond.shape[0], T, cond.shape[2])
+                 for v, p in variants.items()}
 
     tts = tts_phases(dev, card, wavio, GOLDEN)
     floor = measurement_phases(dev, card, golden_cfg, gen, eval_mel,
@@ -501,21 +599,44 @@ def main():
     text_serving = text_serving_phases(dev, card, golden_cfg, golden,
                                        eval_mel)
     training = training_phases(dev, card)
+    ff = int8_ff_phases(dev, card, golden_cfg, golden, raw_cfg, tiny_raw,
+                        eval_mel, raw_mel)
+    errs_ff += ff["errs"]
 
-    # -- 27. the record -------------------------------------------------
+    # -- 31. the record -------------------------------------------------
+    n_ff = MAIN_DECODE["int8_ff"]
+    n_bf = MAIN_DECODE["all"] - n_ff
+    print(f"decode launches on the main path: {MAIN_DECODE['all']} "
+          f"({n_bf} with bf16 feed-forward matrices, {n_ff} with int8; "
+          f"phase 4: {launches}, serving {serving['launches']}, text "
+          f"serving {text_serving['decode_launches']}, training "
+          f"{training['decode_launches']}, int8_ff serving "
+          f"{ff['launches']})")
+    if n_bf == 0 or n_ff == 0:
+        fail("a decode kernel variant was not launched on the main path")
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
         "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
         "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
-        "launches": (launches + serving["launches"]
-                     + text_serving["decode_launches"]
-                     + training["decode_launches"]),
+        "launches": n_bf,
         "max_abs_err": max(errs),
-        "ms": k_ms,
-        "plain_ms": p_ms,
-        "bound_ms": voc_bound[0],
-        "bound_by": voc_bound[1],
+        "ms": main_ms["bf16 ff"][0],
+        "plain_ms": main_ms["bf16 ff"][1],
+        "bound_ms": voc_bound["bf16 ff"][0],
+        "bound_by": voc_bound["bf16 ff"][1],
+        "library_ms": None,
+    }, {
+        "name": "wavernn_decode_int8_ff",
+        "route": "cuda",
+        "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
+        "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
+        "launches": n_ff,
+        "max_abs_err": max(errs_ff),
+        "ms": main_ms["int8_ff"][0],
+        "plain_ms": main_ms["int8_ff"][1],
+        "bound_ms": voc_bound["int8_ff"][0],
+        "bound_by": voc_bound["int8_ff"][1],
         "library_ms": None,
     }, {
         "name": "tacotron_decode",
@@ -712,7 +833,7 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     list(pipe.stream_synthesize(texts[:1], mu_law=False))          # warm
     torch.cuda.synchronize()
     cuda_tts.tts_decode.launches = 0
-    cuda_decode.decode.launches = 0
+    zero_decode_counts()
     wavs, secs = [], []
     for i, t in enumerate(texts):        # one request after the other
         t1 = time.perf_counter()
@@ -851,7 +972,7 @@ def measurement_phases(dev, card, cfg, gen, eval_mel, long_mel,
     # -- 12. the kernel-measurement path ----------------------------------
     torch.cuda.synchronize()
     mf.matmul_floor.launches = 0
-    cuda_decode.decode.launches = 0
+    zero_decode_counts()
     cuda_tts.tts_decode.launches = 0
     rec = run_breakdown(B, BREAKDOWN_T, dev, BREAKDOWN_REPS)
     torch.cuda.synchronize()
@@ -916,7 +1037,9 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
     from wavernn_tpu_torch.infer.eval import copy_synthesis_mcd
     from wavernn_tpu_torch.infer.stream_server import StreamServer
     from wavernn_tpu_torch.ops import cuda_decode
-    from wavernn_tpu_torch.ops.decode import Generator, fold_spans
+    from wavernn_tpu_torch.ops.decode import (
+        Generator, fold_spans, int8_ff_policy,
+    )
 
     if not hp.is_configured():
         hp.configure(REPO / "hparams.py")
@@ -928,31 +1051,34 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
               "output_dtype": "int16", **kw}
         return Generator(cfg, golden, device=dev, **kw)
 
-    def counted(fn):
-        """Run ``fn`` with the decode counter set to 0 just before it;
-        return (its result, the launches it made)."""
+    def counted(fn, main: bool = True):
+        """Run ``fn`` with the decode counts set to 0 just before it;
+        return (its result, the launches it made), adding them to the main
+        path's tally unless ``main`` is False."""
         torch.cuda.synchronize()
-        cuda_decode.decode.launches = 0
+        zero_decode_counts()
         out = fn()
         torch.cuda.synchronize()
-        return out, cuda_decode.decode.launches
+        return out, (count_main_decode() if main
+                     else cuda_decode.decode.launches)
 
     # -- 15 (a). the MCD gate --------------------------------------------
     meta = json.loads((REPO / "bench_assets" / "golden_meta.json")
                       .read_text())
     threshold = meta["mcd_scan_mean"] + max(4 * meta["mcd_scan_spread"],
                                             3.0)
-    gen_f = make(output_dtype="float64")
+    # bf16 feed-forward matrices (phase 30 holds the int8 variant to it)
+    gen_f = make(output_dtype="float64", int8_ff=False)
     scores, n = counted(lambda: [copy_synthesis_mcd(
         gen_f, eval_mel, batched=True, seed=s, **geom)[0]
         for s in range(3)])
     launches += n
     det_mcd = copy_synthesis_mcd(make(output_dtype="float64",
-                                      deterministic=True), eval_mel,
-                                 batched=True, **geom)[0]
+                                      deterministic=True, int8_ff=False),
+                                 eval_mel, batched=True, **geom)[0]
     mcd = float(np.mean(scores))
     print(f"mcd gate (golden eval mel, {eval_mel.shape[1]} frames, f16 in, "
-          f"float64 out, "
+          f"float64 out, bf16 feed-forward matrices, "
           f"sampling, seeds 0-2): {[round(x, 4) for x in scores]} mean "
           f"{mcd:.4f} threshold {threshold:.4f} -> "
           f"{'pass' if mcd < threshold else 'FAIL'}; deterministic "
@@ -1087,14 +1213,23 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
 
     _, n = counted(serve_passes)
     launches += n
+    # int8_ff under "auto": each launch takes the pack the policy gives
+    # its width (48 rows a request, 240 a co-batched serve)
+    n_ff = cuda_decode.decode.launches_int8_ff
+    want_ff = 3 * (10 * int8_ff_policy(None, 48)
+                   + co_k * int8_ff_policy(None, rows))
     print(f"co-batching, 5 x {frames} frames, f16 in, int16 out, sampling, "
-          "3 interleaved passes: " + ", ".join(
+          "int8_ff auto, 3 interleaved passes: " + ", ".join(
               f"{k} {[round(x, 1) for x in v]} kHz (median "
               f"{float(np.median(v)):.1f})" for k, v in rates.items())
-          + f"; launches {n} (co-batched serves: {co_launches} for "
+          + f"; launches {n}, {n_ff} with int8 feed-forward matrices "
+          f"(policy: {want_ff}) (co-batched serves: {co_launches} for "
           f"{co_k} each) | {card}", flush=True)
     if co_launches != [co_k] * 3 or n != 3 * (5 + 5 + co_k):
         fail("a co-batched serve was not exactly one decode launch")
+    if n_ff != want_ff:
+        fail(f"{n_ff} launches took the int8 feed-forward pack, the "
+             f"policy gives {want_ff}")
     gen_d = make(deterministic=True)
     co = gen_d.generate_batch(gen_d.prestage_batch(mels5, TARGET, OVERLAP),
                               **geom)
@@ -1121,7 +1256,7 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
         ttfc, khz = [], []
         for p in range(5):
             torch.cuda.synchronize()
-            cuda_decode.decode.launches = 0
+            zero_decode_counts()
             t0 = time.perf_counter()
             first, total = None, 0
             for chunk in gen.stream(mel_s, seed=p + 1, **kw):
@@ -1129,7 +1264,7 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
                     first = time.perf_counter() - t0
                 total += len(chunk)
             dt = time.perf_counter() - t0
-            n = cuda_decode.decode.launches
+            n = count_main_decode()
             launches += n
             if n != n_spans:
                 fail(f"stream group {group}: {n} launches for {n_spans} "
@@ -1159,7 +1294,7 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
                  for f in (frames, frames * 5 // 8, frames * 5 // 16,
                            frames * 5 // 32)]
     solo, solo_launches = counted(lambda: [np.concatenate(list(
-        gen_d.stream(m, group=16, **geom))) for m in sess_mels])
+        gen_d.stream(m, group=16, **geom))) for m in sess_mels], main=False)
     sizes = "/".join(str(m.shape[1]) for m in sess_mels)
     server_rec = {}
     for width in (64, 132):
@@ -1168,12 +1303,17 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
         got, n = counted(lambda: srv.run(sess_mels))
         dt = time.perf_counter() - t0
         launches += n
+        n_ff = cuda_decode.decode.launches_int8_ff
+        if int8_ff_policy(None, 16) and n_ff != n:
+            fail(f"server width {width}: {n_ff} of {n} launches took the "
+                 "int8 feed-forward pack under auto")
         equal = all(np.array_equal(g, w) for g, w in zip(got, solo))
         khz = sum(len(g) for g in got) / dt / 1e3
         server_rec[width] = khz
         print(f"stream server, 4 sessions ({sizes} frames), "
-              f"deterministic, group 16, width {width}: {khz:.1f} kHz "
-              f"aggregate, launches {srv.launches} (solo streams "
+              f"deterministic, group 16, width {width}, int8_ff auto: "
+              f"{khz:.1f} kHz aggregate, launches {srv.launches} ({n_ff} "
+              f"with int8 feed-forward matrices; solo streams "
               f"{solo_launches}), byte-equal to solo {equal} | {card}",
               flush=True)
         if not equal:
@@ -1184,6 +1324,192 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
                  f"streams' {solo_launches}")
     return {"launches": launches, "rows": rows, "step_us": step_us,
             "mcd": mcd, "stream": stream_rec, "server": server_rec}
+
+
+def int8_ff_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
+                   raw_mel, frames: int = 1920) -> dict:
+    """Phases 27-30: the decode kernel's int8 feed-forward variant against
+    its plain version, the crossover sweep that sets the width policy,
+    serving through the variant forced on, and the MCD gate with it.
+    Returns the variant's kernel-vs-plain errors and its launches on the
+    serving paths."""
+    import torch
+
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.infer.eval import copy_synthesis_mcd
+    from wavernn_tpu_torch.infer.stream_server import StreamServer
+    from wavernn_tpu_torch.ops import cuda_decode
+    from wavernn_tpu_torch.ops.decode import (
+        FF_AUTO_MIN_ROWS, Generator, int8_ff_policy,
+    )
+    from wavernn_tpu_torch.tools import step_opt_probe
+
+    if not hp.is_configured():
+        hp.configure(REPO / "hparams.py")
+    errs, launches = [], 0
+    geom = dict(target=TARGET, overlap=OVERLAP, mu_law=False)
+
+    # -- 27. the variant against its plain version ------------------------
+    for tag, mcfg, v, mel, (target, overlap) in (
+            ("golden MOL", cfg, golden, eval_mel, (TARGET, OVERLAP)),
+            ("tiny RAW", raw_cfg, tiny_raw, raw_mel, (1000, 12))):
+        for int8_hh in (True, False):
+            gen = Generator(mcfg, v, device=dev, fold_bucket=16,
+                            int8_hh=int8_hh, int8_ff=True)
+            staged = gen.prestage(mel, batched=True, target=target,
+                                  overlap=overlap)
+            gen._ensure_ff_scales(staged.mels_dev, 16)
+            cond = gen.fold_conditioning(staged)[0][:16, :1024].contiguous()
+            if cond.shape[:2] != (16, 1024):
+                fail(f"conditioning {tuple(cond.shape)} too small")
+            q = "int8_hh" if int8_hh else "bf16 hh"
+            for det in (True, False):
+                seed = 0 if det else 1234
+                out_p = cuda_decode.decode_reference(
+                    gen.packed_ff, cond, 1024, seed, mcfg.mode,
+                    mcfg.n_classes, det)
+                for rows in (1, 2):
+                    out_k = cuda_decode.decode(
+                        gen.packed_ff, cond, 1024, seed, mcfg.mode,
+                        mcfg.n_classes, det, rows_per_cta=rows)
+                    torch.cuda.synchronize()
+                    d = (out_k - out_p).abs()
+                    first = float(d[:, :64].max())
+                    agree = float((d <= 2e-2).float().mean())
+                    ok = ((first <= 1e-3 and agree >= 0.99) if det
+                          else first <= 1e-2)
+                    kind = "deterministic" if det else "sampling"
+                    print(f"int8_ff kernel vs plain [{tag} {q} R={rows} "
+                          f"{kind}] rows 16 steps 1024: first-64 max|d| "
+                          f"{first:.3g}, within 2e-2 {agree:.5f}, max|d| "
+                          f"{float(d.max()):.3g} -> "
+                          f"{'ok' if ok else 'FAIL'}", flush=True)
+                    if not ok or not torch.isfinite(out_k).all():
+                        fail(f"the int8_ff kernel disagrees with its plain "
+                             f"version [{tag} {q} R={rows} {kind}]")
+                    errs.append(first)
+
+    # -- 28. the crossover sweep ------------------------------------------
+    sweep = step_opt_probe.ab_int8_ff(
+        *step_opt_probe.golden_setup(dev, golden, cfg, eval_mel),
+        widths=step_opt_probe.WIDTHS, T=2048, passes=3, reps=2,
+        log=lambda line: print(line, flush=True))
+    lost = [w["rows"] for w in sweep["widths"] if w["delta_median"] >= 0]
+    print(f"int8_ff policy: auto from {FF_AUTO_MIN_ROWS} rows; the sweep's "
+          f"crossover {sweep['crossover_rows']}, int8_ff slower at "
+          f"{lost or 'no width'} | {card}", flush=True)
+    if any(int8_ff_policy(None, r) for r in lost):
+        fail(f"the policy turns int8_ff on at {lost} rows, where it lost")
+
+    # -- 29. serving through the variant, forced on -----------------------
+    def make(**kw):
+        return Generator(cfg, golden, device=dev, **{
+            "fold_bucket": 16, "input_dtype": "float16",
+            "output_dtype": "int16", "int8_ff": True, **kw})
+
+    rng = np.random.default_rng(0)
+    mels5 = [rng.uniform(0, 1, (cfg.feat_dims, frames)).astype(np.float32)
+             for _ in range(5)]
+    gen = make()
+    gen.collect_batch(gen.submit_batch(mels5, **geom))           # warm
+    staged = gen.prestage_batch(mels5, TARGET, OVERLAP)
+    cond, _ = gen.batch_conditioning(staged)
+    rows = cond.shape[0]
+    head = cond[:, :64].contiguous()
+    del cond
+    for det in (True, False):
+        out_k = cuda_decode.decode(gen.packed_ff, head, 64, 3, cfg.mode,
+                                   cfg.n_classes, det)
+        torch.cuda.synchronize()
+        out_p = cuda_decode.decode_reference(gen.packed_ff, head, 64, 3,
+                                             cfg.mode, cfg.n_classes, det)
+        err = float((out_k - out_p).abs().max())
+        print(f"int8_ff kernel vs plain [co-batched conditioning, "
+              f"{'deterministic' if det else 'sampling'}] rows {rows} steps "
+              f"64: max|d| {err:.3g}", flush=True)
+        if err > (1e-3 if det else 1e-2) or not torch.isfinite(out_k).all():
+            fail(f"the int8_ff kernel disagrees with its plain version at "
+                 f"{rows} rows")
+        errs.append(err)
+    del head
+    khz = []
+    want = [(m.shape[1] - 1) * cfg.hop_length for m in mels5]
+    for p in range(3):
+        torch.cuda.synchronize()
+        zero_decode_counts()
+        t0 = time.perf_counter()
+        waves = gen.collect_batch(gen.submit_batch(
+            gen.prestage_batch(mels5, TARGET, OVERLAP), seed=p, **geom))
+        dt = time.perf_counter() - t0
+        n_ff = cuda_decode.decode.launches_int8_ff
+        n = count_main_decode()
+        launches += n
+        if n != 1 or n_ff != 1:
+            fail(f"a forced co-batched serve made {n} launches, {n_ff} "
+                 "with the int8 pack")
+        if [w.shape[0] for w in waves] != want or any(
+                np.abs(w.astype(np.int32)).max() <= 256 for w in waves):
+            fail("a forced co-batched serve gave a bad wave")
+        khz.append(sum(want) / dt / 1e3)
+    print(f"int8_ff forced, 5 x {frames} frames co-batched ({rows} rows, "
+          f"one launch each, int8 pack), f16 in, int16 out, sampling: "
+          f"{[round(x, 1) for x in khz]} kHz (median "
+          f"{float(np.median(khz)):.1f}) | {card}", flush=True)
+
+    gen_d = make(deterministic=True)
+    rng = np.random.default_rng(11)
+    sess_mels = [rng.uniform(0, 1, (cfg.feat_dims, f)).astype(np.float32)
+                 for f in (frames, frames * 5 // 8, frames * 5 // 16,
+                           frames * 5 // 32)]
+    solo = [np.concatenate(list(gen_d.stream(m, group=16, **geom)))
+            for m in sess_mels]
+    srv = StreamServer(gen_d, group=16, width=132, capacity=4, **geom)
+    torch.cuda.synchronize()
+    zero_decode_counts()
+    t0 = time.perf_counter()
+    got = srv.run(sess_mels)
+    dt = time.perf_counter() - t0
+    n_ff = cuda_decode.decode.launches_int8_ff
+    n = count_main_decode()
+    launches += n
+    equal = all(np.array_equal(g, w) for g, w in zip(got, solo))
+    print(f"int8_ff forced, stream server, 4 sessions, deterministic, group "
+          f"16, width 132: {sum(len(g) for g in got) / dt / 1e3:.1f} kHz "
+          f"aggregate, launches {n} ({n_ff} with the int8 pack), "
+          f"byte-equal to solo streams {equal} | {card}", flush=True)
+    if n == 0 or n_ff != n or not equal:
+        fail("the forced stream server did not serve its sessions through "
+             "the int8 pack, or differs from the solo streams")
+
+    # -- 30. the MCD gate with the variant forced --------------------------
+    meta = json.loads((REPO / "bench_assets" / "golden_meta.json")
+                      .read_text())
+    threshold = meta["mcd_scan_mean"] + max(4 * meta["mcd_scan_spread"],
+                                            3.0)
+    gen_f = make(output_dtype="float64")
+    torch.cuda.synchronize()
+    zero_decode_counts()
+    scores = [copy_synthesis_mcd(gen_f, eval_mel, batched=True, seed=s,
+                                 **geom)[0] for s in range(3)]
+    n_ff = cuda_decode.decode.launches_int8_ff
+    n = count_main_decode()
+    launches += n
+    det_mcd = copy_synthesis_mcd(make(output_dtype="float64",
+                                      deterministic=True), eval_mel,
+                                 batched=True, **geom)[0]
+    mcd = float(np.mean(scores))
+    print(f"mcd gate, int8_ff forced (golden eval mel, "
+          f"{eval_mel.shape[1]} frames, f16 in, float64 out, sampling, "
+          f"seeds 0-2): {[round(x, 4) for x in scores]} mean {mcd:.4f} "
+          f"threshold {threshold:.4f} -> "
+          f"{'pass' if mcd < threshold else 'FAIL'}; deterministic "
+          f"{det_mcd:.4f}; launches {n} ({n_ff} with the int8 pack)",
+          flush=True)
+    if not mcd < threshold or n_ff != n or n == 0:
+        fail(f"MCD gate with int8_ff: mean {mcd} >= {threshold}, or "
+             f"{n - n_ff} launches without the int8 pack")
+    return {"errs": errs, "launches": launches, "mcd": mcd,
+            "crossover": sweep["crossover_rows"]}
 
 
 def http_get(port: int, path: str) -> dict:
@@ -1299,7 +1625,7 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
 
     def reset_counters():
         torch.cuda.synchronize()
-        cuda_decode.decode.launches = 0
+        zero_decode_counts()
         cuda_tts.tts_decode.launches = 0
 
     # -- 20. the two-stage server ----------------------------------------
@@ -1331,7 +1657,7 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
             first.setdefault(sid, time.perf_counter() - t0)
             pieces[sid].append(chunk)
     dt = time.perf_counter() - t0
-    voc_n, tts_n = cuda_decode.decode.launches, cuda_tts.tts_decode.launches
+    voc_n, tts_n = count_main_decode(), cuda_tts.tts_decode.launches
     decode_launches += voc_n
     tts_launches += tts_n
     got = [np.concatenate(pieces[sid]) for sid in sids]
@@ -1394,8 +1720,7 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
             batches[path] = (samples / wall / 1e3, wall,
                              [x[2] for x in res], [x[1] for x in res])
         torch.cuda.synchronize()
-        voc_n, tts_n = (cuda_decode.decode.launches,
-                        cuda_tts.tts_decode.launches)
+        voc_n, tts_n = count_main_decode(), cuda_tts.tts_decode.launches
         health = http_get(port, "/health")
         for path, (khz, wall, lat, ttfb) in batches.items():
             print(f"http {path}, 4 concurrent requests (full-width untrained "
@@ -1428,7 +1753,7 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
                                req_texts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        decode_launches += cuda_decode.decode.launches
+        decode_launches += count_main_decode()
         tts_launches += cuda_tts.tts_decode.launches
         n_events, busy, gap = device_busy(prof)
         if n_events:
@@ -1782,13 +2107,13 @@ def training_phases(dev, card) -> dict:
     train_set, test_set = get_vocoder_datasets(paths.data, B, False)
     np.random.seed(0)
     torch.cuda.synchronize()
-    cuda_decode.decode.launches = 0
+    zero_decode_counts()
     t0 = time.perf_counter()
     voc_train_loop(paths, cfg, state, opt, train_set, test_set,
                    hp.voc_total_steps, lr=hp.voc_lr)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    decode_launches = cuda_decode.decode.launches
+    decode_launches = count_main_decode()
     logged = [float(x) for x in re.findall(r"Loss: (\S+) \|",
                                            paths.voc_log.read_text())]
     print(f"\ntrain path (b): voc_train_loop to step {state.step} "

@@ -40,7 +40,9 @@ from wavernn_tpu_torch.models.tacotron import (
 )
 from wavernn_tpu_torch.ops import cuda_tts
 from wavernn_tpu_torch.ops import matmul_floor as mf
-from wavernn_tpu_torch.ops.decode import Generator, extract_decode_weights
+from wavernn_tpu_torch.ops.decode import (
+    Generator, extract_decode_weights, ff_ranges,
+)
 from wavernn_tpu_torch.ops.tts_decode import (
     STATE_FIELDS, extract_tts_decode_weights, init_tts_decode_state,
     pack_tts_weights, tts_decode_reference,
@@ -109,6 +111,106 @@ def test_kernel_matches_plain_version(cuda_device, mode, int8_hh, det):
     else:
         assert d[:, :64].max() <= 1e-2
     assert torch.isfinite(got).all() and got.abs().max() <= 1.0
+
+
+def ff_packed_on(model, cfg, device, int8_hh, cond):
+    """The int8_ff pack, its bounds calibrated (seed 17) on the first row
+    of ``cond``."""
+    w = extract_decode_weights(model.to(device))
+    scales = ff_ranges(w, cond[0], cfg.mode, cfg.n_classes,
+                       torch.Generator().manual_seed(17))
+    return cuda_decode.pack_weights(w, cfg.feat_dims, cfg.aux_dims,
+                                    int8_hh=int8_hh, int8_ff=True,
+                                    ff_scales=scales)
+
+
+@pytest.mark.parametrize("rows_per_cta", [1, 2])
+@pytest.mark.parametrize("det", [True, False], ids=["argmax", "sampling"])
+@pytest.mark.parametrize("int8_hh", [True, False], ids=["int8_hh", "bf16"])
+@pytest.mark.parametrize("mode", ["RAW", "MOL"])
+def test_int8_ff_kernel_matches_plain_version(cuda_device, mode, int8_hh,
+                                              det, rows_per_cta):
+    """The int8 feed-forward variant against its plain version: int8 dots
+    are exact in both, so the tolerance is the one of every variant."""
+    cfg, model = small(mode)
+    B, T = 5, 300
+    cond = conditioning(cfg, B, T, cuda_device)
+    packed = ff_packed_on(model, cfg, cuda_device, int8_hh, cond)
+    assert packed["w_fc1x"].dtype == torch.int8
+    n, n_ff = cuda_decode.decode.launches, cuda_decode.decode.launches_int8_ff
+    got = cuda_decode.decode(packed, cond, T, 3, mode, cfg.n_classes, det,
+                             rows_per_cta=rows_per_cta)
+    torch.cuda.synchronize()
+    assert cuda_decode.decode.launches == n + 1
+    assert cuda_decode.decode.launches_int8_ff == n_ff + 1
+    want = cuda_decode.decode_reference(packed, cond, T, 3, mode,
+                                        cfg.n_classes, det)
+    d = (got - want).abs().cpu().numpy()
+    if det:
+        assert d[:, :64].max() <= 1e-3
+        assert np.mean(d <= 2e-2) >= 0.99
+    else:
+        assert d[:, :64].max() <= 1e-2
+    assert torch.isfinite(got).all() and got.abs().max() <= 1.0
+    with pytest.raises(ValueError, match="ablations"):
+        cuda_decode.decode(packed, cond, T, 3, mode, cfg.n_classes, det,
+                           ablate=frozenset({"gates"}))
+
+
+@pytest.mark.parametrize("mode", ["RAW", "MOL"])
+def test_ff_ranges_graph_equals_eager_on_card(cuda_device, mode):
+    """The calibration's step replayed from a CUDA graph gives the bounds
+    of the same step run eagerly on the card, bit for bit."""
+    from wavernn_tpu_torch.ops.decode import _draw, _Uniforms, decode_step
+
+    cfg, model = small(mode)
+    w = extract_decode_weights(model.to(cuda_device))
+    rows = conditioning(cfg, 1, 700, cuda_device)[0].float()
+    got = ff_ranges(w, rows, mode, cfg.n_classes,
+                    torch.Generator().manual_seed(17))
+    n_u = cfg.n_classes // 3 + 1 if mode == "MOL" else cfg.n_classes
+    u = torch.rand(700, n_u, generator=torch.Generator().manual_seed(17))
+    u = u.to(cuda_device)
+    H, d, feat = cfg.rnn_dims, cfg.aux_dims, cfg.feat_dims
+    x = torch.zeros(1, 1, device=cuda_device)
+    h1 = h2 = torch.zeros(1, H, device=cuda_device)
+    mx = torch.zeros(3, device=cuda_device)
+    for t in range(700):
+        c = rows[t:t + 1]
+        a = [c[:, feat + i * d:feat + (i + 1) * d] for i in range(4)]
+        logits, h1, h2, (xr, xr2, f1) = decode_step(w, x, h1, h2,
+                                                    c[:, :feat], *a)
+        mx = torch.maximum(mx, torch.stack([xr.abs().max(),
+                                            xr2.abs().max(), f1.max()]))
+        x = _draw(logits, mode, cfg.n_classes, False, _Uniforms(u[t]))[:, None]
+    want = torch.clamp(mx * 1.3, min=1e-3)
+    assert got.is_cuda and bool((got > 1e-3).all())
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+def test_int8_ff_generator_on_card_matches_cpu(cuda_device):
+    """``int8_ff=True``: both Generators calibrate once, on the same draws,
+    and every launch on the card takes the int8 pack."""
+    cfg, model = small("MOL")
+    v = to_jax_variables(model)
+    kw = dict(deterministic=True, input_dtype="float16",
+              output_dtype="int16", fold_bucket=16, int8_ff=True)
+    mel = np.random.default_rng(0).uniform(0, 1, (80, 20)).astype(np.float32)
+    cpu_gen = Generator(cfg, v, device="cpu", **kw)
+    cpu = cpu_gen(mel, batched=True, target=200, overlap=28, mu_law=False)
+    gen = Generator(cfg, v, device=cuda_device, **kw)
+    n_ff = cuda_decode.decode.launches_int8_ff
+    out = gen(mel, batched=True, target=200, overlap=28, mu_law=False)
+    scales = gen.ff_scales
+    gen(mel, batched=True, target=200, overlap=28, mu_law=False)
+    assert gen.ff_scales is scales                 # calibrated once
+    assert cuda_decode.decode.launches_int8_ff == n_ff + 2
+    # the same draws; float32 sums in another order may move a sampled
+    # trajectory, and with it a bound, by a little
+    torch.testing.assert_close(scales.cpu(), cpu_gen.ff_scales, rtol=0.05,
+                               atol=0)
+    lsb = np.abs(out.astype(np.int32) - cpu.astype(np.int32))
+    assert out.shape == cpu.shape and np.mean(lsb <= 655) >= 0.95
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda_device):

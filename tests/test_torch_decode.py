@@ -201,6 +201,51 @@ def test_decode_reference_matches_pallas_interpret(mode, int8_hh):
     assert np.all(np.abs(got) <= 1.0)
 
 
+@pytest.mark.parametrize("mode", ["RAW", "MOL"])
+def test_decode_reference_int8_ff_matches_pallas_interpret(mode):
+    """The variant with int8 feed-forward matrices, both packages given
+    the bounds of JAX's ``ff_ranges`` on the first fold row's
+    conditioning: the int8 dots are exact in both, so the thresholds are
+    the bf16 variant's (an operand that JAX's float32 sums put on the
+    other side of a quantization boundary moves by one int8 step, which
+    stays inside them)."""
+    from wavernn_tpu.ops.decode import ff_ranges as jax_ff_ranges
+
+    cfg, v = jax_variables(mode)
+    wj, wt = both_weights(cfg, v)
+    B, T = 16, 256
+    mels_up, aux = conditioning(cfg, B, T)
+    feat, d = cfg.feat_dims, cfg.aux_dims
+    lanes = np.zeros((T, 2 * pallas_decode.LANE), np.float32)
+    lanes[:, :feat + d] = np.concatenate([mels_up[0], aux[0, :, :d]], -1)
+    lanes[:, pallas_decode.LANE:pallas_decode.LANE + 3 * d] = aux[0, :, d:]
+    S = np.asarray(jax_ff_ranges(wj, jnp.asarray(lanes, jnp.bfloat16),
+                                 jax.random.PRNGKey(17), mode,
+                                 cfg.n_classes))
+    want = np.asarray(pallas_decode.decode(
+        wj, jnp.asarray(mels_up), jnp.asarray(aux), jax.random.PRNGKey(0),
+        mode=mode, n_classes=cfg.n_classes, deterministic=True,
+        interpret=True, int8_hh=True, int8_ff=True,
+        ff_scales=jnp.asarray(S)))
+    packed = cuda_decode.pack_weights(wt, cfg.feat_dims, cfg.aux_dims,
+                                      int8_hh=True, int8_ff=True,
+                                      ff_scales=torch.from_numpy(S.copy()))
+    cond = torch.cat([torch.from_numpy(mels_up), torch.from_numpy(aux)],
+                     -1).to(torch.bfloat16)
+    got = cuda_decode.decode(packed, cond, T, seed=0, mode=mode,
+                             n_classes=cfg.n_classes,
+                             deterministic=True).numpy()
+    assert got.shape == want.shape == (B, T)
+    d = np.abs(got - want)
+    assert d[:, :64].max() <= 1e-3, d[:, :64].max()
+    assert np.mean(d <= 2e-2) >= 0.99, np.mean(d <= 2e-2)
+    # the variant differs from the bf16 one
+    bf = cuda_decode.decode_reference(
+        cuda_decode.pack_weights(wt, cfg.feat_dims, cfg.aux_dims), cond, T,
+        0, mode, cfg.n_classes, True).numpy()
+    assert not np.array_equal(bf, got)
+
+
 def test_decode_reference_sampling_is_seeded():
     """Sampling mode draws from the counter-based bits: the same seed gives
     the same trajectory, another seed another one, and MOL samples stay

@@ -157,7 +157,6 @@ def test_cuda_generator_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("option,exc", [
-    (dict(int8_ff=True), NotImplementedError),
     (dict(int8_gates=True), NotImplementedError),
     (dict(mesh=object()), NotImplementedError),
     (dict(output_dtype="int8"), ValueError),

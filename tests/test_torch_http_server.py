@@ -114,11 +114,13 @@ def test_synthesize_returns_wav(server):
 
 
 def test_synthesize_matches_direct_pipeline(server):
-    """/synthesize is one vocoder launch per request: its PCM equals the
-    direct pipeline's one-shot outside the service."""
-    port, _ = server
+    """/synthesize is one vocoder launch per request: its PCM equals a
+    one-shot of the service's own pipeline called directly, outside the
+    service (the same Generator, so the same int8_ff bounds, which a
+    Generator calibrates on the first utterance it serves)."""
+    port, service = server
     _, _, got = _post(port, "/synthesize", {"text": "edcba"})
-    pipe = tiny_pipeline()
+    pipe = service.server.pipeline
     _, m_linear, _ = pipe.tts(text_to_sequence("edcba", ["english_cleaners"]),
                               r=pipe.r)
     want = pipe.voc(mel_from_linear(m_linear), batched=True, target=TARGET,

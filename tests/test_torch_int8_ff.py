@@ -1,45 +1,377 @@
-"""int8_ff's policy on the H100, pinned: the reference's default ("auto",
-``int8_ff=None``) streams int8 feed-forward matrices from kernel width 64
-on (a TPU crossover, ``wavernn_tpu/ops/decode.py:1370-1384``); the port
-resolves it to bf16 feed-forward matrices at every width until the H100's
-crossover is measured, and ``int8_ff=True`` raises."""
+"""int8_ff, the decode kernel's int8 feed-forward variant, against the JAX
+package: the packs, the calibration (``ops.decode.ff_ranges``), the width
+policy and the Generator's calibrate-once caching, modeled on
+``tests/test_pallas_decode.py``'s int8_ff tests.  The kernel's plain
+version with the variant is held against the Pallas kernel in
+``tests/test_torch_decode.py``, the CUDA kernel in
+``tests/test_torch_cuda.py``.
 
-from pathlib import Path
+Tolerances: the packs bit for bit (both quantize and fuse in float32 in the
+same order); the calibrated bounds within the spread of JAX's own bound
+over four keys, widened by 15% (the two packages draw different samples,
+and a bound is the largest of 4,096 steps' activations); the slice through
+``Generator`` as ``tests/test_torch_generator.py`` holds it (95% of int16
+samples within 655 LSB), both packages given one set of bounds."""
 
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
-from wavernn_tpu_torch.ops.decode import Generator, int8_ff_policy
+from wavernn_tpu.models.wavernn import WaveRNNConfig as JaxConfig
+from wavernn_tpu.ops import decode as jax_decode
+from wavernn_tpu.ops import pallas_decode
+from wavernn_tpu_torch.infer.stream_server import StreamServer
+from wavernn_tpu_torch.models.wavernn import (
+    WaveRNN, WaveRNNConfig, from_jax_variables, to_jax_variables,
+)
+from wavernn_tpu_torch.ops import cuda_decode
+from wavernn_tpu_torch.ops import decode as port_decode
+from wavernn_tpu_torch.ops.decode import (
+    FF_AUTO_MIN_ROWS, Generator, extract_decode_weights, ff_ranges,
+    int8_ff_policy,
+)
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+from tests.test_torch_decode import REPO, unpadded
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
-TINY_RAW = Path(__file__).parent / "golden" / "tiny_wavernn_raw.msgpack"
-CFG = WaveRNNConfig(rnn_dims=32, fc_dims=32, compute_dims=16,
-                    res_out_dims=16, res_blocks=2, mode="RAW")
+TARGET, OVERLAP = 200, 28
+# short utterances (frame bucket 8: 1,100 to 3,300 conditioning rows) keep
+# each calibration's plain decode short
+SERVE = dict(deterministic=True, input_dtype="float16", output_dtype="int16",
+             frame_bucket=8)
+S = np.array([3.7, 5.1, 6.3], np.float32)   # bounds given to both packs
 
 
-def tiny_raw():
-    blob = load_pytree(TINY_RAW)
-    return {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+@functools.lru_cache(maxsize=None)
+def small(mode="MOL", seed=0):
+    """A seeded small port model (rnn 64) as the JAX config's kwargs and
+    the JAX-layout weights both packages load (no JAX init compiles)."""
+    kw = dict(rnn_dims=64, fc_dims=64, compute_dims=32, res_out_dims=32,
+              res_blocks=2, mode=mode)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = WaveRNN(WaveRNNConfig(**kw)).eval()
+    return kw, to_jax_variables(model)
 
 
-@pytest.mark.parametrize("n_folds", [1, 16, 63, 64, 65, 128])
-def test_auto_resolves_to_bf16_at_every_width(n_folds):
-    assert int8_ff_policy(None, n_folds) is False
-    assert int8_ff_policy(False, n_folds) is False
-    with pytest.raises(NotImplementedError, match="int8_ff"):
-        int8_ff_policy(True, n_folds)
+def mel(T, seed=0):
+    return np.random.default_rng(seed).uniform(0, 1, (80, T)).astype(
+        np.float32)
 
 
-def test_width_64_or_more_dispatch_streams_bf16_feed_forward_matrices():
-    gen = Generator(CFG, tiny_raw(), device="cpu", fold_bucket=16)
-    mel = np.random.default_rng(0).uniform(0, 1, (80, 50)).astype(np.float32)
-    staged = gen.prestage(mel, batched=True, target=200, overlap=28)
-    cond, _ = gen.fold_conditioning(staged)
-    assert cond.shape[0] >= 64            # the reference's auto: int8
+def weights_of(kw, v):
+    cfg = WaveRNNConfig(**kw)
+    model = from_jax_variables(v, cfg, "cpu")
+    return (cfg, jax_decode.extract_decode_weights(v["params"]),
+            extract_decode_weights(model))
+
+
+@pytest.fixture()
+def launches(monkeypatch):
+    """Each decode launch as (its rows, whether it took the int8
+    feed-forward pack)."""
+    seen = []
+    real = cuda_decode.decode
+
+    def spy(packed, cond, *a, **k):
+        seen.append((cond.shape[0], cuda_decode.is_int8_ff(packed)))
+        return real(packed, cond, *a, **k)
+    monkeypatch.setattr(cuda_decode, "decode", spy)
+    return seen
+
+
+@pytest.fixture()
+def short_calibration(monkeypatch):
+    """Calibrate on 256 steps: the Generator tests check where and how
+    often it runs, and a 4,096-step plain decode per Generator would
+    dominate their time."""
+    monkeypatch.setattr(port_decode, "FF_CAL_STEPS", 256)
+
+
+# -- the packs -----------------------------------------------------------
+
+@pytest.mark.parametrize("int8_hh", [True, False], ids=["int8_hh", "bf16"])
+@pytest.mark.parametrize("which", ["small_mol", "golden"])
+def test_pack_weights_int8_ff_bit_equal(which, int8_hh):
+    """Every int8 matrix and fused scale row bit-equal to the Pallas
+    pack's (without its lane padding), and ffq = float32(127) / S."""
+    if which == "golden":
+        blob = load_pytree(REPO / "bench_assets" /
+                           "wavernn_mol_golden.msgpack")
+        kw = {}
+        v = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+    else:
+        kw, v = small("MOL")
+    cfg, wj, wt = weights_of(kw, v)
+    n_out_pad = -(-cfg.n_classes // 128) * 128
+    pj = pallas_decode.pack_weights(wj, cfg.feat_dims, cfg.aux_dims,
+                                    n_out_pad, int8_hh=int8_hh,
+                                    int8_ff=True, ff_scales=jnp.asarray(S))
+    pt = cuda_decode.pack_weights(wt, cfg.feat_dims, cfg.aux_dims,
+                                  int8_hh=int8_hh, int8_ff=True,
+                                  ff_scales=torch.from_numpy(S))
+    assert cuda_decode.is_int8_ff(pt)
+    assert set(k for k, t in pt.items() if t is not None) == set(pj) | {
+        "ffq"}
     for name in ("w_ih2x", "w_fc1x", "w_fc2x"):
-        assert gen.packed[name].dtype == torch.bfloat16, name
-    with pytest.raises(NotImplementedError, match="int8_ff"):
-        Generator(CFG, tiny_raw(), device="cpu", int8_ff=True)
+        t = pt[name]
+        assert t.dtype == torch.int8, name
+        np.testing.assert_array_equal(t.numpy(),
+                                      unpadded(pj[name], tuple(t.shape)))
+        fs = pt[name + "_fs"]
+        assert fs.dtype == torch.float32, name
+        np.testing.assert_array_equal(fs.numpy(),
+                                      unpadded(pj[name + "_fs"],
+                                               tuple(fs.shape)))
+    np.testing.assert_array_equal(
+        pt["ffq"].numpy(), np.asarray(127.0 / jnp.asarray(S, jnp.float32)))
+    # the recurrent and conditioning matrices are the bf16 pack's
+    pb = cuda_decode.pack_weights(wt, cfg.feat_dims, cfg.aux_dims,
+                                  int8_hh=int8_hh)
+    for name in ("w_hh1", "w_hh2", "w_aux", "w_Im1", "w_fc3"):
+        assert torch.equal(pt[name], pb[name]), name
+
+
+def test_pack_weights_int8_ff_needs_its_bounds():
+    kw, v = small("RAW")
+    cfg, _, wt = weights_of(kw, v)
+    with pytest.raises(ValueError, match="ff_scales"):
+        cuda_decode.pack_weights(wt, cfg.feat_dims, cfg.aux_dims,
+                                 int8_ff=True)
+    with pytest.raises(ValueError, match=r"\(3,\)"):
+        cuda_decode.pack_weights(wt, cfg.feat_dims, cfg.aux_dims,
+                                 int8_ff=True, ff_scales=torch.ones(2))
+
+
+# -- the calibration -----------------------------------------------------
+
+@pytest.mark.parametrize("mode", ["RAW", "MOL"])
+def test_ff_ranges_within_jax_key_spread(mode):
+    """The port's bounds on one conditioning stream lie within JAX's own
+    bounds over four keys, widened by 15%; both are the 1.3 x |max| of
+    [xr, xr2, relu(fc1)], at least 1e-3."""
+    kw, v = small(mode)
+    cfg, wj, wt = weights_of(kw, v)
+    rng = np.random.default_rng(4)
+    ts, T_mel = 20, 30
+    mels_up = rng.uniform(0, 1, (1, T_mel * ts, cfg.feat_dims)).astype(
+        np.float32)
+    aux_mel = rng.normal(0, 1, (1, T_mel, cfg.res_out_dims)).astype(
+        np.float32)
+    sj = pallas_decode.pack_stream(jnp.asarray(mels_up),
+                                   jnp.asarray(aux_mel), ts)
+    st = cuda_decode.pack_stream(torch.from_numpy(mels_up),
+                                 torch.from_numpy(aux_mel), ts)
+    want = np.stack([np.asarray(jax_decode.ff_ranges(
+        wj, sj, jax.random.PRNGKey(k), mode, cfg.n_classes))
+        for k in (17, 18, 19, 20)])
+    got = ff_ranges(wt, st, mode, cfg.n_classes,
+                    torch.Generator().manual_seed(17))
+    assert got.dtype == torch.float32 and got.shape == (3,)
+    got = got.numpy()
+    assert np.all(got >= want.min(0) * 0.85), (got, want)
+    assert np.all(got <= want.max(0) * 1.15), (got, want)
+    # the same draws give the same bounds
+    again = ff_ranges(wt, st, mode, cfg.n_classes,
+                      torch.Generator().manual_seed(17))
+    np.testing.assert_array_equal(again.numpy(), got)
+
+
+def test_ff_ranges_floor_and_steps(monkeypatch):
+    """At most FF_CAL_STEPS rows are decoded, and a bound is never below
+    the 1e-3 floor (a zero network has zero activations)."""
+    assert port_decode.FF_CAL_STEPS == 4096
+    monkeypatch.setattr(port_decode, "FF_CAL_STEPS", 64)
+    kw, v = small("MOL")
+    cfg, _, wt = weights_of(kw, v)
+    zero = port_decode.DecodeWeights(
+        **{k: torch.zeros_like(t) for k, t in vars(wt).items()})
+    rows = torch.rand(100, cfg.feat_dims + cfg.res_out_dims).to(
+        torch.bfloat16)
+    got = ff_ranges(zero, rows, "MOL", cfg.n_classes,
+                    torch.Generator().manual_seed(17))
+    np.testing.assert_array_equal(got.numpy(), np.full(3, 1e-3, np.float32))
+    a = ff_ranges(wt, rows, "MOL", cfg.n_classes,
+                  torch.Generator().manual_seed(1))
+    b = ff_ranges(wt, rows[:64], "MOL", cfg.n_classes,
+                  torch.Generator().manual_seed(1))
+    np.testing.assert_array_equal(a.numpy(), b.numpy())
+    c = ff_ranges(wt, rows[:65], "MOL", cfg.n_classes,
+                  torch.Generator().manual_seed(1))
+    np.testing.assert_array_equal(a.numpy(), c.numpy())
+
+
+# -- the policy ----------------------------------------------------------
+
+@pytest.mark.parametrize("rows", [1, 4, 16, 48, 63, 64, 132, 240])
+def test_policy_forces_and_follows_the_h100_crossover(rows):
+    """True and False force the variant; None ("auto") turns it on from
+    the crossover measured on the H100, not the TPU's 64 rows."""
+    assert int8_ff_policy(True, rows) is True
+    assert int8_ff_policy(False, rows) is False
+    assert int8_ff_policy(None, rows) is (
+        FF_AUTO_MIN_ROWS is not None and rows >= FF_AUTO_MIN_ROWS)
+
+
+# -- the Generator -------------------------------------------------------
+
+def test_calibration_is_eager_and_cached(launches, short_calibration):
+    """A forced Generator calibrates once, in ``submit``, on the first
+    utterance's conditioning; every later launch takes the same int8
+    pack, and the streaming front-end reuses the cache."""
+    kw, v = small("MOL")
+    gen = Generator(WaveRNNConfig(**kw), v, device="cpu", int8_ff=True,
+                    fold_bucket=4, **SERVE)
+    assert gen.ff_scales is None and gen.packed_ff is None
+    staged = gen.prestage(mel(6, 3), batched=True, target=TARGET,
+                          overlap=OVERLAP)
+    handle = gen.submit(staged, batched=True, target=TARGET, overlap=OVERLAP,
+                        mu_law=False)
+    ffs = gen.ff_scales
+    assert ffs.shape == (3,) and bool((ffs > 0).all())
+    assert cuda_decode.is_int8_ff(gen.packed_ff)
+    assert not cuda_decode.is_int8_ff(gen.packed)
+    # the bounds of that utterance's packed conditioning, seed 17
+    mels_up, aux_mel = gen.model.upsample_parts(
+        gen._ingress_f32(staged.mels_dev))
+    want = ff_ranges(gen.weights, cuda_decode.pack_stream(
+        mels_up, aux_mel, gen.cfg.total_scale), "MOL", gen.cfg.n_classes,
+        torch.Generator().manual_seed(17))
+    torch.testing.assert_close(ffs, want, rtol=0, atol=0)
+    gen.collect(handle)
+    gen(mel(4, 4), batched=True, target=TARGET, overlap=OVERLAP,
+        mu_law=False)
+    gen.collect_batch(gen.submit_batch([mel(4, 5), mel(5, 6)],
+                                       target=TARGET, overlap=OVERLAP,
+                                       mu_law=False))
+    list(gen.stream(mel(5, 7), target=TARGET, overlap=OVERLAP,
+                    mu_law=False, group=2))
+    assert gen.ff_scales is ffs
+    assert launches and all(ff for _, ff in launches)
+
+
+def test_off_and_scan_never_calibrate(launches, short_calibration):
+    kw, v = small("RAW")
+    cfg = WaveRNNConfig(**kw)
+    off = Generator(cfg, v, device="cpu", int8_ff=False, **SERVE)
+    off(mel(4), batched=True, target=TARGET, overlap=OVERLAP, mu_law=True)
+    off.collect_batch(off.submit_batch([mel(4), mel(5)], target=TARGET,
+                                       overlap=OVERLAP, mu_law=True))
+    assert off.ff_scales is None and launches
+    assert not any(ff for _, ff in launches)
+    scan = Generator(cfg, v, device="cpu", backend="scan", int8_ff=True,
+                     **SERVE)
+    scan(mel(4), batched=True, target=TARGET, overlap=OVERLAP, mu_law=True)
+    assert scan.ff_scales is None and scan.packed is None
+
+
+def test_update_variables_drops_the_bounds(short_calibration):
+    """A weight swap drops the bounds and the int8 pack (the reference
+    keeps its stale bounds); the next launch calibrates on the new
+    weights."""
+    kw, v = small("MOL")
+    _, v2 = small("MOL", seed=1)
+    gen = Generator(WaveRNNConfig(**kw), v, device="cpu", int8_ff=True,
+                    **SERVE)
+    m = mel(4, 2)
+    gen(m, batched=True, target=TARGET, overlap=OVERLAP, mu_law=False)
+    old = gen.ff_scales
+    gen.update_variables(v2)
+    assert gen.ff_scales is None and gen.packed_ff is None
+    gen(m, batched=True, target=TARGET, overlap=OVERLAP, mu_law=False)
+    fresh = Generator(WaveRNNConfig(**kw), v2, device="cpu", int8_ff=True,
+                      **SERVE)
+    fresh(m, batched=True, target=TARGET, overlap=OVERLAP, mu_law=False)
+    torch.testing.assert_close(gen.ff_scales, fresh.ff_scales, rtol=0,
+                               atol=0)
+    assert not torch.equal(gen.ff_scales, old)
+
+
+def test_auto_stream_calibrates_at_its_first_wide_group(
+        monkeypatch, launches, short_calibration):
+    """Under "auto" a stream calibrates lazily, at the first group the
+    policy turns on; each launch takes the pack its (bucketed) width
+    calls for.  Forced, the session calibrates when it opens."""
+    monkeypatch.setattr(port_decode, "FF_AUTO_MIN_ROWS", 8)
+    kw, v = small("RAW")
+    cfg = WaveRNNConfig(**kw)
+    gen = Generator(cfg, v, device="cpu", fold_bucket=4, **SERVE)
+    m = mel(12, 1)
+    kw_s = dict(target=TARGET, overlap=OVERLAP, mu_law=True)
+    list(gen.stream(m, group=4, **kw_s))
+    assert gen.ff_scales is None and not any(ff for _, ff in launches)
+    launches.clear()
+    list(gen.stream(m, group=8, first_group=4, **kw_s))
+    assert all(ff == (rows >= 8) for rows, ff in launches)
+    assert [r for r, _ in launches[:2]] == [4, 8]
+    assert gen.ff_scales is not None
+    forced = Generator(cfg, v, device="cpu", int8_ff=True, **SERVE)
+    forced.open_stream_session(m, TARGET, OVERLAP)
+    assert forced.ff_scales is not None
+
+
+def test_server_calibrates_on_its_first_session(monkeypatch, launches,
+                                               short_calibration):
+    """A StreamServer launch wide enough under "auto" calibrates on the
+    first served session's slot rows, and each launch takes the pack its
+    width calls for."""
+    monkeypatch.setattr(port_decode, "FF_AUTO_MIN_ROWS", 8)
+    kw, v = small("RAW")
+    gen = Generator(WaveRNNConfig(**kw), v, device="cpu", fold_bucket=4,
+                    **SERVE)
+    mels = [mel(f, seed=i) for i, f in enumerate([12, 6])]
+    srv = StreamServer(gen, target=TARGET, overlap=OVERLAP, mu_law=True,
+                       group=4, width=8, capacity=2, slot_seconds=1.0)
+    got = srv.run(mels)
+    assert launches[0] == (8, True) and gen.ff_scales is not None
+    assert all(ff == (rows >= 8) for rows, ff in launches)
+    assert not all(ff for _, ff in launches)
+    assert [len(g) for g in got] == [11 * 275, 5 * 275]
+    first = gen.open_stream_session(mels[0], TARGET, OVERLAP)
+    want = ff_ranges(gen.weights, first.packed, "RAW", gen.cfg.n_classes,
+                     torch.Generator().manual_seed(17))
+    torch.testing.assert_close(gen.ff_scales, want, rtol=0, atol=0)
+
+
+def test_a_launch_without_bounds_raises():
+    """No fallback: a launch the policy turns on, with no calibrated
+    bounds, is an error, never a quiet bf16 launch."""
+    kw, v = small("MOL")
+    gen = Generator(WaveRNNConfig(**kw), v, device="cpu", int8_ff=True,
+                    **SERVE)
+    stream = torch.zeros(600, 80 + 32, dtype=torch.bfloat16)
+    with pytest.raises(RuntimeError, match="calibrated"):
+        gen._decode_rows(stream, np.zeros(4, np.int64), 256, 0)
+
+
+@pytest.fixture()
+def interpret_pallas(monkeypatch):
+    monkeypatch.setattr(pallas_decode, "decode", functools.partial(
+        pallas_decode.decode, interpret=True))
+
+
+def test_forced_generator_matches_jax_pallas(interpret_pallas):
+    """The slice with the variant forced, port against JAX (Pallas in
+    interpret mode), both given the JAX Generator's bounds."""
+    kw, v = small("MOL")
+    m = mel(10)
+    jgen = jax_decode.Generator(JaxConfig(**kw), v, backend="pallas",
+                                int8_ff=True, **SERVE)
+    want = jgen(m, batched=True, target=TARGET, overlap=OVERLAP,
+                mu_law=False)
+    scales = torch.from_numpy(np.array(jgen._ff_scales))
+    gen = Generator(WaveRNNConfig(**kw), v, device="cpu", int8_ff=True,
+                    **SERVE)
+    gen.ff_scales = scales
+    gen.packed_ff = cuda_decode.pack_weights(
+        gen.weights, gen.cfg.feat_dims, gen.cfg.aux_dims, int8_ff=True,
+        ff_scales=scales)
+    got = gen(m, batched=True, target=TARGET, overlap=OVERLAP, mu_law=False)
+    assert gen.ff_scales is scales
+    assert got.dtype == want.dtype == np.int16 and got.shape == want.shape
+    lsb = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    assert np.mean(lsb <= 655) >= 0.95, np.mean(lsb <= 655)

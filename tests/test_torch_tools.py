@@ -20,8 +20,8 @@ from wavernn_tpu.utils import profiling as jax_profiling
 from wavernn_tpu_torch.config import hp
 from wavernn_tpu_torch.tools import (
     fold_geometry_probe, http_serve_probe, kernel_breakdown,
-    kernel_sampling_stats, stream_latency, stream_server_probe,
-    tts_phase_spans, tts_step_probe, wire_format_probe,
+    kernel_sampling_stats, step_opt_probe, stream_latency,
+    stream_server_probe, tts_phase_spans, tts_step_probe, wire_format_probe,
 )
 from wavernn_tpu_torch.utils import profiling
 from tests.torch_cpu import one_torch_thread  # noqa: F401
@@ -36,6 +36,7 @@ TOOLS = {"kernel_breakdown": kernel_breakdown,
          "http_serve_probe": http_serve_probe,
          "stream_server_probe": stream_server_probe,
          "stream_latency": stream_latency,
+         "step_opt_probe": step_opt_probe,
          "wire_format_probe": wire_format_probe}
 
 
@@ -77,7 +78,8 @@ def tiny_tts_hp(tmp_path) -> Path:
 
 
 def cpu_argv(name, tmp_path):
-    tiny = ["--voc_weights", str(TINY_RAW), "--hp_file", str(tiny_hp(tmp_path)),
+    hp_file = str(tiny_hp(tmp_path))
+    tiny = ["--voc_weights", str(TINY_RAW), "--hp_file", hp_file,
             "--target", "200", "--overlap", "28"]
     return {
         "kernel_breakdown": ["2", "4", "--reps", "1",
@@ -99,6 +101,11 @@ def cpu_argv(name, tmp_path):
                                 "--group", "8", "--width", "16"] + tiny,
         "stream_latency": ["--frames", "16", "--group", "16", "--reps",
                            "1"] + tiny,
+        "step_opt_probe": ["--ab", "--widths", "1,4", "--T", "16",
+                           "--passes", "1", "--reps", "1", "--voc_weights",
+                           str(TINY_RAW), "--hp_file", hp_file,
+                           "--mel", str(REPO / "tests" / "golden"
+                                        / "tiny_wavernn_raw_mel.npy")],
         "wire_format_probe": ["--passes", "1", "--runs", "1", "--frames",
                               "16", "--mcd_frames", "24"] + tiny,
     }[name] + ["--device", "cpu"]
@@ -165,6 +172,13 @@ def test_tool_runs_plain_versions_on_cpu(name, tmp_path, capsys):
             k[len("mcd_"):] for k in rec if k.startswith("mcd_")}
         assert np.isfinite([rec[k] for k in rec if k.startswith("mcd_")]
                            ).all()
+    elif name == "step_opt_probe":
+        assert [w["rows"] for w in rec["widths"]] == [1, 4]
+        assert rec["crossover_rows"] in (None, 1, 4)
+        assert len(rec["ff_scales"]) == 3 and min(rec["ff_scales"]) > 0
+        for w in rec["widths"]:
+            for arm in ("int8_hh", "int8_ff"):
+                assert w[arm]["cpu_host_median_us_per_step"] > 0
     elif name == "tts_phase_spans":
         # the plan alone: the spans and the barrier loop need the card
         assert rec["grid"] == 132 and rec["smem_bytes"] == 137_456

@@ -18,7 +18,8 @@ from wavernn_tpu.models.wavernn import WaveRNN as JaxWaveRNN
 from wavernn_tpu.models.wavernn import WaveRNNConfig as JaxConfig
 from wavernn_tpu_torch import set_float32_policy
 from wavernn_tpu_torch.models.wavernn import (
-    WaveRNNConfig, from_jax_variables, stretch_time,
+    WaveRNN, WaveRNNConfig, from_jax_variables, stretch_time,
+    to_jax_variables,
 )
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
 from tests.torch_cpu import one_torch_thread  # noqa: F401
@@ -133,3 +134,47 @@ def test_stretch_time():
     assert y.shape == (1, 9, 2)
     np.testing.assert_array_equal(y[0, :3].numpy(), [[0, 1]] * 3)
     np.testing.assert_array_equal(y[0, -1].numpy(), [4, 5])
+
+
+def _leaves(tree, path=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaves(v, path + (k,))
+        else:
+            yield path + (k,), np.asarray(v)
+
+
+def test_fresh_init_follows_flax_laws():
+    """Full width: a fresh port model has the JAX init's leaves, and leaf
+    by leaf the same spread (std within 10%, widened by three standard
+    errors of the difference of two sample stds, sigma / sqrt(n), for the
+    small leaves: fc3's 30 biases alone spread by ~13%), or both constant
+    and equal.
+    The MelResNet convs take flax ``nn.Conv``'s lecun-normal weights and
+    zero bias (torch's default law is kaiming-uniform with a uniform
+    bias: ``conv_in`` 0.029 against 0.050, ``conv_out``'s bias 0.052
+    against 0)."""
+    jv = JaxWaveRNN(JaxConfig()).init(
+        jax.random.PRNGKey(0), jnp.zeros((1, 275)), jnp.zeros((1, 5, 80)),
+        True)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        tv = to_jax_variables(WaveRNN(WaveRNNConfig()))
+    for coll in ("params", "batch_stats"):
+        want = dict(_leaves(jax.tree_util.tree_map(np.asarray, jv[coll])))
+        got = dict(_leaves(tv[coll]))
+        assert set(got) == set(want), coll
+        for p, a in want.items():
+            b = got[p]
+            assert a.shape == b.shape, p
+            sa, sb = float(a.std()), float(b.std())
+            tol = (0.1 + 3.0 / np.sqrt(a.size)) * sa + 1e-7
+            assert abs(sa - sb) <= tol, (p, sa, sb)
+            if sa == 0:
+                np.testing.assert_array_equal(a, b, err_msg=str(p))
+    res = tv["params"]["upsample"]["resnet"]
+    assert not np.any(res["conv_out"]["bias"])
+    # truncated at two standard deviations of the untruncated normal
+    k = res["conv_in"]["kernel"]
+    assert np.abs(k).max() <= 2.0 / 0.87962566103423978 / np.sqrt(
+        k.shape[0] * k.shape[1]) + 1e-7

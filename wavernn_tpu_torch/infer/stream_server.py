@@ -25,7 +25,9 @@ fewest dispatched folds contribute up to ``group`` folds each until
 
 Determinism: with ``Generator(deterministic=True)`` each session's output
 is byte for byte that session's own ``Generator.stream`` (a row's decode
-does not depend on the other rows of its launch).  Sampled output depends
+does not depend on the other rows of its launch) when both launches take
+the same pack: with ``int8_ff``, the same calibrated Generator and the
+same policy decision at both widths.  Sampled output depends
 on the batch's composition: a launch's random bits are keyed by a row's
 index within it, and its seed is ``seed * 1000003 + launches``.
 
@@ -205,6 +207,11 @@ class StreamServer:
                                              + np.arange(g0, g1)
                                              * s.sess.stride)
                     o += g1 - g0
+                if gen._ff_policy(len(starts)):
+                    # int8_ff: the first launch wide enough calibrates on
+                    # the first served session's slot rows
+                    b0 = items[0][0].slot * self.slot_len
+                    gen._calibrate_ff(self._buffer[b0:b0 + self.slot_len])
                 rows = gen._decode_rows(self._buffer, starts, self.fold_T,
                                         seed)
             else:

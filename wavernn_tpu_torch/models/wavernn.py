@@ -109,14 +109,31 @@ class FlaxBatchNorm(nn.BatchNorm1d):
         return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
 
 
+def flax_conv(in_dims: int, out_dims: int, kernel: int,
+              bias: bool) -> nn.Conv1d:
+    """A Conv1d with flax ``nn.Conv``'s init laws: lecun-normal weights (a
+    normal truncated at two standard deviations, scaled so that the
+    variance is 1 / fan_in, fan_in = in_dims * kernel, as flax draws it)
+    and a zero bias."""
+    conv = nn.Conv1d(in_dims, out_dims, kernel, bias=bias)
+    # the std of a unit normal truncated to [-2, 2]
+    std = (1.0 / (in_dims * kernel)) ** 0.5 / 0.87962566103423978
+    with torch.no_grad():
+        nn.init.trunc_normal_(conv.weight, std=std, a=-2.0 * std,
+                              b=2.0 * std)
+        if bias:
+            conv.bias.zero_()
+    return conv
+
+
 class ResBlock(nn.Module):
     """1x1-conv residual block with batch norm, on (B, C, T)."""
 
     def __init__(self, dims: int):
         super().__init__()
-        self.conv1 = nn.Conv1d(dims, dims, 1, bias=False)
+        self.conv1 = flax_conv(dims, dims, 1, bias=False)
         self.bn1 = FlaxBatchNorm(dims)
-        self.conv2 = nn.Conv1d(dims, dims, 1, bias=False)
+        self.conv2 = flax_conv(dims, dims, 1, bias=False)
         self.bn2 = FlaxBatchNorm(dims)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -131,12 +148,12 @@ class MelResNet(nn.Module):
     def __init__(self, res_blocks: int, in_dims: int, compute_dims: int,
                  res_out_dims: int, pad: int):
         super().__init__()
-        self.conv_in = nn.Conv1d(in_dims, compute_dims, 2 * pad + 1,
+        self.conv_in = flax_conv(in_dims, compute_dims, 2 * pad + 1,
                                  bias=False)
         self.bn = FlaxBatchNorm(compute_dims)
         self.blocks = nn.ModuleList(
             [ResBlock(compute_dims) for _ in range(res_blocks)])
-        self.conv_out = nn.Conv1d(compute_dims, res_out_dims, 1)
+        self.conv_out = flax_conv(compute_dims, res_out_dims, 1, bias=True)
 
     def forward(self, m: torch.Tensor) -> torch.Tensor:
         x = F.relu(self.bn(self.conv_in(m)))

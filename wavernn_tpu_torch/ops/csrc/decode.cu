@@ -28,6 +28,13 @@
 // Arithmetic.  A dot of bf16 operands sums its exact products in float64
 // and rounds the sum once to float32, each dot on its own, as the plain
 // version does; the int8 recurrent dots sum integers with __dp4a, exact.
+// With int8 feed-forward matrices (FF, the TPU kernel's ``int8_ff``), GRU2's
+// input dot, FC1 and FC2 are int8 dots too: each phase's epilogue quantizes
+// the next one's operand at its calibrated fixed scale (round(clip(v * 127
+// / S, +-127)), half to even) straight into its byte of the packed int8
+// operand, and the dot's int32 sum times the column's fused scale (weight
+// scale x S / 127) replaces the float64 sum.  The clip keeps every value in
+// the int8 range, so no second byte plane is needed.
 // The order of the float64 terms then hardly matters, so this kernel and
 // its plain version (float64 GEMMs) agree to the bit nearly always, and a
 // deterministic decode can be held to a tight tolerance over thousands of
@@ -63,7 +70,7 @@
 //                      void* stream)
 // ptrs = cond, out, then the packed weights in cuda_decode.WEIGHT_ORDER;
 // dims = B, Tc, C, T, H, F, feat, aux_d, n_out, mode (0 RAW, 1 MOL),
-//        deterministic, int8_hh, rows_per_cta, seed, ablation mask.
+//        deterministic, int8_hh, rows_per_cta, seed, ablation mask, int8_ff.
 // Returns a cudaError_t (0 = launched).
 
 #include <cuda_bf16.h>
@@ -88,11 +95,15 @@ struct Params {
   const __nv_bfloat16* w_Im1; const float* u1;
   const __nv_bfloat16* w_Im; const float* w_x; const float* b_I;
   const void* w_hh1; const float* s_hh1; const float* b1; const float* b_hh1_n;
-  const __nv_bfloat16* w_ih2x;
+  const void* w_ih2x;                 // bf16, or int8 with FF
   const void* w_hh2; const float* s_hh2; const float* b2; const float* b_hh2_n;
-  const __nv_bfloat16* w_fc1x; const float* b_fc1;
-  const __nv_bfloat16* w_fc2x; const float* b_fc2;
+  const void* w_fc1x; const float* b_fc1;
+  const void* w_fc2x; const float* b_fc2;
   const __nv_bfloat16* w_aux; const __nv_bfloat16* w_fc3; const float* b_fc3;
+  // FF: each int8 feed-forward matrix's fused column scales, and the (3,)
+  // quantization multipliers 127 / S of their operands
+  const float* fs_ih2; const float* fs_fc1; const float* fs_fc2;
+  const float* ffq;
   int B, Tc, C, T, H, F, feat, d, n_out, mode, det;
   uint32_t seed;
   dot::Split sp[11];  // each dot's split (D_* order)
@@ -192,7 +203,7 @@ __device__ __forceinline__ bool sync_or(bool v, bool want) {
   return false;
 }
 
-template <int R, bool I8, int MASK>
+template <int R, bool I8, bool FF, int MASK>
 __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
   using dot::psum;
   constexpr int NT = threads(R), NWARP = NT / 32;
@@ -215,6 +226,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
   float* xs = logits + R * NO;         // [R] previous sample
   uint32_t* opQ = reinterpret_cast<uint32_t*>(xs + R);  // [H/4][R] int8
   uint32_t* opQh = opQ + (H / 4) * R;  // [H/4][R] its high bytes (GATES)
+  uint32_t* opF = opQh + (H / 4) * R;  // [W/4][R] int8 feed-forward operand
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * R;
   float keep = 0.f;  // AB_GATES only
@@ -245,6 +257,34 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
                               static_cast<const __nv_bfloat16*>(w), H3,
                               p.sp[i], first);
     }
+  };
+  // FF: the operand of feed-forward dot q, v at its calibrated scale,
+  // stored as byte k of row r of opF
+  float ffq[3] = {0.f, 0.f, 0.f};
+  if constexpr (FF) {
+    ffq[0] = p.ffq[0]; ffq[1] = p.ffq[1]; ffq[2] = p.ffq[2];
+  }
+  auto ff_operand = [&](int q, float v, int k, int r) {
+    dot::store_i8<R>(opF, k, r, __float2int_rn(
+        fminf(fmaxf(mul(v, ffq[q]), -127.f), 127.f)));
+  };
+  // a feed-forward dot: int8 on opF (FF), else bf16 on ``a``
+  auto ff_dot = [&](int i, const double* a, int K, int N, const void* w,
+                    int& first) {
+    if constexpr (FF)
+      dot::dot_i8<NT, R, 1>(ipart(i), opF, nullptr, K, N,
+                            static_cast<const int8_t*>(w), N, p.sp[i], first);
+    else
+      dot::dot_bf16<NT, R, 8>(part(i), a, K, N,
+                              static_cast<const __nv_bfloat16*>(w), N,
+                              p.sp[i], first);
+  };
+  // column n of a feed-forward dot, scaled back from int8 (FF)
+  auto ff_col = [&](int i, const float* fs, int N, int n, int r) {
+    if constexpr (FF)
+      return mul(psum<R>(ipart(i), p.sp[i].S, N, n, r), fs[n]);
+    else
+      return psum<R>(part(i), p.sp[i].S, N, n, r);
   };
   // gate g of column j of a recurrent dot, scaled back from int8
   auto hidden_gate = [&](int i, const float* s_hh, int g, int j, int r) {
@@ -300,15 +340,15 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
                                     psum<R>(part(D_IM), p.sp[D_IM].S, H, j, r)),
                                 p.b_I[j]), hn);
         xr[j * R + r] = v;
-        opX[j * R + r] = bfr64(v);
+        if constexpr (FF) ff_operand(0, v, j, r);
+        else opX[j * R + r] = bfr64(v);
       }
     }
     const bool wide2 = sync_or(hidden_operand(h2), GATES);
 
     // GRU2 on [xr | a2]
     first = 0;
-    dot::dot_bf16<NT, R, 8>(part(D_IH2), opX, H, H3, p.w_ih2x, H3,
-                            p.sp[D_IH2], first);
+    ff_dot(D_IH2, opX, H, H3, p.w_ih2x, first);
     dot::dot_bf16<NT, R, 8>(part(D_AUX2), cond + K0 * R, d, H3, p.w_aux, NA,
                             p.sp[D_AUX2], first);
     hidden_dot(D_HH2, p.w_hh2, wide2, first);
@@ -319,7 +359,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
         float a[3], h[3];
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
-          a[g] = add(psum<R>(part(D_IH2), p.sp[D_IH2].S, H3, g * H + j, r),
+          a[g] = add(ff_col(D_IH2, p.fs_ih2, H3, g * H + j, r),
                      psum<R>(part(D_AUX2), p.sp[D_AUX2].S, H3, g * H + j, r));
           h[g] = hidden_gate(D_HH2, p.s_hh2, g, j, r);
         }
@@ -329,33 +369,35 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
         h2[j * R + r] = hn;
         const float v = add(xr[j * R + r], hn);
         xr[j * R + r] = v;
-        opX[j * R + r] = bfr64(v);
+        if constexpr (FF) ff_operand(1, v, j, r);
+        else opX[j * R + r] = bfr64(v);
       }
     }
     __syncthreads();
 
-    // FC1 on [xr | a3] -> opH
+    // FC1 on [xr | a3] -> opH (FF: opF)
     first = 0;
-    dot::dot_bf16<NT, R, 8>(part(D_FC1), opX, H, F, p.w_fc1x, F, p.sp[D_FC1],
-                            first);
+    ff_dot(D_FC1, opX, H, F, p.w_fc1x, first);
     dot::dot_bf16<NT, R, 8>(part(D_AUX3), cond + (K0 + d) * R, d, F,
                             p.w_aux + (size_t)d * NA + H3, NA, p.sp[D_AUX3],
                             first);
     __syncthreads();
     for (int j = tid; j < F; j += NT) {
 #pragma unroll
-      for (int r = 0; r < R; ++r)
-        opH[j * R + r] = bfr64(fmaxf(
-            add(add(psum<R>(part(D_FC1), p.sp[D_FC1].S, F, j, r),
+      for (int r = 0; r < R; ++r) {
+        const float f1 = fmaxf(
+            add(add(ff_col(D_FC1, p.fs_fc1, F, j, r),
                     psum<R>(part(D_AUX3), p.sp[D_AUX3].S, F, j, r)),
-                p.b_fc1[j]), 0.f));
+                p.b_fc1[j]), 0.f);
+        if constexpr (FF) ff_operand(2, f1, j, r);
+        else opH[j * R + r] = bfr64(f1);
+      }
     }
     __syncthreads();
 
     // FC2 on [f1 | a4] -> opX
     first = 0;
-    dot::dot_bf16<NT, R, 8>(part(D_FC2), opH, F, F, p.w_fc2x, F, p.sp[D_FC2],
-                            first);
+    ff_dot(D_FC2, opH, F, F, p.w_fc2x, first);
     dot::dot_bf16<NT, R, 8>(part(D_AUX4), cond + (K0 + 2 * d) * R, d, F,
                             p.w_aux + (size_t)2 * d * NA + H3 + F, NA,
                             p.sp[D_AUX4], first);
@@ -364,7 +406,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
 #pragma unroll
       for (int r = 0; r < R; ++r)
         opX[j * R + r] = bfr64(fmaxf(
-            add(add(psum<R>(part(D_FC2), p.sp[D_FC2].S, F, j, r),
+            add(add(ff_col(D_FC2, p.fs_fc2, F, j, r),
                     psum<R>(part(D_AUX4), p.sp[D_AUX4].S, F, j, r)),
                 p.b_fc2[j]), 0.f));
     }
@@ -438,14 +480,17 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
 }
 
 // Each dot's split over the CTA's threads and the place of its partial
-// sums; returns the kernel's shared memory bytes.
-size_t make_plan(Params& p, int R, bool i8) {
+// sums; returns the kernel's shared memory bytes.  int8 dots (the recurrent
+// ones with i8, the feed-forward ones with ff) take 16 columns and 4 k rows
+// per load step, bf16 dots 8 columns and any k.
+size_t make_plan(Params& p, int R, bool i8, bool ff) {
   const int H = p.H, F = p.F, d = p.d, H3 = 3 * H, K0 = p.feat + p.d;
-  const int hv = i8 ? 16 : 8, ha = i8 ? 4 : 1;  // int8: 16 columns, 4 k rows
+  const int hv = i8 ? 16 : 8, ha = i8 ? 4 : 1;
+  const int fv = ff ? 16 : 8, fa = ff ? 4 : 1;
   const int K[ND] = {K0, K0, H, H, d, H, H, d, F, d, F};
   const int N[ND] = {H3, H, H3, H3, H3, H3, F, F, F, F, p.n_out};
-  const int V[ND] = {8, 8, hv, 8, 8, hv, 8, 8, 8, 8, 1};
-  const int A[ND] = {1, 1, ha, 1, 1, ha, 1, 1, 1, 1, 1};
+  const int V[ND] = {8, 8, hv, fv, 8, hv, fv, 8, fv, 8, 1};
+  const int A[ND] = {1, 1, ha, fa, 1, ha, fa, 1, fa, 1, 1};
   const int phase[ND] = {0, 0, 0, 1, 1, 1, 2, 2, 3, 3, 4};
   // FC3's one-column tasks take slices down to 8 rows: its 2-byte loads
   // are each an L2 round trip, and a short slice is a short chain.
@@ -476,44 +521,44 @@ size_t make_plan(Params& p, int R, bool i8) {
   const int W = H > F ? H : F;
   return (size_t)(top + (size_t)(p.C + 2 * W) * R) * sizeof(double)
          + (size_t)(3 * H + p.n_out + 1) * R * sizeof(float)
-         + (size_t)2 * (H / 4) * R * sizeof(uint32_t);
+         + (size_t)(2 * (H / 4) + W / 4) * R * sizeof(uint32_t);
 }
 
-template <int R, bool I8, int MASK>
+template <int R, bool I8, bool FF, int MASK>
 cudaError_t launch(Params p, cudaStream_t stream) {
-  const size_t bytes = make_plan(p, R, I8);
+  const size_t bytes = make_plan(p, R, I8, FF);
   cudaError_t e = cudaFuncSetAttribute(
-      decode_kernel<R, I8, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      decode_kernel<R, I8, FF, MASK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   const int grid = (p.B + R - 1) / R;
-  decode_kernel<R, I8, MASK><<<grid, threads(R), bytes, stream>>>(p);
+  decode_kernel<R, I8, FF, MASK><<<grid, threads(R), bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool I8>
+template <bool I8, bool FF>
 cudaError_t launch_rows(const Params& p, int R, cudaStream_t s) {
   switch (R) {
-    case 1: return launch<1, I8, 0>(p, s);
-    case 2: return launch<2, I8, 0>(p, s);
+    case 1: return launch<1, I8, FF, 0>(p, s);
+    case 2: return launch<2, I8, FF, 0>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 // The ablations the breakdown runs, built for its configuration only:
-// int8 recurrent matrices, the production rows per CTA
-// (cuda_decode.ROWS_PER_CTA).
+// int8 recurrent matrices, bf16 feed-forward matrices, the production rows
+// per CTA (cuda_decode.ROWS_PER_CTA).
 constexpr int ABLATION_R = 1;
 
 cudaError_t launch_ablated(const Params& p, int mask, cudaStream_t s) {
   constexpr int R = ABLATION_R;
   switch (mask) {
-    case AB_SAMPLE: return launch<R, true, AB_SAMPLE>(p, s);
-    case AB_GATES: return launch<R, true, AB_GATES>(p, s);
+    case AB_SAMPLE: return launch<R, true, false, AB_SAMPLE>(p, s);
+    case AB_GATES: return launch<R, true, false, AB_GATES>(p, s);
     case AB_SAMPLE | AB_GATES:
-      return launch<R, true, AB_SAMPLE | AB_GATES>(p, s);
-    case AB_COND_READ: return launch<R, true, AB_COND_READ>(p, s);
-    case AB_OUT_WRITE: return launch<R, true, AB_OUT_WRITE>(p, s);
+      return launch<R, true, false, AB_SAMPLE | AB_GATES>(p, s);
+    case AB_COND_READ: return launch<R, true, false, AB_COND_READ>(p, s);
+    case AB_OUT_WRITE: return launch<R, true, false, AB_OUT_WRITE>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -535,18 +580,22 @@ extern "C" int wavernn_decode(const void* const* ptrs, const long long* dims,
   p.s_hh1 = static_cast<const float*>(ptrs[i++]);
   p.b1 = static_cast<const float*>(ptrs[i++]);
   p.b_hh1_n = static_cast<const float*>(ptrs[i++]);
-  p.w_ih2x = static_cast<const __nv_bfloat16*>(ptrs[i++]);
+  p.w_ih2x = ptrs[i++];
   p.w_hh2 = ptrs[i++];
   p.s_hh2 = static_cast<const float*>(ptrs[i++]);
   p.b2 = static_cast<const float*>(ptrs[i++]);
   p.b_hh2_n = static_cast<const float*>(ptrs[i++]);
-  p.w_fc1x = static_cast<const __nv_bfloat16*>(ptrs[i++]);
+  p.w_fc1x = ptrs[i++];
   p.b_fc1 = static_cast<const float*>(ptrs[i++]);
-  p.w_fc2x = static_cast<const __nv_bfloat16*>(ptrs[i++]);
+  p.w_fc2x = ptrs[i++];
   p.b_fc2 = static_cast<const float*>(ptrs[i++]);
   p.w_aux = static_cast<const __nv_bfloat16*>(ptrs[i++]);
   p.w_fc3 = static_cast<const __nv_bfloat16*>(ptrs[i++]);
   p.b_fc3 = static_cast<const float*>(ptrs[i++]);
+  p.fs_ih2 = static_cast<const float*>(ptrs[i++]);
+  p.fs_fc1 = static_cast<const float*>(ptrs[i++]);
+  p.fs_fc2 = static_cast<const float*>(ptrs[i++]);
+  p.ffq = static_cast<const float*>(ptrs[i++]);
   p.B = (int)dims[0]; p.Tc = (int)dims[1]; p.C = (int)dims[2];
   p.T = (int)dims[3]; p.H = (int)dims[4]; p.F = (int)dims[5];
   p.feat = (int)dims[6]; p.d = (int)dims[7]; p.n_out = (int)dims[8];
@@ -555,12 +604,17 @@ extern "C" int wavernn_decode(const void* const* ptrs, const long long* dims,
   const int R = (int)dims[12];
   p.seed = (uint32_t)dims[13];
   const int mask = (int)dims[14];
+  const bool int8_ff = dims[15] != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask != 0) {
-    if (!int8_hh || R != ABLATION_R) return cudaErrorInvalidValue;
+    if (!int8_hh || int8_ff || R != ABLATION_R) return cudaErrorInvalidValue;
     return launch_ablated(p, mask, s);
   }
-  return int8_hh ? launch_rows<true>(p, R, s) : launch_rows<false>(p, R, s);
+  if (int8_hh)
+    return int8_ff ? launch_rows<true, true>(p, R, s)
+                   : launch_rows<true, false>(p, R, s);
+  return int8_ff ? launch_rows<false, true>(p, R, s)
+                 : launch_rows<false, false>(p, R, s);
 }
 
 extern "C" const char* wavernn_error_string(int err) {

@@ -257,6 +257,16 @@ __device__ __forceinline__ float psum(const int* part, int S, int N, int n,
   return __int2float_rn(s);
 }
 
+// Byte k of row r of an int8 activation packed four k rows to a word,
+// [K / 4][R], as dot_i8 reads it (byte b of a word is k row 4 * (k / 4) +
+// b), set to q in [-128, 127]: a thread that owns column k of an epilogue
+// writes its own byte, and no packing pass is needed.
+template <int R>
+__device__ __forceinline__ void store_i8(uint32_t* aq, int k, int r, int q) {
+  reinterpret_cast<int8_t*>(aq)[((k / 4) * R + r) * 4 + k % 4] =
+      static_cast<int8_t>(q);
+}
+
 // An int8 activation [K][R] (float, integer-valued after rintf(v * 127))
 // packed four k rows to a word, [K / 4][R]; ``hi`` gets the planes' high
 // bytes (q = 256 * hi + lo).  Returns whether any value left the int8 range.

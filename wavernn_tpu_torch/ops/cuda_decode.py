@@ -14,12 +14,18 @@ operands whose exact products are summed in float64 and rounded to f32:
     xi   = x*w_x + seg0 @ w_Im + b_I              through the I layer)
     h1   = gru(gi1, h1 @ w_hh1)                  (int8 or bf16 w_hh1)
     xr   = xi + h1
-    h2   = gru(bf(xr) @ w_ih2x + seg1 @ w_aux[:, :3H], h2 @ w_hh2)
+    h2   = gru(ff(xr, 0) @ w_ih2x + seg1 @ w_aux[:, :3H], h2 @ w_hh2)
     xr   = xr + h2
-    f1   = relu(bf(xr) @ w_fc1x + seg1 @ w_aux[:, 3H:3H+F] + b_fc1)
-    f2   = relu(bf(f1) @ w_fc2x + seg1 @ w_aux[:, 3H+F:] + b_fc2)
+    f1   = relu(ff(xr, 1) @ w_fc1x + seg1 @ w_aux[:, 3H:3H+F] + b_fc1)
+    f2   = relu(ff(f1, 2) @ w_fc2x + seg1 @ w_aux[:, 3H+F:] + b_fc2)
     logits = bf(f2) @ w_fc3 + b_fc3
     x    = sample(logits)                        (RAW or MOL, drawn or modal)
+
+``ff(a, i)`` is ``bf(a)`` with bf16 feed-forward matrices.  With int8 ones
+(the TPU kernel's ``int8_ff``), it is ``round(clip(a * ffq[i], +-127))``
+(half to even) at the calibrated multiplier ``ffq = 127 / S``, the dot sums
+the int8 products exactly, and its sum is multiplied by the column's fused
+scale ``*_fs`` (weight scale x S / 127).
 
 The TPU kernel's random bits (``pltpu.prng_*``) become a counter-based hash
 of (seed, fold row, step, lane), so the plain version reproduces the
@@ -67,6 +73,7 @@ WEIGHT_ORDER = (
     "w_ih2x", "w_hh2", "w_hh2_s", "b2", "b_hh2_n",
     "w_fc1x", "b_fc1", "w_fc2x", "b_fc2",
     "w_aux", "w_fc3", "b_fc3",
+    "w_ih2x_fs", "w_fc1x_fs", "w_fc2x_fs", "ffq",
 )
 
 
@@ -79,12 +86,21 @@ def q8(mat: torch.Tensor):
 
 
 def pack_weights(w: DecodeWeights, feat: int, aux_d: int,
-                 int8_hh: bool = True) -> dict:
+                 int8_hh: bool = True, int8_ff: bool = False,
+                 ff_scales=None) -> dict:
     """The kernel's weight set (``pallas_decode.pack_weights`` without the
     lane padding).  Conditioning rows are [mel | a1 | a2 | a3 | a4]:
     ``w_Im``/``w_Im1`` take the first feat+aux_d of them, the fused
     ``w_aux`` the last 3*aux_d, with columns [gru2 (3H) | fc1 (F) | fc2 (F)]
-    and each block's rows at its own aux stream (zero elsewhere)."""
+    and each block's rows at its own aux stream (zero elsewhere).
+
+    ``int8_ff`` stores the three feed-forward matrices (GRU2's ``w_ih[:H]``,
+    FC1's ``w[:H]``, FC2's ``w[:F]``) as per-column int8, each with its
+    scale fused with its operand's calibrated bound, ``*_fs = s_w * (S *
+    (1/127))`` in float32 (the reference's order), and adds ``ffq = 127 /
+    S``: ``ff_scales`` is the (3,) bound S of [xr after GRU1, xr after
+    GRU2, relu(fc1)] (:func:`ops.decode.ff_ranges`); it raises without
+    them."""
     bf = lambda a: a.to(torch.bfloat16).contiguous()
     f32 = lambda a: a.float().contiguous()
     H = w.gru1_w_hh.shape[0]
@@ -113,6 +129,27 @@ def pack_weights(w: DecodeWeights, feat: int, aux_d: int,
         w_hh1, w_hh1_s = bf(w.gru1_w_hh), None
         w_hh2, w_hh2_s = bf(w.gru2_w_hh), None
 
+    ff = {}
+    if int8_ff:
+        if ff_scales is None:
+            raise ValueError("int8_ff needs calibrated ff_scales")
+        S = torch.as_tensor(ff_scales, dtype=torch.float32,
+                            device=ih1.device)
+        if S.shape != (3,):
+            raise ValueError(f"ff_scales must be (3,), got {tuple(S.shape)}")
+        s_act = S * (1.0 / 127.0)
+        for i, (name, mat) in enumerate((("w_ih2x", w.gru2_w_ih[:H]),
+                                         ("w_fc1x", w.fc1_w[:H]),
+                                         ("w_fc2x", w.fc2_w[:F]))):
+            q, s = q8(mat)
+            ff[name] = q.contiguous()
+            ff[name + "_fs"] = (s * s_act[i]).contiguous()
+        # a true division (``127.0 / S`` would multiply by 1/S)
+        ff["ffq"] = torch.full_like(S, 127.0) / S
+    else:
+        ff = dict(w_ih2x=bf(w.gru2_w_ih[:H]), w_fc1x=bf(w.fc1_w[:H]),
+                  w_fc2x=bf(w.fc2_w[:F]))
+
     d = aux_d
     w_aux = torch.zeros(3 * d, 3 * H + 2 * F, dtype=torch.float32,
                         device=ih1.device)
@@ -124,13 +161,17 @@ def pack_weights(w: DecodeWeights, feat: int, aux_d: int,
         w_Im1=bf(w_Im1), u1=f32(u1),
         w_Im=bf(I_w[1:]), w_x=f32(I_w[0]), b_I=f32(w.I_b),
         w_hh1=w_hh1.contiguous(), w_hh1_s=w_hh1_s, b1=b1, b_hh1_n=b_hh1_n,
-        w_ih2x=bf(w.gru2_w_ih[:H]),
         w_hh2=w_hh2.contiguous(), w_hh2_s=w_hh2_s, b2=b2, b_hh2_n=b_hh2_n,
-        w_fc1x=bf(w.fc1_w[:H]), b_fc1=f32(w.fc1_b),
-        w_fc2x=bf(w.fc2_w[:F]), b_fc2=f32(w.fc2_b),
+        b_fc1=f32(w.fc1_b), b_fc2=f32(w.fc2_b),
         w_aux=bf(w_aux),
         w_fc3=bf(w.fc3_w), b_fc3=f32(w.fc3_b),
+        **ff,
     )
+
+
+def is_int8_ff(packed: dict) -> bool:
+    """Whether a pack holds int8 feed-forward matrices."""
+    return packed["w_ih2x"].dtype == torch.int8
 
 
 def pack_stream(mels_up: torch.Tensor, aux_mel: torch.Tensor,
@@ -242,11 +283,16 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
     model's sample loop carries such a difference forward.  The int8
     recurrent dot multiplies integers, exact while H*127**2 < 2**24.  The
     gate arithmetic is float32, one rounding per operation, in the
-    kernel's order.  ``ablate`` as in the module's docstring."""
+    kernel's order.  With int8 feed-forward matrices the operand is
+    quantized as the module's docstring says (a float32 multiply, the
+    clip, ``torch.round``: half to even, as ``rintf``) and the integer
+    products are summed exactly, as the kernel's ``dp4a`` does.
+    ``ablate`` as in the module's docstring."""
     ablation_mask(ablate)
     _check(packed, cond, T, mode)
     f = {k: (v.float() if v is not None and v.dtype != torch.int8 else v)
          for k, v in packed.items()}
+    int8_ff = is_int8_ff(packed)
     w64 = {k: packed[k].double() for k in (
         "w_Im1", "w_Im", "w_hh1", "w_ih2x", "w_hh2", "w_fc1x", "w_fc2x",
         "w_aux", "w_fc3")}
@@ -266,6 +312,12 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
             acc = mm(torch.round(h * 127.0), name)
             return acc * (f[name + "_s"] * (1.0 / 127.0))
         return mm(bfr(h), name)
+
+    def gdot_ff(a, name, i):
+        if int8_ff:
+            qa = torch.round(torch.clamp(a * f["ffq"][i], -127.0, 127.0))
+            return mm(qa, name) * f[name + "_fs"]
+        return mm(bfr(a), name)
 
     def gates(gi, gh, h, b, b_hh_n):
         if "gates" in ablate:
@@ -291,12 +343,12 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
         xi = x * f["w_x"] + mm(seg0, "w_Im") + f["b_I"]
         h1 = gates(gi1, gdot_h(h1, "w_hh1"), h1, f["b1"], f["b_hh1_n"])
         xr = xi + h1
-        gi2 = mm(bfr(xr), "w_ih2x") + aux_all[:, :H3]
+        gi2 = gdot_ff(xr, "w_ih2x", 0) + aux_all[:, :H3]
         h2 = gates(gi2, gdot_h(h2, "w_hh2"), h2, f["b2"], f["b_hh2_n"])
         xr = xr + h2
-        f1 = torch.relu(mm(bfr(xr), "w_fc1x") + aux_all[:, H3:H3 + F]
+        f1 = torch.relu(gdot_ff(xr, "w_fc1x", 1) + aux_all[:, H3:H3 + F]
                         + f["b_fc1"])
-        f2 = torch.relu(mm(bfr(f1), "w_fc2x") + aux_all[:, H3 + F:]
+        f2 = torch.relu(gdot_ff(f1, "w_fc2x", 2) + aux_all[:, H3 + F:]
                         + f["b_fc2"])
         logits = mm(bfr(f2), "w_fc3") + f["b_fc3"]
 
@@ -342,17 +394,20 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
            ablate: frozenset = frozenset(),
            rows_per_cta: int = ROWS_PER_CTA) -> torch.Tensor:
     """(B, T) float32 samples of the sample loop over fold-major bf16
-    conditioning ``cond`` (B, >=T, C).  int8 recurrent matrices are used
-    when ``packed`` holds them.  ``rows_per_cta`` (1 or 2) is the kernel's
+    conditioning ``cond`` (B, >=T, C).  int8 recurrent matrices and int8
+    feed-forward matrices (with their ``ffq``) are used when ``packed``
+    holds them (:func:`pack_weights`).  ``rows_per_cta`` (1 or 2) is the kernel's
     fold rows per CTA; ``ablate`` as in the module's docstring (the kernel
     is built with the ablations in :data:`KERNEL_ABLATIONS`, for int8
     recurrent matrices and :data:`ROWS_PER_CTA` rows per CTA).  The
-    kernel's 16-byte weight loads take H a multiple of 16 and F of 8, and
-    16-byte aligned weights; other shapes raise.
+    kernel's 16-byte weight loads take H a multiple of 16 and F of 8 (of 16
+    with int8 feed-forward matrices), and 16-byte aligned weights; other
+    shapes raise.
 
     A CUDA tensor launches the kernel (``csrc/decode.cu``) on the current
     stream; a CPU tensor runs :func:`decode_reference`.  ``decode.launches``
-    counts kernel launches."""
+    counts kernel launches, ``decode.launches_int8_ff`` those with int8
+    feed-forward matrices."""
     mask = ablation_mask(ablate)
     if rows_per_cta not in (1, 2):
         raise ValueError(f"rows_per_cta must be 1 or 2, got {rows_per_cta}")
@@ -370,42 +425,53 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     K0 = packed["w_Im"].shape[0]
     n_out = packed["b_fc3"].shape[0]
     int8_hh = packed["w_hh1"].dtype == torch.int8
+    int8_ff = is_int8_ff(packed)
     if n_out != n_classes:
         raise ValueError(f"fc3 has {n_out} outputs, n_classes={n_classes}")
     if mask and (frozenset(ablate) not in KERNEL_ABLATIONS or not int8_hh
-                 or rows_per_cta != ROWS_PER_CTA):
+                 or int8_ff or rows_per_cta != ROWS_PER_CTA):
         raise ValueError(
             f"the kernel is built with the ablations "
-            f"{[sorted(a) for a in KERNEL_ABLATIONS[1:]]} for int8_hh and "
-            f"{ROWS_PER_CTA} row(s) per CTA; got {sorted(ablate)}, "
-            f"int8_hh={int8_hh}, rows_per_cta={rows_per_cta}")
+            f"{[sorted(a) for a in KERNEL_ABLATIONS[1:]]} for int8_hh, bf16 "
+            f"feed-forward matrices and {ROWS_PER_CTA} row(s) per CTA; got "
+            f"{sorted(ablate)}, int8_hh={int8_hh}, int8_ff={int8_ff}, "
+            f"rows_per_cta={rows_per_cta}")
     if mode == "MOL" and (n_out % 3 or n_out // 3 > 32):
         raise ValueError(f"MOL kernel takes 3*nm outputs with nm <= 32, "
                          f"got {n_out}")
-    if H % 16 or F % 8:
+    if H % 16 or F % (16 if int8_ff else 8):
         raise ValueError(f"the kernel's 16-byte weight loads take H a "
-                         f"multiple of 16 and F of 8, got H={H}, F={F}")
+                         f"multiple of 16 and F of 8 (16 with int8_ff), got "
+                         f"H={H}, F={F}, int8_ff={int8_ff}")
     if not cond.is_contiguous():
         raise ValueError("cond must be contiguous")
+    ff_dtype = torch.int8 if int8_ff else torch.bfloat16
     shapes = dict(
         w_Im1=((K0, 3 * H), torch.bfloat16), u1=((3 * H,), torch.float32),
         w_Im=((K0, H), torch.bfloat16), w_x=((H,), torch.float32),
         b_I=((H,), torch.float32),
         w_hh1=((H, 3 * H), torch.int8 if int8_hh else torch.bfloat16),
         b1=((3 * H,), torch.float32), b_hh1_n=((H,), torch.float32),
-        w_ih2x=((H, 3 * H), torch.bfloat16),
+        w_ih2x=((H, 3 * H), ff_dtype),
         w_hh2=((H, 3 * H), torch.int8 if int8_hh else torch.bfloat16),
         b2=((3 * H,), torch.float32), b_hh2_n=((H,), torch.float32),
-        w_fc1x=((H, F), torch.bfloat16), b_fc1=((F,), torch.float32),
-        w_fc2x=((F, F), torch.bfloat16), b_fc2=((F,), torch.float32),
+        w_fc1x=((H, F), ff_dtype), b_fc1=((F,), torch.float32),
+        w_fc2x=((F, F), ff_dtype), b_fc2=((F,), torch.float32),
         w_aux=((3 * d, 3 * H + 2 * F), torch.bfloat16),
         w_fc3=((F, n_out), torch.bfloat16), b_fc3=((n_out,), torch.float32),
     )
     if int8_hh:
         shapes.update(w_hh1_s=((3 * H,), torch.float32),
                       w_hh2_s=((3 * H,), torch.float32))
+    if int8_ff:
+        shapes.update(w_ih2x_fs=((3 * H,), torch.float32),
+                      w_fc1x_fs=((F,), torch.float32),
+                      w_fc2x_fs=((F,), torch.float32),
+                      ffq=((3,), torch.float32))
     for name, (shape, dtype) in shapes.items():
-        t = packed[name]
+        t = packed.get(name)
+        if t is None:
+            raise ValueError(f"packed[{name!r}] is missing")
         if (tuple(t.shape) != shape or t.dtype != dtype
                 or t.device != cond.device or not t.is_contiguous()
                 or t.data_ptr() % 16):
@@ -423,7 +489,7 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
         for k in WEIGHT_ORDER]
     dims = [B, Tc, C, T, H, F, K0 - d, d, n_out, _MODES[mode],
             int(deterministic), int(int8_hh), rows_per_cta, seed & 0xFFFFFFFF,
-            mask]
+            mask, int(int8_ff)]
     stream = torch.cuda.current_stream(cond.device).cuda_stream
     with torch.cuda.device(cond.device):
         err = lib.wavernn_decode(
@@ -434,7 +500,9 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
         raise RuntimeError(f"decode kernel launch failed: "
                            f"{lib.wavernn_error_string(err).decode()}")
     decode.launches += 1
+    decode.launches_int8_ff += int(int8_ff)
     return out
 
 
 decode.launches = 0
+decode.launches_int8_ff = 0

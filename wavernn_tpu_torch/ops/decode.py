@@ -9,7 +9,10 @@ version for CPU tensors.  ``backend='scan'`` runs :func:`decode_scan`, the
 float32 reference decoder.  Frame and fold bucketing follow the JAX package
 exactly, so both packages decode the same folds of the same lengths; the
 kernel's conditioning is exactly ``target + 2*overlap`` steps long (no TPU
-chunk rounding).
+chunk rounding).  Each kernel launch streams bf16 or int8 feed-forward
+matrices as :func:`int8_ff_policy` decides for its width; the int8 ones
+quantize their operands at bounds :func:`ff_ranges` calibrates once per
+Generator.
 
 Every launch, finalize and host copy is queued on the current CUDA stream,
 and nothing on the serving paths waits for the card except ``collect``:
@@ -78,18 +81,48 @@ def extract_decode_weights(model: WaveRNN) -> DecodeWeights:
 
 
 def decode_step(w: DecodeWeights, x, h1, h2, m_t, a1_t, a2_t, a3_t, a4_t):
-    """One float32 sample step: (B, 1) sample + conditioning -> logits and
-    the new state."""
+    """One float32 sample step: (B, 1) sample + conditioning -> logits,
+    the new state, and the operands of the three feed-forward dots
+    ``(xr, xr2, f1)``: xr after GRU1 (GRU2's input), after GRU2 (FC1's)
+    and relu(fc1) (FC2's)."""
     xi = torch.cat([x, m_t, a1_t], dim=-1) @ w.I_w + w.I_b
     h1 = gru_cell_step(xi, h1, w.gru1_w_ih, w.gru1_w_hh, w.gru1_b_ih,
                        w.gru1_b_hh)
-    x = xi + h1
-    h2 = gru_cell_step(torch.cat([x, a2_t], dim=-1), h2, w.gru2_w_ih,
+    xr = xi + h1
+    h2 = gru_cell_step(torch.cat([xr, a2_t], dim=-1), h2, w.gru2_w_ih,
                        w.gru2_w_hh, w.gru2_b_ih, w.gru2_b_hh)
-    x = x + h2
-    x = torch.relu(torch.cat([x, a3_t], dim=-1) @ w.fc1_w + w.fc1_b)
-    x = torch.relu(torch.cat([x, a4_t], dim=-1) @ w.fc2_w + w.fc2_b)
-    return x @ w.fc3_w + w.fc3_b, h1, h2
+    xr2 = xr + h2
+    f1 = torch.relu(torch.cat([xr2, a3_t], dim=-1) @ w.fc1_w + w.fc1_b)
+    f2 = torch.relu(torch.cat([f1, a4_t], dim=-1) @ w.fc2_w + w.fc2_b)
+    return f2 @ w.fc3_w + w.fc3_b, h1, h2, (xr, xr2, f1)
+
+
+def _draw(logits: torch.Tensor, mode: str, n_classes: int,
+          deterministic: bool, rand) -> torch.Tensor:
+    """One step's (B,) samples from its logits: the mode (deterministic)
+    or a draw with uniforms from ``rand(*shape)``."""
+    B = logits.shape[0]
+    if mode == "MOL":
+        nm = logits.shape[-1] // 3
+        if deterministic:
+            sel = torch.argmax(logits[:, :nm], dim=-1, keepdim=True)
+            sample = torch.gather(logits[:, nm:2 * nm], 1, sel)[:, 0]
+            return torch.clamp(sample, -1.0, 1.0)
+        return mol_ops.sample_from_discretized_mix_logistic(
+            logits, rand(B, nm), rand(B))
+    if deterministic:
+        cls = torch.argmax(logits, dim=-1)
+    else:
+        u = rand(*logits.shape).clamp(1e-10, 1.0 - 1e-7)
+        cls = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+    return 2.0 * cls.float() / (n_classes - 1.0) - 1.0
+
+
+def _check_mode(mode: str, deterministic: bool, generator) -> None:
+    if mode not in ("RAW", "MOL"):
+        raise ValueError(f"Unknown mode {mode}")
+    if not deterministic and generator is None:
+        raise ValueError("sampling mode needs a torch.Generator")
 
 
 def decode_scan(weights: DecodeWeights, mels_up: torch.Tensor,
@@ -99,10 +132,7 @@ def decode_scan(weights: DecodeWeights, mels_up: torch.Tensor,
     """The full float32 sample loop over (B, T, feat) mels and (B, T, 4d)
     aux: (B, T) samples.  Sampling mode draws its uniforms from
     ``generator``."""
-    if mode not in ("RAW", "MOL"):
-        raise ValueError(f"Unknown mode {mode}")
-    if not deterministic and generator is None:
-        raise ValueError("sampling mode needs a torch.Generator")
+    _check_mode(mode, deterministic, generator)
     B, T, _ = mels_up.shape
     H = weights.gru1_w_hh.shape[0]
     d = aux.shape[-1] // 4
@@ -114,51 +144,132 @@ def decode_scan(weights: DecodeWeights, mels_up: torch.Tensor,
     rand = lambda *shape: torch.rand(*shape, generator=generator, device=dev)
     for t in range(T):
         a = aux[:, t]
-        logits, h1, h2 = decode_step(
+        logits, h1, h2, _ = decode_step(
             weights, x, h1, h2, mels_up[:, t], a[:, :d], a[:, d:2 * d],
             a[:, 2 * d:3 * d], a[:, 3 * d:])
-        if mode == "MOL":
-            nm = logits.shape[-1] // 3
-            if deterministic:
-                sel = torch.argmax(logits[:, :nm], dim=-1, keepdim=True)
-                sample = torch.gather(logits[:, nm:2 * nm], 1, sel)[:, 0]
-                sample = torch.clamp(sample, -1.0, 1.0)
-            else:
-                sample = mol_ops.sample_from_discretized_mix_logistic(
-                    logits, rand(B, nm), rand(B))
-        else:
-            if deterministic:
-                cls = torch.argmax(logits, dim=-1)
-            else:
-                u = rand(*logits.shape).clamp(1e-10, 1.0 - 1e-7)
-                cls = torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
-            sample = 2.0 * cls.float() / (n_classes - 1.0) - 1.0
+        sample = _draw(logits, mode, n_classes, deterministic, rand)
         out[:, t] = sample
         x = sample[:, None]
     return out
+
+
+# int8_ff calibration: the reference's decode length and headroom over the
+# observed |max| (wavernn_tpu/ops/decode.py FF_CAL_STEPS, FF_CAL_MARGIN),
+# its floor on a bound, and the seed of its draws (PRNGKey(17))
+FF_CAL_STEPS = 4096
+FF_CAL_MARGIN = 1.3
+FF_CAL_FLOOR = 1e-3
+FF_CAL_SEED = 17
+
+
+def ff_ranges(weights: DecodeWeights, rows: torch.Tensor, mode: str,
+              n_classes: int, generator: torch.Generator) -> torch.Tensor:
+    """Calibrate the int8 feed-forward operands' fixed bounds: a float32
+    B=1 sampling decode of the first min(N, FF_CAL_STEPS) rows of a packed
+    (N, feat + 4d) conditioning stream (``cuda_decode.pack_stream``'s
+    layout [mel | a1 | a2 | a3 | a4]); returns the (3,) float32
+    max(|max| [xr, xr2, relu(fc1)] * FF_CAL_MARGIN, FF_CAL_FLOOR)
+    (:func:`decode_step`'s three operands), on the rows' device.  The
+    kernel clips at these bounds, so rare outliers past the margin
+    saturate.
+
+    The decode runs on the rows' device.  Its uniforms are drawn from
+    ``generator`` up front, in one call on the generator's device, and
+    moved to the rows' device once: a CPU generator gives a Generator on
+    the card and one on the CPU the same draws.  On the card one step is
+    captured in a CUDA graph and replayed per row: the eager step's ~50
+    small launches from the host made the 4,096 steps take 4.9 s on an
+    H100."""
+    _check_mode(mode, False, generator)
+    H = weights.gru1_w_hh.shape[0]
+    d = weights.fc1_w.shape[0] - H
+    feat = rows.shape[1] - 4 * d
+    dev = rows.device
+    rows = rows[:FF_CAL_STEPS].float()
+    n_u = n_classes // 3 + 1 if mode == "MOL" else n_classes
+    uniforms = torch.rand(rows.shape[0], n_u, generator=generator,
+                          device=generator.device).to(dev)
+    # the step's inputs and state live in fixed tensors, updated in place,
+    # so that a captured step replays over them
+    row = torch.zeros(1, rows.shape[1], device=dev)
+    u = torch.zeros(n_u, device=dev)
+    x = torch.zeros(1, 1, device=dev)
+    h1 = torch.zeros(1, H, device=dev)
+    h2 = torch.zeros(1, H, device=dev)
+    mx = torch.zeros(3, device=dev)
+
+    def step():
+        a = [row[:, feat + i * d:feat + (i + 1) * d] for i in range(4)]
+        logits, h1_, h2_, (xr, xr2, f1) = decode_step(
+            weights, x, h1, h2, row[:, :feat], *a)
+        mx.copy_(torch.maximum(mx, torch.stack([
+            xr.abs().max(), xr2.abs().max(), f1.max()])))
+        x.copy_(_draw(logits, mode, n_classes, False, _Uniforms(u))[:, None])
+        h1.copy_(h1_)
+        h2.copy_(h2_)
+
+    run = step
+    if dev.type == "cuda":
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            step()                   # warm-up outside the capture
+        torch.cuda.current_stream(dev).wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        for t in (x, h1, h2, mx):    # the warm-up's step, undone
+            t.zero_()
+        run = graph.replay
+    for t in range(rows.shape[0]):
+        row.copy_(rows[t:t + 1])
+        u.copy_(uniforms[t])
+        run()
+    return torch.clamp(mx * FF_CAL_MARGIN, min=FF_CAL_FLOOR)
+
+
+class _Uniforms:
+    """``rand(*shape)`` over one step's pre-drawn uniforms: each call takes
+    the next ``prod(shape)`` of them."""
+
+    def __init__(self, row: torch.Tensor):
+        self.row, self.used = row, 0
+
+    def __call__(self, *shape) -> torch.Tensor:
+        n = math.prod(shape)
+        out = self.row[self.used:self.used + n].reshape(shape)
+        self.used += n
+        return out
 
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
-def int8_ff_policy(int8_ff: Optional[bool], n_folds: int) -> bool:
-    """Whether a kernel dispatch over ``n_folds`` fold rows (the kernel
-    width the reference's rule reads) streams int8 feed-forward matrices
-    (GRU2's input matrix, FC1 and FC2).
+# The H100's int8_ff crossover: the fewest fold rows of a launch from
+# which ``int8_ff=None`` ("auto") streams int8 feed-forward matrices (None
+# would mean never).  Measured by ``python -m
+# wavernn_tpu_torch.tools.step_opt_probe --ab`` (golden MOL, sampling,
+# 2,048 steps; NVIDIA H100 80GB HBM3, 700.00 W): int8_hh against int8_hh +
+# int8_ff, median us/step, 72.72 / 54.41 at 4 rows, 72.98 / 54.31 at 16,
+# 73.22 / 55.34 at 48, 73.14 / 55.37 at 64, 81.32 / 62.78 at 132 and
+# 157.91 / 120.81 at 240 (-22.8% to -25.6%).  Each fold row has its own
+# CTA, so a row's step costs the same at every width up to one wave: int8
+# wins from one row (chip_smoke.py's sweep measures 1 row too, and fails
+# if the policy turns the variant on where it lost).  The TPU's 64 does not
+# carry over.
+FF_AUTO_MIN_ROWS: Optional[int] = 1
 
-    The H100 policy: no, at every width, until the H100's crossover is
-    measured.  ``None`` is the reference's default ``"auto"``, which turns
-    them on once the kernel width reaches 64 rows
-    (``wavernn_tpu/ops/decode.py:1370-1384``, ``FF_AUTO_MIN_KERNEL_B``), a
-    crossover measured on the TPU; here it resolves to off, so the kernel
-    streams bf16 feed-forward matrices.  ``True`` raises: the int8
-    feed-forward path and its calibration are not ported."""
-    if int8_ff:
-        raise NotImplementedError(
-            "int8_ff (calibrated int8 feed-forward matrices) is not "
-            "ported yet")
-    return False
+
+def int8_ff_policy(int8_ff: Optional[bool], rows: int) -> bool:
+    """Whether a decode launch over ``rows`` fold rows (after the fold
+    bucket) streams int8 feed-forward matrices (GRU2's input matrix, FC1
+    and FC2) at calibrated activation bounds.  ``True`` and ``False``
+    force it; ``None`` is the reference's ``"auto"``: on from
+    :data:`FF_AUTO_MIN_ROWS` rows."""
+    if int8_ff is not None:
+        return bool(int8_ff)
+    return FF_AUTO_MIN_ROWS is not None and rows >= FF_AUTO_MIN_ROWS
 
 
 def fold_spans(needed: int, group: int, first_group: Optional[int] = None):
@@ -410,11 +521,17 @@ class Generator:
     tail fade on the host) or int16 PCM / mulaw8 (8-bit mu-law labels,
     mu = 256), faded and quantized on the device.
 
-    ``int8_ff=None`` (the reference's ``"auto"``) resolves to bf16
-    feed-forward matrices at every width: :func:`int8_ff_policy`.
+    ``int8_ff``: whether a kernel launch streams int8 feed-forward
+    matrices, per launch width (:func:`int8_ff_policy`; ``None`` is
+    "auto").  Their activation bounds are calibrated once per Generator
+    (:func:`ff_ranges`, seed 17) on the first conditioning a launch that
+    the policy turns on would decode: eagerly in :meth:`submit`,
+    :meth:`submit_batch` and (forced) :meth:`open_stream_session`, lazily
+    at a stream's first wide enough group, and at a ``StreamServer``'s
+    first wide enough launch.  The Generator then keeps both packs and
+    takes one per launch.  :meth:`update_variables` drops the scales.
 
-    Not ported (each raises): ``int8_ff=True`` and its calibration,
-    ``int8_gates``, a decode ``mesh``."""
+    Not ported (each raises): ``int8_gates``, a decode ``mesh``."""
 
     def __init__(self, cfg: WaveRNNConfig, variables, device,
                  backend: str = "kernel", fold_bucket: int = 4,
@@ -428,7 +545,6 @@ class Generator:
                                "not available")
         if backend not in ("kernel", "scan"):
             raise ValueError(f"unknown backend {backend!r}")
-        int8_ff_policy(int8_ff, fold_bucket)
         if int8_gates:
             raise NotImplementedError("int8_gates is not ported yet")
         if mesh is not None:
@@ -448,16 +564,21 @@ class Generator:
         self.packed_output = output_dtype in ("int16", "mulaw8")
         self.input_dtype = input_dtype
         self.int8_hh = int8_hh
+        self.int8_ff = None if int8_ff is None else bool(int8_ff)
         self.fade_len = 20 * cfg.hop_length
         self.update_variables(variables)
 
     def update_variables(self, variables) -> None:
-        """Swap in new model variables (e.g. a fresher checkpoint)."""
+        """Swap in new model variables (e.g. a fresher checkpoint).  The
+        int8_ff scales and pack are dropped with the old weights: the next
+        launch that takes them calibrates on the new ones."""
         self.model = from_jax_variables(variables, self.cfg, self.device)
         self.weights = extract_decode_weights(self.model)
         self.packed = (cuda_decode.pack_weights(
             self.weights, self.cfg.feat_dims, self.cfg.aux_dims,
             int8_hh=self.int8_hh) if self.backend == "kernel" else None)
+        self.ff_scales = None   # (3,) float32 bounds on the device
+        self.packed_ff = None   # the pack with int8 feed-forward matrices
 
     # -- one utterance --------------------------------------------------
 
@@ -496,7 +617,9 @@ class Generator:
                 f"target={mels.target}, overlap={mels.overlap}; submit got "
                 f"batched={batched}, target={target}, overlap={overlap} — "
                 "the fold geometry would be stale; re-prestage")
+        rows = self._pad_folds(mels.num_folds) if batched else 1
         with torch.no_grad():
+            self._ensure_ff_scales(mels.mels_dev, rows)
             out = self._full_pipeline(
                 mels.mels_dev, mels.num_folds, mels.wave_len, seed,
                 mu_law=mu_law, batched=batched, target=target,
@@ -586,6 +709,8 @@ class Generator:
                 "would be stale; re-prestage")
         b = mels_list
         with torch.no_grad():
+            self._ensure_ff_scales(b.batch_dev[:1],
+                                   self._pad_folds(sum(b.fold_counts)))
             out = self._batch_pipeline(
                 b.batch_dev, b.wave_lens, seed, t_buckets=b.t_buckets,
                 target=target, overlap=overlap, fold_counts=b.fold_counts,
@@ -651,6 +776,10 @@ class Generator:
                 mels_up, aux_mel = self.model.upsample_parts(mels_dev)
                 packed = _pad_rows(cuda_decode.pack_stream(
                     mels_up, aux_mel, c.total_scale), pad_to)
+                if self.int8_ff:
+                    # forced: calibrate now; "auto" calibrates at the first
+                    # launch wide enough (launch_group, StreamServer)
+                    self._calibrate_ff(packed)
                 return StreamSession(packed=packed, **geometry)
             mels_up, aux = self.model.upsample_only(mels_dev)
             mels_f = fold_ops.fold_with_overlap(mels_up, target, overlap)
@@ -676,6 +805,8 @@ class Generator:
                 if self.backend == "kernel":
                     starts = np.zeros(self._pad_folds(n), np.int64)
                     starts[:n] = np.arange(g0, g1) * stride
+                    if self._ff_policy(len(starts)):
+                        self._calibrate_ff(sess.packed)
                     return self._decode_rows(sess.packed, starts,
                                              sess.fold_T, seed + g0), n
                 return self._scan_rows(sess.mels_f[g0:g1],
@@ -741,6 +872,40 @@ class Generator:
         """Fold-count bucket: the decode runs this many rows, the padding
         rows masked out by :func:`finalize`."""
         return _round_up(n, self.fold_bucket)
+
+    # -- int8 feed-forward matrices -------------------------------------
+
+    def _ff_policy(self, rows: int) -> bool:
+        """Whether a kernel launch over ``rows`` fold rows takes the int8
+        feed-forward pack."""
+        return self.backend == "kernel" and int8_ff_policy(self.int8_ff,
+                                                           rows)
+
+    def _ensure_ff_scales(self, mels_dev: torch.Tensor, rows: int) -> None:
+        """Calibrate once, eagerly, before a launch over ``rows`` fold rows
+        that the policy turns on, on the conditioning of ``mels_dev`` (a
+        (1, T, feat) uploaded wire mel: a prestaged utterance or a batch's
+        first)."""
+        if not self._ff_policy(rows) or self.ff_scales is not None:
+            return
+        mels_up, aux_mel = self.model.upsample_parts(
+            self._ingress_f32(mels_dev))
+        self._calibrate_ff(cuda_decode.pack_stream(
+            mels_up, aux_mel, self.cfg.total_scale))
+
+    def _calibrate_ff(self, packed: torch.Tensor) -> None:
+        """The scales from a packed conditioning stream, and the int8
+        feed-forward pack, unless they exist already."""
+        if self.ff_scales is not None:
+            return
+        c = self.cfg
+        with torch.no_grad():
+            gen = torch.Generator().manual_seed(FF_CAL_SEED)
+            self.ff_scales = ff_ranges(self.weights, packed, c.mode,
+                                       c.n_classes, gen)
+            self.packed_ff = cuda_decode.pack_weights(
+                self.weights, c.feat_dims, c.aux_dims, int8_hh=self.int8_hh,
+                int8_ff=True, ff_scales=self.ff_scales)
 
     def _pad_mel(self, mels):
         """(n_mels, T_mel) or (1, n_mels, T_mel) mel -> its (1, t_bucket,
@@ -820,8 +985,18 @@ class Generator:
         return self._kernel(cond, fold_T, seed)
 
     def _kernel(self, cond: torch.Tensor, T: int, seed: int):
+        """One decode launch over ``cond``'s fold rows, with the pack the
+        int8_ff policy picks for its width."""
         c = self.cfg
-        return cuda_decode.decode(self.packed, cond, T, seed, mode=c.mode,
+        packed = self.packed
+        if self._ff_policy(cond.shape[0]):
+            if self.packed_ff is None:
+                raise RuntimeError(
+                    f"a launch over {cond.shape[0]} rows takes int8 "
+                    "feed-forward matrices, but the Generator has no "
+                    "calibrated scales")
+            packed = self.packed_ff
+        return cuda_decode.decode(packed, cond, T, seed, mode=c.mode,
                                   n_classes=c.n_classes,
                                   deterministic=self.deterministic)
 
