@@ -10,8 +10,9 @@ kernel-measurement path (the matmul floor and the decode kernel's
 variants) and the vocoder's serving paths (the MCD gate, the wire
 formats, co-batching, streaming and the multi-session StreamServer, all
 through the WaveRNN kernel, whose int8 feed-forward variant ``int8_ff``
-the width policy turns on).  Phases, in order; any failure exits non-zero and prints no
-result line:
+the width policy turns on), vocoder training and Tacotron training (whose
+trained model generates through both kernels).  Phases, in order; any
+failure exits non-zero and prints no result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
    toolchain (torch, CUDA, nvcc).
@@ -215,11 +216,48 @@ width (the golden MOL, f16 in, int16 out, ``fold_bucket=16``):
 30. The MCD gate with the variant forced: seeds 0-2 below 892.40, the
    deterministic MCD printed.
 
+Phases 31-33 train ``hparams.py``'s Tacotron at full width
+(``TacotronConfig.from_hp``, 11.1 M parameters, flax's init laws from seed
+0, dropout 0.5, zoneout 0.1, Adam, clip 1.0):
+
+31. One teacher-forced train step on the card against the CPU: B=4, a
+   40-symbol text, 48 frames at r=2, from ``np.random.default_rng(0)``;
+   the decoder's dropout and zoneout masks and the encoder prenet's
+   keep-masks drawn once on the CPU and given to both devices.  In
+   float64: the loss within 1e-12 relative, every gradient within 1e-9
+   relative L2, the BatchNorm statistics within 1e-9, the same ReLU masks.
+   In float32: the loss and the statistics within 1e-5, every gradient
+   within 1e-4 relative L2 (its gap printed per tensor), also with every
+   ReLU mask pinned to the float64 forward's (the flips are counted).
+32. The training path end to end, on phase 25's synthetic corpus (its
+   first 64 utterances, two whole batches of 32) with seeded word texts
+   in ``metadata.csv``, under ``build/chip_smoke/
+   tts_train/``: ``preprocess``; ``python -m
+   wavernn_tpu_torch.train_tacotron`` with ``tts_schedule`` cut to
+   sessions of two steps (r = 7, 5, 2; hparams' learning rates and
+   batches): a first run of session 1 only, then a run of all three that
+   must restore the pair and train sessions 2 and 3 only, the stored
+   learning rate going from session 1's to session 3's; the latest and
+   named pairs, the attention and mel plots (or their ``.npy``) and a GTA
+   mel for every utterance, shaped as its mel; ``train_wavernn --gta`` to
+   step 2 with an audition at its checkpoint; ``gen_wavernn --gta`` in process
+   on the GTA test set (the decode kernel's counter, set to 0 just before,
+   must read 2 just after); ``gen_tacotron --save_attention`` in process
+   from the step-6 checkpoint into the GTA-trained vocoder (both counters
+   must rise); the TTS kernel against its plain version on the trained
+   weights (phase 6's tolerances, 200 steps).
+33. ``tts_train_ms_per_step`` at ``tools/tts_train_probe.py``'s shape (B=16,
+   L=100, T=600, r=2, its seeded inputs): 2 warm-up steps, the median of 10
+   steps timed by CUDA events, then 5 steps under ``torch.profiler`` (the
+   card's activity only): its busy share, device events a step and the
+   top kernels by time.
+
 The decode kernel's launch counts (all launches, and those with int8
 feed-forward matrices) are set to 0 just before each main-path run and
 read just after; the record's ``launches`` sum phase 4's, phases 15-21's,
-phase 25's and phases 29-30's, split between the two variants, and the
-TTS kernel's sums phase 8's and phases 20-21's.
+phase 25's, phases 29-30's and phase 32's, split between the two
+variants, and the TTS kernel's sums phase 8's, phases 20-21's and phase
+32's.
 
 Float32 matmuls, convolutions and cuDNN's GRU run in full float32 (TF32
 off).  The last
@@ -321,8 +359,8 @@ def in_turns(run_plain, run_kernel):
     return outs[run_plain], outs[run_kernel], times[run_plain], times[run_kernel]
 
 
-# the decode kernel's launches in the main path's runs (phases 4, 15-21, 25
-# and 29-30): all of them, and those with int8 feed-forward matrices
+# the decode kernel's launches in the main path's runs (phases 4, 15-21,
+# 25, 29-30 and 32): all of them, and those with int8 feed-forward matrices
 MAIN_DECODE = {"all": 0, "int8_ff": 0}
 
 
@@ -367,6 +405,7 @@ def nvcc_version() -> str:
 def main():
     import torch
 
+    t_start = time.perf_counter()
     # -- 1. the card and the toolchain ----------------------------------
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
@@ -592,18 +631,31 @@ def main():
     voc_bound = {v: decode_bound(p, cond.shape[0], T, cond.shape[2])
                  for v, p in variants.items()}
 
+    def clock(phases: str):
+        print(f"phases {phases} done at {time.perf_counter() - t_start:.1f} "
+              "s", flush=True)
+
+    clock("1-5")
     tts = tts_phases(dev, card, wavio, GOLDEN)
+    clock("6-9")
     floor = measurement_phases(dev, card, golden_cfg, gen, eval_mel,
                                long_mels[0], errs)
+    clock("10-14")
     serving = serving_phases(dev, card, golden_cfg, golden, eval_mel, errs)
+    clock("15-19")
     text_serving = text_serving_phases(dev, card, golden_cfg, golden,
                                        eval_mel)
+    clock("20-23")
     training = training_phases(dev, card)
+    clock("24-26")
     ff = int8_ff_phases(dev, card, golden_cfg, golden, raw_cfg, tiny_raw,
                         eval_mel, raw_mel)
     errs_ff += ff["errs"]
+    clock("27-30")
+    tts_train = tts_training_phases(dev, card)
+    clock("31-33")
 
-    # -- 31. the record -------------------------------------------------
+    # -- 34. the record -------------------------------------------------
     n_ff = MAIN_DECODE["int8_ff"]
     n_bf = MAIN_DECODE["all"] - n_ff
     print(f"decode launches on the main path: {MAIN_DECODE['all']} "
@@ -611,7 +663,8 @@ def main():
           f"phase 4: {launches}, serving {serving['launches']}, text "
           f"serving {text_serving['decode_launches']}, training "
           f"{training['decode_launches']}, int8_ff serving "
-          f"{ff['launches']})")
+          f"{ff['launches']}, Tacotron training "
+          f"{tts_train['decode_launches']})")
     if n_bf == 0 or n_ff == 0:
         fail("a decode kernel variant was not launched on the main path")
     print(json.dumps({"kernels": [{
@@ -643,8 +696,9 @@ def main():
         "route": "cuda",
         "source": "wavernn_tpu_torch/ops/csrc/tts_decode.cu",
         "replaces": "wavernn_tpu/ops/pallas_tts.py:237",
-        "launches": tts["launches"] + text_serving["tts_launches"],
-        "max_abs_err": tts["max_abs_err"],
+        "launches": (tts["launches"] + text_serving["tts_launches"]
+                     + tts_train["tts_launches"]),
+        "max_abs_err": max(tts["max_abs_err"], tts_train["max_abs_err"]),
         "ms": tts["ms"],
         "plain_ms": tts["plain_ms"],
         "bound_ms": tts["bound_ms"],
@@ -680,6 +734,64 @@ def tts_hp_file(meta: dict) -> Path:
     return hp_file
 
 
+def tts_kernel_inputs(dev, cfg, variables, seq, L: int, r: int):
+    """The TTS kernel's inputs for one text: the weights packed at r, and
+    the encoder outputs of ``seq`` zero-padded to L symbols."""
+    import torch
+
+    from wavernn_tpu_torch.models.tacotron import from_jax_variables
+    from wavernn_tpu_torch.ops.tts_decode import (
+        extract_tts_decode_weights, pack_tts_weights,
+    )
+
+    model = from_jax_variables(variables, cfg, dev)
+    x = torch.zeros(1, L, dtype=torch.long)
+    x[0, :len(seq)] = torch.tensor(seq)
+    with torch.no_grad():
+        enc, encp = model.encode(x.to(dev))
+    packed = pack_tts_weights(extract_tts_decode_weights(model), r,
+                              cfg.n_mels)
+    return packed, enc[0].contiguous(), encp[0].contiguous()
+
+
+def tts_fresh_state(dev, packed, L: int):
+    from wavernn_tpu_torch.ops.tts_decode import (
+        init_tts_decode_state, packed_dims,
+    )
+
+    D, _, H, n_mels, _ = packed_dims(packed)
+    return init_tts_decode_state(D, H, L, n_mels, dev)
+
+
+def tts_compare(dev, tag, packed, enc, encp, n: int) -> float:
+    """Hold n steps of the TTS kernel against its plain version: the first
+    64 steps within 1e-3 on mels and scores, at least 99% of mel values
+    within 2e-2.  Returns the first 64 steps' max |d|."""
+    import torch
+
+    from wavernn_tpu_torch.ops import cuda_tts
+    from wavernn_tpu_torch.ops.tts_decode import tts_decode_reference
+
+    L = enc.shape[0]
+    mk, sk, _, _ = cuda_tts.tts_decode(packed, enc, encp,
+                                       tts_fresh_state(dev, packed, L), n)
+    torch.cuda.synchronize()
+    mp, sp, _, _ = tts_decode_reference(packed, enc, encp,
+                                        tts_fresh_state(dev, packed, L), n)
+    dm, ds = (mk - mp).abs(), (sk - sp).abs()
+    first = max(float(dm[:64].max()), float(ds[:64].max()))
+    agree = float((dm <= 2e-2).float().mean())
+    ok = first <= 1e-3 and agree >= 0.99
+    print(f"tts kernel vs plain [{tag}] L {L} steps {n}: first-64 "
+          f"max|d| mel {float(dm[:64].max()):.3g} score "
+          f"{float(ds[:64].max()):.3g}, mel within 2e-2 {agree:.5f}, "
+          f"max|d| mel {float(dm.max()):.3g} score {float(ds.max()):.3g}"
+          f" -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok or not torch.isfinite(mk).all():
+        fail(f"the TTS kernel disagrees with its plain version [{tag}]")
+    return first
+
+
 def tts_phases(dev, card, wavio, voc_weights) -> dict:
     """Phases 6-9: the Tacotron kernel against its plain version, the TTS
     gate, the text -> wav path and its CLI.  Returns the kernel's record."""
@@ -689,13 +801,12 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     from wavernn_tpu_torch.infer.pipeline import TTSPipeline
     from wavernn_tpu_torch.infer.tacotron import TTSGenerator
     from wavernn_tpu_torch.models.tacotron import (
-        TacotronConfig, from_jax_variables, init_variables,
+        TacotronConfig, init_variables,
     )
     from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
     from wavernn_tpu_torch.ops import cuda_decode, cuda_tts
     from wavernn_tpu_torch.ops.tts_decode import (
-        MATRICES, extract_tts_decode_weights, init_tts_decode_state,
-        pack_tts_weights, packed_dims, tts_decode_reference,
+        MATRICES, tts_decode_reference,
     )
     from wavernn_tpu_torch.text import text_to_sequence
     from wavernn_tpu_torch.tools import tts_phase_spans
@@ -711,40 +822,15 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
 
     # -- 6. the Tacotron kernel against its plain version ----------------
     def kernel_inputs(cfg, variables, seq, L, r):
-        model = from_jax_variables(variables, cfg, dev)
-        x = torch.zeros(1, L, dtype=torch.long)
-        x[0, :len(seq)] = torch.tensor(seq)
-        with torch.no_grad():
-            enc, encp = model.encode(x.to(dev))
-        packed = pack_tts_weights(extract_tts_decode_weights(model), r,
-                                  cfg.n_mels)
-        return packed, enc[0].contiguous(), encp[0].contiguous()
+        return tts_kernel_inputs(dev, cfg, variables, seq, L, r)
 
     def fresh_state(packed, L):
-        D, _, H, n_mels, _ = packed_dims(packed)
-        return init_tts_decode_state(D, H, L, n_mels, dev)
+        return tts_fresh_state(dev, packed, L)
 
     errs = []
 
     def compare(tag, packed, enc, encp, n):
-        L = enc.shape[0]
-        mk, sk, _, _ = cuda_tts.tts_decode(packed, enc, encp,
-                                           fresh_state(packed, L), n)
-        torch.cuda.synchronize()
-        mp, sp, _, _ = tts_decode_reference(packed, enc, encp,
-                                            fresh_state(packed, L), n)
-        dm, ds = (mk - mp).abs(), (sk - sp).abs()
-        first = max(float(dm[:64].max()), float(ds[:64].max()))
-        agree = float((dm <= 2e-2).float().mean())
-        ok = first <= 1e-3 and agree >= 0.99
-        print(f"tts kernel vs plain [{tag}] L {L} steps {n}: first-64 "
-              f"max|d| mel {float(dm[:64].max()):.3g} score "
-              f"{float(ds[:64].max()):.3g}, mel within 2e-2 {agree:.5f}, "
-              f"max|d| mel {float(dm.max()):.3g} score {float(ds.max()):.3g}"
-              f" -> {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok or not torch.isfinite(mk).all():
-            fail(f"the TTS kernel disagrees with its plain version [{tag}]")
-        errs.append(first)
+        errs.append(tts_compare(dev, tag, packed, enc, encp, n))
 
     packed, enc, encp = kernel_inputs(taco_cfg, taco, eval_seq, 32,
                                       meta["r"])
@@ -1560,13 +1646,31 @@ def concurrently(fn, args) -> list:
     return results
 
 
+def device_events(prof) -> list:
+    """(start us, end us, name) of every event the card ran in a
+    torch.profiler run, from the profiler's raw results: ``prof.events()``
+    builds an event object for each at ~0.1 ms apiece (minutes for the
+    Tacotron step's 400 k)."""
+    from torch.autograd import DeviceType
+
+    return [(e.start_ns() / 1e3, e.end_ns() / 1e3, e.name())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == DeviceType.CUDA]
+
+
+def kernel_times(prof) -> dict:
+    """{name: (total us, launches)} of the card's events."""
+    by_name = {}
+    for a, b, name in device_events(prof):
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + b - a, n + 1)
+    return by_name
+
+
 def device_busy(prof):
     """(device events, busy us, longest idle gap us) of a torch.profiler
     run: busy is the union of the card's kernel spans."""
-    from torch.autograd import DeviceType
-
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = sorted((a, b) for a, b, _ in device_events(prof))
     busy, gap, end = 0.0, 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -1893,17 +1997,18 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
 TRAIN_UTTS, TRAIN_SAMPLES = 72, 44_000
 
 
-def synthetic_corpus(wav_dir: Path, sr: int) -> None:
-    """TRAIN_UTTS utterances of TRAIN_SAMPLES samples from
-    ``np.random.default_rng(0)``: a sine of random pitch with 1-4
-    harmonics, plus noise, and an LJSpeech ``metadata.csv``."""
+def synthetic_corpus(wav_dir: Path, sr: int, texts=None) -> None:
+    """TRAIN_UTTS utterances (one per text of ``texts`` when given) of
+    TRAIN_SAMPLES samples from ``np.random.default_rng(0)``: a sine of
+    random pitch with 1-4 harmonics, plus noise, and an LJSpeech
+    ``metadata.csv`` whose texts are ``texts`` (default "Sentence <i>.")."""
     from wavernn_tpu_torch.dsp import wavio
 
     rng = np.random.default_rng(0)
     wav_dir.mkdir(parents=True)
     t = np.arange(TRAIN_SAMPLES) / sr
     lines = []
-    for i in range(TRAIN_UTTS):
+    for i in range(TRAIN_UTTS if texts is None else len(texts)):
         f0 = rng.uniform(90, 300)
         y = sum(rng.uniform(0.1, 0.4) / k * np.sin(2 * np.pi * k * f0 * t
                                                    + rng.uniform(0, 6.3))
@@ -1911,7 +2016,8 @@ def synthetic_corpus(wav_dir: Path, sr: int) -> None:
         y = y + 0.02 * rng.standard_normal(TRAIN_SAMPLES)
         y = 0.9 * y / max(1.0, np.abs(y).max())
         wavio.save_wav(y.astype(np.float32), wav_dir / f"utt{i:03d}.wav", sr)
-        lines.append(f"utt{i:03d}|Sentence {i}.|Sentence {i}.")
+        text = texts[i] if texts is not None else f"Sentence {i}."
+        lines.append(f"utt{i:03d}|{text}|{text}")
     (wav_dir / "metadata.csv").write_text("\n".join(lines) + "\n")
 
 
@@ -2247,16 +2353,8 @@ def training_phases(dev, card) -> dict:
         t0 = time.perf_counter()
         timed_steps(state, step, 5)
         wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-
     n_events, busy, gap = device_busy(prof)
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us, n = by_name.get(e.name, (0.0, 0))
-            by_name[e.name] = (us + e.time_range.end - e.time_range.start,
-                               n + 1)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]
+    top = sorted(kernel_times(prof).items(), key=lambda kv: -kv[1][0])[:6]
     if n_events:
         print(f"train step x 5 under torch.profiler: wall {wall:.3f} s, "
               f"{n_events} device events, busy {busy / 1e6:.3f} s = "
@@ -2297,6 +2395,386 @@ def training_phases(dev, card) -> dict:
         fail("pruning did not zero the pruned weights")
     hp.reset()
     return {"decode_launches": decode_launches, "ms_per_step": ms_step}
+
+
+# phases 31-33 train hparams.py's Tacotron at full width: the cut
+# curriculum's sessions (r, lr, max_step, batch size), hparams.py's r, lr
+# and batch sizes with max_step cut to two steps a session; the first run
+# stops after session 1, the second resumes in session 2.  64 utterances
+# are two whole batches of 32: session 1 sees every one, the attention
+# example (the longest, the first of equals) included.
+TTS_CUT_SCHEDULE = [(7, 1e-3, 2, 32), (5, 1e-4, 4, 32), (2, 1e-4, 6, 16)]
+TTS_UTTS = 64
+TTS_WORDS = ("the quick brown fox jumps over a lazy dog while seven small "
+             "birds sing in the tall green trees near an old stone bridge "
+             "and two children read their books").split()
+TTS_PROBE = dict(B=16, L=100, T=600, r=2)    # tools/tts_train_probe.py's
+
+
+def word_texts(n: int, seed: int = 0) -> list:
+    """n seeded texts of 4-12 words of TTS_WORDS, capitalized, with a
+    full stop."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(TTS_WORDS, int(rng.integers(4, 13))))
+            .capitalize() + "." for _ in range(n)]
+
+
+def in_process(main, argv, cwd: Path):
+    """Run a CLI's ``main(argv)`` in this process from ``cwd``, with the
+    hp singleton reset around it."""
+    from wavernn_tpu_torch.config import hp
+
+    here = os.getcwd()
+    hp.reset()
+    os.chdir(cwd)
+    try:
+        return main(argv)
+    finally:
+        os.chdir(here)
+        hp.reset()
+
+
+def tts_training_phases(dev, card) -> dict:
+    """Phases 31-33: the Tacotron train step on the card against the CPU,
+    the Tacotron training path end to end (train_tacotron, resume, GTA,
+    train_wavernn --gta, gen_wavernn --gta, gen_tacotron --save_attention,
+    the TTS kernel on the trained weights) and the training rate.  Returns
+    both kernels' launches on the path, the TTS kernel's max |d| on the
+    trained weights and tts_train_ms_per_step."""
+    import re
+    import shutil
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from wavernn_tpu_torch import gen_tacotron, gen_wavernn
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.dsp import wavio
+    from wavernn_tpu_torch.models.tacotron import (
+        TacotronConfig, draw_decoder_masks, from_jax_variables,
+        init_variables, keep_mask,
+    )
+    from wavernn_tpu_torch.models.wavernn import num_params
+    from wavernn_tpu_torch.ops import cuda_tts
+    from wavernn_tpu_torch.text import text_to_sequence
+    from wavernn_tpu_torch.text.symbols import symbols
+    from wavernn_tpu_torch.training.state import (
+        make_optimizer, new_train_state,
+    )
+    from wavernn_tpu_torch.training.tacotron import make_tts_train_step
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+    hp.reset()
+    hp.configure(REPO / "hparams.py")
+    cfg = TacotronConfig.from_hp(hp, num_chars=len(symbols))
+    cleaners, sample_rate = hp.tts_cleaner_names, hp.sample_rate
+    tts_id, voc_id = hp.tts_model_id, hp.voc_model_id
+    clip = hp.tts_clip_grad_norm
+    hp.reset()
+    v0 = init_variables(cfg, 0)
+
+    # -- 31. the Tacotron train step on the card against the CPU ----------
+    t_phase = time.perf_counter()
+    B, L, T, r = 4, 40, 48, 2
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(1, cfg.num_chars, (B, L)))
+    m = torch.from_numpy(rng.uniform(-4, 4, (B, T, cfg.n_mels)))
+    g = torch.Generator().manual_seed(0)
+    keep = 1.0 - cfg.dropout
+    dec_masks = draw_decoder_masks(cfg, T // r, B, "cpu", g)
+    enc_masks = [keep_mask((B, L, w), keep, "cpu", g)
+                 for w in (2 * cfg.encoder_dims, cfg.encoder_dims)]
+
+    def one_step(d, dt, **relu):
+        """(loss, gradients, running statistics, secs) of one train-mode
+        forward and backward on device d in dtype dt, the masks shared."""
+        model = from_jax_variables(v0, cfg, d).to(dt).train()
+        t0 = time.perf_counter()
+        xd, md = x.to(d), m.to(d, dt)
+        with relu_masks(**relu):
+            m1, m2, _ = model(xd, md, r, True,
+                              masks=[t.to(d) for t in dec_masks],
+                              encoder_masks=[t.to(d) for t in enc_masks])
+            loss = (m1 - md).abs().mean() + (m2 - md).abs().mean()
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in model.named_parameters()}
+        if d.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        stats = {n: b.cpu() for n, b in model.named_buffers()
+                 if "running" in n}
+        return float(loss.detach()), grads, stats, secs
+
+    ref, runs = {}, {}
+    for side, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        ref[side] = []                    # the float64 forward's ReLU masks
+        runs[(side, 64)] = one_step(d, torch.float64, record=ref[side])
+        seen = []
+        runs[(side, 32)] = one_step(d, torch.float32, record=seen)
+        runs[(side, "flips")] = [int((a != b).sum()) for a, b in
+                                 zip(seen, ref[side])]
+        runs[(side, "pinned")] = one_step(d, torch.float32,
+                                          pinned=ref[side])
+    rel = lambda a, b: float((a.double() - b.double()).norm()
+                             / b.double().norm().clamp_min(1e-300))
+    live = [n for n, t in runs[("cpu", 64)][1].items()
+            if float(t.abs().max()) > 0]
+
+    def gaps(a, b):
+        """Per-tensor relative L2 of gradients a against b, worst first."""
+        return sorted(((rel(a[n], b[n]), n) for n in live), reverse=True)
+
+    def stats_gap(a, b):
+        return max(float((a[n].double() - b[n].double()).abs().max())
+                   for n in b)
+
+    l64, g64, s64, secs64 = runs[("card", 64)]
+    c64, cg64, cs64, csecs64 = runs[("cpu", 64)]
+    l32, g32, s32, secs32 = runs[("card", 32)]
+    c32, cg32, cs32, _ = runs[("cpu", 32)]
+    _, pg32, _, _ = runs[("card", "pinned")]
+    _, cpg32, _, _ = runs[("cpu", "pinned")]
+    d64 = gaps(g64, cg64)
+    d32 = gaps(g32, cg32)
+    d32_64 = gaps(g32, cg64)
+    dpin = gaps(pg32, cpg32)
+    same_masks = all(bool((a.cpu() == b).all())
+                     for a, b in zip(ref["card"], ref["cpu"]))
+    flat = lambda gs: torch.cat([gs[n].double().flatten() for n in live])
+    n_par = num_params(from_jax_variables(v0, cfg, "cpu"))
+    print(f"tts train step card vs cpu ({n_par:.3f}M params, "
+          f"B={B}, L={L}, T={T}, r={r}, dropout {cfg.dropout}, zoneout "
+          f"masks shared, TF32 off): float64 loss {l64:.12f} / {c64:.12f} "
+          f"(rel {abs(l64 - c64) / c64:.3g}), worst gradient {d64[0][0]:.3g}"
+          f" ({d64[0][1]}), BatchNorm stats max|d| {stats_gap(s64, cs64):.3g}"
+          f"; float32 loss rel {abs(l32 - c32) / c32:.3g}, stats max|d| "
+          f"{stats_gap(s32, cs32):.3g}, gradients rel L2 all together "
+          f"{rel(flat(g32), flat(cg32)):.3g}, per tensor worst "
+          + ", ".join(f"{a:.3g} ({n})" for a, n in d32[:4])
+          + f"; float32 card vs float64 cpu worst {d32_64[0][0]:.3g} "
+          f"({d32_64[0][1]}); ReLU masks flipped against the float64 "
+          f"forward's: card {sum(runs[('card', 'flips')])}, cpu "
+          f"{sum(runs[('cpu', 'flips')])} of "
+          f"{sum(int(t.numel()) for t in ref['cpu'])} (float64 masks equal "
+          f"{same_masks}); with every mask pinned: worst tensor "
+          f"{dpin[0][0]:.3g} ({dpin[0][1]}); one step {secs64:.2f} s "
+          f"float64 / {secs32:.2f} s float32 on the card, {csecs64:.2f} s "
+          f"float64 on the CPU | {card}", flush=True)
+    print("  float32 gradient gap per tensor, card vs cpu (rel L2): "
+          + ", ".join(f"{n} {a:.2e}" for a, n in d32), flush=True)
+    if not (abs(l64 - c64) <= 1e-12 * c64 and d64[0][0] <= 1e-9
+            and stats_gap(s64, cs64) <= 1e-9 and same_masks
+            and abs(l32 - c32) <= 1e-5 * c32 and stats_gap(s32, cs32) <= 1e-5
+            and dpin[0][0] <= 1e-4 and d32[0][0] <= 1e-4):
+        fail("the Tacotron train step on the card disagrees with the CPU")
+    print(f"phase 31 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+
+    # -- 32. the Tacotron training path end to end -------------------------
+    work = SMOKE_DIR / "tts_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    texts = word_texts(TTS_UTTS)
+    synthetic_corpus(work / "wavs", sample_rate, texts)
+    base = dict(wav_path=str(work / "wavs"), data_path=str(work / "data"),
+                tts_checkpoint_every=2, latest_save_min_interval_s=0.0,
+                voc_total_steps=2, voc_checkpoint_every=2,
+                voc_gen_at_checkpoint=1, voc_test_samples=2)
+
+    def hp_file(name, **kw):
+        path = work / name
+        path.write_text(
+            "import runpy\n"
+            f"globals().update({{k: v for k, v in runpy.run_path("
+            f"{str(REPO / 'hparams.py')!r}).items() "
+            "if not k.startswith('__')})\n"
+            + "".join(f"{k} = {v!r}\n" for k, v in {**base, **kw}.items()))
+        return path
+
+    hp1 = hp_file("hp_tts1.py", tts_schedule=TTS_CUT_SCHEDULE[:1])
+    hp3 = hp_file("hp_tts3.py", tts_schedule=TTS_CUT_SCHEDULE)
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+
+    def run(*args, timeout=900):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", *args], cwd=work,
+                              env=env, capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode != 0:
+            fail(f"{args[0]} exited {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+        return proc, time.perf_counter() - t0
+
+    _, secs = run("wavernn_tpu_torch.preprocess", "--hp_file", str(hp3))
+    print(f"tts train path (a): preprocess of {TTS_UTTS} text/audio pairs "
+          f"in {secs:.1f} s", flush=True)
+    tts_dir = work / "checkpoints" / f"{tts_id}.tacotron"
+    lrs = []
+    for i, path in enumerate((hp1, hp3)):
+        proc, secs = run("wavernn_tpu_torch.train_tacotron", "--hp_file",
+                         str(path), "--device", str(dev))
+        sessions = re.findall(r"\| Steps with r=(\d+) ", proc.stdout)
+        step = int(load_pytree(tts_dir / "latest_weights.msgpack")["step"])
+        opt = load_pytree(tts_dir / "latest_optim.msgpack")["opt_state"]
+        lrs.append(float(opt["1"]["hyperparams"]["learning_rate"]))
+        restored = "Restoring from latest checkpoint" in proc.stdout
+        print(f"tts train path (b{i + 1}): train_tacotron in {secs:.1f} s: "
+              f"sessions r={sessions}, restored {restored}, stored step "
+              f"{step}, learning rate {lrs[-1]:.3g}; "
+              + " | ".join(l.strip() for l in proc.stdout.splitlines()
+                           if "Loss:" in l)[-300:] + f" | {card}",
+              flush=True)
+        want = (["7"], False, 2) if i == 0 else (["5", "2"], True, 6)
+        if (sessions, restored, step) != want:
+            fail(f"train_tacotron run {i + 1}: sessions {sessions}, "
+                 f"restored {restored}, step {step}; want {want}")
+    if lrs != [float(np.float32(1e-3)), float(np.float32(1e-4))]:
+        fail(f"the stored learning rates {lrs} are not the sessions'")
+    for name in ("latest", "taco_step0K"):
+        for kind in ("weights", "optim"):
+            if not (tts_dir / f"{name}_{kind}.msgpack").exists():
+                fail(f"missing {name}_{kind}.msgpack")
+    plots = {sub: sorted(p.name for p in (tts_dir / sub).iterdir())
+             for sub in ("attention", "mel_plots")}
+    if not all(plots.values()):
+        fail(f"no training plots: {plots}")
+    gta = sorted((work / "data" / "gta").glob("*.npy"))
+    mels = sorted((work / "data" / "mel").glob("*.npy"))
+    bad = [p.name for p, q in zip(gta, mels)
+           if np.load(p).shape != np.load(q).shape
+           or not np.isfinite(np.load(p)).all()]
+    print(f"tts train path (c): checkpoints {sorted(p.name for p in tts_dir.glob('*.msgpack'))}, "
+          f"plots {plots}, GTA mels {len(gta)} of {len(mels)}", flush=True)
+    if len(gta) != TTS_UTTS or [p.name for p in gta] != [
+            p.name for p in mels] or bad:
+        fail(f"the GTA export does not cover every utterance ({bad})")
+
+    proc, secs = run("wavernn_tpu_torch.train_wavernn", "--hp_file",
+                     str(hp3), "--gta", "--device", str(dev))
+    voc_dir = work / "checkpoints" / f"{voc_id}.wavernn"
+    voc_step = int(load_pytree(voc_dir / "latest_weights.msgpack")["step"])
+    print(f"tts train path (d): train_wavernn --gta to step {voc_step} in "
+          f"{secs:.1f} s: " + " | ".join(
+              l.strip()[:80] for l in proc.stdout.splitlines()
+              if "Gen Rate" in l or "Training Complete" in l), flush=True)
+    if voc_step != 2:
+        fail(f"train_wavernn --gta stopped at step {voc_step}")
+
+    torch.cuda.synchronize()
+    zero_decode_counts()
+    t0 = time.perf_counter()
+    wavs = in_process(gen_wavernn.main, [
+        "--hp_file", str(hp3), "--gta", "--samples", "2", "--output_dir",
+        str(work / "gen_gta"), "--device", str(dev)], work)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    voc_launches = count_main_decode()
+    lens = [wavio.read_wav_raw(w)[0].shape for w in wavs]
+    print(f"tts train path (e): gen_wavernn --gta on the GTA test set: "
+          f"{[w.name for w in wavs]} {lens} in {secs:.2f} s, decode "
+          f"launches {voc_launches} | {card}", flush=True)
+    if len(wavs) != 2 or voc_launches != 2 or any(
+            n != (TRAIN_SAMPLES,) for n in lens):
+        fail("gen_wavernn --gta did not vocode the GTA test set through "
+             "the decode kernel")
+
+    text = texts[0]
+    torch.cuda.synchronize()
+    cuda_tts.tts_decode.launches = 0
+    zero_decode_counts()
+    t0 = time.perf_counter()
+    (wav_path,) = in_process(gen_tacotron.main, [
+        "--input_text", text, "--hp_file", str(hp3), "--save_attention",
+        "--output_dir", str(work / "gen_tts"), "--device", str(dev),
+        "wavernn"], work)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tts_launches = cuda_tts.tts_decode.launches
+    tts_voc_launches = count_main_decode()
+    voc_launches += tts_voc_launches
+    attn = np.load(wav_path.parent / f"{wav_path.stem}_attention.npy")
+    pcm, sr = wavio.read_wav_raw(wav_path)
+    print(f"tts train path (f): gen_tacotron --save_attention from the "
+          f"step-6 checkpoint: {wav_path.name}, {pcm.shape[0]} samples at "
+          f"{sr} Hz, attention {attn.shape} in {secs:.2f} s; launches: tts "
+          f"{tts_launches}, decode {tts_voc_launches} | {card}",
+          flush=True)
+    seq = text_to_sequence(text, cleaners)
+    if (tts_launches == 0 or tts_voc_launches == 0
+            or attn.shape[1] != len(seq) or pcm.size == 0):
+        fail("gen_tacotron did not run the trained model through the TTS "
+             "kernel")
+
+    blob = load_pytree(tts_dir / "latest_weights.msgpack")
+    trained = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+    packed, enc, encp = tts_kernel_inputs(dev, cfg, trained, seq, 64, 2)
+    trained_err = tts_compare(dev, "trained step-6 weights, r=2", packed,
+                              enc, encp, 200)
+    print(f"phase 32 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+
+    # -- 33. tts_train_ms_per_step ---------------------------------------
+    Bp, Lp, Tp, rp = (TTS_PROBE[k] for k in ("B", "L", "T", "r"))
+    rng = np.random.default_rng(0)
+    xp = torch.from_numpy(rng.integers(1, 60, (Bp, Lp))).to(dev)
+    mp = torch.from_numpy(rng.uniform(-4, 4, (Bp, Tp, cfg.n_mels)).astype(
+        np.float32)).to(dev)
+    model = from_jax_variables(v0, cfg, dev).train()
+    opt = make_optimizer(1e-4, clip)
+    state = new_train_state(model, opt)
+    step = make_tts_train_step(model, opt, rp)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+
+    def timed_steps(n):
+        events, losses = [], []
+        for _ in range(n):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _, loss, _, _, _ = step(state, xp, mp, gen)
+            b.record()
+            events.append((a, b))
+            losses.append(loss)
+        torch.cuda.synchronize()
+        return [a.elapsed_time(b) for a, b in events], [float(l) for l in
+                                                       losses]
+
+    _, warm = timed_steps(2)
+    ms, losses = timed_steps(10)
+    ms_step = float(np.median(ms))
+    print(f"tts_train_ms_per_step (B={Bp}, L={Lp}, T={Tp}, r={rp}, "
+          f"{num_params(model):.3f}M params, dropout and zoneout on, TF32 "
+          f"off): median {ms_step:.2f} ms over 10 steps (min {min(ms):.2f}, "
+          f"max {max(ms):.2f}); loss {warm[0]:.4f} -> {losses[-1]:.4f} | "
+          f"{card}", flush=True)
+    if not np.isfinite(losses).all():
+        fail("a Tacotron train step gave a non-finite loss")
+    torch.cuda.synchronize()
+    # the card's activity only: ~80 k kernels a step, and the host's op
+    # events would multiply what the profiler has to collect
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        timed_steps(5)
+        wall = time.perf_counter() - t0
+    n_events, busy, gap = device_busy(prof)
+    by_name = kernel_times(prof)
+    if n_events:
+        print(f"tts train step x 5 under torch.profiler: wall {wall:.3f} s, "
+              f"{n_events} device events ({n_events // 5} a step), busy "
+              f"{busy / 1e6:.3f} s = {busy / 1e6 / wall:.4f} of the wall "
+              f"time, longest idle gap {gap / 1e3:.1f} ms | {card}",
+              flush=True)
+        for name, (us, n) in sorted(by_name.items(),
+                                    key=lambda kv: -kv[1][0])[:8]:
+            print(f"  {us / 1e3 / 5:9.2f} ms/step  {us / busy:.3f} of busy "
+                  f" {n // 5} launches/step  {name[:100]}")
+    else:
+        print("tts train step under torch.profiler: no device events "
+              "recorded; busy share not measured", flush=True)
+    print(f"phase 33 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"tts_launches": tts_launches, "decode_launches": voc_launches,
+            "max_abs_err": trained_err, "ms_per_step": ms_step}
 
 
 if __name__ == "__main__":

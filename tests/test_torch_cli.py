@@ -178,8 +178,7 @@ def test_tts_cli_refuses_what_is_not_ported(tts_args, monkeypatch):
     from wavernn_tpu_torch import gen_tacotron
 
     voc = ["wavernn", "--voc_weights", str(WEIGHTS)]
-    for extra, what in ((["--save_attention"] + voc, "save_attention"),
-                        (["--mesh"] + voc, "mesh"),
+    for extra, what in ((["--mesh"] + voc, "mesh"),
                         (["--int8"] + voc, "int8")):
         hp.reset()
         with pytest.raises(NotImplementedError, match=what):

@@ -13,10 +13,11 @@ directory) is synthesized.  The device defaults to ``cuda`` and is never
 swapped for another: without CUDA the command fails.  ``--device cpu``
 runs the kernels' plain PyTorch versions instead, at CPU speed.  The
 ``griffinlim`` vocoder is ``dsp/torch_audio.py::reconstruct_waveform``
-(NNLS mel inversion and Griffin-Lim on the device).
+(NNLS mel inversion and Griffin-Lim on the device).  ``--save_attention``
+writes each utterance's attention beside its WAV, as ``<stem>.png`` and
+``<stem>_attention.npy`` (``utils/display.py::save_attention``).
 
-Not ported yet (each raises): ``--save_attention``, ``--mesh`` and
-``--int8``.
+Not ported yet (each raises): ``--mesh`` and ``--int8``.
 """
 
 from __future__ import annotations
@@ -34,16 +35,9 @@ from wavernn_tpu_torch.models.tacotron import TacotronConfig
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
 from wavernn_tpu_torch.text import text_to_sequence
 from wavernn_tpu_torch.text.symbols import symbols
+from wavernn_tpu_torch.training.tacotron import r_for_step
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
-
-
-def r_for_step(step: int, schedule) -> int:
-    """The r of the curriculum session a step falls in: sessions are
-    (r, lr, max_step, batch_size)."""
-    for r, _, max_step, _ in schedule:
-        if step < max_step:
-            return r
-    return schedule[-1][0]
+from wavernn_tpu_torch.utils.display import save_attention
 
 
 def load_weights(path, model_id: str, kind: str):
@@ -102,8 +96,7 @@ def main(argv=None):
                     help="[int] griffinlim iterations")
     args = parser.parse_args(argv)
 
-    for flag, what in (("save_attn", "--save_attention"), ("mesh", "--mesh"),
-                       ("int8", "--int8")):
+    for flag, what in (("mesh", "--mesh"), ("int8", "--int8")):
         if getattr(args, flag):
             raise NotImplementedError(f"{what} is not ported yet")
 
@@ -157,11 +150,13 @@ def main(argv=None):
     written = []
     for i, text in enumerate(texts, 1):
         print(f"| Generating {i}/{len(texts)}")
-        _, m, _ = tts(text_to_sequence(text.strip(), hp.tts_cleaner_names),
-                      r=r)
+        _, m, attention = tts(text_to_sequence(text.strip(),
+                                               hp.tts_cleaner_names), r=r)
         path = out_dir / (f"__input_{args.input_text[:10]}_{v_type}_{tts_k}k"
                           ".wav" if args.input_text
                           else f"{i}_{v_type}_{tts_k}k.wav")
+        if args.save_attn:
+            save_attention(attention, path, save_raw=True)
         wav = vocode(mel_from_linear(m), path)
         print(f"| {m.shape[1]} frames -> {len(wav)} samples: {path}")
         written.append(path)

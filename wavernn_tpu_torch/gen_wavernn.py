@@ -1,13 +1,21 @@
-"""WaveRNN vocoder CLI of the PyTorch port: copy-synthesis of a ``.npy``
-mel or a ``.wav`` (ports ``gen_wavernn.py --file``).
+"""WaveRNN vocoder CLI of the PyTorch port (ports ``gen_wavernn.py``):
+copy-synthesis of a ``.npy`` mel or a ``.wav``, of the held-out test set,
+or the test set's copy-synthesis MCD.
 
     python -m wavernn_tpu_torch.gen_wavernn --file mel.npy \\
         --voc_weights bench_assets/wavernn_mol_golden.msgpack \\
         [--hp_file hparams.py] [--device cuda]
+    python -m wavernn_tpu_torch.gen_wavernn [--samples N] [--gta] [--eval] \\
+        [--hp_file hparams.py]
 
-The device defaults to ``cuda`` and is never swapped for another: without
-CUDA the command fails.  ``--device cpu`` runs the kernel's plain PyTorch
-version instead, at CPU speed.
+Without ``--file`` the first ``--samples`` utterances of the test split of
+``data_path`` are vocoded beside their targets into
+``model_outputs/<voc_model_id>.wavernn/`` (from the GTA mels with
+``--gta``), or, with ``--eval``, scored by copy-synthesis MCD.  The
+weights default to the latest checkpoint of ``checkpoints/
+<voc_model_id>.wavernn/``.  The device defaults to ``cuda`` and is never
+swapped for another: without CUDA the command fails.  ``--device cpu`` runs
+the kernel's plain PyTorch version instead, at CPU speed.
 """
 
 from __future__ import annotations
@@ -16,8 +24,15 @@ import argparse
 from pathlib import Path
 
 from wavernn_tpu_torch.config import hp
-from wavernn_tpu_torch.infer.wavernn import gen_from_file, make_generator
-from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+from wavernn_tpu_torch.data.dataset import get_vocoder_datasets
+from wavernn_tpu_torch.infer.eval import eval_testset_mcd
+from wavernn_tpu_torch.infer.wavernn import (
+    gen_from_file, gen_testset, make_generator,
+)
+from wavernn_tpu_torch.models.wavernn import WaveRNNConfig, from_jax_variables
+from wavernn_tpu_torch.paths import Paths
+from wavernn_tpu_torch.train_wavernn import resolve_device
+from wavernn_tpu_torch.training.state import TrainState
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
 
@@ -33,13 +48,21 @@ def main(argv=None):
                         help="[int] samples in each batch index")
     parser.add_argument("--overlap", "-o", type=int,
                         help="[int] crossover samples")
-    parser.add_argument("--file", "-f", type=str, required=True,
-                        help="[string/path] .npy mel or .wav to vocode")
+    parser.add_argument("--samples", "-s", type=int,
+                        help="[int] number of test-set utterances to "
+                             "generate")
+    parser.add_argument("--file", "-f", type=str,
+                        help="[string/path] .npy mel or .wav to vocode "
+                             "(default: the test set)")
     parser.add_argument("--voc_weights", "-w", type=str,
                         help="[string/path] WaveRNN weights (.msgpack as the "
                              "JAX package writes them)")
+    parser.add_argument("--gta", "-g", action="store_true",
+                        help="generate from the GTA test set")
+    parser.add_argument("--eval", dest="eval_mcd", action="store_true",
+                        help="report copy-synthesis MCD over the test set")
     parser.add_argument("--output_dir", type=str,
-                        help="where the WAV goes (default "
+                        help="where the WAVs go (default "
                              "model_outputs/<voc_model_id>.wavernn)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
@@ -62,10 +85,29 @@ def main(argv=None):
     out_dir = Path(args.output_dir if args.output_dir else
                    Path("model_outputs") / model_dir)
 
+    samples = hp.voc_gen_at_checkpoint if args.samples is None else args.samples
+
     cfg = WaveRNNConfig.from_hp(hp)
     blob = load_pytree(weights)
     variables = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
     step = int(blob.get("step", 0))
+    if not args.file:
+        resolve_device(args.device)
+        paths = Paths(hp.data_path, hp.voc_model_id, hp.tts_model_id)
+        _, test_set = get_vocoder_datasets(paths.data, 1, args.gta)
+        print(f"Using device: {args.device} | weights {weights} (step "
+              f"{step}) | {'GTA ' if args.gta else ''}test set, {samples} "
+              f"utterances | {'batched' if batched else 'unbatched'} target "
+              f"{target} overlap {overlap}")
+        if args.eval_mcd:
+            return eval_testset_mcd(cfg, variables, test_set, samples,
+                                    batched, target, overlap, args.device)
+        state = TrainState(model=from_jax_variables(variables, cfg,
+                                                    args.device),
+                           opt_state=None, step=step)
+        return gen_testset(cfg, state, test_set, samples, batched, target,
+                           overlap, out_dir)
+
     gen = make_generator(cfg, variables, args.device,
                          deterministic=args.deterministic)
     print(f"Using device: {gen.device} | weights {weights} (step {step}) | "

@@ -1,37 +1,49 @@
-"""Tacotron (text -> mel) in PyTorch, for generation.
+"""Tacotron (text -> mel) in PyTorch: the generation graph and the
+teacher-forced training graph.
 
 Ports ``wavernn_tpu/models/tacotron.py``: a CBHG encoder over character
 embeddings, an autoregressive decoder step (prenet -> attention GRU ->
 location-sensitive or additive attention -> two residual LSTMs -> r mel
 frames) and a CBHG postnet with a linear projection.  Public functions keep
 the JAX package's channel-last (B, T, C) layout; the convolutions run
-channel-first inside.  BatchNorm runs in eval mode with the running
-statistics.
+channel-first inside.
+
+Generation (``encode``, ``decode_step``, ``postnet_forward`` with their
+defaults) runs in eval mode: BatchNorm with the running statistics, no
+dropout, no zoneout, the CBHG BiGRUs as step loops.  The teacher-forced
+pass (:meth:`Tacotron.forward`) with ``train=True`` is the JAX model's
+train mode: BatchNorm with the batch statistics, updating the running ones
+as flax does (``models.wavernn.FlaxBatchNorm``), prenet dropout with
+explicit keep-masks scaled by ``1 / keep``, zoneout on both residual
+LSTMs' hidden states, and the CBHG BiGRUs as one fused recurrent call.
+The decoder's masks are drawn in one pass before the step loop
+(:func:`draw_decoder_masks`), or given, which is how the tests feed the
+JAX model's masks to the port.
 
 The module tree mirrors the flax parameter tree name for name, and every
-matrix stays in flax's math layout (in, out), so :func:`from_jax_variables`
-maps a checkpoint leaf for leaf; only convolutions change layout, to
-PyTorch's (out, in, K).  :func:`init_variables` makes a seeded flax-layout
-tree with the shapes and init laws of flax's ``model.init``, for full-width
-runs on machines without JAX.
-
-The teacher-forced forward pass, dropout and zoneout belong to the training
-path and are not ported yet.
+matrix stays in flax's math layout (in, out), so :func:`from_jax_variables`,
+:func:`to_jax_variables` and :func:`load_jax_variables` map a checkpoint
+leaf for leaf; only convolutions change layout, to PyTorch's (out, in, K).
+:func:`init_variables` makes a seeded flax-layout tree with the shapes and
+init laws of flax's ``model.init``, for full-width runs on machines
+without JAX.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Iterator, Tuple
+from typing import Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from wavernn_tpu_torch.models.wavernn import FlaxBatchNorm
 from wavernn_tpu_torch.ops.rnn import BiGRU, GRUWeights, gru_cell_step, lstm_cell_step
 
 MAX_R = 20  # mel_proj holds MAX_R frame slots; a step uses the first r
+ZONEOUT_P = 0.1  # the residual LSTMs keep their previous h with this chance
 
 
 @dataclass(frozen=True)
@@ -102,7 +114,9 @@ class HighwayNetwork(nn.Module):
 
 class BatchNormConv(nn.Module):
     """Conv1d without bias -> optional relu -> batch norm, on (B, T, C).
-    Even kernels pad k//2 on both sides and crop the right overhang."""
+    Even kernels pad k//2 on both sides and crop the right overhang.  The
+    norm is flax's (momentum 0.9): ``train`` normalizes with the batch
+    statistics and updates the running ones."""
 
     def __init__(self, in_dims: int, out_dims: int, kernel: int,
                  relu: bool = True):
@@ -110,26 +124,52 @@ class BatchNormConv(nn.Module):
         self.relu = relu
         self.conv = nn.Conv1d(in_dims, out_dims, kernel, padding=kernel // 2,
                               bias=False)
-        self.bnorm = nn.BatchNorm1d(out_dims, eps=1e-5)
+        self.bnorm = FlaxBatchNorm(out_dims)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
         T = x.shape[1]
         y = self.conv(x.transpose(1, 2))[:, :, :T]
         if self.relu:
             y = F.relu(y)
-        return self.bnorm(y).transpose(1, 2)
+        return self.bnorm(y, train).transpose(1, 2)
+
+
+def keep_mask(shape, keep: float, device, generator=None) -> torch.Tensor:
+    """A bool mask, True with probability ``keep``, drawn from
+    ``generator`` (torch's default generator of ``device`` when None)."""
+    return torch.rand(shape, generator=generator, device=device) < keep
 
 
 class PreNet(nn.Module):
-    """Two relu FC layers; dropout is off in generation."""
+    """Two relu FC layers, each followed by dropout in train mode: a value
+    is kept with probability ``keep = 1 - dropout`` and scaled by
+    ``1 / keep`` (flax's ``nn.Dropout``).  ``masks`` gives the two
+    keep-masks; without them they are drawn from ``generator``."""
 
-    def __init__(self, in_dims: int, fc1_dims: int, fc2_dims: int):
+    def __init__(self, in_dims: int, fc1_dims: int, fc2_dims: int,
+                 dropout: float = 0.5):
         super().__init__()
+        self.dropout = dropout
         self.fc1 = Dense(in_dims, fc1_dims)
         self.fc2 = Dense(fc1_dims, fc2_dims)
 
-    def forward(self, x):
-        return F.relu(self.fc2(F.relu(self.fc1(x))))
+    def _drop(self, x, mask, generator):
+        keep = 1.0 - self.dropout
+        if mask is None:
+            if self.dropout == 0.0:           # flax's Dropout(0) is the identity
+                return x
+            mask = keep_mask(x.shape, keep, x.device, generator)
+        return torch.where(mask, x / keep, 0.0)
+
+    def forward(self, x, train: bool = False, masks=None, generator=None):
+        m1, m2 = masks if masks is not None else (None, None)
+        x = F.relu(self.fc1(x))
+        if train:
+            x = self._drop(x, m1, generator)
+        x = F.relu(self.fc2(x))
+        if train:
+            x = self._drop(x, m2, generator)
+        return x
 
 
 class CBHG(nn.Module):
@@ -152,20 +192,22 @@ class CBHG(nn.Module):
             self.add_module(f"highway{i}", HighwayNetwork(channels))
         self.rnn = BiGRU(channels, channels)
 
-    def forward(self, x):
+    def forward(self, x, train: bool = False):
+        """In train mode the norms take the batch statistics and the BiGRU
+        runs fused."""
         residual = x
         T = x.shape[1]
-        bank = torch.cat([getattr(self, f"bank{k}")(x)
+        bank = torch.cat([getattr(self, f"bank{k}")(x, train)
                           for k in range(1, self.K + 1)], dim=-1)
         # max pool k=2 stride 1, padded with -inf on the left
         shifted = F.pad(bank, (0, 0, 1, 0), value=float("-inf"))[:, :T]
-        y = self.conv_project1(torch.maximum(bank, shifted))
-        y = self.conv_project2(y) + residual
+        y = self.conv_project1(torch.maximum(bank, shifted), train)
+        y = self.conv_project2(y, train) + residual
         if self.pre_highway is not None:
             y = self.pre_highway(y)
         for i in range(self.num_highways):
             y = getattr(self, f"highway{i}")(y)
-        return self.rnn(y)
+        return self.rnn(y, fused=train)
 
 
 class Encoder(nn.Module):
@@ -174,12 +216,14 @@ class Encoder(nn.Module):
     def __init__(self, c: TacotronConfig):
         super().__init__()
         self.embedding = nn.Embedding(c.num_chars, c.embed_dims)
-        self.pre_net = PreNet(c.embed_dims, 2 * c.encoder_dims, c.encoder_dims)
+        self.pre_net = PreNet(c.embed_dims, 2 * c.encoder_dims, c.encoder_dims,
+                              c.dropout)
         self.cbhg = CBHG(c.encoder_K, c.encoder_dims, c.encoder_dims,
                          (c.encoder_dims, c.encoder_dims), c.num_highways)
 
-    def forward(self, x):
-        return self.cbhg(self.pre_net(self.embedding(x)))
+    def forward(self, x, train: bool = False, masks=None, generator=None):
+        e = self.pre_net(self.embedding(x), train, masks, generator)
+        return self.cbhg(e, train)
 
 
 class LSA(nn.Module):
@@ -234,14 +278,15 @@ class RawCell(nn.Module):
 
 
 class DecoderCell(nn.Module):
-    """One eval-mode decoder step: prenet -> attention GRU -> attention ->
-    context -> rnn_input -> two residual LSTMs -> r mel frames."""
+    """One decoder step: prenet -> attention GRU -> attention -> context ->
+    rnn_input -> two residual LSTMs (zoneout in train mode) -> r mel
+    frames."""
 
     def __init__(self, c: TacotronConfig):
         super().__init__()
         D, H = c.decoder_dims, c.lstm_dims
         self.n_mels = c.n_mels
-        self.prenet = PreNet(c.n_mels, D, D // 2)
+        self.prenet = PreNet(c.n_mels, D, D // 2, c.dropout)
         self.attn_rnn = RawCell(D + D // 2, D, 3)
         self.attn_net = LSA(D) if c.attn_mode == "lsa" else AdditiveAttention(D)
         self.rnn_input = Dense(2 * D, H)
@@ -249,9 +294,20 @@ class DecoderCell(nn.Module):
         self.res_rnn2 = RawCell(H, H, 4)
         self.mel_proj = Dense(H, c.n_mels * MAX_R, use_bias=False)
 
-    def forward(self, carry, encoder_seq, encoder_seq_proj, prenet_in, r: int):
+    def forward(self, carry, encoder_seq, encoder_seq_proj, prenet_in,
+                r: int, masks=None, train: bool = False):
+        """``masks``: this step's (prenet keep-mask x2, zoneout keep-prev
+        mask x2), used in train mode only."""
+        pm1, pm2, z1, z2 = masks if train else (None,) * 4
+        p = self.prenet(prenet_in, train, (pm1, pm2))
+        return self.after_prenet(carry, encoder_seq, encoder_seq_proj, p, r,
+                                 (z1, z2) if train else None)
+
+    def after_prenet(self, carry, encoder_seq, encoder_seq_proj, p, r: int,
+                     zoneout=None):
+        """The step from the prenet's output ``p`` on; ``zoneout`` (train
+        mode) is the pair of keep-prev masks of the two residual LSTMs."""
         attn_h, r1_h, r1_c, r2_h, r2_c, context, cumulative, attn_prev = carry
-        p = self.prenet(prenet_in)
         attn_h = gru_cell_step(torch.cat([context, p], dim=-1), attn_h,
                                *self.attn_rnn.weights())
         scores = self.attn_net(encoder_seq_proj, attn_h, cumulative, attn_prev)
@@ -259,9 +315,15 @@ class DecoderCell(nn.Module):
         cumulative = cumulative + scores
         context = torch.einsum("bt,btc->bc", scores, encoder_seq)
         x = self.rnn_input(torch.cat([context, attn_h], dim=-1))
-        r1_h, r1_c = lstm_cell_step(x, r1_h, r1_c, *self.res_rnn1.weights())
+        r1_h_next, r1_c = lstm_cell_step(x, r1_h, r1_c,
+                                         *self.res_rnn1.weights())
+        r1_h = (r1_h_next if zoneout is None
+                else torch.where(zoneout[0], r1_h, r1_h_next))
         x = x + r1_h
-        r2_h, r2_c = lstm_cell_step(x, r2_h, r2_c, *self.res_rnn2.weights())
+        r2_h_next, r2_c = lstm_cell_step(x, r2_h, r2_c,
+                                         *self.res_rnn2.weights())
+        r2_h = (r2_h_next if zoneout is None
+                else torch.where(zoneout[1], r2_h, r2_h_next))
         x = x + r2_h
         # the first r of the MAX_R frame slots: (H, n_mels, r)
         w_r = self.mel_proj.kernel.view(x.shape[-1], self.n_mels, MAX_R)[:, :, :r]
@@ -271,8 +333,9 @@ class DecoderCell(nn.Module):
 
 
 class Tacotron(nn.Module):
-    """The generation graph: :meth:`encode`, :meth:`decode_step` and
-    :meth:`postnet_forward`, the blocks ``infer/tacotron.py`` composes."""
+    """The teacher-forced graph (:meth:`forward`) and the generation
+    blocks :meth:`encode`, :meth:`decode_step` and :meth:`postnet_forward`
+    that ``infer/tacotron.py`` composes."""
 
     def __init__(self, cfg: TacotronConfig):
         super().__init__()
@@ -286,10 +349,12 @@ class Tacotron(nn.Module):
                             (256, c.n_mels), c.num_highways)
         self.post_proj = Dense(2 * c.postnet_dims, c.fft_bins, use_bias=False)
 
-    def encode(self, x: torch.Tensor):
+    def encode(self, x: torch.Tensor, train: bool = False, masks=None,
+               generator=None):
         """(B, L) symbol ids -> (encoder_seq (B, L, 2*enc), its projection
-        (B, L, decoder_dims))."""
-        enc = self.encoder(x)
+        (B, L, decoder_dims)).  ``masks``: the prenet's two keep-masks in
+        train mode, else drawn from ``generator``."""
+        enc = self.encoder(x, train, masks, generator)
         return enc, self.encoder_proj(enc)
 
     def decode_step(self, carry, encoder_seq, encoder_seq_proj, prenet_in,
@@ -298,15 +363,81 @@ class Tacotron(nn.Module):
         carry and (mels (B, n_mels, r), scores (B, L))."""
         return self.decoder(carry, encoder_seq, encoder_seq_proj, prenet_in, r)
 
-    def postnet_forward(self, mel_outputs: torch.Tensor) -> torch.Tensor:
+    def postnet_forward(self, mel_outputs: torch.Tensor,
+                        train: bool = False) -> torch.Tensor:
         """(B, T, n_mels) -> (B, T, fft_bins)."""
-        return self.post_proj(self.postnet(mel_outputs))
+        return self.post_proj(self.postnet(mel_outputs, train))
+
+    def forward(self, x: torch.Tensor, m: torch.Tensor, r: int,
+                train: bool = True, generate_gta: bool = False, masks=None,
+                generator: Optional[torch.Generator] = None,
+                encoder_masks=None):
+        """The teacher-forced pass (``wavernn_tpu/models/tacotron.py:
+        434-478``).  x: (B, L) symbol ids; m: (B, T, n_mels) target mels,
+        T a multiple of r.  Returns (mel_outputs (B, T, n_mels), linear
+        (B, T, fft_bins), attn_scores (B, T/r, L)).
+
+        The prenet's inputs are the GO frame, then the last frame of each
+        r-group.  In train mode the decoder's four masks
+        (:func:`draw_decoder_masks`, each (T/r, B, .)) are ``masks`` when
+        given, else drawn from ``generator`` in one pass before the step
+        loop; the encoder prenet's two keep-masks are ``encoder_masks``, or
+        drawn from ``generator`` too.  ``generate_gta`` forces eval mode."""
+        if generate_gta:
+            train = False
+        c = self.cfg
+        B, steps = m.shape[0], m.shape[1]
+        if steps % r:
+            raise ValueError(f"mel length {steps} is not a multiple of r={r}")
+        T_dec = steps // r
+
+        encoder_seq, encoder_seq_proj = self.encode(x, train, encoder_masks,
+                                                    generator)
+        go = m.new_zeros(1, B, c.n_mels)
+        prenet_seq = torch.cat([go, m[:, r - 1:steps - 1:r].transpose(0, 1)])
+        if train and masks is None:
+            masks = draw_decoder_masks(c, T_dec, B, m.device, generator)
+        pm1, pm2, z1, z2 = masks if train else (None,) * 4
+        # the teacher-forced prenet inputs are known up front: one prenet
+        # pass over all T/r steps instead of one a step
+        prenet_out = self.decoder.prenet(prenet_seq, train, (pm1, pm2))
+
+        carry = init_decoder_carry(c, B, x.shape[1], m.device, m.dtype)
+        mels, scores = [], []
+        for t in range(T_dec):
+            carry, (mel, score) = self.decoder.after_prenet(
+                carry, encoder_seq, encoder_seq_proj, prenet_out[t], r,
+                (z1[t], z2[t]) if train else None)
+            mels.append(mel)
+            scores.append(score)
+        # (T/r, B, n_mels, r) -> (B, T, n_mels)
+        mel_outputs = torch.stack(mels).permute(1, 0, 3, 2).reshape(
+            B, steps, c.n_mels)
+        attn_scores = torch.stack(scores, dim=1)
+        linear = self.postnet_forward(mel_outputs, train)
+        return mel_outputs, linear, attn_scores
 
 
-def init_decoder_carry(cfg: TacotronConfig, B: int, T_enc: int, device=None):
+def draw_decoder_masks(cfg: TacotronConfig, T_dec: int, B: int, device,
+                       generator: Optional[torch.Generator] = None):
+    """The decoder's train-mode masks for T_dec steps, drawn in one pass
+    as the JAX model draws them: the prenet's two keep-masks (T_dec, B,
+    decoder_dims) and (T_dec, B, decoder_dims // 2), kept with probability
+    ``1 - dropout``, and the two residual LSTMs' zoneout masks (T_dec, B,
+    lstm_dims), True (keep the previous h) with probability
+    :data:`ZONEOUT_P`."""
+    keep = 1.0 - cfg.dropout
+    D, H = cfg.decoder_dims, cfg.lstm_dims
+    draw = lambda p, width: keep_mask((T_dec, B, width), p, device, generator)
+    return (draw(keep, D), draw(keep, D // 2), draw(ZONEOUT_P, H),
+            draw(ZONEOUT_P, H))
+
+
+def init_decoder_carry(cfg: TacotronConfig, B: int, T_enc: int, device=None,
+                       dtype=None):
     """The zero decoder carry: attention hidden, (h, c) of both LSTMs,
     context, cumulative and previous attention."""
-    z = lambda *s: torch.zeros(*s, device=device)
+    z = lambda *s: torch.zeros(*s, device=device, dtype=dtype)
     return (z(B, cfg.decoder_dims),
             z(B, cfg.lstm_dims), z(B, cfg.lstm_dims),
             z(B, cfg.lstm_dims), z(B, cfg.lstm_dims),
@@ -317,12 +448,14 @@ def init_decoder_carry(cfg: TacotronConfig, B: int, T_enc: int, device=None):
 # -- the flax tree ----------------------------------------------------------
 
 def _conv_to_torch(a):
-    return np.transpose(a, (2, 1, 0))      # (K, in, out) -> (out, in, K)
+    # (K, in, out) <-> (out, in, K): the same transpose both ways
+    return np.transpose(a, (2, 1, 0))
 
 
 def _leaves(model: nn.Module) -> Iterator[tuple]:
     """(collection, flax path, state-dict key, module, flax-to-torch map)
-    for every leaf of the flax tree of ``model``."""
+    for every leaf of the flax tree of ``model``; each map is its own
+    inverse."""
     same = lambda a: a
     for name, m in model.named_modules():
         path = tuple(name.split(".")) if name else ()
@@ -347,22 +480,68 @@ def _get(tree, path):
     return tree
 
 
+def _set(tree: dict, path, value) -> None:
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = value
+
+
+def to_jax_tree(tensors: Mapping[str, torch.Tensor], model: Tacotron) -> dict:
+    """A dict of per-parameter tensors keyed by torch name (the parameters,
+    or an optimizer moment of each) -> the flax ``params`` pytree of
+    float32 numpy arrays."""
+    tree: dict = {}
+    for coll, path, key, _, move in _leaves(model):
+        if coll == "params":
+            a = tensors[key].detach().to("cpu", torch.float32).numpy()
+            _set(tree, path, np.ascontiguousarray(move(a)))
+    return tree
+
+
+def from_jax_tree(tree, model: Tacotron) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`to_jax_tree`: torch name -> float32 array."""
+    return {key: np.ascontiguousarray(move(np.asarray(_get(tree, path),
+                                                      np.float32)))
+            for coll, path, key, _, move in _leaves(model)
+            if coll == "params"}
+
+
+def to_jax_variables(model: Tacotron) -> dict:
+    """The JAX-layout numpy pytree ``{"params", "batch_stats"}`` of a port
+    model (the inverse of :func:`load_jax_variables`), for a checkpoint,
+    a ``TTSGenerator`` or the JAX package."""
+    sd = model.state_dict()
+    tree: dict = {"params": {}, "batch_stats": {}}
+    for coll, path, key, _, move in _leaves(model):
+        a = sd[key].detach().to("cpu", torch.float32).numpy()
+        _set(tree[coll], path, np.ascontiguousarray(move(a)))
+    return tree
+
+
+def load_jax_variables(model: Tacotron, variables) -> None:
+    """Copy the JAX package's numpy pytree ``{"params", "batch_stats"}``
+    (as ``utils.checkpoints.load_pytree`` reads it) into ``model`` in
+    place, on the model's device.  Every leaf keeps its layout except conv
+    kernels, (K, in, out) -> (out, in, K); BatchNorm scale/bias and
+    mean/var become weight/bias and the running statistics.  Raises on a
+    missing or misshapen leaf."""
+    sd = {}
+    for coll, path, key, _, move in _leaves(model):
+        sd[key] = torch.tensor(move(np.asarray(_get(variables[coll], path),
+                                               np.float32)))
+    for name, buf in model.named_buffers():
+        if name.endswith("num_batches_tracked"):
+            sd[name] = buf
+    model.load_state_dict(sd, strict=True)
+
+
 def from_jax_variables(variables, cfg: TacotronConfig, device) -> Tacotron:
     """Build a :class:`Tacotron` in eval mode on ``device`` from the JAX
-    package's numpy pytree ``{"params", "batch_stats"}`` (as
-    ``utils.checkpoints.load_pytree`` reads it).  Every leaf keeps its
-    layout except conv kernels, (K, in, out) -> (out, in, K); BatchNorm
-    scale/bias and mean/var become weight/bias and the running statistics
-    (flax's epsilon, 1e-5, is BatchNorm1d's)."""
+    package's numpy pytree ``{"params", "batch_stats"}``
+    (:func:`load_jax_variables`; flax's BatchNorm epsilon, 1e-5, is the
+    port's)."""
     model = Tacotron(cfg)
-    sd = {}
-    for coll, path, key, _, to_torch in _leaves(model):
-        sd[key] = torch.tensor(to_torch(np.asarray(_get(variables[coll], path),
-                                                   np.float32)))
-    for name, m in model.named_modules():
-        if isinstance(m, nn.BatchNorm1d):
-            sd[f"{name}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
-    model.load_state_dict(sd, strict=True)
+    load_jax_variables(model, variables)
     return model.to(device).eval()
 
 

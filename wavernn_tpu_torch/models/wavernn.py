@@ -92,14 +92,19 @@ class FlaxBatchNorm(nn.BatchNorm1d):
     E[x^2] - E[x]^2 clipped at 0, and the running statistics move as
     ``ra = 0.9 ra + 0.1 batch`` with that BIASED variance.
     ``nn.BatchNorm1d`` would put the unbiased one into ``running_var``.
-    Eval mode is ``nn.BatchNorm1d``'s (same epsilon, 1e-5)."""
+    Eval mode normalizes with the running statistics, as
+    ``nn.BatchNorm1d`` does (same epsilon, 1e-5).  ``train`` picks the
+    mode explicitly (flax's ``use_running_average``); None follows the
+    module's ``training`` flag."""
 
     def __init__(self, dims: int):
         super().__init__(dims, eps=1e-5)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
+    def forward(self, x: torch.Tensor, train=None) -> torch.Tensor:
+        if not (self.training if train is None else train):
+            return F.batch_norm(x, self.running_mean, self.running_var,
+                                self.weight, self.bias, False, 0.0,
+                                self.eps)
         mean = x.mean(dim=(0, 2))
         var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
         with torch.no_grad():

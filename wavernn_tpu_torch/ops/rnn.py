@@ -5,11 +5,14 @@ gates (input, forget, cell, output).
 The sequence modules keep the JAX package's parameter tree and math layout,
 ``<gru>.cell.{w_ih (I, 3H), w_hh (H, 3H), b_ih, b_hh}``, so that a flax
 checkpoint maps onto them leaf for leaf.  A sequence runs as a Python loop
-over time with the whole sequence's input projection hoisted out of it.
+over time with the whole sequence's input projection hoisted out of it;
+:class:`BiGRU` can instead run both directions as one fused recurrent call
+(cuDNN's on the card, ATen's on the CPU), which the training graph takes.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Optional
 
 import torch
@@ -91,14 +94,37 @@ class GRU(nn.Module):
 class BiGRU(nn.Module):
     """Bidirectional GRU: (B, T, I) -> (B, T, 2H), forward outputs then
     backward ones.  The backward GRU runs over the flipped sequence and its
-    outputs are flipped back."""
+    outputs are flipped back.
+
+    With ``fused`` both directions are one call of PyTorch's fused GRU
+    (``torch._VF.gru``, bidirectional: cuDNN's on the card, ATen's on the
+    CPU) from a zero state.  Its equations are the loop's, so the two agree
+    to float32 rounding; the loop stays the plain version, and generation
+    keeps it."""
 
     def __init__(self, in_dims: int, hidden: int):
         super().__init__()
         self.fwd = GRU(in_dims, hidden)
         self.bwd = GRU(in_dims, hidden)
 
-    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+    def forward(self, xs: torch.Tensor, fused: bool = False) -> torch.Tensor:
+        if fused:
+            return self._fused(xs)
         fwd, _ = self.fwd(xs)
         bwd, _ = self.bwd(torch.flip(xs, dims=[1]))
         return torch.cat([fwd, torch.flip(bwd, dims=[1])], dim=-1)
+
+    def _fused(self, xs: torch.Tensor) -> torch.Tensor:
+        h0 = xs.new_zeros(2, xs.shape[0], self.fwd.hidden)
+        weights = []
+        for c in (self.fwd.cell, self.bwd.cell):
+            # the fused call takes PyTorch's layout, (3H, in)
+            weights += [c.w_ih.t().contiguous(), c.w_hh.t().contiguous(),
+                        c.b_ih, c.b_hh]
+        with warnings.catch_warnings():
+            # the weights are not one flat cuDNN buffer: cuDNN copies them
+            # on each call, and warns so
+            warnings.filterwarnings("ignore", message="RNN module weights")
+            out, _ = torch._VF.gru(xs, h0, weights, True, 1, 0.0,
+                                   torch.is_grad_enabled(), True, True)
+        return out

@@ -42,7 +42,7 @@ def resolve_device(name: str) -> torch.device:
     dev = torch.device(name)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"device {name!r} asked for, but CUDA is not "
-                           "available (use --device cpu to train on the CPU)")
+                           "available (use --device cpu to run on the CPU)")
     return dev
 
 

@@ -20,25 +20,53 @@ them, and the learning rate can change without losing the moments
 :class:`AdamState` converts to and from the layout that
 ``flax.serialization.to_state_dict`` gives the optax state
 (:meth:`AdamState.state_dict`), so an optimizer file moves between the two
-packages as it is.  The step counter lives on the host: nothing in a step
-waits for the card.
+packages as it is.  Each model brings its own map to the flax tree
+(:func:`layout_of`): the WaveRNN vocoder's and Tacotron's.  The step
+counter lives on the host: nothing in a step waits for the card.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from wavernn_tpu_torch.models.wavernn import (
-    WaveRNN, from_jax_tree, load_jax_variables, to_jax_tree,
-    to_jax_variables,
-)
+from wavernn_tpu_torch.models import tacotron, wavernn
 
 _F32 = np.float32
+
+
+@dataclass(frozen=True)
+class FlaxLayout:
+    """How a model's tensors map to the JAX package's flax trees:
+    ``to_tree(tensors, model)`` / ``from_tree(tree, model)`` for a
+    per-parameter dict (the parameters or an Adam moment) and the
+    ``params`` tree, ``to_variables(model)`` / ``load_variables(model,
+    variables)`` for ``{"params", "batch_stats"}``."""
+
+    to_tree: Callable
+    from_tree: Callable
+    to_variables: Callable
+    load_variables: Callable
+
+
+_LAYOUTS = {
+    wavernn.WaveRNN: FlaxLayout(
+        lambda t, m: wavernn.to_jax_tree(t, m.cfg),
+        lambda t, m: wavernn.from_jax_tree(t, m.cfg),
+        wavernn.to_jax_variables, wavernn.load_jax_variables),
+    tacotron.Tacotron: FlaxLayout(
+        tacotron.to_jax_tree, tacotron.from_jax_tree,
+        tacotron.to_jax_variables, tacotron.load_jax_variables),
+}
+
+
+def layout_of(model: nn.Module) -> FlaxLayout:
+    """The flax tree map of a WaveRNN or a Tacotron."""
+    return _LAYOUTS[type(model)]
 
 
 @dataclass
@@ -58,12 +86,13 @@ class AdamState:
     def learning_rate(self) -> float:
         return self.hyperparams["learning_rate"]
 
-    def state_dict(self, model: WaveRNN) -> dict:
+    def state_dict(self, model: nn.Module) -> dict:
         """The flax state dict of the optax state: ``{"0": {}, "1":
         inject}`` behind a clip, else ``inject``, where inject is
         ``{count, hyperparams, hyperparams_states, inner_state: {"0":
         {count, mu, nu}, "1": {}}}`` with mu and nu in the flax
-        ``params`` layout."""
+        ``params`` layout of ``model``."""
+        to_tree = layout_of(model).to_tree
         count = np.asarray(self.count, np.int32)
         inject = {
             "count": count,
@@ -72,15 +101,15 @@ class AdamState:
             "hyperparams_states": {},
             "inner_state": {
                 "0": {"count": count.copy(),
-                      "mu": to_jax_tree(self.mu, model.cfg),
-                      "nu": to_jax_tree(self.nu, model.cfg)},
+                      "mu": to_tree(self.mu, model),
+                      "nu": to_tree(self.nu, model)},
                 "1": {},
             },
         }
         return {"0": {}, "1": inject} if self.chained else inject
 
     @classmethod
-    def from_state_dict(cls, tree: dict, model: WaveRNN,
+    def from_state_dict(cls, tree: dict, model: nn.Module,
                         chained: bool) -> "AdamState":
         """Read :meth:`state_dict`'s layout (as either package writes it)
         onto ``model``'s device.  Raises KeyError on another layout."""
@@ -89,8 +118,9 @@ class AdamState:
             raise KeyError("unexpected clip state in the optimizer file")
         adam = inject["inner_state"]["0"]
         dev = next(model.parameters()).device
+        from_tree = layout_of(model).from_tree
         moment = lambda t: {k: torch.from_numpy(v).to(dev) for k, v in
-                            from_jax_tree(t, model.cfg).items()}
+                            from_tree(t, model).items()}
         return cls(count=int(adam["count"]), mu=moment(adam["mu"]),
                    nu=moment(adam["nu"]),
                    hyperparams={k: float(_F32(v)) for k, v in
@@ -162,10 +192,10 @@ class Adam:
 
 @dataclass
 class TrainState:
-    """The model (parameters and BatchNorm statistics), the optimizer state
-    and the step counter (a host int)."""
+    """The model (a WaveRNN or a Tacotron: parameters and BatchNorm
+    statistics), the optimizer state and the step counter (a host int)."""
 
-    model: WaveRNN
+    model: nn.Module
     opt_state: AdamState
     step: int = 0
 
@@ -178,13 +208,13 @@ class TrainState:
         """The JAX package's weights file (its ``_model_blob``): ``params``
         and ``batch_stats`` in the flax layout, and the step as a 0-d
         array; no optimizer data."""
-        v = to_jax_variables(self.model)
+        v = layout_of(self.model).to_variables(self.model)
         return {"params": v["params"], "batch_stats": v["batch_stats"],
                 "step": np.asarray(self.step, np.int32)}
 
     def load_weights_tree(self, tree: dict) -> None:
         """Parameters, BatchNorm statistics and step from a weights file."""
-        load_jax_variables(self.model, tree)
+        layout_of(self.model).load_variables(self.model, tree)
         self.step = int(np.asarray(tree["step"]))
 
     def optim_tree(self) -> dict:
@@ -197,7 +227,7 @@ class TrainState:
             tree["opt_state"], self.model, self.opt_state.chained)
 
 
-def new_train_state(model: WaveRNN, optimizer: Adam) -> TrainState:
+def new_train_state(model: nn.Module, optimizer: Adam) -> TrainState:
     return TrainState(model=model, opt_state=optimizer.init(model), step=0)
 
 
