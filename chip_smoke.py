@@ -11,8 +11,10 @@ variants) and the vocoder's serving paths (the MCD gate, the wire
 formats, co-batching, streaming and the multi-session StreamServer, all
 through the WaveRNN kernel, whose int8 feed-forward variant ``int8_ff``
 the width policy turns on), vocoder training and Tacotron training (whose
-trained model generates through both kernels).  Phases, in order; any
-failure exits non-zero and prints no result line:
+trained model generates through both kernels), and data parallelism
+(every serving path over a device mesh, one decode per shard, and
+multi-process training).  Phases, in order; any failure exits non-zero
+and prints no result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
    toolchain (torch, CUDA, nvcc).
@@ -252,12 +254,39 @@ Phases 31-33 train ``hparams.py``'s Tacotron at full width
    card's activity only): its busy share, device events a step and the
    top kernels by time.
 
+Phases 34-36 run the data axis of ``wavernn_tpu_torch/parallel``:
+
+34. The decode kernel's ``row0``: 16 rows x 1,024 steps of the golden
+   eval mel's conditioning (golden MOL, sampling, both feed-forward
+   packs); launches over rows [4, 12) and [9, 16) with ``row0`` = 4 and 9
+   must equal their plain version and those rows of the 16-row launch,
+   max |d| 0.
+35. Generation over a mesh: ``make_mesh({"data": 2}, devices=[cuda:0,
+   cuda:0])`` (and ``["cuda:0", "cuda:1"]`` on a machine with two
+   cards).  ``Generator(mesh=)`` against the meshless Generator on the
+   golden MOL (f16 in, int16 out, ``fold_bucket=16``), sampling and
+   deterministic: phase 4's 1920-frame request, phase 17's five
+   co-batched, phase 18's stream (group 32, first group 4) and a
+   StreamServer at width 64 (four sessions of 1920 / 1200 / 600 / 300
+   frames).  Each must be byte-equal, with one decode launch per shard
+   for each meshless launch; kHz of both printed.  Then ``gen_wavernn
+   --mesh --mesh_devices cuda:0,cuda:0`` must write phase 5's WAV byte for
+   byte, and ``tools.mesh_kernel_probe`` must pass.
+36. Data-parallel training, ``tools.multihost_smoke --size full``: two
+   gloo ranks on cuda:0 (half the batch each) and a world of one under
+   NCCL, one step of ``hparams.py``'s vocoder (global batch 8 x 1,375) and
+   Tacotron (B 4, L 40, T 48, r 2), each against the single-process step
+   on the card in float32 and float64: the loss and the BatchNorm
+   statistics within 1e-5, every parameter within 1e-5 in float64 (in
+   float32 printed beside float32's own distance from float64); the world
+   of one bit-equal.  Each step's ms printed.
+
 The decode kernel's launch counts (all launches, and those with int8
 feed-forward matrices) are set to 0 just before each main-path run and
 read just after; the record's ``launches`` sum phase 4's, phases 15-21's,
-phase 25's, phases 29-30's and phase 32's, split between the two
-variants, and the TTS kernel's sums phase 8's, phases 20-21's and phase
-32's.
+phase 25's, phases 29-30's, phase 32's and phase 35's, split between the
+two variants, and the TTS kernel's sums phase 8's, phases 20-21's and
+phase 32's.
 
 Float32 matmuls, convolutions and cuDNN's GRU run in full float32 (TF32
 off).  The last
@@ -654,8 +683,13 @@ def main():
     clock("27-30")
     tts_train = tts_training_phases(dev, card)
     clock("31-33")
+    par = parallel_phases(dev, card, golden_cfg, golden, eval_mel,
+                          long_mels[0])
+    errs.append(par["errs"]["bf16 ff"])
+    errs_ff.append(par["errs"]["int8_ff"])
+    clock("34-36")
 
-    # -- 34. the record -------------------------------------------------
+    # -- the record -----------------------------------------------------
     n_ff = MAIN_DECODE["int8_ff"]
     n_bf = MAIN_DECODE["all"] - n_ff
     print(f"decode launches on the main path: {MAIN_DECODE['all']} "
@@ -664,7 +698,8 @@ def main():
           f"serving {text_serving['decode_launches']}, training "
           f"{training['decode_launches']}, int8_ff serving "
           f"{ff['launches']}, Tacotron training "
-          f"{tts_train['decode_launches']})")
+          f"{tts_train['decode_launches']}, mesh serving "
+          f"{par['launches']})")
     if n_bf == 0 or n_ff == 0:
         fail("a decode kernel variant was not launched on the main path")
     print(json.dumps({"kernels": [{
@@ -1445,7 +1480,7 @@ def int8_ff_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
             staged = gen.prestage(mel, batched=True, target=target,
                                   overlap=overlap)
             gen._ensure_ff_scales(staged.mels_dev, 16)
-            cond = gen.fold_conditioning(staged)[0][:16, :1024].contiguous()
+            cond = gen.fold_conditioning(staged)[0][:16, :ROW0_STEPS].contiguous()
             if cond.shape[:2] != (16, 1024):
                 fail(f"conditioning {tuple(cond.shape)} too small")
             q = "int8_hh" if int8_hh else "bf16 hh"
@@ -2775,6 +2810,192 @@ def tts_training_phases(dev, card) -> dict:
     print(f"phase 33 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"tts_launches": tts_launches, "decode_launches": voc_launches,
             "max_abs_err": trained_err, "ms_per_step": ms_step}
+
+
+# phases 34-36 run the data axis of parallel/: the decode kernel's row0,
+# generation and serving over a local mesh (two shards on one card, and two
+# cards where the machine has them), data-parallel training over ranks
+MESH_FRAMES = (1920, 1200, 600, 300)   # the StreamServer's four sessions
+ROW0_STEPS = 1024                      # phase 34: 16 rows x these steps
+
+
+def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
+    """Phases 34-36.  Returns the main path's decode launches (phase 35's
+    serving runs) and the max |d| of phase 34 for each feed-forward
+    variant."""
+    import torch
+
+    from wavernn_tpu_torch.infer.stream_server import StreamServer
+    from wavernn_tpu_torch.ops import cuda_decode
+    from wavernn_tpu_torch.ops.decode import Generator
+    from wavernn_tpu_torch.parallel.mesh import make_mesh
+
+    def make(mesh=None, **kw):
+        kw = {"fold_bucket": 16, "input_dtype": "float16",
+              "output_dtype": "int16", **kw}
+        return Generator(cfg, golden, device=dev, mesh=mesh, **kw)
+
+    # -- 34. the decode kernel with row0 ----------------------------------
+    t_phase = time.perf_counter()
+    gen = make()
+    staged = gen.prestage(eval_mel, True, TARGET, OVERLAP)
+    cond = gen.fold_conditioning(staged)[0][:16, :ROW0_STEPS].contiguous()
+    gen._ensure_ff_scales(staged.mels_dev, 48)
+    errs = {}
+    for variant, packed in (("bf16 ff", gen.packed),
+                            ("int8_ff", gen.packed_ff)):
+        run = lambda c, row0=0, ref=False: (
+            cuda_decode.decode_reference if ref else cuda_decode.decode)(
+            packed, c, ROW0_STEPS, 1234, cfg.mode, cfg.n_classes, False,
+            row0=row0)
+        whole = run(cond)
+        worst = []
+        for k, b in ((4, 8), (9, 7)):
+            part = cond[k:k + b].contiguous()
+            got = run(part, k)
+            d_plain = float((got - run(part, k, True)).abs().max())
+            d_whole = float((got - whole[k:k + b]).abs().max())
+            print(f"decode row0={k} [{variant}] rows {b} x {ROW0_STEPS} steps, "
+                  f"sampling, golden MOL: max|d| vs plain(row0={k}) "
+                  f"{d_plain}, vs rows [{k}, {k + b}) of the 16-row launch "
+                  f"{d_whole}")
+            if d_plain != 0.0 or d_whole != 0.0:
+                fail(f"row0={k} [{variant}]: the kernel differs from its "
+                     "plain version or from the whole launch's rows")
+            worst.append(d_plain)
+        errs[variant] = max(worst)
+    del cond
+    print(f"phase 34 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # -- 35. generation and serving over a mesh ----------------------------
+    t_phase = time.perf_counter()
+    meshes = [make_mesh({"data": 2}, devices=[dev, dev])]
+    if torch.cuda.device_count() >= 2:
+        meshes.append(make_mesh(devices=["cuda:0", "cuda:1"]))
+    rng = np.random.default_rng(0)
+    mels5 = [rng.uniform(0, 1, (80, 1920)).astype(np.float32)
+             for _ in range(5)]
+    rng = np.random.default_rng(11)
+    sess_mels = [rng.uniform(0, 1, (80, f)).astype(np.float32)
+                 for f in MESH_FRAMES]
+    geom = dict(target=TARGET, overlap=OVERLAP, mu_law=False)
+    launches = 0
+
+    def counted(fn):
+        """(fn's result, its decode launches, wall s), the card
+        synchronized; the launches count on the main path."""
+        torch.cuda.synchronize()
+        zero_decode_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, count_main_decode(), time.perf_counter() - t0
+
+    for plan in meshes:
+        n = plan.n_data
+        for det in (False, True):
+            mode = "deterministic" if det else "sampling"
+            plain, meshed = (make(deterministic=det),
+                             make(plan, deterministic=det))
+            paths = {
+                "one-shot": lambda g: [g(long_mel, True, seed=3, **geom)],
+                "co-batched x5": lambda g: g.generate_batch(
+                    g.prestage_batch(mels5, TARGET, OVERLAP), seed=4,
+                    **geom),
+                "stream g32/4": lambda g: list(g.stream(
+                    long_mel, group=32, first_group=4, seed=5, **geom)),
+                "StreamServer w64": lambda g: StreamServer(
+                    g, group=16, width=64, capacity=4, seed=6,
+                    **geom).run(sess_mels),
+            }
+            for g in (plain, meshed):       # warm: builds, calibrates
+                paths["one-shot"](g)
+            for name, fn in paths.items():
+                (want, n_p, s_p), (got, n_m, s_m) = (counted(lambda: fn(
+                    plain)), counted(lambda: fn(meshed)))
+                launches += n_p + n_m
+                equal = len(got) == len(want) and all(
+                    np.array_equal(a, b) for a, b in zip(got, want))
+                samples = sum(len(w) for w in want)
+                print(f"mesh {plan.describe()} [{name}, {mode}]: "
+                      f"byte-equal {equal}, launches {n_m} against {n_p} "
+                      f"meshless; {samples / s_m / 1e3:.1f} kHz against "
+                      f"{samples / s_p / 1e3:.1f} | {card}", flush=True)
+                if not equal:
+                    fail(f"mesh output differs from the meshless Generator "
+                         f"[{name}, {mode}, {plan.describe()}]")
+                if n_m != n * n_p:
+                    fail(f"{n_m} decode launches over {n} shards against "
+                         f"{n_p} meshless [{name}]")
+    del plain, meshed
+    if launches == 0:
+        fail("phase 35 launched no decode kernel")
+
+    # the CLI and the probe through the tool, two shards on one card
+    out_dir = SMOKE_DIR / "cli_mesh_out"
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavernn_tpu_torch.gen_wavernn",
+         "--file", str(SMOKE_DIR / "eval_mel.npy"), "--voc_weights",
+         str(GOLDEN), "--output_dir", str(out_dir), "--hp_file",
+         str(REPO / "hparams.py"), "--device", str(dev), "--mesh",
+         "--mesh_devices", f"{dev},{dev}"], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=600)
+    print("cli --mesh: " + " | ".join(proc.stdout.strip().splitlines()[-3:]))
+    if proc.returncode != 0:
+        fail(f"gen_wavernn --mesh exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    (meshed_wav,) = out_dir.glob("__eval_mel__*.wav")
+    (plain_wav,) = (SMOKE_DIR / "cli_out").glob("__eval_mel__*.wav")
+    same = meshed_wav.read_bytes() == plain_wav.read_bytes()
+    print(f"cli --mesh: {meshed_wav.name} byte-equal to phase 5's meshless "
+          f"WAV: {same}")
+    if not same:
+        fail("gen_wavernn --mesh differs from gen_wavernn")
+    proc = subprocess.run(
+        [sys.executable, "-m", "wavernn_tpu_torch.tools.mesh_kernel_probe"],
+        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
+    print(f"mesh_kernel_probe: {proc.stdout.strip()[-1500:]}")
+    if proc.returncode != 0:
+        fail(f"mesh_kernel_probe exited {proc.returncode}:\n"
+             f"{proc.stderr[-3000:]}")
+    print(f"phase 35 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # -- 36. data-parallel training ----------------------------------------
+    t_phase = time.perf_counter()
+    for argv, what in ((["--backend", "gloo"], "two gloo ranks on one card"),
+                       (["--backend", "nccl", "--processes", "1"],
+                        "a world of one under NCCL")):
+        proc = subprocess.run(
+            [sys.executable, "-m", "wavernn_tpu_torch.tools.multihost_smoke",
+             "--device", "cuda", "--size", "full", "--timeout", "400"]
+            + argv, cwd=REPO, env=env, capture_output=True, text=True,
+            timeout=600)
+        if proc.returncode != 0:
+            fail(f"multihost_smoke ({what}) exited {proc.returncode}:\n"
+                 f"{proc.stderr[-3000:]}")
+        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        for w in summary["workers"]:
+            for key, r in w.items():
+                if isinstance(r, dict):
+                    print(f"train step [{what}, rank {w['rank']} of "
+                          f"{w['world']}, {w['backend']}, {key}, full "
+                          f"width]: loss {r['loss']:.6f} (one process "
+                          f"{r['single_loss']:.6f}), max|d| loss "
+                          f"{r['loss_diff']:.3g} params "
+                          f"{r['param_diff']:.3g} statistics "
+                          f"{r['stats_diff']:.3g}"
+                          + (f" (float32 rounding: the one-process step "
+                             f"{r['single_param_diff_to_float64']:.3g} "
+                             f"from float64)" if key.endswith("32")
+                             else "")
+                          + f"; {r['ms']:.1f} ms a step against "
+                          f"{r['single_ms']:.1f} | {card}", flush=True)
+    print(f"phase 36 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches, "errs": errs}
 
 
 if __name__ == "__main__":

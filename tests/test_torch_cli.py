@@ -175,18 +175,56 @@ def test_tts_cli_writes_a_wav_on_cpu(tts_args):
 
 
 def test_tts_cli_refuses_what_is_not_ported(tts_args, monkeypatch):
+    """``--int8`` is not ported; a mesh that does not start on
+    ``--device``, or ``--mesh_devices`` without ``--mesh``, is a wrong
+    plan; without CUDA the default device raises."""
     from wavernn_tpu_torch import gen_tacotron
 
     voc = ["wavernn", "--voc_weights", str(WEIGHTS)]
-    for extra, what in ((["--mesh"] + voc, "mesh"),
-                        (["--int8"] + voc, "int8")):
+    hp.reset()
+    with pytest.raises(NotImplementedError, match="int8"):
+        gen_tacotron.main(tts_args + ["--device", "cpu", "--int8"] + voc)
+    for extra, what in ((["--mesh_devices", "cpu,cpu"], "needs --mesh"),
+                        (["--mesh", "--mesh_devices", "meta,cpu"],
+                         "first device")):
         hp.reset()
-        with pytest.raises(NotImplementedError, match=what):
-            gen_tacotron.main(tts_args + ["--device", "cpu"] + extra)
+        with pytest.raises(ValueError, match=what):
+            gen_tacotron.main(tts_args + ["--device", "cpu"] + extra + voc)
     hp.reset()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         gen_tacotron.main(tts_args + voc)
+
+
+def test_cli_mesh_vocodes_as_without(cli_args):
+    """``--mesh --mesh_devices cpu,cpu`` splits every launch's fold rows
+    over two shards and writes the meshless CLI's WAV byte for byte
+    (sampling: each shard draws its rows' bits)."""
+    args = [a for a in cli_args if a != "--deterministic"] + [
+        "--device", "cpu", "--seed", "5"]
+    plain = gen_wavernn.main(args).read_bytes()
+    hp.reset()
+    out_dir = args.index("--output_dir") + 1
+    args[out_dir] += "_mesh"
+    meshed = gen_wavernn.main(args + ["--mesh", "--mesh_devices", "cpu,cpu"])
+    assert meshed.read_bytes() == plain
+
+
+def test_tts_cli_mesh_vocodes_as_without(tts_args):
+    """``gen_tacotron --mesh`` shards the vocoder's fold rows: the WAV is
+    the meshless one byte for byte."""
+    from wavernn_tpu_torch import gen_tacotron
+
+    voc = ["wavernn", "--voc_weights", str(WEIGHTS), "--target", "400",
+           "--overlap", "50"]
+    (plain,) = gen_tacotron.main(tts_args + ["--device", "cpu"] + voc)
+    want = plain.read_bytes()
+    hp.reset()
+    args = list(tts_args)
+    args[args.index("--output_dir") + 1] += "_mesh"
+    (meshed,) = gen_tacotron.main(args + [
+        "--device", "cpu", "--mesh", "--mesh_devices", "cpu,cpu"] + voc)
+    assert meshed.name == plain.name and meshed.read_bytes() == want
 
 
 def test_tts_cli_griffinlim_writes_a_wav_on_cpu(tts_args):

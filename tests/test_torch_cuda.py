@@ -826,3 +826,47 @@ def test_gen_testset_goes_through_the_kernel(cuda_device, tmp_path):
         assert len(list(tmp_path.glob("*_target.wav"))) == 2
     finally:
         hp.reset()
+
+
+# -- data parallelism (parallel/) --------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["RAW", "MOL"])
+def test_row0_shard_draws_the_rows_of_the_whole_launch(cuda_device, mode):
+    """A launch over rows [k, k+b) with row0 = k draws the whole launch's
+    bits for those rows (sampling), and equals its plain version."""
+    cfg, model = small(mode)
+    packed = packed_on(model, cfg, cuda_device, True)
+    cond = conditioning(cfg, 8, 64, cuda_device)
+    whole = cuda_decode.decode(packed, cond, 64, 5, mode, cfg.n_classes,
+                               False)
+    part = cond[3:7].contiguous()
+    got = cuda_decode.decode(packed, part, 64, 5, mode, cfg.n_classes,
+                             False, row0=3)
+    want = cuda_decode.decode_reference(packed, part, 64, 5, mode,
+                                        cfg.n_classes, False, row0=3)
+    assert torch.equal(got, whole[3:7]) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("det", [False, True])
+def test_generator_mesh_on_one_card_equals_meshless(cuda_device, det):
+    """Two shards on one card, the Generator asked for the bare "cuda":
+    one decode launch per shard, and the meshless Generator's bytes."""
+    from wavernn_tpu_torch.models.wavernn import to_jax_variables
+    from wavernn_tpu_torch.ops.decode import Generator
+    from wavernn_tpu_torch.parallel.mesh import make_mesh
+
+    cfg, model = small("MOL")
+    v = to_jax_variables(model)
+    mel = np.random.default_rng(2).uniform(0, 1, (80, 9)).astype(np.float32)
+    kw = dict(fold_bucket=4, deterministic=det, input_dtype="float16",
+              output_dtype="int16")
+    geom = dict(batched=True, target=200, overlap=28, mu_law=False, seed=6)
+    want = Generator(cfg, v, "cuda", **kw)(mel, **geom)
+    gen = Generator(cfg, v, "cuda",
+                    mesh=make_mesh(devices=["cuda", "cuda"]), **kw)
+    gen(mel, **geom)                               # calibrates int8_ff
+    n = cuda_decode.decode.launches
+    got = gen(mel, **geom)
+    assert cuda_decode.decode.launches == n + 2
+    assert got.dtype == np.int16 and np.array_equal(got, want)

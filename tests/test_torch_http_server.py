@@ -8,8 +8,9 @@ Tacotron and tiny RAW golden WaveRNN, deterministic, target 200 / overlap
 ``/synthesize`` WAV, the chunked ``/stream``, mixed and concurrent
 sessions, the error paths, draining on close and surviving a failed step.
 ``pcm16`` and ``wav_header`` must give the JAX package's bytes.  The JAX
-file's mesh case has no counterpart: the mesh is not ported
-(``tests/test_torch_serve_cli.py`` checks that ``--mesh`` raises)."""
+file's mesh case has its counterpart: a service over a pipeline whose
+vocoder shards its fold rows over a two-shard CPU mesh serves the bytes
+of the meshless service."""
 
 import http.client
 import json
@@ -25,6 +26,7 @@ from wavernn_tpu_torch.infer.http_server import (SynthesisService,
 from wavernn_tpu_torch.infer.pipeline import mel_from_linear
 from wavernn_tpu_torch.text import text_to_sequence
 from tests.test_torch_stream import OVERLAP, TARGET
+from wavernn_tpu_torch.parallel.mesh import make_mesh
 from tests.test_torch_tts_stream_server import tiny_pipeline
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
@@ -250,6 +252,26 @@ def test_service_survives_scheduler_step_failure():
         np.testing.assert_array_equal(got, want)
     finally:
         svc.close()
+
+
+def test_service_oneshot_with_mesh_matches_without():
+    """Multi-device serving from the daemon: a service over a pipeline
+    whose vocoder shards its fold rows over a mesh (as ``serve --mesh``
+    wires it) gives the one-shot and streamed audio of the meshless
+    service, sample for sample."""
+    def run(**kw):
+        svc = SynthesisService(tiny_pipeline(**kw), **SERVICE)
+        try:
+            return [np.concatenate(list(svc.submit("abcde", stream=s)))
+                    for s in (False, True)]
+        finally:
+            svc.close()
+
+    want = run()
+    got = run(mesh=make_mesh(devices=["cpu"] * 2))
+    for g, w in zip(got, want):
+        assert len(w) > 1000
+        np.testing.assert_array_equal(g, w)
 
 
 def test_int16_service_stream_matches_oneshot_bytes():

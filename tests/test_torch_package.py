@@ -33,9 +33,12 @@ def test_no_forbidden_import_in_the_source():
                 "data/preprocess.py", "data/loader.py", "data/dataset.py",
                 "training/state.py", "training/wavernn.py", "pruning.py",
                 "preprocess.py", "train_wavernn.py", "utils/checkpoints.py"}
+    parallel = {"parallel/__init__.py", "parallel/mesh.py",
+                "parallel/distributed.py", "tools/multihost_smoke.py",
+                "tools/mesh_kernel_probe.py"}
     ported = {str(p.relative_to(PORT)) for p in _sources()
               if PORT in p.parents}
-    assert serving <= ported and training <= ported
+    assert serving <= ported and training <= ported and parallel <= ported
 
 
 def test_every_port_module_imports_with_jax_blocked():

@@ -6,7 +6,9 @@ Tacotron and tiny RAW golden WaveRNN and an hp file with their dims
 answers and ``/synthesize`` returns a WAV of (frames - 1) * hop samples,
 frames being those of the same text through the port's ``TTSGenerator``.
 Without CUDA the default device (``cuda``) must fail rather than fall
-back, and ``--mesh`` (not ported) must raise."""
+back, and so must ``--mesh`` over the default devices (every visible CUDA
+device) on ``--device cpu``; ``--mesh --mesh_devices cpu,cpu`` serves the
+bytes the meshless daemon serves."""
 
 import http.client
 import json
@@ -75,10 +77,47 @@ def test_serve_setup_answers_on_cpu(serve_argv):
     assert np.abs(pcm.astype(np.int32)).max() > 0
 
 
+def test_serve_mesh_answers_as_without(serve_argv):
+    """``--mesh --mesh_devices cpu,cpu``: the pipeline's vocoder shards
+    its launches over the two-shard mesh, and ``/synthesize`` answers with
+    the bytes of the meshless daemon (deterministic)."""
+    bodies = []
+    for extra in ([], ["--mesh", "--mesh_devices", "cpu,cpu"]):
+        service, httpd = serve.setup(serve.parse_args(
+            serve_argv + ["--device", "cpu", "--no_warmup"] + extra))
+        threading.Thread(target=httpd.serve_forever, daemon=True).start()
+        try:
+            mesh = service.server.pipeline.voc.mesh
+            assert (mesh is None) == (not extra)
+            assert extra == [] or mesh.n_data == 2
+            conn = http.client.HTTPConnection(
+                "127.0.0.1", httpd.server_address[1], timeout=60)
+            conn.request("POST", "/synthesize",
+                         body=json.dumps({"text": "abcde"}).encode())
+            resp = conn.getresponse()
+            assert resp.status == 200
+            bodies.append(resp.read())
+            conn.close()
+        finally:
+            httpd.shutdown()
+            httpd.server_close()
+            service.close()
+        hp.reset()
+    assert len(bodies[0]) > 1000 and bodies[1] == bodies[0]
+
+
 def test_serve_fails_without_cuda_and_refuses_mesh(serve_argv, monkeypatch):
-    with pytest.raises(NotImplementedError, match="mesh"):
+    """A mesh it cannot build is refused: ``--mesh`` takes every visible
+    CUDA device unless ``--mesh_devices`` lists others, and never the CPU
+    unasked; ``--mesh_devices`` without ``--mesh`` is a wrong plan."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         serve.setup(serve.parse_args(serve_argv + ["--device", "cpu",
                                                    "--mesh"]))
+    hp.reset()
+    with pytest.raises(ValueError, match="needs --mesh"):
+        serve.setup(serve.parse_args(serve_argv + [
+            "--device", "cpu", "--mesh_devices", "cpu,cpu"]))
     hp.reset()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

@@ -3,7 +3,8 @@ on the CPU (``--device cpu``): preprocess a tiny sine corpus, train 4
 steps with a checkpoint and an audition, re-run to resume at the stored
 step, vocode with ``gen_wavernn``.  Without ``--device`` the trainer asks
 for CUDA and, on a machine without it, exits non-zero; the options it
-does not port raise.
+does not port raise.  Two CPU ranks under torchrun's variables resume the
+same workspace data-parallel.
 
 The model is tiny (RAW, 32-wide) and the auditions short, so the plain
 decode stands in for the kernel on the CPU in about a second."""
@@ -19,8 +20,10 @@ import pytest
 
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 from wavernn_tpu_torch.dsp import wavio
+from wavernn_tpu_torch.parallel.mesh import make_mesh, shard_batch_fn
+from wavernn_tpu_torch.tools.multihost_smoke import free_port
 from wavernn_tpu_torch.training.wavernn import (
-    check_ported_options, voc_train_loop,
+    check_ported_options, make_train_step, voc_train_loop,
 )
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
@@ -132,8 +135,10 @@ def test_train_without_device_needs_cuda(trained):
 
 
 def test_options_not_ported_raise():
-    """``voc_seq_chunks > 1``, ``voc_compute_dtype`` and multi-device data
-    parallelism (``shard_batch``) raise instead of training otherwise."""
+    """``voc_seq_chunks > 1`` and ``voc_compute_dtype`` raise instead of
+    training otherwise; data parallelism takes a world plan (one process
+    per device), so a local plan's ``shard_batch`` or train step is a
+    wrong plan."""
     class HP(dict):
         get = dict.get
 
@@ -146,6 +151,42 @@ def test_options_not_ported_raise():
                        "voc_compute_dtype")):
         with pytest.raises(NotImplementedError, match=word):
             check_ported_options(bad)
-    with pytest.raises(NotImplementedError, match="shard_batch"):
+    local = make_mesh(devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="world plan"):
         voc_train_loop(None, None, None, None, [], [], 1,
-                       shard_batch=lambda *b: b)
+                       shard_batch=shard_batch_fn(local))
+    with pytest.raises(ValueError, match="world plan"):
+        make_train_step(None, "RAW", local)
+
+
+def test_two_ranks_train_on_from_the_stored_step(trained):
+    """``train_wavernn`` under torchrun's contract, two CPU ranks over
+    gloo: both restore the stored pair, each steps on its half of every
+    batch of 2, and rank 0 alone writes the pair two steps on."""
+    ws, _, _ = trained
+    latest = ws / "checkpoints" / "ljspeech_mol.wavernn" / \
+        "latest_weights.msgpack"
+    start = int(load_pytree(latest)["step"])
+    write_hp(ws, start + 2)
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+               MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
+               WORLD_SIZE="2")
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "wavernn_tpu_torch.train_wavernn",
+         "--hp_file", "hp.py", "--device", "cpu"], cwd=ws,
+        env=dict(env, RANK=str(k), LOCAL_RANK=str(k)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for k in range(2)]
+    try:
+        outs = [p.communicate(timeout=120) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for p, (_, err) in zip(procs, outs):
+        assert p.returncode == 0, err[-3000:]
+    assert "Data-parallel: data=2 model=1 (world, rank 0 on cpu)" \
+        in outs[0][0]
+    assert "Restoring from latest checkpoint" in outs[1][0]
+    assert int(load_pytree(latest)["step"]) == start + 2

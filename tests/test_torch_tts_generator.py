@@ -24,6 +24,7 @@ from wavernn_tpu_torch.infer.gates import gates_pass, tts_gates
 from wavernn_tpu_torch.infer.tacotron import TTSGenerator
 from wavernn_tpu_torch.models.tacotron import TacotronConfig
 from wavernn_tpu_torch.ops import cuda_tts
+from wavernn_tpu_torch.parallel.mesh import MeshPlan
 from wavernn_tpu_torch.text import text_to_sequence
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
 from tests.torch_cpu import one_torch_thread  # noqa: F401
@@ -127,8 +128,11 @@ def test_generator_refuses_what_it_does_not_take(golden, monkeypatch):
         TTSGenerator(additive, v, "cpu", backend="kernel")
     with pytest.raises(ValueError, match="backend"):
         TTSGenerator(cfg, v, "cpu", backend="pallas")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="MeshPlan"):
         TTSGenerator(cfg, v, "cpu", mesh=object())
+    world = MeshPlan(n_data=2, devices=(torch.device("cpu"),), world=True)
+    with pytest.raises(ValueError, match="local plan"):
+        TTSGenerator(cfg, v, "cpu", mesh=world)
     with pytest.raises(NotImplementedError, match="int8_lstm"):
         TTSGenerator(cfg, v, "cpu", int8_lstm=True)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -17,7 +17,9 @@ runs the kernels' plain PyTorch versions instead, at CPU speed.  The
 writes each utterance's attention beside its WAV, as ``<stem>.png`` and
 ``<stem>_attention.npy`` (``utils/display.py::save_attention``).
 
-Not ported yet (each raises): ``--mesh`` and ``--int8``.
+``--mesh`` shards the WaveRNN vocoder's fold rows over a device mesh, as
+``gen_wavernn --mesh`` does (Tacotron decodes one utterance at a time, on
+``--device``).  Not ported (raises): ``--int8`` (``int8_gates``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from wavernn_tpu_torch.infer.tacotron import TTSGenerator
 from wavernn_tpu_torch.infer.wavernn import make_generator
 from wavernn_tpu_torch.models.tacotron import TacotronConfig
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+from wavernn_tpu_torch.parallel.mesh import add_mesh_args, mesh_from_args
 from wavernn_tpu_torch.text import text_to_sequence
 from wavernn_tpu_torch.text.symbols import symbols
 from wavernn_tpu_torch.training.tacotron import r_for_step
@@ -72,8 +75,7 @@ def main(argv=None):
                                  "(int8_gates)")
     int8_group.add_argument("--no_int8", action="store_true",
                             help="no int8 gate weights (the default)")
-    parser.add_argument("--mesh", "-m", action="store_true",
-                        help="shard the vocoder's folds over a device mesh")
+    add_mesh_args(parser)
     parser.add_argument("--output_dir", type=str,
                         help="where the WAVs go (default "
                              "model_outputs/<tts_model_id>.tacotron)")
@@ -96,9 +98,8 @@ def main(argv=None):
                     help="[int] griffinlim iterations")
     args = parser.parse_args(argv)
 
-    for flag, what in (("mesh", "--mesh"), ("int8", "--int8")):
-        if getattr(args, flag):
-            raise NotImplementedError(f"{what} is not ported yet")
+    if args.int8:
+        raise NotImplementedError("--int8 (int8_gates) is not ported yet")
 
     hp.configure(args.hp_file)
     out_dir = Path(args.output_dir if args.output_dir else
@@ -129,7 +130,8 @@ def main(argv=None):
         voc_cfg = WaveRNNConfig.from_hp(hp)
         voc_vars, voc_step = load_weights(args.voc_weights, hp.voc_model_id,
                                           "wavernn")
-        voc = make_generator(voc_cfg, voc_vars, args.device)
+        voc = make_generator(voc_cfg, voc_vars, args.device,
+                             mesh=mesh_from_args(args, hp.get("mesh_shape")))
         v_type = "wavernn_batched" if batched else "wavernn_unbatched"
         print(head + f"WaveRNN {voc_step // 1000}k, "
               f"{'batched' if batched else 'unbatched'} target {target} "

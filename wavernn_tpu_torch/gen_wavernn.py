@@ -7,6 +7,8 @@ or the test set's copy-synthesis MCD.
         [--hp_file hparams.py] [--device cuda]
     python -m wavernn_tpu_torch.gen_wavernn [--samples N] [--gta] [--eval] \\
         [--hp_file hparams.py]
+    python -m wavernn_tpu_torch.gen_wavernn --file mel.npy --mesh \\
+        [--mesh_devices cuda:0,cuda:1]
 
 Without ``--file`` the first ``--samples`` utterances of the test split of
 ``data_path`` are vocoded beside their targets into
@@ -15,7 +17,10 @@ Without ``--file`` the first ``--samples`` utterances of the test split of
 weights default to the latest checkpoint of ``checkpoints/
 <voc_model_id>.wavernn/``.  The device defaults to ``cuda`` and is never
 swapped for another: without CUDA the command fails.  ``--device cpu`` runs
-the kernel's plain PyTorch version instead, at CPU speed.
+the kernel's plain PyTorch version instead, at CPU speed.  ``--mesh``
+splits each launch's fold rows over a device mesh (``hp.mesh_shape`` when
+set): every visible CUDA device, or ``--mesh_devices``, whose first must
+be ``--device``'s.
 """
 
 from __future__ import annotations
@@ -30,8 +35,9 @@ from wavernn_tpu_torch.infer.wavernn import (
     gen_from_file, gen_testset, make_generator,
 )
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig, from_jax_variables
+from wavernn_tpu_torch.parallel.distributed import rank_device
+from wavernn_tpu_torch.parallel.mesh import add_mesh_args, mesh_from_args
 from wavernn_tpu_torch.paths import Paths
-from wavernn_tpu_torch.train_wavernn import resolve_device
 from wavernn_tpu_torch.training.state import TrainState
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
@@ -70,6 +76,7 @@ def main(argv=None):
                         help="argmax / mixture-mode decode instead of "
                              "sampling")
     parser.add_argument("--seed", type=int, default=0)
+    add_mesh_args(parser)
     parser.add_argument("--hp_file", metavar="FILE", default="hparams.py",
                         help="the file to use for the hyperparameters")
     parser.set_defaults(batched=None)
@@ -91,8 +98,12 @@ def main(argv=None):
     blob = load_pytree(weights)
     variables = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
     step = int(blob.get("step", 0))
+    mesh = mesh_from_args(args, hp.get("mesh_shape"))
+    if mesh is not None and args.eval_mcd:
+        raise ValueError("--mesh shards generation; --eval scores the "
+                         "test set on --device alone")
     if not args.file:
-        resolve_device(args.device)
+        rank_device(args.device)
         paths = Paths(hp.data_path, hp.voc_model_id, hp.tts_model_id)
         _, test_set = get_vocoder_datasets(paths.data, 1, args.gta)
         print(f"Using device: {args.device} | weights {weights} (step "
@@ -106,9 +117,9 @@ def main(argv=None):
                                                     args.device),
                            opt_state=None, step=step)
         return gen_testset(cfg, state, test_set, samples, batched, target,
-                           overlap, out_dir)
+                           overlap, out_dir, mesh=mesh)
 
-    gen = make_generator(cfg, variables, args.device,
+    gen = make_generator(cfg, variables, args.device, mesh=mesh,
                          deterministic=args.deterministic)
     print(f"Using device: {gen.device} | weights {weights} (step {step}) | "
           f"{'batched' if batched else 'unbatched'} target {target} "

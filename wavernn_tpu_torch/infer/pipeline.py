@@ -27,8 +27,10 @@ class TTSPipeline:
     the Tacotron decoder's (``auto``, ``kernel`` or ``plain``).
     ``output_dtype='int16'`` serves 16-bit PCM faded on the device;
     ``input_dtype='float16'`` uploads the mels at half the bytes.
-    ``int8_gates`` and a ``mesh`` are not ported yet (the vocoder
-    raises)."""
+    ``mesh`` (a local ``parallel.mesh.MeshPlan`` whose first device is
+    ``device``) shards the vocoder's fold rows over its devices, as
+    ``gen_wavernn --mesh`` does; the Tacotron decode stays on ``device``.
+    ``int8_gates`` is not ported (the vocoder raises)."""
 
     def __init__(self, tts_cfg: TacotronConfig, tts_variables,
                  voc_cfg: WaveRNNConfig, voc_variables,

@@ -6,7 +6,9 @@ Two decode backends:
     chunks of :data:`CHUNK` steps (the CUDA kernel for a CUDA device, its
     plain PyTorch version on the CPU), as the JAX package's pallas path.
   * ``plain``: the model's float32 ``decode_step`` in a Python loop,
-    batch-friendly, as the JAX package's XLA path.
+    batch-friendly, as the JAX package's XLA path.  With a mesh,
+    :meth:`TTSGenerator.batch` splits the utterances over its devices and
+    runs one plain decode per shard, in lockstep.
 ``auto`` picks the kernel on CUDA for location-sensitive attention, and the
 plain decoder otherwise.  Either way the host reads each chunk's stop values
 and stops once every utterance has been quiet for ``stop_patience``
@@ -17,7 +19,7 @@ at the first stop.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +31,9 @@ from wavernn_tpu_torch.models.tacotron import (
 from wavernn_tpu_torch.ops import cuda_tts
 from wavernn_tpu_torch.ops.tts_decode import (
     extract_tts_decode_weights, init_tts_decode_state, pack_tts_weights,
+)
+from wavernn_tpu_torch.parallel.mesh import (
+    MeshPlan, check_plan, concrete_device,
 )
 
 CHUNK = 48       # kernel steps per launch, between the host's stop checks
@@ -66,12 +71,19 @@ class TTSGenerator:
     the reference's break at the first silent group.  No stop counts in the
     first steps, while t * r <= 10.
 
-    Not ported yet (each raises): ``int8_lstm`` and a ``mesh``."""
+    ``mesh``: a local ``parallel.mesh.MeshPlan`` whose first device is
+    ``device``.  :meth:`batch` pads the utterance axis to a multiple of
+    ``n_data`` and decodes each shard on its device (the JAX package
+    shards the same batch over its mesh's ``data`` axis); a single
+    utterance (:meth:`submit`) stays on the first device, through the
+    kernel.
+
+    Not ported (raises): ``int8_lstm``."""
 
     def __init__(self, cfg: TacotronConfig, variables, device,
                  steps: int = 2000, text_bucket: int = 32,
-                 backend: str = "auto", int8_lstm: bool = False, mesh=None,
-                 stop_patience: int = 1):
+                 backend: str = "auto", int8_lstm: bool = False,
+                 mesh: Optional[MeshPlan] = None, stop_patience: int = 1):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for, but CUDA is "
@@ -80,8 +92,14 @@ class TTSGenerator:
             raise ValueError("stop_patience must be >= 1")
         if int8_lstm:
             raise NotImplementedError("int8_lstm is not ported")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("a TTS mesh is not ported yet")
+            check_plan(mesh, False, "TTSGenerator(mesh=)")
+            if self.device not in (mesh.device,
+                                   torch.device(mesh.device.type)):
+                raise ValueError(f"the TTSGenerator's device {device!r} is "
+                                 f"not its mesh's first device {mesh.device}")
+            self.device = mesh.device
         if backend == "auto":
             backend = ("kernel" if self.device.type == "cuda"
                        and cfg.attn_mode == "lsa" else "plain")
@@ -100,6 +118,11 @@ class TTSGenerator:
         self.text_bucket = text_bucket
         self.stop_patience = int(stop_patience)
         self.model = from_jax_variables(variables, cfg, self.device)
+        # the model on each device of the mesh, for the sharded batch,
+        # keyed as a tensor's .device names the device
+        self._models = {concrete_device(self.device): self.model}
+        for d in (mesh.distinct_devices() if mesh is not None else ()):
+            self._models.setdefault(d, from_jax_variables(variables, cfg, d))
         self._packed = {}      # r -> the kernel's weight set
 
     # -- public API -----------------------------------------------------
@@ -118,9 +141,10 @@ class TTSGenerator:
         xp = torch.zeros(1, _round_up(seq_len, self.text_bucket),
                          dtype=torch.long)
         xp[0, :seq_len] = torch.as_tensor(np.asarray(x, dtype=np.int64))
-        run = self._run_kernel if self.backend == "kernel" else self._run_plain
+        xp, steps = xp.to(self.device), self._bucket_steps(steps, r)
         with torch.no_grad():
-            out = run(xp.to(self.device), r, self._bucket_steps(steps, r))
+            out = (self._run_kernel(xp, r, steps) if self.backend == "kernel"
+                   else self._run_plain([xp], r, steps)[0])
         return Decoded(*out, r=r, seq_len=seq_len)
 
     def collect(self, handle: Decoded):
@@ -134,16 +158,24 @@ class TTSGenerator:
     def batch(self, seqs, r: int):
         """Several utterances in one decode batch through the plain
         decoder (the kernel serves one utterance at a time), text padded
-        to the bucketed longest.  Returns one (mel, linear, attn) triple
-        per utterance, each trimmed at its own stop."""
+        to the bucketed longest.  With a mesh the batch is padded to a
+        multiple of ``n_data`` utterances and each shard decodes on its
+        device.  Returns one (mel, linear, attn) triple per utterance,
+        each trimmed at its own stop."""
         L = _round_up(max(len(s) for s in seqs), self.text_bucket)
-        x = torch.zeros(len(seqs), L, dtype=torch.long)
+        shards = self.mesh.n_data if self.mesh is not None else 1
+        x = torch.zeros(_round_up(len(seqs), shards), L, dtype=torch.long)
         for i, s in enumerate(seqs):
             x[i, :len(s)] = torch.as_tensor(np.asarray(s, dtype=np.int64))
+        devices = self.mesh.devices if self.mesh is not None else (
+            self.device,)
         with torch.no_grad():
-            mel, linear, attn, n_valid = self._run_plain(
-                x.to(self.device), r, self._bucket_steps(None, r))
-        mel, linear, attn = (t.cpu().numpy() for t in (mel, linear, attn))
+            outs = self._run_plain(
+                [xs.to(d) for xs, d in zip(x.chunk(shards), devices)], r,
+                self._bucket_steps(None, r))
+        mel, linear, attn, n_valid = (
+            torch.cat([o[i].cpu() for o in outs]) for i in range(4))
+        mel, linear, attn = (t.numpy() for t in (mel, linear, attn))
         out = []
         for i, s in enumerate(seqs):
             nv = int(n_valid[i])
@@ -163,44 +195,36 @@ class TTSGenerator:
                 extract_tts_decode_weights(self.model), r, self.cfg.n_mels)
         return self._packed[r]
 
-    def _finish(self, mels_seq, scores_seq, done_seq, n_req: int, r: int):
+    def _finish(self, mels_seq, scores_seq, done_seq, n_req: int, r: int,
+                model=None):
         """(n, B, n_mels, r), (n, B, L), (n, B) step buffers -> the
-        generator's outputs over the first n_req steps."""
+        generator's outputs over the first n_req steps (the postnet of
+        ``model``, by default the generator's)."""
         B = mels_seq.shape[1]
         mel = mels_seq[:n_req].permute(1, 0, 3, 2).reshape(
             B, n_req * r, self.cfg.n_mels)
-        linear = self.model.postnet_forward(mel)
+        linear = (model or self.model).postnet_forward(mel)
         attn = scores_seq[:n_req].transpose(0, 1)
         return mel, linear, attn, _n_valid(done_seq[:n_req].T, n_req)
 
-    def _run_plain(self, x: torch.Tensor, r: int, steps: int):
-        c, m = self.cfg, self.model
-        B, L = x.shape
+    def _run_plain(self, xs, r: int, steps: int) -> list:
+        """The plain decoder over one or more batches of symbol ids, each
+        on its own device (a mesh's shards) with the model there, in
+        lockstep: each chunk of steps is queued on every device before
+        the host reads a stop flag, and every batch runs until all
+        utterances of all of them are done, as one batch would.  Returns
+        (mel, linear, attn, n_valid) per batch."""
         n_req = steps // r
         chunk = min(EXIT_CHUNK, n_req)
-        n_iters = _round_up(n_req, chunk)
-        enc, encp = m.encode(x)
-        carry = init_decoder_carry(c, B, L, self.device)
-        prev = torch.zeros(B, c.n_mels, device=self.device)
-        done = torch.zeros(B, dtype=torch.bool, device=self.device)
-        quiet = torch.zeros(B, dtype=torch.int32, device=self.device)
-        mels_buf = torch.zeros(n_iters, B, c.n_mels, r, device=self.device)
-        scores_buf = torch.zeros(n_iters, B, L, device=self.device)
-        done_buf = torch.zeros(n_iters, B, dtype=torch.bool,
-                               device=self.device)
-        for t0 in range(0, n_iters, chunk):
-            if bool(done.all()):
+        runs = [_PlainRun(self._models[x.device], self.cfg, x, r,
+                          _round_up(n_req, chunk)) for x in xs]
+        for t0 in range(0, runs[0].n_iters, chunk):
+            if all(bool(run.done.all()) for run in runs):
                 break
-            for t in range(t0, t0 + chunk):
-                carry, (mels, scores) = m.decode_step(carry, enc, encp,
-                                                      prev, r)
-                prev = mels[:, :, -1]
-                group_quiet = (mels < c.stop_threshold).flatten(1).all(dim=1)
-                quiet = torch.where(group_quiet, quiet + 1,
-                                    torch.zeros_like(quiet))
-                done = done | ((quiet >= self.stop_patience) & (t * r > 10))
-                mels_buf[t], scores_buf[t], done_buf[t] = mels, scores, done
-        return self._finish(mels_buf, scores_buf, done_buf, n_req, r)
+            for run in runs:
+                run.advance(t0, t0 + chunk, self.stop_patience)
+        return [self._finish(run.mels_buf, run.scores_buf, run.done_buf,
+                             n_req, r, run.model) for run in runs]
 
     def _run_kernel(self, x: torch.Tensor, r: int, steps: int):
         c = self.cfg
@@ -233,3 +257,37 @@ class TTSGenerator:
         done_t = torch.from_numpy(done_buf).to(self.device)
         return self._finish(mels_buf.permute(0, 2, 1)[:, None],
                             scores_buf[:, None], done_t[:, None], n_req, r)
+
+
+class _PlainRun:
+    """One batch's state in the plain decoder: the encoder outputs, the
+    carry and the step buffers on the batch's device."""
+
+    def __init__(self, model, cfg: TacotronConfig, x: torch.Tensor, r: int,
+                 n_iters: int):
+        B, L = x.shape
+        dev = x.device
+        self.model, self.cfg, self.r, self.n_iters = model, cfg, r, n_iters
+        self.enc, self.encp = model.encode(x)
+        self.carry = init_decoder_carry(cfg, B, L, dev)
+        self.prev = torch.zeros(B, cfg.n_mels, device=dev)
+        self.done = torch.zeros(B, dtype=torch.bool, device=dev)
+        self.quiet = torch.zeros(B, dtype=torch.int32, device=dev)
+        self.mels_buf = torch.zeros(n_iters, B, cfg.n_mels, r, device=dev)
+        self.scores_buf = torch.zeros(n_iters, B, L, device=dev)
+        self.done_buf = torch.zeros(n_iters, B, dtype=torch.bool, device=dev)
+
+    def advance(self, t0: int, t1: int, stop_patience: int) -> None:
+        """Queue decoder steps t0 .. t1."""
+        c, r = self.cfg, self.r
+        for t in range(t0, t1):
+            self.carry, (mels, scores) = self.model.decode_step(
+                self.carry, self.enc, self.encp, self.prev, r)
+            self.prev = mels[:, :, -1]
+            group_quiet = (mels < c.stop_threshold).flatten(1).all(dim=1)
+            self.quiet = torch.where(group_quiet, self.quiet + 1,
+                                     torch.zeros_like(self.quiet))
+            self.done = self.done | ((self.quiet >= stop_patience)
+                                     & (t * r > 10))
+            self.mels_buf[t], self.scores_buf[t], self.done_buf[t] = (
+                mels, scores, self.done)

@@ -22,12 +22,14 @@ from wavernn_tpu_torch.ops.decode import Generator
 from wavernn_tpu_torch.utils.display import stream
 
 
-def make_generator(cfg: WaveRNNConfig, variables, device,
+def make_generator(cfg: WaveRNNConfig, variables, device, mesh=None,
                    **kwargs) -> Generator:
-    """A Generator serving int16 PCM (the WAV payload) on ``device``;
-    ``kwargs`` go to :class:`Generator`."""
+    """A Generator serving int16 PCM (the WAV payload) on ``device``,
+    its fold rows sharded over ``mesh`` (a local
+    ``parallel.mesh.MeshPlan``) when one is given; ``kwargs`` go to
+    :class:`Generator`."""
     kwargs.setdefault("output_dtype", "int16")
-    return Generator(cfg, variables, device=device, **kwargs)
+    return Generator(cfg, variables, device=device, mesh=mesh, **kwargs)
 
 
 def _timed_generate(gen: Generator, mel, batched, target, overlap, mu_law,
@@ -53,13 +55,14 @@ def _timed_generate(gen: Generator, mel, batched, target, overlap, mu_law,
 
 def gen_testset(cfg: WaveRNNConfig, state, test_set, samples: int,
                 batched: bool, target: int, overlap: int,
-                save_path: Path) -> list:
+                save_path: Path, mesh=None) -> list:
     """Vocode the first ``samples`` held-out utterances beside their
     targets, with a Generator over the training model's current weights
     on the model's device (the decode kernel on the card, one launch per
-    utterance).  Returns the paths of the generated WAVs."""
+    utterance, or one per shard of ``mesh``, whose first device is the
+    model's).  Returns the paths of the generated WAVs."""
     dev = next(state.model.parameters()).device
-    gen = make_generator(cfg, to_jax_variables(state.model), dev)
+    gen = make_generator(cfg, to_jax_variables(state.model), dev, mesh=mesh)
     k = state.get_step() // 1000
     save_path = Path(save_path)
     save_path.mkdir(parents=True, exist_ok=True)

@@ -433,6 +433,27 @@ def draw_decoder_masks(cfg: TacotronConfig, T_dec: int, B: int, device,
             draw(ZONEOUT_P, H))
 
 
+def draw_train_masks(cfg: TacotronConfig, B: int, L: int, T_dec: int,
+                     device, generator: Optional[torch.Generator] = None):
+    """Every train-mode mask of a :meth:`Tacotron.forward` over B
+    utterances of L symbols and T_dec decoder steps, drawn from
+    ``generator`` in the order the forward draws them: the encoder
+    prenet's two keep-masks ((B, L, 2 * encoder_dims), (B, L,
+    encoder_dims); none when dropout is 0, as flax's ``Dropout(0)`` draws
+    none), then :func:`draw_decoder_masks`.  Returns ``(encoder_masks,
+    masks)`` for the forward's ``encoder_masks`` and ``masks``: a forward
+    given them equals one that draws them itself from the same generator.
+    A data-parallel step draws the global batch's and takes its rows."""
+    E = cfg.encoder_dims
+    encoder_masks = None
+    if cfg.dropout != 0.0:
+        keep = 1.0 - cfg.dropout
+        encoder_masks = tuple(keep_mask((B, L, w), keep, device, generator)
+                              for w in (2 * E, E))
+    return encoder_masks, draw_decoder_masks(cfg, T_dec, B, device,
+                                             generator)
+
+
 def init_decoder_carry(cfg: TacotronConfig, B: int, T_enc: int, device=None,
                        dtype=None):
     """The zero decoder carry: attention hidden, (h, c) of both LSTMs,

@@ -16,9 +16,10 @@ pytree layout through one table of parameters (:func:`param_layout`).
 
 from __future__ import annotations
 
+import contextlib
 import warnings
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Tuple
+from typing import Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -26,6 +27,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from wavernn_tpu_torch.ops.rnn import gru_cell_step
+from wavernn_tpu_torch.parallel.mesh import MeshPlan, all_reduce_sum
 
 
 @dataclass(frozen=True)
@@ -95,10 +97,18 @@ class FlaxBatchNorm(nn.BatchNorm1d):
     Eval mode normalizes with the running statistics, as
     ``nn.BatchNorm1d`` does (same epsilon, 1e-5).  ``train`` picks the
     mode explicitly (flax's ``use_running_average``); None follows the
-    module's ``training`` flag."""
+    module's ``training`` flag.
+
+    Under a world plan (``plan``, set for the length of a train step's
+    forward by :func:`batch_stats_over`) the rank's mean and E[x^2] are
+    averaged over the ranks before the variance is formed, through an
+    all-reduce that autograd differentiates: the statistics, the running
+    averages and the gradients are the global batch's, as XLA's are for a
+    batch sharded over a mesh.  Every rank's batch has the same shape."""
 
     def __init__(self, dims: int):
         super().__init__(dims, eps=1e-5)
+        self.plan: Optional[MeshPlan] = None
 
     def forward(self, x: torch.Tensor, train=None) -> torch.Tensor:
         if not (self.training if train is None else train):
@@ -106,12 +116,31 @@ class FlaxBatchNorm(nn.BatchNorm1d):
                                 self.weight, self.bias, False, 0.0,
                                 self.eps)
         mean = x.mean(dim=(0, 2))
-        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        msq = (x * x).mean(dim=(0, 2))
+        if self.plan is not None:
+            both = all_reduce_sum(torch.cat([mean, msq]), self.plan)
+            mean, msq = (both / self.plan.n_data).chunk(2)
+        var = torch.clamp(msq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(0.9).add_(0.1 * mean)
             self.running_var.mul_(0.9).add_(0.1 * var)
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean[:, None]) * mul[:, None] + self.bias[:, None]
+
+
+@contextlib.contextmanager
+def batch_stats_over(model: nn.Module, plan: Optional[MeshPlan]):
+    """Within the block, every :class:`FlaxBatchNorm` of ``model`` takes
+    its train-mode statistics over the global batch of the world plan
+    ``plan`` (nothing changes with None)."""
+    norms = [m for m in model.modules() if isinstance(m, FlaxBatchNorm)]
+    for m in norms:
+        m.plan = plan
+    try:
+        yield
+    finally:
+        for m in norms:
+            m.plan = None
 
 
 def flax_conv(in_dims: int, out_dims: int, kernel: int,

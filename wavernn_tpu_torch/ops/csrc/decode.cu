@@ -63,14 +63,18 @@
 // store.  Production is MASK = 0, which compiles to the plain kernel.
 //
 // Random bits: a counter-based 32-bit hash of (seed, fold row, step, lane)
-// replaces the TPU's on-core PRNG; the plain version reproduces it.
+// replaces the TPU's on-core PRNG; the plain version reproduces it.  The
+// fold row is row0 + the row within the launch, so a launch over rows
+// [row0, row0 + B) of a larger batch (one shard of a mesh) draws the bits
+// that the whole batch's launch draws for those rows.
 //
 // Entry point (plain C, bound with ctypes):
 //   int wavernn_decode(const void* const* ptrs, const long long* dims,
 //                      void* stream)
 // ptrs = cond, out, then the packed weights in cuda_decode.WEIGHT_ORDER;
 // dims = B, Tc, C, T, H, F, feat, aux_d, n_out, mode (0 RAW, 1 MOL),
-//        deterministic, int8_hh, rows_per_cta, seed, ablation mask, int8_ff.
+//        deterministic, int8_hh, rows_per_cta, seed, ablation mask, int8_ff,
+//        row0.
 // Returns a cudaError_t (0 = launched).
 
 #include <cuda_bf16.h>
@@ -106,6 +110,7 @@ struct Params {
   const float* ffq;
   int B, Tc, C, T, H, F, feat, d, n_out, mode, det;
   uint32_t seed;
+  uint32_t row0;      // the random bits' row of this launch's row 0
   dot::Split sp[11];  // each dot's split (D_* order)
   int off[11];        // each dot's partial sums in shared memory, in doubles
   int scratch;        // doubles of partial sums, the largest phase's
@@ -422,6 +427,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
     const int warp = tid / 32, lane = tid % 32;
     for (int r = warp; r < R; r += NWARP) {
       const int b = b0 + r;
+      const uint32_t rb = p.row0 + b;   // the random bits' row
       float* lg = logits + r * NO;
       for (int i = lane; i < NO; i += 32)
         lg[i] = add(psum<R>(part(D_FC3), p.sp[D_FC3].S, NO, i, r),
@@ -435,7 +441,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
         int bi = NO;
         for (int i = lane; i < NO; i += 32) {
           float s = lg[i];
-          if (!p.det) s = add(s, gumbel(rand_bits(p.seed, b, t, i)));
+          if (!p.det) s = add(s, gumbel(rand_bits(p.seed, rb, t, i)));
           if (s > best) { best = s; bi = i; }
         }
         warp_argmax(best, bi);
@@ -452,7 +458,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
           sample = lg[nm + bi];
         } else {
           const float s = on ? add(lg[lane],
-                                   gumbel(rand_bits(p.seed, b, t, lane)))
+                                   gumbel(rand_bits(p.seed, rb, t, lane)))
                              : -CUDART_INF_F;
           const float mx = warp_max(s);
           const float hit = (on && s >= mx) ? 1.f : 0.f;
@@ -460,7 +466,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
           const float mean = warp_sum(on ? mul(lg[nm + lane], oh) : 0.f);
           const float ls = warp_sum(
               on ? mul(fmaxf(lg[2 * nm + lane], LOG_SCALE_MIN), oh) : 0.f);
-          const float u = fminf(fmaxf(uniform(rand_bits(p.seed, b, t, nm)),
+          const float u = fminf(fmaxf(uniform(rand_bits(p.seed, rb, t, nm)),
                                       1e-5f), 0.99999f);
           sample = add(mean, mul(expf(ls), sub(logf(u), logf(sub(1.0f, u)))));
         }
@@ -605,6 +611,7 @@ extern "C" int wavernn_decode(const void* const* ptrs, const long long* dims,
   p.seed = (uint32_t)dims[13];
   const int mask = (int)dims[14];
   const bool int8_ff = dims[15] != 0;
+  p.row0 = (uint32_t)dims[16];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (mask != 0) {
     if (!int8_hh || int8_ff || R != ABLATION_R) return cudaErrorInvalidValue;

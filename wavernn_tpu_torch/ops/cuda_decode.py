@@ -30,6 +30,10 @@ scale ``*_fs`` (weight scale x S / 127).
 The TPU kernel's random bits (``pltpu.prng_*``) become a counter-based hash
 of (seed, fold row, step, lane), so the plain version reproduces the
 kernel's draws exactly and a sampling-mode run compares as a trajectory.
+The fold row is ``row0`` plus the row within the launch: a launch over
+rows ``[row0, row0 + B)`` of a larger batch (one shard of a mesh) draws
+the bits the whole batch's launch draws for them, so a sharded decode
+equals the unsharded one bit for bit in sampling mode too.
 
 ``ablate`` (dev only, for ``tools/kernel_breakdown.py``) drops named pieces
 of the step, with the JAX kernel's meanings: ``"gates"`` makes each GRU
@@ -212,12 +216,13 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
 
 
 def random_bits(seed: int, rows: torch.Tensor, step: int,
-                n_lanes: int) -> torch.Tensor:
-    """uint32 bits (as int64) for (seed, row, step, lane): (B, n_lanes)."""
+                n_lanes: int, row0: int = 0) -> torch.Tensor:
+    """uint32 bits (as int64) for (seed, row0 + row, step, lane): (B,
+    n_lanes)."""
     dev = rows.device
     h = _mix32(torch.tensor((seed & _M32) ^ 0x9E3779B9, dtype=torch.int64,
                             device=dev))
-    h = _mix32(h ^ rows.to(torch.int64))[:, None]
+    h = _mix32(h ^ ((rows.to(torch.int64) + row0) & _M32))[:, None]
     h = _mix32(h ^ step)
     lanes = torch.arange(n_lanes, dtype=torch.int64, device=dev)[None, :]
     return _mix32(h ^ lanes)
@@ -270,7 +275,8 @@ def _check(packed: dict, cond: torch.Tensor, T: int, mode: str):
 
 def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
                      mode: str, n_classes: int, deterministic: bool,
-                     ablate: frozenset = frozenset()) -> torch.Tensor:
+                     ablate: frozenset = frozenset(),
+                     row0: int = 0) -> torch.Tensor:
     """Plain PyTorch version of the kernel: (B, T) float32 samples.
 
     Each dot takes bf16-valued operands (rounded to bf16, held in a wider
@@ -287,7 +293,8 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
     quantized as the module's docstring says (a float32 multiply, the
     clip, ``torch.round``: half to even, as ``rintf``) and the integer
     products are summed exactly, as the kernel's ``dp4a`` does.
-    ``ablate`` as in the module's docstring."""
+    ``ablate`` and ``row0`` (the random bits' row of row 0) as in the
+    module's docstring."""
     ablation_mask(ablate)
     _check(packed, cond, T, mode)
     f = {k: (v.float() if v is not None and v.dtype != torch.int8 else v)
@@ -358,7 +365,7 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
             scores = logits
             if not deterministic:
                 scores = logits + gumbel_from_bits(
-                    random_bits(seed, rows, t, logits.shape[1]))
+                    random_bits(seed, rows, t, logits.shape[1], row0))
             cls = _row_argmax(scores)
             # divide as the kernel does: multiply by the f32 reciprocal
             sample = 2.0 * cls.float() * (1.0 / (n_classes - 1.0)) - 1.0
@@ -370,7 +377,7 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
                 sel = _row_argmax(pi)
                 sample = torch.gather(mu, 1, sel)
             else:
-                bits = random_bits(seed, rows, t, nm + 1)
+                bits = random_bits(seed, rows, t, nm + 1, row0)
                 scores = pi + gumbel_from_bits(bits[:, :nm])
                 hit = (scores >= scores.amax(dim=1, keepdim=True)).float()
                 onehot = hit / hit.sum(dim=1, keepdim=True)
@@ -392,12 +399,14 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
 def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
            n_classes: int, deterministic: bool,
            ablate: frozenset = frozenset(),
-           rows_per_cta: int = ROWS_PER_CTA) -> torch.Tensor:
+           rows_per_cta: int = ROWS_PER_CTA, row0: int = 0) -> torch.Tensor:
     """(B, T) float32 samples of the sample loop over fold-major bf16
     conditioning ``cond`` (B, >=T, C).  int8 recurrent matrices and int8
     feed-forward matrices (with their ``ffq``) are used when ``packed``
-    holds them (:func:`pack_weights`).  ``rows_per_cta`` (1 or 2) is the kernel's
-    fold rows per CTA; ``ablate`` as in the module's docstring (the kernel
+    holds them (:func:`pack_weights`).  ``rows_per_cta`` (1 or 2) is the
+    kernel's fold rows per CTA; ``row0`` is the random bits' row of row 0
+    (a shard's offset in its batch); ``ablate`` as in the module's
+    docstring (the kernel
     is built with the ablations in :data:`KERNEL_ABLATIONS`, for int8
     recurrent matrices and :data:`ROWS_PER_CTA` rows per CTA).  The
     kernel's 16-byte weight loads take H a multiple of 16 and F of 8 (of 16
@@ -411,9 +420,11 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     mask = ablation_mask(ablate)
     if rows_per_cta not in (1, 2):
         raise ValueError(f"rows_per_cta must be 1 or 2, got {rows_per_cta}")
+    if not 0 <= row0 < 2 ** 32:
+        raise ValueError(f"row0 must be in [0, 2**32), got {row0}")
     if cond.device.type == "cpu":
         return decode_reference(packed, cond, T, seed, mode, n_classes,
-                                deterministic, ablate)
+                                deterministic, ablate, row0)
     if cond.device.type != "cuda":
         raise ValueError(f"decode runs on CUDA or CPU tensors, got "
                          f"{cond.device}")
@@ -489,7 +500,7 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
         for k in WEIGHT_ORDER]
     dims = [B, Tc, C, T, H, F, K0 - d, d, n_out, _MODES[mode],
             int(deterministic), int(int8_hh), rows_per_cta, seed & 0xFFFFFFFF,
-            mask, int(int8_ff)]
+            mask, int(int8_ff), row0]
     stream = torch.cuda.current_stream(cond.device).cuda_stream
     with torch.cuda.device(cond.device):
         err = lib.wavernn_decode(

@@ -39,6 +39,7 @@ from wavernn_tpu_torch.ops import cuda_decode
 from wavernn_tpu_torch.ops import fold as fold_ops
 from wavernn_tpu_torch.ops import mol as mol_ops
 from wavernn_tpu_torch.ops.rnn import gru_cell_step
+from wavernn_tpu_torch.parallel.mesh import MeshPlan, check_plan, shard_rows
 
 
 @dataclass
@@ -531,14 +532,32 @@ class Generator:
     first wide enough launch.  The Generator then keeps both packs and
     takes one per launch.  :meth:`update_variables` drops the scales.
 
-    Not ported (each raises): ``int8_gates``, a decode ``mesh``."""
+    ``mesh``: a local ``parallel.mesh.MeshPlan`` (``make_mesh``) whose
+    first device is ``device``.  Every batched launch (the one-shot, the
+    co-batched serve, a stream's fold group, a ``StreamServer`` step) pads
+    its fold rows to a multiple of ``n_data`` and runs one decode per
+    shard, each on its own device (``parallel.mesh.shard_rows``); a shard
+    of rows ``[row0, row0 + b)`` draws the random bits of those rows, so
+    the kernel backend's output is the meshless Generator's byte for byte,
+    sampling included.  The scan backend's shards draw their own
+    seed-derived streams, as the JAX package's do; only its deterministic
+    output equals the meshless one.  A single-row (unbatched) decode stays
+    on the first device.  With a mesh, a raw list given to
+    :meth:`generate_batch` is served co-batched, as in the JAX package.
+    The int8_ff policy is applied to each shard's width (the JAX package
+    turns int8_ff off under a mesh, for a TPU layout reason: its sharded
+    kernel pads to 16 rows a chip); the scales are calibrated once per
+    Generator and their pack copied to each device.
+
+    Not ported (raises): ``int8_gates``."""
 
     def __init__(self, cfg: WaveRNNConfig, variables, device,
                  backend: str = "kernel", fold_bucket: int = 4,
                  frame_bucket: int = 32, deterministic: bool = False,
                  output_dtype: str = "float64", int8_hh: bool = True,
                  int8_ff: Optional[bool] = None, int8_gates: bool = False,
-                 mesh=None, input_dtype: str = "float32"):
+                 mesh: Optional[MeshPlan] = None,
+                 input_dtype: str = "float32"):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device {device!r} asked for, but CUDA is "
@@ -547,8 +566,14 @@ class Generator:
             raise ValueError(f"unknown backend {backend!r}")
         if int8_gates:
             raise NotImplementedError("int8_gates is not ported yet")
+        self.mesh = mesh
         if mesh is not None:
-            raise NotImplementedError("mesh decode is not ported yet")
+            check_plan(mesh, False, "Generator(mesh=)")
+            if self.device not in (mesh.device,
+                                   torch.device(mesh.device.type)):
+                raise ValueError(f"the Generator's device {device!r} is not "
+                                 f"its mesh's first device {mesh.device}")
+            self.device = mesh.device
         if input_dtype not in INPUT_DTYPES:
             raise ValueError(f"unsupported input_dtype {input_dtype!r}")
         if output_dtype not in OUTPUT_DTYPES:
@@ -579,6 +604,19 @@ class Generator:
             int8_hh=self.int8_hh) if self.backend == "kernel" else None)
         self.ff_scales = None   # (3,) float32 bounds on the device
         self.packed_ff = None   # the pack with int8 feed-forward matrices
+        self._copies = {}       # (id, device) -> (tensors, their copy)
+
+    def _on(self, tensors: dict, dev: torch.device) -> dict:
+        """``tensors`` (a pack, or the decode weights' fields) on ``dev``:
+        themselves where they live, else a copy made once (another shard's
+        device of the mesh)."""
+        if next(v for v in tensors.values() if v is not None).device == dev:
+            return tensors
+        key = (id(tensors), dev)
+        if key not in self._copies or self._copies[key][0] is not tensors:
+            self._copies[key] = (tensors, {
+                k: v if v is None else v.to(dev) for k, v in tensors.items()})
+        return self._copies[key][1]
 
     # -- one utterance --------------------------------------------------
 
@@ -655,12 +693,14 @@ class Generator:
 
     def generate_batch(self, mels_list, target: int, overlap: int,
                        mu_law: bool, seed: int = 0):
-        """Serve several utterances.  A :class:`PrestagedBatch` is served
-        co-batched: one decode launch over every utterance's folds, seeded
-        by ``seed``.  A raw list is served as a per-utterance
-        submit/collect pipeline in which utterance i uses the seed stream
-        (seed*1_000_003 + i) mod 2**31, as in the JAX package."""
-        if isinstance(mels_list, PrestagedBatch):
+        """Serve several utterances.  A :class:`PrestagedBatch` (or any
+        list, with a mesh: the sharded decode wants the wide launch) is
+        served co-batched: one decode launch over every utterance's folds,
+        seeded by ``seed``.  A raw list is otherwise served as a
+        per-utterance submit/collect pipeline in which utterance i uses
+        the seed stream (seed*1_000_003 + i) mod 2**31, as in the JAX
+        package."""
+        if isinstance(mels_list, PrestagedBatch) or self.mesh is not None:
             return self.collect_batch(self.submit_batch(
                 mels_list, target=target, overlap=overlap, mu_law=mu_law,
                 seed=seed))
@@ -870,16 +910,31 @@ class Generator:
 
     def _pad_folds(self, n: int) -> int:
         """Fold-count bucket: the decode runs this many rows, the padding
-        rows masked out by :func:`finalize`."""
-        return _round_up(n, self.fold_bucket)
+        rows masked out by :func:`finalize`; with a mesh, a multiple of
+        ``n_data`` too, so that the rows split evenly over the shards."""
+        n = _round_up(n, self.fold_bucket)
+        if self.mesh is not None:
+            n = _round_up(n, self.mesh.n_data)
+        return n
+
+    def _sharded(self, rows: int) -> bool:
+        """Whether a launch over ``rows`` fold rows splits over the mesh
+        (a single-row decode does not)."""
+        m = self.mesh
+        return m is not None and rows >= m.n_data and rows % m.n_data == 0
+
+    def _launch_width(self, rows: int) -> int:
+        """The rows of each decode a launch over ``rows`` makes: a
+        shard's with a mesh."""
+        return rows // self.mesh.n_data if self._sharded(rows) else rows
 
     # -- int8 feed-forward matrices -------------------------------------
 
     def _ff_policy(self, rows: int) -> bool:
         """Whether a kernel launch over ``rows`` fold rows takes the int8
-        feed-forward pack."""
-        return self.backend == "kernel" and int8_ff_policy(self.int8_ff,
-                                                           rows)
+        feed-forward pack (by the width of each of its decodes)."""
+        return self.backend == "kernel" and int8_ff_policy(
+            self.int8_ff, self._launch_width(rows))
 
     def _ensure_ff_scales(self, mels_dev: torch.Tensor, rows: int) -> None:
         """Calibrate once, eagerly, before a launch over ``rows`` fold rows
@@ -985,20 +1040,30 @@ class Generator:
         return self._kernel(cond, fold_T, seed)
 
     def _kernel(self, cond: torch.Tensor, T: int, seed: int):
-        """One decode launch over ``cond``'s fold rows, with the pack the
-        int8_ff policy picks for its width."""
+        """One decode launch over ``cond``'s fold rows, or with a mesh
+        one per shard (each keyed by its rows, so the output is the same);
+        each takes the pack the int8_ff policy picks for its width."""
+        if self._sharded(cond.shape[0]):
+            return shard_rows(self.mesh, lambda shard, row0: self._decode(
+                shard, T, seed, row0), cond)
+        return self._decode(cond, T, seed, 0)
+
+    def _decode(self, cond: torch.Tensor, T: int, seed: int, row0: int):
+        """One decode over ``cond``'s rows on its device, rows
+        ``[row0, row0 + len(cond))`` of its launch."""
         c = self.cfg
         packed = self.packed
-        if self._ff_policy(cond.shape[0]):
+        if int8_ff_policy(self.int8_ff, cond.shape[0]):
             if self.packed_ff is None:
                 raise RuntimeError(
-                    f"a launch over {cond.shape[0]} rows takes int8 "
+                    f"a decode over {cond.shape[0]} rows takes int8 "
                     "feed-forward matrices, but the Generator has no "
                     "calibrated scales")
             packed = self.packed_ff
-        return cuda_decode.decode(packed, cond, T, seed, mode=c.mode,
-                                  n_classes=c.n_classes,
-                                  deterministic=self.deterministic)
+        return cuda_decode.decode(self._on(packed, cond.device), cond, T,
+                                  seed, mode=c.mode, n_classes=c.n_classes,
+                                  deterministic=self.deterministic,
+                                  row0=row0)
 
     def _scan_rows(self, mels_f: torch.Tensor, aux_f: torch.Tensor,
                    seed: int, bucket: bool = True) -> torch.Tensor:
@@ -1011,9 +1076,20 @@ class Generator:
                                          (0, 0, 0, 0, 0, pad))
         aux_f = torch.nn.functional.pad(aux_f.to(self.device),
                                         (0, 0, 0, 0, 0, pad))
-        c = self.cfg
-        gen = torch.Generator(device=self.device).manual_seed(seed)
-        return decode_scan(self.weights, mels_f, aux_f, c.mode, c.n_classes,
+        if self._sharded(mels_f.shape[0]):
+            # shard k draws from its own stream, seeded from (seed, k)
+            b = mels_f.shape[0] // self.mesh.n_data
+            return shard_rows(self.mesh, lambda m, a, row0: self._scan(
+                m, a, seed * 1_000_003 + row0 // b), mels_f, aux_f)
+        return self._scan(mels_f, aux_f, seed)
+
+    def _scan(self, mels_f: torch.Tensor, aux_f: torch.Tensor, seed: int):
+        """:func:`decode_scan` on the rows' device, its uniforms from a
+        generator seeded with ``seed``."""
+        c, dev = self.cfg, mels_f.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        weights = DecodeWeights(**self._on(vars(self.weights), dev))
+        return decode_scan(weights, mels_f, aux_f, c.mode, c.n_classes,
                            self.deterministic, gen)
 
     def _finish(self, samples, num_folds: int, wave_len: int, *,

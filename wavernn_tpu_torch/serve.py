@@ -4,6 +4,7 @@ co-batched across requests (ports the repository's ``serve.py``).
     python -m wavernn_tpu_torch.serve [--hp_file hparams.py] [--port 8000]
         [--host 127.0.0.1] [--voc_weights ...] [--tts_weights ...]
         [--sessions 4] [--deterministic] [--device cuda|cpu]
+        [--mesh [--mesh_devices cuda:0,cuda:1]]
 
     curl localhost:8000/health
     curl -X POST localhost:8000/synthesize -d '{"text": "hello"}' -o out.wav
@@ -11,7 +12,10 @@ co-batched across requests (ports the repository's ``serve.py``).
 
 The device defaults to ``cuda`` and is never swapped for another: without
 CUDA the daemon fails to start.  ``--device cpu`` runs the kernels' plain
-PyTorch versions instead, at CPU speed.  Not ported (raises): ``--mesh``.
+PyTorch versions instead, at CPU speed.  ``--mesh`` shards the vocoder's
+fold rows over a device mesh (``hp.mesh_shape`` when set; every visible
+CUDA device, or ``--mesh_devices``, whose first must be ``--device``'s):
+each launch of the service runs one decode per shard.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ from wavernn_tpu_torch.infer.http_server import (SynthesisService,
 from wavernn_tpu_torch.infer.pipeline import TTSPipeline
 from wavernn_tpu_torch.models.tacotron import TacotronConfig
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+from wavernn_tpu_torch.parallel.mesh import add_mesh_args, mesh_from_args
 from wavernn_tpu_torch.text.symbols import symbols
 from wavernn_tpu_torch.utils.display import simple_table
 
@@ -72,9 +77,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                         choices=["float32", "float16", "uint8"],
                         default="float16",
                         help="wire dtype of the mels staged to the vocoder")
-    parser.add_argument("--mesh", "-m", action="store_true",
-                        help="shard the vocoder's folds over a device mesh "
-                             "(not ported: raises)")
+    add_mesh_args(parser)
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
     parser.add_argument("--verbose", action="store_true",
@@ -88,9 +91,8 @@ def setup(args: argparse.Namespace):
     bind the HTTP server and warm both decode paths (unless
     ``--no_warmup``).  Returns ``(service, httpd)``; the caller runs
     ``httpd.serve_forever()`` and closes both."""
-    if args.mesh:
-        raise NotImplementedError("--mesh is not ported yet")
     hp.configure(args.hp_file)
+    mesh = mesh_from_args(args, hp.get("mesh_shape"))
     voc_cfg = WaveRNNConfig.from_hp(hp)
     voc_vars, voc_step = load_weights(args.voc_weights, hp.voc_model_id,
                                       "wavernn")
@@ -104,8 +106,8 @@ def setup(args: argparse.Namespace):
         cleaner_names=hp.tts_cleaner_names, r=r, device=args.device,
         tts_backend=args.tts_backend,
         int8_gates=bool(hp.get("gen_int8", False)),
-        deterministic=args.deterministic, output_dtype=args.output_dtype,
-        input_dtype=args.input_dtype)
+        deterministic=args.deterministic, mesh=mesh,
+        output_dtype=args.output_dtype, input_dtype=args.input_dtype)
     print("Using device:", pipeline.voc.device)
     service = SynthesisService(
         pipeline, target=hp.voc_target, overlap=hp.voc_overlap,
@@ -134,6 +136,7 @@ def setup(args: argparse.Namespace):
         ("Tacotron", f"{tts_step // 1000}k"),
         ("r", r),
         ("device", pipeline.voc.device),
+        ("mesh", mesh.describe() if mesh is not None else "none"),
         ("tts decode", pipeline.tts.backend),
         ("output", args.output_dtype),
         ("input", args.input_dtype),

@@ -1,8 +1,9 @@
 """Measurement tools of the PyTorch port (ports of ``tools/`` of the JAX
 package): the kernel-measurement tools ``kernel_breakdown``,
 ``kernel_sampling_stats``, ``fold_geometry_probe``, ``tts_step_probe`` and
-``tts_phase_spans``, and the serving probes ``http_serve_probe``,
-``stream_server_probe``, ``stream_latency`` and ``wire_format_probe``.
+``tts_phase_spans``, the serving probes ``http_serve_probe``,
+``stream_server_probe``, ``stream_latency`` and ``wire_format_probe``, and
+the parallel probes ``mesh_kernel_probe`` and ``multihost_smoke``.
 
 Each runs as ``python -m wavernn_tpu_torch.tools.<name>``, on the card by
 default: ``--device cuda`` raises where CUDA is absent, and ``--device cpu``

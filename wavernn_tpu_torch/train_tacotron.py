@@ -3,6 +3,8 @@ and the GTA export (ports ``train_tacotron.py``).
 
     python -m wavernn_tpu_torch.train_tacotron --hp_file hp.py \
         [--force_train] [--force_gta] [--profile DIR] [--device cuda]
+    torchrun --nproc_per_node=N -m wavernn_tpu_torch.train_tacotron \
+        --hp_file hp.py
 
 It trains on the text/mel pairs ``python -m wavernn_tpu_torch.preprocess``
 wrote, through ``hp.tts_schedule``'s sessions of (r, lr, max_step,
@@ -15,8 +17,9 @@ wavernn_tpu_torch.train_wavernn --gta``.  The device defaults to ``cuda``
 and is never swapped for another: without CUDA the command fails.
 ``--device cpu`` trains on the CPU.  Float32 matmuls, convolutions and
 cuDNN's GRU run in full float32 (TF32 off), as the JAX package trains.
-
-Not ported (raises): multi-device data parallelism.
+Under ``torchrun`` it trains data-parallel, one process per device, as
+``train_wavernn`` does (every session's batch size must split evenly over
+the ranks); rank 0 alone writes checkpoints, plots and the GTA mels.
 """
 
 from __future__ import annotations
@@ -30,14 +33,14 @@ from wavernn_tpu_torch.models.tacotron import (
     TacotronConfig, from_jax_variables, init_variables,
 )
 from wavernn_tpu_torch.models.wavernn import num_params
+from wavernn_tpu_torch.parallel import distributed
 from wavernn_tpu_torch.paths import Paths
 from wavernn_tpu_torch.text.symbols import symbols
-from wavernn_tpu_torch.train_wavernn import resolve_device
+from wavernn_tpu_torch.train_wavernn import restore_on_ranks, start_ranks
 from wavernn_tpu_torch.training.state import make_optimizer, new_train_state
 from wavernn_tpu_torch.training.tacotron import (
     create_gta_features, r_for_step, run_schedule,
 )
-from wavernn_tpu_torch.utils.checkpoints import restore_checkpoint
 from wavernn_tpu_torch.utils.profiling import trace
 
 
@@ -58,7 +61,8 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     hp.configure(args.hp_file)
-    dev = resolve_device(args.device)
+    dev, shard_batch = start_ranks(args.device,
+                                   [s[3] for s in hp.tts_schedule])
     set_float32_policy()
     paths = Paths(hp.data_path, hp.voc_model_id, hp.tts_model_id)
     print(f"Using device: {dev}")
@@ -71,7 +75,7 @@ def main(argv=None):
 
     optimizer = make_optimizer(hp.tts_schedule[0][1], hp.tts_clip_grad_norm)
     state = new_train_state(model, optimizer)
-    state = restore_checkpoint("tts", paths, state, create_if_missing=True)
+    state = restore_on_ranks("tts", paths, state)
 
     if not args.force_gta:
         def get_datasets(batch_size, r):
@@ -79,7 +83,8 @@ def main(argv=None):
 
         with trace(args.profile):
             state = run_schedule(paths, cfg, state, optimizer, get_datasets,
-                                 force_train=args.force_train)
+                                 force_train=args.force_train,
+                                 shard_batch=shard_batch)
         print("Training Complete.")
         print("To continue training increase the schedule in hparams.py or "
               "use --force_train\n")
@@ -88,8 +93,11 @@ def main(argv=None):
     # the r of the checkpoint's schedule position (the reference reads
     # model.r from the restored buffer, ref: train_tacotron.py:108)
     gta_r = r_for_step(state.get_step(), hp.tts_schedule)
-    train_set, _ = get_tts_datasets(paths.data, 8, gta_r, drop_last=False)
-    create_gta_features(cfg, state, train_set, paths.gta, gta_r)
+    if distributed.is_main():
+        train_set, _ = get_tts_datasets(paths.data, 8, gta_r,
+                                        drop_last=False)
+        create_gta_features(cfg, state, train_set, paths.gta, gta_r)
+    distributed.barrier()
     print("\n\nYou can now train WaveRNN on GTA features - use python -m "
           "wavernn_tpu_torch.train_wavernn --gta\n")
     return state

@@ -4,6 +4,8 @@
     python -m wavernn_tpu_torch.train_wavernn --hp_file hp.py \
         [--lr LR] [--batch_size B] [--force_train] [--gta] \
         [--profile DIR] [--device cuda]
+    torchrun --nproc_per_node=N -m wavernn_tpu_torch.train_wavernn \
+        --hp_file hp.py
 
 It trains on the features ``python -m wavernn_tpu_torch.preprocess`` wrote
 and resumes from the latest checkpoint pair of ``checkpoints/
@@ -13,13 +15,20 @@ and is never swapped for another: without CUDA the command fails.
 ``--device cpu`` trains on the CPU.  Float32 matmuls, convolutions and
 cuDNN's GRU run in full float32 (TF32 off), as the JAX package trains.
 
-Not ported (each raises): ``voc_seq_chunks > 1``, ``voc_compute_dtype``
-and multi-device data parallelism.
+Under ``torchrun`` (or ``WAVERNN_TPU_DISTRIBUTED=1`` with torchrun's
+variables) it trains data-parallel, one process per device: each rank
+takes ``cuda:LOCAL_RANK`` (or the device ``--device`` names; ``--device
+cpu`` trains on CPU ranks over gloo), its share of every global batch of
+``--batch_size``, which must split evenly over the ranks, and rank 0
+alone writes checkpoints.
+
+Not ported (each raises): ``voc_seq_chunks > 1`` and ``voc_compute_dtype``.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -27,6 +36,8 @@ from wavernn_tpu_torch import set_float32_policy
 from wavernn_tpu_torch.config import hp
 from wavernn_tpu_torch.data.dataset import get_vocoder_datasets
 from wavernn_tpu_torch.models.wavernn import WaveRNN, WaveRNNConfig, num_params
+from wavernn_tpu_torch.parallel import distributed
+from wavernn_tpu_torch.parallel.mesh import ShardBatch, make_mesh, shard_batch_fn
 from wavernn_tpu_torch.paths import Paths
 from wavernn_tpu_torch.training.state import make_optimizer, new_train_state
 from wavernn_tpu_torch.training.wavernn import (
@@ -37,13 +48,38 @@ from wavernn_tpu_torch.utils.display import simple_table
 from wavernn_tpu_torch.utils.profiling import trace
 
 
-def resolve_device(name: str) -> torch.device:
-    """The device asked for; ``cuda`` without CUDA raises."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {name!r} asked for, but CUDA is not "
-                           "available (use --device cpu to run on the CPU)")
-    return dev
+def start_ranks(device: str, batch_sizes: Sequence[int]
+                ) -> Tuple[torch.device, Optional[ShardBatch]]:
+    """Join the process group the environment asks for (torchrun's
+    variables; nothing without them).  Returns this rank's device
+    (:func:`parallel.distributed.rank_device`) and, with more than one
+    rank, the ``shard_batch`` of its world plan (``hp.mesh_shape`` when
+    set must match the world); every batch size must split evenly over
+    the ranks."""
+    distributed.maybe_initialize_distributed(device=device)
+    dev = distributed.rank_device(device)
+    if distributed.world_size() == 1:
+        return dev, None
+    plan = make_mesh(hp.get("mesh_shape"), devices=[dev])
+    for b in batch_sizes:
+        if b % plan.n_data:
+            raise ValueError(f"batch size {b} must be evenly divisible by "
+                             f"the {plan.n_data} ranks")
+    print(f"Data-parallel: {plan.describe()}")
+    return dev, shard_batch_fn(plan)
+
+
+def restore_on_ranks(kind: str, paths: Paths, state):
+    """``restore_checkpoint(..., create_if_missing=True)`` on rank 0,
+    then on the other ranks, which so read the pair rank 0 may have
+    written."""
+    if distributed.is_main():
+        state = restore_checkpoint(kind, paths, state,
+                                   create_if_missing=True)
+    distributed.barrier()
+    if not distributed.is_main():
+        state = restore_checkpoint(kind, paths, state)
+    return state
 
 
 def main(argv=None):
@@ -69,7 +105,7 @@ def main(argv=None):
         args.lr = hp.voc_lr
     if args.batch_size is None:
         args.batch_size = hp.voc_batch_size
-    dev = resolve_device(args.device)
+    dev, shard_batch = start_ranks(args.device, [args.batch_size])
     set_float32_policy()
 
     paths = Paths(hp.data_path, hp.voc_model_id, hp.tts_model_id)
@@ -84,7 +120,7 @@ def main(argv=None):
 
     optimizer = make_optimizer(args.lr, hp.voc_clip_grad_norm)
     state = new_train_state(model, optimizer)
-    state = restore_checkpoint("voc", paths, state, create_if_missing=True)
+    state = restore_on_ranks("voc", paths, state)
 
     train_set, test_set = get_vocoder_datasets(paths.data, args.batch_size, args.gta)
 
@@ -101,7 +137,7 @@ def main(argv=None):
 
     with trace(args.profile):
         voc_train_loop(paths, cfg, state, optimizer, train_set, test_set,
-                       total_steps, lr=args.lr)
+                       total_steps, lr=args.lr, shard_batch=shard_batch)
 
     print("Training Complete.")
     print("To continue training increase voc_total_steps in hparams.py or use --force_train")

@@ -13,6 +13,11 @@ zoneout masks drawn on the model's device from an explicit
 (``training.state``) and the BatchNorm statistics update.  Loss and
 gradient norm stay on the device; the loop reads them only every
 ``display_every`` steps (and at checkpoints and the last step).
+
+Data parallelism runs one process per device, as the vocoder's does
+(``training/wavernn.py``); the dropout and zoneout masks are drawn for the
+global batch from the generator every rank seeds alike, and each rank
+takes its rows, so a data-parallel step is the single-process step.
 """
 
 from __future__ import annotations
@@ -25,7 +30,14 @@ import numpy as np
 import torch
 
 from wavernn_tpu_torch.config import hp
-from wavernn_tpu_torch.models.tacotron import Tacotron, TacotronConfig
+from wavernn_tpu_torch.models.tacotron import (
+    Tacotron, TacotronConfig, draw_train_masks,
+)
+from wavernn_tpu_torch.models.wavernn import batch_stats_over
+from wavernn_tpu_torch.parallel import distributed
+from wavernn_tpu_torch.parallel.mesh import (
+    MeshPlan, average_gradients_, check_plan, mean_over,
+)
 from wavernn_tpu_torch.paths import Paths
 from wavernn_tpu_torch.training.state import Adam, TrainState, set_learning_rate
 from wavernn_tpu_torch.training.wavernn import append_log
@@ -43,7 +55,8 @@ def tts_batch_to(device, x, m):
     return t(x).long(), t(m)
 
 
-def make_tts_train_step(model: Tacotron, optimizer: Adam, r: int) -> Callable:
+def make_tts_train_step(model: Tacotron, optimizer: Adam, r: int,
+                        plan: Optional[MeshPlan] = None) -> Callable:
     """The Tacotron train step at r: ``step(state, x, m, generator=None,
     masks=None) -> (state, loss, grad_norm, attn, m2_hat)`` on
     ``state.model`` (which is ``model``), updating ``state`` in place.
@@ -53,7 +66,15 @@ def make_tts_train_step(model: Tacotron, optimizer: Adam, r: int) -> Callable:
     (B, T, n_mels) detached.  x and m are numpy batches (``collate_tts``)
     or tensors on the model's device.  ``masks`` are the decoder's four
     masks (``models.tacotron.draw_decoder_masks``); without them the
-    forward draws them, and the encoder prenet's, from ``generator``."""
+    forward draws them, and the encoder prenet's, from ``generator``.
+
+    With a world ``plan``, x and m are this rank's rows of the global
+    batch: the masks are drawn for the global batch from ``generator``
+    (seeded alike on every rank) and sliced to this rank's rows, BatchNorm
+    takes the global statistics, the gradients are averaged over the ranks
+    before the clip, and the loss returned is the global batch's."""
+    if plan is not None:
+        check_plan(plan, True, "make_tts_train_step")
 
     def step(state: TrainState, x, m, generator=None, masks=None):
         if state.model is not model:
@@ -62,15 +83,36 @@ def make_tts_train_step(model: Tacotron, optimizer: Adam, r: int) -> Callable:
         dev = next(model.parameters()).device
         if isinstance(x, np.ndarray):
             x, m = tts_batch_to(dev, x, m)
-        m1_hat, m2_hat, attn = model(x, m, r, True, masks=masks,
-                                     generator=generator)
+        encoder_masks = None
+        if plan is not None and masks is None:
+            encoder_masks, masks = _rank_masks(model.cfg, plan, x, m, r, dev,
+                                               generator)
+        with batch_stats_over(model, plan):
+            m1_hat, m2_hat, attn = model(x, m, r, True, masks=masks,
+                                         generator=generator,
+                                         encoder_masks=encoder_masks)
         loss = (m1_hat - m).abs().mean() + (m2_hat - m).abs().mean()
         loss.backward()
+        if plan is not None:
+            average_gradients_(model, plan)
         grad_norm = optimizer.step(model, state.opt_state)
         state.step += 1
-        return state, loss.detach(), grad_norm, attn.detach(), m2_hat.detach()
+        return (state, mean_over(loss.detach(), plan), grad_norm,
+                attn.detach(), m2_hat.detach())
 
     return step
+
+
+def _rank_masks(cfg: TacotronConfig, plan: MeshPlan, x, m, r: int, dev,
+                generator):
+    """This rank's rows of the global batch's train-mode masks (its B
+    local rows are rows ``[rank*B, (rank+1)*B)``)."""
+    B = x.shape[0]
+    rows = slice(plan.rank * B, (plan.rank + 1) * B)
+    enc, dec = draw_train_masks(cfg, B * plan.n_data, x.shape[1],
+                                m.shape[1] // r, dev, generator)
+    enc = None if enc is None else tuple(e[rows] for e in enc)
+    return enc, tuple(d[:, rows] for d in dec)
 
 
 def tts_train_loop(
@@ -92,14 +134,16 @@ def tts_train_loop(
     skipped at the end), and the attention and mel plots of
     ``attn_example`` (throttled alike).  A non-finite loss or gradient
     norm suppresses every checkpoint until training recovers.  The masks'
-    generator is seeded with ``seed + step``.  ``shard_batch`` (the JAX
-    package's multi-device data parallelism) is not ported and raises."""
-    if shard_batch is not None:
-        raise NotImplementedError(
-            "multi-device training (shard_batch) is not ported yet")
+    generator is seeded with ``seed + step``.  ``shard_batch``
+    (``parallel.mesh.shard_batch_fn`` of a world plan) trains
+    data-parallel, as ``voc_train_loop`` does: every rank draws the same
+    global batches and masks, and rank 0 alone writes checkpoints, plots
+    and the log."""
+    plan = shard_batch.plan if shard_batch is not None else None
+    main = plan is None or plan.rank == 0
     model = state.model
     set_learning_rate(state.opt_state, lr)
-    train_step = make_tts_train_step(model, optimizer, r)
+    train_step = make_tts_train_step(model, optimizer, r, plan)
     dev = next(model.parameters()).device
 
     total_iters = len(train_set)
@@ -123,7 +167,13 @@ def tts_train_loop(
         n_fetched = 0
 
         for i, (x, m, ids, _) in enumerate(train_set, 1):
-            x, m = tts_batch_to(dev, x, m)
+            if shard_batch is not None:
+                x, m = shard_batch(x, m)
+                x = x.long()
+                # this rank's utterances, for the attention example
+                ids = ids[plan.rank * len(x):(plan.rank + 1) * len(x)]
+            else:
+                x, m = tts_batch_to(dev, x, m)
             state, loss, grad_norm, attn, m2_hat = train_step(
                 state, x, m, generator)
             host_step += 1
@@ -147,17 +197,23 @@ def tts_train_loop(
                     f"| Epoch: {e}/{epochs} ({i}/{total_iters}) | "
                     f"Loss: {avg_loss:#.4} | {speed:#.2} steps/s | Step: {k}k | "
                 )
-                stream(msg)
+                if main:
+                    stream(msg)
 
             # checkpoint boundaries force a scalar fetch above: a NaN run
             # never overwrites a good pair (ref: train_tacotron.py:145-146)
-            if step % hp.tts_checkpoint_every == 0 and state_finite:
-                save_checkpoint("tts", paths, state,
-                                name=f"taco_step{k}K", is_silent=True)
+            if step % hp.tts_checkpoint_every == 0:
+                if state_finite and main:
+                    save_checkpoint("tts", paths, state,
+                                    name=f"taco_step{k}K", is_silent=True)
+                if plan is not None:
+                    distributed.barrier()
 
             # attention/mel diagnostics, wall-clock throttled like the
-            # latest save (on a tiny corpus the example comes every epoch)
-            if attn_example in ids and time.time() - last_plot >= save_min_s:
+            # latest save (on a tiny corpus the example comes every epoch;
+            # data-parallel: when it is among rank 0's rows)
+            if (main and attn_example in ids
+                    and time.time() - last_plot >= save_min_s):
                 last_plot = time.time()
                 idx = ids.index(attn_example)
                 save_attention(attn[idx, :, :160].cpu().numpy(),
@@ -169,11 +225,15 @@ def tts_train_loop(
                 break
 
         done = steps_done >= train_steps
-        if state_finite and (done or time.time() - last_save >= save_min_s):
-            save_checkpoint("tts", paths, state, is_silent=True)
-            last_save = time.time()
-        append_log(paths.tts_log, msg)
-        print(" ")
+        if main:
+            if state_finite and (done or time.time() - last_save
+                                 >= save_min_s):
+                save_checkpoint("tts", paths, state, is_silent=True)
+                last_save = time.time()
+            append_log(paths.tts_log, msg)
+            print(" ")
+        if plan is not None:
+            distributed.barrier()
         if done:
             break
 

@@ -11,6 +11,12 @@ latest checkpoint each epoch, throttled by wall clock.
 Loss and gradient norm stay on the device; the loop reads them only every
 ``display_every`` steps (and at checkpoints and the last step), so the
 host does not wait for the card on every step.
+
+Data parallelism runs one process per device (``torchrun``): each rank
+steps on its rows of the global batch (``parallel.mesh.shard_batch_fn``),
+BatchNorm takes the global batch's statistics, and the gradients are
+averaged over the ranks before the clip, so that every rank makes the
+single-process step's update.
 """
 
 from __future__ import annotations
@@ -23,8 +29,12 @@ import torch
 import torch.nn.functional as F
 
 from wavernn_tpu_torch.config import hp
-from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
+from wavernn_tpu_torch.models.wavernn import WaveRNNConfig, batch_stats_over
 from wavernn_tpu_torch.ops.mol import discretized_mix_logistic_loss
+from wavernn_tpu_torch.parallel import distributed
+from wavernn_tpu_torch.parallel.mesh import (
+    MeshPlan, average_gradients_, check_plan, mean_over,
+)
 from wavernn_tpu_torch.paths import Paths
 from wavernn_tpu_torch.pruning import Pruner, make_pruner_from_hp
 from wavernn_tpu_torch.training.state import Adam, TrainState, set_learning_rate
@@ -60,7 +70,8 @@ def batch_to(device, x, y, mels):
     return t(x), t(y), t(mels)
 
 
-def make_train_step(optimizer: Adam, mode: str) -> Callable:
+def make_train_step(optimizer: Adam, mode: str,
+                    plan: Optional[MeshPlan] = None) -> Callable:
     """The vocoder train step: ``step(state, x, y, mels, masks=None) ->
     (state, loss, grad_norm)``, updating ``state`` in place; loss and
     grad_norm are 0-d tensors on the device.  x, y and mels are numpy
@@ -68,9 +79,14 @@ def make_train_step(optimizer: Adam, mode: str) -> Callable:
 
     With ``masks`` (pruning) the forward runs on the masked weights and
     pruned weights are zeroed again after the update, as the JAX step
-    does."""
+    does.  With a world ``plan`` the batch is this rank's rows of the
+    global batch: BatchNorm takes the global statistics, one all-reduce
+    averages the gradients before the clip (which so sees the global
+    norm), and the loss returned is the global batch's."""
     if mode not in ("RAW", "MOL"):
         raise ValueError(f"Unknown mode {mode}")
+    if plan is not None:
+        check_plan(plan, True, "make_train_step")
 
     def step(state: TrainState, x, y, mels, masks=None):
         model = state.model
@@ -80,18 +96,21 @@ def make_train_step(optimizer: Adam, mode: str) -> Callable:
             x, y, mels = batch_to(dev, x, y, mels)
         if masks is not None:
             Pruner.apply(masks, model)
-        logits = model(x, mels)
+        with batch_stats_over(model, plan):
+            logits = model(x, mels)
         if mode == "RAW":
             loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                                    y.reshape(-1).long())
         else:
             loss = discretized_mix_logistic_loss(logits, y)
         loss.backward()
+        if plan is not None:
+            average_gradients_(model, plan)
         grad_norm = optimizer.step(model, state.opt_state)
         if masks is not None:
             Pruner.apply(masks, model)
         state.step += 1
-        return state, loss.detach(), grad_norm
+        return state, mean_over(loss.detach(), plan), grad_norm
 
     return step
 
@@ -113,13 +132,19 @@ def voc_train_loop(
     ``lr`` (when given) is re-injected into the restored optimizer state,
     so a resumed run honours the configured learning rate (the reference's
     per-run ``param_group['lr'] = lr``, ref: train_wavernn.py:95).
-    ``shard_batch`` (the JAX package's multi-device data parallelism) is
-    not ported and raises."""
+
+    ``shard_batch`` (``parallel.mesh.shard_batch_fn`` of a world plan)
+    trains data-parallel: every rank draws the same global batches (the
+    loader's shuffle is seeded alike on every rank; ``collate_vocoder``'s
+    random crops are each rank's own, so every utterance of a global batch
+    is cropped once, by the rank that trains on it) and steps on its rows
+    of each; the logged loss is the global batch's.  Rank 0 alone runs the
+    auditions and writes checkpoints and the log, and every rank waits for
+    it after each."""
     from wavernn_tpu_torch.infer.wavernn import gen_testset
 
-    if shard_batch is not None:
-        raise NotImplementedError(
-            "multi-device training (shard_batch) is not ported yet")
+    plan = shard_batch.plan if shard_batch is not None else None
+    main = plan is None or plan.rank == 0
     if lr is not None:
         set_learning_rate(state.opt_state, lr)
     dev = next(state.model.parameters()).device
@@ -127,7 +152,7 @@ def voc_train_loop(
     # sparse training (voc_prune_* hparams): cubic-ramp magnitude pruning
     # in the step; resume rebuilds the masks from (weights, step)
     pruner = make_pruner_from_hp(hp)
-    train_step = make_train_step(optimizer, cfg.mode)
+    train_step = make_train_step(optimizer, cfg.mode, plan)
     masks = (pruner.masks_for_resume(state.model, state.get_step())
              if pruner is not None else None)
 
@@ -152,7 +177,8 @@ def voc_train_loop(
         n_fetched = 0
 
         for i, (x, y, mels) in enumerate(train_set, 1):
-            x, y, mels = batch_to(dev, x, y, mels)
+            x, y, mels = (shard_batch(x, y, mels) if shard_batch is not None
+                          else batch_to(dev, x, y, mels))
             if pruner is not None:
                 masks = pruner.maybe_update(masks, state.model, host_step + 1)
             state, loss, grad_norm = train_step(state, x, y, mels, masks)
@@ -176,13 +202,14 @@ def voc_train_loop(
                     f"| Epoch: {e}/{epochs} ({i}/{total_iters}) | "
                     f"Loss: {avg_loss:.4f} | {speed:.1f} steps/s | Step: {k}k | "
                 )
-                stream(msg)
+                if main:
+                    stream(msg)
 
             if at_checkpoint:
                 # the scalars were fetched this step (at_checkpoint forces
                 # the fetch): a NaN run never overwrites a good pair (ref
                 # NaN-guard intent: train_wavernn.py:129-130)
-                if state_finite:
+                if state_finite and main:
                     if gen_at_checkpoint:
                         gen_testset(
                             cfg, state, test_set, hp.voc_gen_at_checkpoint,
@@ -191,16 +218,22 @@ def voc_train_loop(
                         )
                     save_checkpoint("voc", paths, state,
                                     name=f"wave_step{k}K", is_silent=True)
+                if plan is not None:
+                    distributed.barrier()
 
             if step >= total_steps:
                 break
 
         done = host_step >= total_steps
-        if state_finite and (done or time.time() - last_save >= save_min_s):
-            save_checkpoint("voc", paths, state, is_silent=True)
-            last_save = time.time()
-        append_log(paths.voc_log, msg)
-        print(" ")
+        if main:
+            if state_finite and (done or time.time() - last_save
+                                 >= save_min_s):
+                save_checkpoint("voc", paths, state, is_silent=True)
+                last_save = time.time()
+            append_log(paths.voc_log, msg)
+            print(" ")
+        if plan is not None:
+            distributed.barrier()
         if done:
             break
 
