@@ -11,9 +11,12 @@ variants) and the vocoder's serving paths (the MCD gate, the wire
 formats, co-batching, streaming and the multi-session StreamServer, all
 through the WaveRNN kernel, whose int8 feed-forward variant ``int8_ff``
 the width policy turns on), vocoder training and Tacotron training (whose
-trained model generates through both kernels), and data parallelism
+trained model generates through both kernels), data parallelism
 (every serving path over a device mesh, one decode per shard, and
-multi-process training).  Phases, in order; any failure exits non-zero
+multi-process training), and the modules through which weights enter and
+leave the port (the DeepMind WaveRNN and its NB1 example, the reference
+checkpoint converters both ways, and ``quick_start`` through both
+kernels).  Phases, in order; any failure exits non-zero
 and prints no result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
@@ -281,12 +284,42 @@ Phases 34-36 run the data axis of ``wavernn_tpu_torch/parallel``:
    float32 printed beside float32's own distance from float64); the world
    of one bit-equal.  Each step's ms printed.
 
+Phases 37-39 run the modules through which weights enter and leave the
+port:
+
+37. The DeepMind dual-softmax WaveRNN at hidden 896
+   (``models/deepmind_wavernn.py``), drawn from seed 0, on NB1's input
+   (one second of a 220 Hz sine at 24 kHz): over its first 2,000 steps the
+   fused forward on the card (one cuDNN GRU call, TF32 off) against the
+   plain cell loop on the CPU in float64, logits within 1e-4, and one NB1
+   loss's gradients on the card against the CPU in float64, within 1e-4;
+   ``nb1_ms_per_step`` over the whole second (23,999 steps), the median of
+   5 steps by CUDA events; generation replayed from a CUDA graph against
+   the eager steps (2 rows x 300 steps: the same classes, logits within
+   1e-5); ``generate`` of 24,000 samples (the graph) and 2,400 eager
+   steps, their time and samples/s; then ``examples.nb1_sine_wave`` in
+   process at ``--steps 20
+   --sample_rate 24000``: its loss must fall and its WAV parse.
+38. The converters at full width (``tools.export_torch_checkpoint`` then
+   ``tools.convert_torch_checkpoint``, in process, ``hparams.py``): the
+   golden MOL vocoder and a seeded ``hparams.py`` Tacotron
+   (``init_variables(cfg, 0)``, step 6) must come back leaf for leaf,
+   ``step`` as int64; then one deterministic Generator (f16 in, int16 out,
+   ``fold_bucket=16``) serves phase 4's first 1920-frame mel on the golden
+   and, after ``update_variables``, on the converted tree: byte-equal.
+39. ``quick_start`` in process under ``build/chip_smoke/quick_start/``:
+   ``pretrained/`` zips of the golden vocoder and phase 32's trained
+   Tacotron, ``-i`` one sentence, ``hparams.py``; both kernels' counters,
+   set to 0 just before, must have risen, and the WAV must parse under
+   the JAX package's name.  Prints the frames, the samples and the kHz.
+
 The decode kernel's launch counts (all launches, and those with int8
 feed-forward matrices) are set to 0 just before each main-path run and
 read just after; the record's ``launches`` sum phase 4's, phases 15-21's,
-phase 25's, phases 29-30's, phase 32's and phase 35's, split between the
-two variants, and the TTS kernel's sums phase 8's, phases 20-21's and
-phase 32's.
+phase 25's, phases 29-30's, phase 32's, phase 35's and phases 38-39's,
+split between the two variants, and the TTS kernel's sums phase 8's,
+phases 20-21's, phase 32's and phase 39's (phase 37 runs no hand-written
+kernel: the JAX package scans the DeepMind cell with XLA ops).
 
 Float32 matmuls, convolutions and cuDNN's GRU run in full float32 (TF32
 off).  The last
@@ -389,7 +422,8 @@ def in_turns(run_plain, run_kernel):
 
 
 # the decode kernel's launches in the main path's runs (phases 4, 15-21,
-# 25, 29-30 and 32): all of them, and those with int8 feed-forward matrices
+# 25, 29-30, 32, 35 and 38-39): all of them, and those with int8
+# feed-forward matrices
 MAIN_DECODE = {"all": 0, "int8_ff": 0}
 
 
@@ -688,6 +722,9 @@ def main():
     errs.append(par["errs"]["bf16 ff"])
     errs_ff.append(par["errs"]["int8_ff"])
     clock("34-36")
+    wts = weights_phases(dev, card, golden_cfg, golden, long_mels[0],
+                         tts_train["tts_weights"])
+    clock("37-39")
 
     # -- the record -----------------------------------------------------
     n_ff = MAIN_DECODE["int8_ff"]
@@ -699,7 +736,8 @@ def main():
           f"{training['decode_launches']}, int8_ff serving "
           f"{ff['launches']}, Tacotron training "
           f"{tts_train['decode_launches']}, mesh serving "
-          f"{par['launches']})")
+          f"{par['launches']}, converters and quick_start "
+          f"{wts['decode_launches']})")
     if n_bf == 0 or n_ff == 0:
         fail("a decode kernel variant was not launched on the main path")
     print(json.dumps({"kernels": [{
@@ -732,7 +770,7 @@ def main():
         "source": "wavernn_tpu_torch/ops/csrc/tts_decode.cu",
         "replaces": "wavernn_tpu/ops/pallas_tts.py:237",
         "launches": (tts["launches"] + text_serving["tts_launches"]
-                     + tts_train["tts_launches"]),
+                     + tts_train["tts_launches"] + wts["tts_launches"]),
         "max_abs_err": max(tts["max_abs_err"], tts_train["max_abs_err"]),
         "ms": tts["ms"],
         "plain_ms": tts["plain_ms"],
@@ -2809,7 +2847,8 @@ def tts_training_phases(dev, card) -> dict:
               "recorded; busy share not measured", flush=True)
     print(f"phase 33 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"tts_launches": tts_launches, "decode_launches": voc_launches,
-            "max_abs_err": trained_err, "ms_per_step": ms_step}
+            "max_abs_err": trained_err, "ms_per_step": ms_step,
+            "tts_weights": tts_dir / "latest_weights.msgpack"}
 
 
 # phases 34-36 run the data axis of parallel/: the decode kernel's row0,
@@ -2996,6 +3035,254 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
     print(f"phase 36 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {"launches": launches, "errs": errs}
+
+
+# phases 37-39: the DeepMind WaveRNN and NB1, the checkpoint converters,
+# quick_start
+NB1_SR = 24_000          # NB1's sample rate: one second, 23,999 steps
+DM_T = 2_000             # phase 37's card-against-CPU window
+DM_DRAW_T = 300          # generation steps, CUDA graph against eager
+DM_EAGER_T = 2_400       # eager generation steps timed
+NB1_TIMED = 5            # NB1 steps timed by CUDA events
+QS_TEXT = ("Scientists at the CERN laboratory say they have discovered a "
+           "new particle.")
+
+
+def tree_leaves(tree, prefix=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from tree_leaves(tree[k], prefix + (k,))
+    else:
+        yield prefix, np.asarray(tree)
+
+
+def weights_phases(dev, card, cfg, golden, long_mel, tts_weights) -> dict:
+    """Phases 37-39.  Returns the decode kernel's launches on the main
+    path (phases 38-39) and the TTS kernel's (phase 39)."""
+    import copy
+    import shutil
+    import zipfile
+
+    import torch
+
+    from wavernn_tpu_torch import quick_start
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.dsp import wavio
+    from wavernn_tpu_torch.examples import nb1_sine_wave
+    from wavernn_tpu_torch.models import deepmind_wavernn as dm
+    from wavernn_tpu_torch.models.tacotron import (
+        TacotronConfig, init_variables,
+    )
+    from wavernn_tpu_torch.ops import cuda_tts
+    from wavernn_tpu_torch.ops.decode import Generator
+    from wavernn_tpu_torch.text.symbols import symbols
+    from wavernn_tpu_torch.tools import (
+        convert_torch_checkpoint, export_torch_checkpoint,
+    )
+    from wavernn_tpu_torch.training.state import Adam
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree, save_pytree
+
+    # -- 37. the DeepMind WaveRNN and NB1 ----------------------------------
+    t_phase = time.perf_counter()
+    model = dm.DeepMindWaveRNN(dm.DeepMindWaveRNNConfig(),
+                               torch.Generator().manual_seed(0))
+    py, ct, tc, tf = nb1_sine_wave.sine_batch(NB1_SR)
+    window = [torch.from_numpy(a[:, :DM_T]) for a in (py, ct, tc, tf)]
+    on_card = copy.deepcopy(model).to(dev)
+    cpu64 = copy.deepcopy(model).double()
+    with torch.no_grad():
+        got = on_card(window[0].to(dev), window[1].to(dev))
+        want = cpu64.forward_reference(window[0].double(), window[1].double())
+    fwd_err = max(float((g.cpu().double() - w).abs().max())
+                  for g, w in zip(got, want))
+
+    def loss_and_grads(m, d, dt):
+        m.zero_grad()
+        loss = nb1_sine_wave.nb1_loss(
+            m, *(a.to(d, dt) for a in window[:2]),
+            *(a.to(d) for a in window[2:]))
+        loss.backward()
+        return float(loss.detach()), {n: p.grad.cpu().double()
+                             for n, p in m.named_parameters()}
+
+    l_card, g_card = loss_and_grads(on_card, dev, torch.float32)
+    l_cpu, g_cpu = loss_and_grads(cpu64, "cpu", torch.float64)
+    gaps = {n: float((g_card[n] - g_cpu[n]).abs().max()) for n in g_cpu}
+    worst = max(gaps, key=gaps.get)
+    print(f"deepmind hidden 896, NB1 sine, T={DM_T}: fused forward on the "
+          f"card (float32, TF32 off) against the plain cell loop on the CPU "
+          f"(float64): max|d| logits {fwd_err:.3g}; NB1 loss {l_card:.6f} "
+          f"against {l_cpu:.6f}, gradients max|d| {gaps[worst]:.3g} "
+          f"({worst}; largest gradient "
+          f"{max(float(g.abs().max()) for g in g_cpu.values()):.3g})",
+          flush=True)
+    if fwd_err > 1e-4 or abs(l_card - l_cpu) > 1e-4 or gaps[worst] > 1e-4:
+        fail("the DeepMind WaveRNN on the card disagrees with the CPU")
+    del cpu64, got, want
+
+    opt = Adam(1e-3)
+    opt_state = opt.init(on_card)
+    batch = [torch.from_numpy(a).to(dev) for a in (py, ct, tc, tf)]
+    nb1_sine_wave.train_step(on_card, opt, opt_state, batch)     # warm
+    ms = []
+    for _ in range(NB1_TIMED):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        nb1_sine_wave.train_step(on_card, opt, opt_state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    print(f"nb1_ms_per_step (B=1, T={NB1_SR - 1}, hidden 896, median of "
+          f"{NB1_TIMED}, CUDA events): {float(np.median(ms)):.2f} "
+          f"{[round(x, 2) for x in ms]} | {card}", flush=True)
+    del opt_state, batch
+
+    # generation: the CUDA graph against the eager steps, then both timed
+    draws = [dm._draw(on_card, DM_DRAW_T, torch.Generator().manual_seed(2),
+                      batch=2, graphed=graphed) for graphed in (False, True)]
+    same = all(torch.equal(a, b) for a, b in zip(draws[0][:2], draws[1][:2]))
+    d_logits = max(float((a - b).abs().max())
+                   for a, b in zip(draws[0][2:], draws[1][2:]))
+    print(f"deepmind generation, 2 rows x {DM_DRAW_T} steps: CUDA graph "
+          f"against the eager steps: classes equal {same}, logits max|d| "
+          f"{d_logits:.3g}", flush=True)
+    if not same or d_logits > 1e-5:
+        fail("the graphed DeepMind generation differs from the eager one")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dm._draw(on_card, DM_EAGER_T, torch.Generator().manual_seed(1),
+             graphed=False)
+    torch.cuda.synchronize()
+    eager_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wav = dm.generate(on_card, NB1_SR, torch.Generator().manual_seed(1))
+    secs = time.perf_counter() - t0
+    print(f"deepmind generate (CUDA graph of {dm.GRAPH_STEPS} steps): "
+          f"{wav.shape[0]} samples in {secs:.2f} s = "
+          f"{wav.shape[0] / secs:.1f} samples/s; eager steps: {DM_EAGER_T} "
+          f"in {eager_s:.2f} s = {DM_EAGER_T / eager_s:.1f} samples/s | "
+          f"{card}", flush=True)
+    if (wav.shape != (NB1_SR,) or not np.isfinite(wav).all()
+            or np.abs(wav).max() > 1.0):
+        fail(f"deepmind generate gave {wav.shape} {wav.dtype}")
+
+    out = SMOKE_DIR / "nb1" / "nb1_sine.wav"
+    t0 = time.perf_counter()
+    res = nb1_sine_wave.main(["--steps", "20", "--sample_rate", str(NB1_SR),
+                              "--out", str(out), "--device", str(dev)])
+    secs = time.perf_counter() - t0
+    losses = res["losses"]
+    x, sr = wavio.read_wav_raw(out)
+    print(f"nb1 example, 20 steps at {NB1_SR} Hz on {dev}: loss "
+          f"{losses[0]:.4f} -> {losses[9]:.4f} -> {losses[-1]:.4f} in "
+          f"{secs:.1f} s with generation; {out.name}: {x.shape[0]} samples "
+          f"at {sr} Hz | {card}", flush=True)
+    if (not np.isfinite(losses).all() or not losses[-1] < losses[0]
+            or x.shape != (NB1_SR,) or sr != NB1_SR):
+        fail("the NB1 example did not train or write its WAV")
+    print(f"phase 37 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # -- 38. the converters at full width ----------------------------------
+    t_phase = time.perf_counter()
+    work = SMOKE_DIR / "convert"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    hp_file = str(REPO / "hparams.py")
+    hp.reset()
+    hp.configure(hp_file)
+    tts_cfg = TacotronConfig.from_hp(hp, num_chars=len(symbols))
+    hp.reset()
+    taco = dict(init_variables(tts_cfg, 0), step=np.asarray(6, np.int32))
+    save_pytree(taco, work / "tacotron.msgpack")
+    converted = {}
+    for model_kind, src in (("wavernn", GOLDEN),
+                            ("tacotron", work / "tacotron.msgpack")):
+        pyt, back = work / f"{model_kind}.pyt", work / f"{model_kind}_back.msgpack"
+        t0 = time.perf_counter()
+        in_process(export_torch_checkpoint.main,
+                   [model_kind, str(src), str(pyt), "--hp_file", hp_file], work)
+        in_process(convert_torch_checkpoint.main,
+                   [model_kind, str(pyt), str(back), "--hp_file", hp_file],
+                   work)
+        secs = time.perf_counter() - t0
+        got, want = load_pytree(back), load_pytree(src)
+        g, w = dict(tree_leaves(got)), dict(tree_leaves(want))
+        bad = [k for k in w if k != ("step",) and (
+            k not in g or g[k].dtype != w[k].dtype
+            or not np.array_equal(g[k], w[k]))]
+        print(f"{model_kind} at full width: export -> .pyt "
+              f"({pyt.stat().st_size} bytes, "
+              f"{len(torch.load(pyt, weights_only=True))} tensors) -> "
+              f"convert in {secs:.2f} s: {len(w) - 1} leaves, {len(bad)} "
+              f"differ, step {int(got['step'])} {got['step'].dtype} "
+              f"(source {int(want['step'])} {want['step'].dtype})",
+              flush=True)
+        if bad or g.keys() != w.keys() or int(got["step"]) != int(
+                want["step"]) or got["step"].dtype != np.int64:
+            fail(f"{model_kind}: export then convert is not the identity "
+                 f"({bad[:5]})")
+        converted[model_kind] = {"params": got["params"],
+                                 "batch_stats": got["batch_stats"]}
+
+    gen = Generator(cfg, golden, device=dev, fold_bucket=16,
+                    deterministic=True, input_dtype="float16",
+                    output_dtype="int16")
+    torch.cuda.synchronize()
+    zero_decode_counts()
+    want = gen(long_mel, True, TARGET, OVERLAP, mu_law=False)
+    gen.update_variables(converted["wavernn"])
+    got = gen(long_mel, True, TARGET, OVERLAP, mu_law=False)
+    torch.cuda.synchronize()
+    conv_launches = count_main_decode()
+    same = got.dtype == want.dtype == np.int16 and np.array_equal(got, want)
+    print(f"converted golden MOL through the decode kernel, deterministic, "
+          f"f16 in, int16 out, {long_mel.shape[1]}-frame mel: "
+          f"{got.shape[0]} samples byte-equal to the golden's own tree: "
+          f"{same}; decode launches {conv_launches}", flush=True)
+    if not same or conv_launches < 2:
+        fail("the converted vocoder differs from the golden through the "
+             "decode kernel")
+    del gen
+    print(f"phase 38 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # -- 39. quick_start end to end ----------------------------------------
+    t_phase = time.perf_counter()
+    work = SMOKE_DIR / "quick_start"
+    shutil.rmtree(work, ignore_errors=True)
+    (work / "pretrained").mkdir(parents=True)
+    for zip_name, weights in ((quick_start.VOC_ZIP, GOLDEN),
+                              (quick_start.TTS_ZIP, tts_weights)):
+        with zipfile.ZipFile(work / zip_name, "w") as zf:
+            zf.write(weights, "latest_weights.msgpack")
+    torch.cuda.synchronize()
+    cuda_tts.tts_decode.launches = 0
+    zero_decode_counts()
+    t0 = time.perf_counter()
+    written = in_process(quick_start.main, ["-i", QS_TEXT, "--hp_file",
+                                            hp_file, "--device", str(dev)],
+                         work)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    tts_launches = cuda_tts.tts_decode.launches
+    qs_launches = count_main_decode()
+    x, sr = wavio.read_wav_raw(work / written[0])
+    frames = x.shape[0] // cfg.hop_length + 1
+    print(f"quick_start -i on the card (golden MOL, phase 32's step-6 "
+          f"Tacotron): {written[0]}: {frames} frames -> {x.shape[0]} "
+          f"samples at {sr} Hz in {secs:.2f} s = "
+          f"{x.shape[0] / secs / 1e3:.1f} kHz; launches: tts "
+          f"{tts_launches}, decode {qs_launches} | {card}", flush=True)
+    if (written != [Path(f"quick_start/__input_{QS_TEXT[:10]}_0k.wav")]
+            or tts_launches == 0 or qs_launches == 0 or sr != 22050
+            or x.size == 0 or x.shape[0] % cfg.hop_length):
+        fail("quick_start did not speak through both kernels")
+    print(f"phase 39 done in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"decode_launches": conv_launches + qs_launches,
+            "tts_launches": tts_launches}
 
 
 if __name__ == "__main__":

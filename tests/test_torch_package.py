@@ -1,17 +1,27 @@
 """The port stands alone: no module of ``wavernn_tpu_torch`` (nor
 ``chip_smoke.py``) imports JAX, flax, optax, msgpack or the JAX package,
-since the machine with the card has none of them."""
+since the machine with the card has none of them; nor the repository's
+root CLIs and tools (``quick_start``, ``gen_wavernn``, ``serve``, ``bench``,
+the converters, ...), which import them, nor puts the root ``tools/`` on
+``sys.path``.  The port keeps its own copies of those."""
 
 import re
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 REPO = Path(__file__).parent.parent
 PORT = REPO / "wavernn_tpu_torch"
+NO_IMPORT = ("jax", "jaxlib", "flax", "optax", "msgpack", "wavernn_tpu",
+             # the repository's root modules
+             "convert_torch_checkpoint", "export_torch_checkpoint",
+             "quick_start", "gen_wavernn", "gen_tacotron", "train_wavernn",
+             "train_tacotron", "serve", "bench")
 FORBIDDEN = re.compile(
-    r"^\s*(?:import|from)\s+(jax|jaxlib|flax|optax|msgpack|wavernn_tpu)"
-    r"(?:[.\s,]|$)",
+    r"^\s*(?:import|from)\s+(" + "|".join(NO_IMPORT) + r")(?:[.\s,]|$)"
+    r"|sys\.path\.(?:insert|append|extend)\(.*\btools\b",
     re.M)
 
 
@@ -36,9 +46,33 @@ def test_no_forbidden_import_in_the_source():
     parallel = {"parallel/__init__.py", "parallel/mesh.py",
                 "parallel/distributed.py", "tools/multihost_smoke.py",
                 "tools/mesh_kernel_probe.py"}
+    weights = {"models/deepmind_wavernn.py", "examples/__init__.py",
+               "examples/nb1_sine_wave.py",
+               "tools/convert_torch_checkpoint.py",
+               "tools/export_torch_checkpoint.py", "quick_start.py"}
     ported = {str(p.relative_to(PORT)) for p in _sources()
               if PORT in p.parents}
     assert serving <= ported and training <= ported and parallel <= ported
+    assert weights <= ported
+
+
+@pytest.mark.parametrize("line,hit", [
+    ("import jax.numpy as jnp", True),
+    ("from wavernn_tpu.dsp import audio", True),
+    ("    from quick_start import main", True),
+    ("import gen_wavernn", True),
+    ("from convert_torch_checkpoint import convert_wavernn", True),
+    ("import serve, bench", True),
+    ("sys.path.insert(0, str(REPO / 'tools'))", True),
+    ("sys.path.append(str(Path(__file__).parent / 'tools'))", True),
+    ("from wavernn_tpu_torch.quick_start import main", False),
+    ("from wavernn_tpu_torch import gen_tacotron, gen_wavernn", False),
+    ("from wavernn_tpu_torch.tools import convert_torch_checkpoint", False),
+    ("import wavernn_tpu_torch.serve", False),
+    ("sys.path.insert(0, str(REPO))", False),
+])
+def test_forbidden_pattern(line, hit):
+    assert bool(FORBIDDEN.search(line)) == hit
 
 
 def test_every_port_module_imports_with_jax_blocked():
@@ -48,7 +82,7 @@ def test_every_port_module_imports_with_jax_blocked():
                   .removesuffix(".__init__") for p in PORT.rglob("*.py"))
     code = (
         "import importlib, importlib.abc, sys\n"
-        "NO = ('jax', 'jaxlib', 'flax', 'optax', 'msgpack', 'wavernn_tpu')\n"
+        f"NO = {NO_IMPORT!r}\n"
         "for k in [k for k in sys.modules if k.split('.')[0] in NO]:\n"
         "    del sys.modules[k]\n"
         "class Block(importlib.abc.MetaPathFinder):\n"

@@ -3,12 +3,14 @@ package): the kernel-measurement tools ``kernel_breakdown``,
 ``kernel_sampling_stats``, ``fold_geometry_probe``, ``tts_step_probe`` and
 ``tts_phase_spans``, the serving probes ``http_serve_probe``,
 ``stream_server_probe``, ``stream_latency`` and ``wire_format_probe``, and
-the parallel probes ``mesh_kernel_probe`` and ``multihost_smoke``.
+the parallel probes ``mesh_kernel_probe`` and ``multihost_smoke``, and the
+checkpoint converters ``convert_torch_checkpoint`` and
+``export_torch_checkpoint`` (host only: reference ``.pyt`` <-> msgpack).
 
-Each runs as ``python -m wavernn_tpu_torch.tools.<name>``, on the card by
-default: ``--device cuda`` raises where CUDA is absent, and ``--device cpu``
-runs the kernels' plain versions at the size the caller gives, with every
-time labelled as a CPU host time.
+Each runs as ``python -m wavernn_tpu_torch.tools.<name>``; the probes run
+on the card by default: ``--device cuda`` raises where CUDA is absent, and
+``--device cpu`` runs the kernels' plain versions at the size the caller
+gives, with every time labelled as a CPU host time.
 """
 
 from __future__ import annotations
