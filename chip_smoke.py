@@ -16,7 +16,9 @@ trained model generates through both kernels), data parallelism
 multi-process training), and the modules through which weights enter and
 leave the port (the DeepMind WaveRNN and its NB1 example, the reference
 checkpoint converters both ways, and ``quick_start`` through both
-kernels).  Phases, in order; any failure exits non-zero
+kernels), and the two kernels' opt-in int8 variants (``int8_gates`` through
+the ``gen_int8`` path, ``int8_lstm``).  Phases, in order; any failure exits
+non-zero
 and prints no result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
@@ -313,13 +315,50 @@ port:
    set to 0 just before, must have risen, and the WAV must parse under
    the JAX package's name.  Prints the frames, the samples and the kHz.
 
-The decode kernel's launch counts (all launches, and those with int8
-feed-forward matrices) are set to 0 just before each main-path run and
-read just after; the record's ``launches`` sum phase 4's, phases 15-21's,
-phase 25's, phases 29-30's, phase 32's, phase 35's and phases 38-39's,
-split between the two variants, and the TTS kernel's sums phase 8's,
-phases 20-21's, phase 32's and phase 39's (phase 37 runs no hand-written
-kernel: the JAX package scans the DeepMind cell with XLA ops).
+Phases 40-42 run the two opt-in kernel variants at full width (the golden
+MOL; ``gen_int8`` turns the decode kernel's on, ``TTSGenerator(int8_lstm=
+True)`` the Tacotron kernel's):
+
+40. ``int8_gates`` (the five big matrices int8, each operand quantized per
+   row on the fly) against its plain version, as phase 27: the golden MOL
+   (16 rows x 1024 steps of the eval mel) and the tiny RAW golden,
+   deterministic and sampling, one row per CTA (the variant's only
+   build); phase 3's tolerances, max |d| printed.  Timed in turns with
+   CUDA events: the kernel at the main path's shape (48 x 12,100,
+   sampling), the plain version at 16 x 1,024 of the same conditioning
+   (the record says so: ``plain_shape``), whose output must equal the
+   kernel's rows 0-15, steps 0-1023.
+41. The ``gen_int8`` path, the decode counts set to 0 before each step
+   and read after (every launch must be int8_gates'): ``gen_wavernn
+   --int8 --file`` phase 4's first 1920-frame mel in process (the WAV's
+   length checked); ``gen_tacotron --int8 wavernn`` from phase 32's
+   trained step-6 Tacotron into its GTA-trained vocoder; one
+   ``/synthesize`` on the daemon (``serve.setup`` in process, on a
+   loopback port) from an hp file that sets ``gen_int8 = True``.  Then
+   each feed-forward variant's quality, as ``tools/kernel_quality.py``
+   measures it and not gated: bf16, int8_ff and int8_gates, deterministic,
+   their mean |sample diff| against the float32 scan decoder on the
+   golden eval mel; int8_gates' copy-synthesis MCD over seeds 0-2 beside
+   phase 15's and phase 30's.
+42. ``int8_lstm`` against its plain version at full width (phase 6's
+   seeded model and 60-symbol text, L=64, r=2, 750 steps, phase 6's
+   tolerances), both timed in turns, the shared-memory plan's bytes
+   printed; ``TTSGenerator(int8_lstm=True)`` on phase 32's trained step-6
+   Tacotron (800 frames at most): the mean and max mel |d| of the bf16
+   and the int8_lstm kernel against the float32 plain decoder; one text
+   -> wav through both int8 variants (the tiny golden Tacotron with
+   int8_lstm, the golden MOL with int8_gates), both kernels' counters set
+   to 0 before and risen after.
+
+The decode kernel's launch counts (all launches, those with int8
+feed-forward matrices and those of int8_gates) are set to 0 just before
+each main-path run and read just after; the record's ``launches`` sum
+phase 4's, phases 15-21's, phase 25's, phases 29-30's, phase 32's, phase
+35's, phases 38-39's and phases 41-42's, split between the three
+variants, and the TTS kernel's sums phase 8's, phases 20-21's, phase 32's
+and phase 39's (bf16) and phase 42's (int8_lstm; phase 37 runs no
+hand-written kernel: the JAX package scans the DeepMind cell with XLA
+ops).
 
 Float32 matmuls, convolutions and cuDNN's GRU run in full float32 (TF32
 off).  The last
@@ -329,9 +368,10 @@ JSON record, where ``bound_ms`` is the least time the card could take for
 the timed call (the larger of its operations over the H100's dense peak
 for their type and its bytes, each input read once and each output written
 once, over 3.35 TB/s) and ``library_ms`` is null: no single PyTorch call
-computes any of these T-step recurrences.  The decode kernel has two
-entries: ``wavernn_decode`` (bf16 feed-forward matrices) and
-``wavernn_decode_int8_ff``.
+computes any of these T-step recurrences.  The decode kernel has three
+entries: ``wavernn_decode`` (bf16 feed-forward matrices),
+``wavernn_decode_int8_ff`` and ``wavernn_decode_int8_gates``; the Tacotron
+kernel two: ``tacotron_decode`` and ``tacotron_decode_int8_lstm``.
 """
 
 import contextlib
@@ -374,11 +414,12 @@ def nbytes(*tensors) -> int:
 def decode_bound(packed: dict, B: int, T: int, C: int):
     """The decode kernel's bound for B rows x T steps: per row and step the
     bf16 dots (the fused aux matrix counted by its nonzero blocks), the
-    two recurrent dots (int8 with int8_hh) and the three feed-forward dots
-    (GRU2's input, FC1, FC2: int8 whenever ``w_ih2x`` is), each type at
-    its peak; bytes are the conditioning read, the weights and the
+    two recurrent dots (int8 with int8_hh or int8_gates) and the three
+    feed-forward dots (GRU2's input, FC1, FC2: int8 with int8_ff or
+    int8_gates; the pack's variant is read from its markers), each type
+    at its peak; bytes are the conditioning read, the weights and the
     output."""
-    import torch
+    from wavernn_tpu_torch.ops import cuda_decode
 
     H, F = packed["b_hh1_n"].shape[0], packed["b_fc1"].shape[0]
     d, K0 = packed["w_aux"].shape[0] // 3, packed["w_Im"].shape[0]
@@ -386,8 +427,9 @@ def decode_bound(packed: dict, B: int, T: int, C: int):
     hh = 2 * H * 3 * H
     ff = H * 3 * H + H * F + F * F
     bf16 = K0 * 4 * H + d * (3 * H + 2 * F) + F * n_out
-    i8 = packed["w_hh1"].dtype == torch.int8
-    i8_ff = packed["w_ih2x"].dtype == torch.int8
+    gates = cuda_decode.is_int8_gates(packed)
+    i8 = cuda_decode.is_int8_hh(packed) or gates
+    i8_ff = cuda_decode.is_int8_ff(packed) or gates
     int8 = (hh if i8 else 0) + (ff if i8_ff else 0)
     bf16 += (0 if i8 else hh) + (0 if i8_ff else ff)
     ops = [(2 * bf16 * B * T, PEAK_BF16), (2 * int8 * B * T, PEAK_INT8)]
@@ -422,17 +464,18 @@ def in_turns(run_plain, run_kernel):
 
 
 # the decode kernel's launches in the main path's runs (phases 4, 15-21,
-# 25, 29-30, 32, 35 and 38-39): all of them, and those with int8
-# feed-forward matrices
-MAIN_DECODE = {"all": 0, "int8_ff": 0}
+# 25, 29-30, 32, 35, 38-39, 41 and 42): all of them, those with int8
+# feed-forward matrices and those of int8_gates
+MAIN_DECODE = {"all": 0, "int8_ff": 0, "int8_gates": 0}
 
 
 def zero_decode_counts():
-    """Set both of the decode wrapper's launch counts to 0."""
+    """Set the decode wrapper's launch counts to 0."""
     from wavernn_tpu_torch.ops import cuda_decode
 
     cuda_decode.decode.launches = 0
     cuda_decode.decode.launches_int8_ff = 0
+    cuda_decode.decode.launches_int8_gates = 0
 
 
 def count_main_decode() -> int:
@@ -442,6 +485,7 @@ def count_main_decode() -> int:
 
     MAIN_DECODE["all"] += cuda_decode.decode.launches
     MAIN_DECODE["int8_ff"] += cuda_decode.decode.launches_int8_ff
+    MAIN_DECODE["int8_gates"] += cuda_decode.decode.launches_int8_gates
     return cuda_decode.decode.launches
 
 
@@ -725,21 +769,29 @@ def main():
     wts = weights_phases(dev, card, golden_cfg, golden, long_mels[0],
                          tts_train["tts_weights"])
     clock("37-39")
+    i8 = int8_variant_phases(dev, card, golden_cfg, golden, raw_cfg,
+                             tiny_raw, eval_mel, raw_mel, cond, T,
+                             long_mels[0], tts_train,
+                             {"bf16 ff": serving["mcd"], "int8_ff": ff["mcd"]})
+    clock("40-42")
 
     # -- the record -----------------------------------------------------
     n_ff = MAIN_DECODE["int8_ff"]
-    n_bf = MAIN_DECODE["all"] - n_ff
+    n_g = MAIN_DECODE["int8_gates"]
+    n_bf = MAIN_DECODE["all"] - n_ff - n_g
     print(f"decode launches on the main path: {MAIN_DECODE['all']} "
-          f"({n_bf} with bf16 feed-forward matrices, {n_ff} with int8; "
+          f"({n_bf} with bf16 feed-forward matrices, {n_ff} with int8, "
+          f"{n_g} of int8_gates; "
           f"phase 4: {launches}, serving {serving['launches']}, text "
           f"serving {text_serving['decode_launches']}, training "
           f"{training['decode_launches']}, int8_ff serving "
           f"{ff['launches']}, Tacotron training "
           f"{tts_train['decode_launches']}, mesh serving "
           f"{par['launches']}, converters and quick_start "
-          f"{wts['decode_launches']})")
-    if n_bf == 0 or n_ff == 0:
-        fail("a decode kernel variant was not launched on the main path")
+          f"{wts['decode_launches']}, the gen_int8 path "
+          f"{i8['int8_gates']['launches']})")
+    if n_bf == 0 or n_ff == 0 or n_g == 0 or i8["int8_lstm"]["launches"] == 0:
+        fail("a kernel variant was not launched on the main path")
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
@@ -778,6 +830,20 @@ def main():
         "bound_by": tts["bound_by"],
         "library_ms": None,
     }, {
+        "name": "wavernn_decode_int8_gates",
+        "route": "cuda",
+        "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
+        "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
+        **i8["int8_gates"],
+        "library_ms": None,
+    }, {
+        "name": "tacotron_decode_int8_lstm",
+        "route": "cuda",
+        "source": "wavernn_tpu_torch/ops/csrc/tts_decode.cu",
+        "replaces": "wavernn_tpu/ops/pallas_tts.py:237",
+        **i8["int8_lstm"],
+        "library_ms": None,
+    }, {
         "name": "matmul_floor",
         "route": "cuda",
         "source": "wavernn_tpu_torch/ops/csrc/matmul_floor.cu",
@@ -807,9 +873,11 @@ def tts_hp_file(meta: dict) -> Path:
     return hp_file
 
 
-def tts_kernel_inputs(dev, cfg, variables, seq, L: int, r: int):
-    """The TTS kernel's inputs for one text: the weights packed at r, and
-    the encoder outputs of ``seq`` zero-padded to L symbols."""
+def tts_kernel_inputs(dev, cfg, variables, seq, L: int, r: int,
+                      int8_lstm: bool = False):
+    """The TTS kernel's inputs for one text: the weights packed at r (the
+    LSTM rows int8 with ``int8_lstm``), and the encoder outputs of ``seq``
+    zero-padded to L symbols."""
     import torch
 
     from wavernn_tpu_torch.models.tacotron import from_jax_variables
@@ -823,7 +891,7 @@ def tts_kernel_inputs(dev, cfg, variables, seq, L: int, r: int):
     with torch.no_grad():
         enc, encp = model.encode(x.to(dev))
     packed = pack_tts_weights(extract_tts_decode_weights(model), r,
-                              cfg.n_mels)
+                              cfg.n_mels, int8_lstm=int8_lstm)
     return packed, enc[0].contiguous(), encp[0].contiguous()
 
 
@@ -837,17 +905,21 @@ def tts_fresh_state(dev, packed, L: int):
 
 
 def tts_compare(dev, tag, packed, enc, encp, n: int) -> float:
-    """Hold n steps of the TTS kernel against its plain version: the first
-    64 steps within 1e-3 on mels and scores, at least 99% of mel values
-    within 2e-2.  Returns the first 64 steps' max |d|."""
+    """Hold n steps of the TTS kernel (the pack's variant) against its
+    plain version: the first 64 steps within 1e-3 on mels and scores, at
+    least 99% of mel values within 2e-2.  Returns the max |d| of mels and
+    scores over all steps."""
     import torch
 
     from wavernn_tpu_torch.ops import cuda_tts
-    from wavernn_tpu_torch.ops.tts_decode import tts_decode_reference
+    from wavernn_tpu_torch.ops.tts_decode import (
+        is_int8_lstm, tts_decode_reference,
+    )
 
     L = enc.shape[0]
     mk, sk, _, _ = cuda_tts.tts_decode(packed, enc, encp,
-                                       tts_fresh_state(dev, packed, L), n)
+                                       tts_fresh_state(dev, packed, L), n,
+                                       int8_lstm=is_int8_lstm(packed))
     torch.cuda.synchronize()
     mp, sp, _, _ = tts_decode_reference(packed, enc, encp,
                                         tts_fresh_state(dev, packed, L), n)
@@ -862,7 +934,7 @@ def tts_compare(dev, tag, packed, enc, encp, n: int) -> float:
           f" -> {'ok' if ok else 'FAIL'}", flush=True)
     if not ok or not torch.isfinite(mk).all():
         fail(f"the TTS kernel disagrees with its plain version [{tag}]")
-    return first
+    return max(float(dm.max()), float(ds.max()))
 
 
 def tts_phases(dev, card, wavio, voc_weights) -> dict:
@@ -2848,7 +2920,8 @@ def tts_training_phases(dev, card) -> dict:
     print(f"phase 33 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {"tts_launches": tts_launches, "decode_launches": voc_launches,
             "max_abs_err": trained_err, "ms_per_step": ms_step,
-            "tts_weights": tts_dir / "latest_weights.msgpack"}
+            "tts_weights": tts_dir / "latest_weights.msgpack", "cfg": cfg,
+            "work": work, "hp_file": hp3, "text": text}
 
 
 # phases 34-36 run the data axis of parallel/: the decode kernel's row0,
@@ -3283,6 +3356,345 @@ def weights_phases(dev, card, cfg, golden, long_mel, tts_weights) -> dict:
           flush=True)
     return {"decode_launches": conv_launches + qs_launches,
             "tts_launches": tts_launches}
+
+
+def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
+                        raw_mel, main_cond, T: int, long_mel, tts_train,
+                        mcd_of: dict) -> dict:
+    """Phases 40-42: the two opt-in kernel variants, int8_gates of the
+    decode kernel and int8_lstm of the Tacotron kernel: each against its
+    plain version and timed, the ``gen_int8`` path (``gen_wavernn --int8``,
+    ``gen_tacotron --int8``, the daemon from an hp file that sets
+    ``gen_int8``), each variant's quality and one text -> wav through
+    both.  Returns both kernels' records."""
+    import threading
+
+    import torch
+
+    from wavernn_tpu_torch import gen_tacotron, gen_wavernn, serve
+    from wavernn_tpu_torch.dsp import wavio
+    from wavernn_tpu_torch.infer.eval import copy_synthesis_mcd
+    from wavernn_tpu_torch.infer.pipeline import mel_from_linear
+    from wavernn_tpu_torch.infer.tacotron import TTSGenerator
+    from wavernn_tpu_torch.models.tacotron import (
+        TacotronConfig, init_variables,
+    )
+    from wavernn_tpu_torch.ops import cuda_decode, cuda_tts
+    from wavernn_tpu_torch.ops.decode import Generator
+    from wavernn_tpu_torch.ops.tts_decode import (
+        LSTM_MATRICES, MATRICES, tts_decode_reference,
+    )
+    from wavernn_tpu_torch.text import text_to_sequence
+    from wavernn_tpu_torch.tools.http_serve_probe import post
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+    geom = dict(target=TARGET, overlap=OVERLAP, mu_law=False)
+    t_phase = time.perf_counter()
+
+    # -- 40. int8_gates against its plain version -------------------------
+    errs, launches = [], 0
+    for tag, mcfg, v, mel, (target, overlap) in (
+            ("golden MOL", cfg, golden, eval_mel, (TARGET, OVERLAP)),
+            ("tiny RAW", raw_cfg, tiny_raw, raw_mel, (1000, 12))):
+        gen = Generator(mcfg, v, device=dev, fold_bucket=16, int8_gates=True)
+        staged = gen.prestage(mel, batched=True, target=target,
+                              overlap=overlap)
+        cond = gen.fold_conditioning(staged)[0][:16, :1024].contiguous()
+        if cond.shape[:2] != (16, 1024):
+            fail(f"conditioning {tuple(cond.shape)} too small")
+        for det in (True, False):
+            seed = 0 if det else 1234
+            out_k = cuda_decode.decode(gen.packed, cond, 1024, seed,
+                                       mcfg.mode, mcfg.n_classes, det)
+            torch.cuda.synchronize()
+            out_p = cuda_decode.decode_reference(gen.packed, cond, 1024,
+                                                 seed, mcfg.mode,
+                                                 mcfg.n_classes, det)
+            d = (out_k - out_p).abs()
+            first = float(d[:, :64].max())
+            agree = float((d <= 2e-2).float().mean())
+            ok = (first <= 1e-3 and agree >= 0.99) if det else first <= 1e-2
+            kind = "deterministic" if det else "sampling"
+            print(f"int8_gates kernel vs plain [{tag} {kind}] rows 16 steps "
+                  f"1024: first-64 max|d| {first:.3g}, within 2e-2 "
+                  f"{agree:.5f}, max|d| {float(d.max()):.3g} -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok or not torch.isfinite(out_k).all():
+                fail(f"the int8_gates kernel disagrees with its plain "
+                     f"version [{tag} {kind}]")
+            errs.append(float(d.max()))
+
+    # timed: the kernel at the main path's shape (48 x 12,100, sampling),
+    # the plain version at 16 x 1,024 of the same conditioning (at the full
+    # shape it takes ~35 s a run), in turns
+    gen_g = Generator(cfg, golden, device=dev, fold_bucket=16,
+                      input_dtype="float16", output_dtype="int16",
+                      int8_gates=True)
+    head = main_cond[:16, :1024].contiguous()
+
+    def run_k():
+        return cuda_decode.decode(gen_g.packed, main_cond, T, 7, "MOL",
+                                  cfg.n_classes, False)
+
+    def run_p():
+        return cuda_decode.decode_reference(gen_g.packed, head, 1024, 7,
+                                            "MOL", cfg.n_classes, False)
+
+    run_k()   # warm
+    outs, times = timed_in_order((run_p, run_k, run_k, run_p))
+    d = (outs[run_k][:16, :1024] - outs[run_p]).abs()
+    errs.append(float(d.max()))
+    print(f"int8_gates kernel vs plain [main path rows 0-15, steps 0-1023, "
+          f"sampling]: max|d| {float(d.max()):.3g}", flush=True)
+    if float(d[:, :64].max()) > 1e-2 or not torch.isfinite(outs[run_k]).all():
+        fail("the int8_gates kernel disagrees with its plain version at the "
+             "main shape")
+    g_ms = float(np.mean(times[run_k]))
+    gp_ms = float(np.mean(times[run_p]))
+    g_bound = decode_bound(gen_g.packed, main_cond.shape[0], T,
+                           main_cond.shape[2])
+    print(f"int8_gates decode time: kernel at {main_cond.shape[0]} x {T} "
+          f"{[round(x, 3) for x in times[run_k]]} ms ({g_ms * 1e3 / T:.2f} "
+          f"us/step), plain at 16 x 1024 {[round(x, 1) for x in times[run_p]]}"
+          f" ms ({gp_ms * 1e3 / 1024:.2f} us/step); bound "
+          f"{g_bound[0]:.3f} ms ({g_bound[1]}) | {card}", flush=True)
+    del outs, head
+    print(f"phase 40 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+
+    # -- 41. the gen_int8 path at full width -------------------------------
+    def gates_run(what: str, n_want: int = 1) -> int:
+        n_g = cuda_decode.decode.launches_int8_gates
+        n = count_main_decode()
+        if n_g < n_want or n_g != n:
+            fail(f"{what}: {n} decode launches, {n_g} of int8_gates")
+        return n
+
+    out_dir = SMOKE_DIR / "int8_gates_cli"
+    mel_path = SMOKE_DIR / "long_mel.npy"
+    np.save(mel_path, long_mel)
+    torch.cuda.synchronize()
+    zero_decode_counts()
+    t0 = time.perf_counter()
+    wav = in_process(gen_wavernn.main, [
+        "--file", str(mel_path), "--voc_weights", str(GOLDEN), "--hp_file",
+        str(REPO / "hparams.py"), "--output_dir", str(out_dir), "--device",
+        str(dev), "--int8"], REPO)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches += gates_run("gen_wavernn --int8")
+    x, sr = wavio.read_wav_raw(wav)
+    n_want = (long_mel.shape[1] - 1) * cfg.hop_length
+    print(f"gen_wavernn --int8 --file ({long_mel.shape[1]} frames): "
+          f"{wav.name}, {x.shape[0]} samples at {sr} Hz in {secs:.2f} s, "
+          f"int8_gates launches {cuda_decode.decode.launches_int8_gates} | "
+          f"{card}", flush=True)
+    if x.shape != (n_want,) or not np.std(x) > 0.01:
+        fail(f"gen_wavernn --int8 wrote {x.shape} samples, want {n_want}")
+
+    work, text = tts_train["work"], tts_train["text"]
+    torch.cuda.synchronize()
+    cuda_tts.tts_decode.launches = 0
+    zero_decode_counts()
+    t0 = time.perf_counter()
+    (wav,) = in_process(gen_tacotron.main, [
+        "--input_text", text, "--hp_file", str(tts_train["hp_file"]),
+        "--output_dir", str(work / "gen_tts_int8"), "--device", str(dev),
+        "--int8", "wavernn"], work)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_tts = cuda_tts.tts_decode.launches
+    launches += gates_run("gen_tacotron --int8")
+    x, sr = wavio.read_wav_raw(wav)
+    print(f"gen_tacotron --int8 wavernn from the step-6 checkpoint: "
+          f"{wav.name}, {x.shape[0]} samples at {sr} Hz in {secs:.2f} s; "
+          f"launches: tts {n_tts}, int8_gates "
+          f"{cuda_decode.decode.launches_int8_gates} | {card}", flush=True)
+    if n_tts == 0 or x.size == 0:
+        fail("gen_tacotron --int8 did not run through both kernels")
+
+    meta = json.loads((TACO_DIR / "tiny_tacotron_meta.json").read_text())
+    hp_int8 = SMOKE_DIR / "hp_tts_int8.py"
+    hp_int8.write_text(tts_hp_file(meta).read_text() + "gen_int8 = True\n")
+    from wavernn_tpu_torch.config import hp
+
+    hp.reset()
+    service, httpd = serve.setup(serve.parse_args([
+        "--hp_file", str(hp_int8), "--tts_weights",
+        str(TACO_DIR / "tiny_tacotron.msgpack"), "--voc_weights",
+        str(GOLDEN), "--port", "0", "--no_warmup", "--deterministic",
+        "--slot_seconds", "10", "--device", str(dev)]))
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        voc = service.server.pipeline.voc
+        if not voc.int8_gates:
+            fail("the daemon from an hp file with gen_int8 = True built no "
+                 "int8_gates vocoder")
+        torch.cuda.synchronize()
+        zero_decode_counts()
+        body, _, secs = post(httpd.server_address[1], "/synthesize",
+                             meta["eval_text"])
+        torch.cuda.synchronize()
+        launches += gates_run("the daemon's /synthesize")
+        pcm = pcm_of(body, cfg.sample_rate)
+        print(f"daemon (hp file with gen_int8 = True): /synthesize "
+              f"{len(pcm)} samples in {secs:.3f} s, int8_gates launches "
+              f"{cuda_decode.decode.launches_int8_gates} | {card}",
+              flush=True)
+        if len(pcm) == 0 or len(pcm) % cfg.hop_length:
+            fail(f"the daemon's /synthesize gave {len(pcm)} samples")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        service.close()
+        hp.reset()
+    hp.configure(REPO / "hparams.py")       # the MCD's mel front end
+
+    # each feed-forward variant's quality, as tools/kernel_quality.py
+    # measures it: the deterministic mean |sample diff| against the float32
+    # scan decoder on the golden eval mel, and (int8_gates) the MCD
+    kw = dict(fold_bucket=16, deterministic=True, output_dtype="float64")
+    ref = Generator(cfg, golden, device=dev, backend="scan", **kw)(
+        eval_mel, batched=True, **geom)
+    quality = {}
+    for name, extra in (("bf16 ff", dict(int8_ff=False)),
+                        ("int8_ff", dict(int8_ff=True)),
+                        ("int8_gates", dict(int8_gates=True))):
+        w = Generator(cfg, golden, device=dev, **kw, **extra)(
+            eval_mel, batched=True, **geom)
+        quality[name] = float(np.mean(np.abs(w - ref)))
+    gen_m = Generator(cfg, golden, device=dev, fold_bucket=16,
+                      input_dtype="float16", output_dtype="float64",
+                      int8_gates=True)
+    scores = [copy_synthesis_mcd(gen_m, eval_mel, batched=True, seed=s,
+                                 **geom)[0] for s in range(3)]
+    mcd_of = dict(mcd_of, int8_gates=float(np.mean(scores)))
+    print(f"decode quality on the golden eval mel ({eval_mel.shape[1]} "
+          f"frames): deterministic mean |sample diff| to the float32 scan "
+          f"(signal std {float(np.std(ref)):.5f}): "
+          + ", ".join(f"{k} {q:.6f}" for k, q in quality.items())
+          + f"; int8_gates MCD seeds 0-2 {[round(x, 4) for x in scores]}; "
+          f"MCD means " + ", ".join(f"{k} {m:.4f}" for k, m in mcd_of.items())
+          + f" (gate 892.40, not applied here) | {card}", flush=True)
+    print(f"phase 41 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_phase = time.perf_counter()
+
+    # -- 42. int8_lstm -----------------------------------------------------
+    full = TacotronConfig()
+    seq60 = [int(i) for i in np.random.default_rng(0).integers(
+        1, full.num_chars, 60)]
+    packed, enc, encp = tts_kernel_inputs(dev, full, init_variables(full, 0),
+                                          seq60, 64, 2, int8_lstm=True)
+    lstm_err = tts_compare(dev, "int8_lstm, full width, r=2", packed, enc,
+                           encp, 750)
+
+    def timed(fn):
+        state = tts_fresh_state(dev, packed, enc.shape[0])
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        fn(packed, enc, encp, state, 750)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    kernel = lambda *a: cuda_tts.tts_decode(*a, int8_lstm=True)
+    timed(kernel)  # warm
+    times = {kernel: [], tts_decode_reference: []}
+    for fn in (tts_decode_reference, kernel, kernel, tts_decode_reference):
+        times[fn].append(timed(fn))
+    l_ms = float(np.mean(times[kernel]))
+    lp_ms = float(np.mean(times[tts_decode_reference]))
+    L, D = enc.shape[0], packed["W_q"].shape[0]
+    macs_i8 = sum(packed[k].numel() for k in LSTM_MATRICES)
+    macs = (sum(packed[k].numel() for k in MATRICES
+                if k not in ("M_loc", "v")) - macs_i8
+            + L * (packed["M_loc"].numel() + 2 * D))
+    l_bound = bound([(2 * macs * 750, PEAK_BF16),
+                     (2 * macs_i8 * 750, PEAK_INT8)],
+                    nbytes(*packed.values(), enc, encp)
+                    + 750 * (2 * full.n_mels + L + 1) * 4)
+    plan = cuda_tts.tts_smem_plan(D, D // 2, full.lstm_dims, full.n_mels, 2,
+                                  L, torch.cuda.get_device_properties(
+                                      dev).multi_processor_count,
+                                  int8_lstm=True)
+    print(f"int8_lstm tts decode time at L {L}, r=2, 750 steps: kernel "
+          f"{[round(x, 3) for x in times[kernel]]} ms ({l_ms * 1e3 / 750:.2f}"
+          f" us/step), plain {[round(x, 1) for x in times[tts_decode_reference]]}"
+          f" ms ({lp_ms * 1e3 / 750:.2f} us/step); bound {l_bound[0]:.4f} ms "
+          f"({l_bound[1]}); {plan['bytes']} bytes of shared memory per CTA "
+          f"on {plan['grid']} CTAs | {card}", flush=True)
+    del packed, enc, encp
+
+    # the trained step-6 Tacotron: each kernel variant's mel against the
+    # float32 plain decoder
+    blob = load_pytree(tts_train["tts_weights"])
+    trained = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+    tcfg = tts_train["cfg"]
+    seq = text_to_sequence(text, ["english_cleaners"])
+    mels, tts_launches = {}, 0
+    for name, kw_t in (("float32 plain", dict(backend="plain")),
+                       ("bf16 kernel", dict(backend="kernel")),
+                       ("int8_lstm kernel", dict(backend="kernel",
+                                                 int8_lstm=True))):
+        cuda_tts.tts_decode.launches_int8_lstm = 0
+        mels[name] = TTSGenerator(tcfg, trained, dev, steps=800, **kw_t)(
+            seq, r=2)[0]
+        tts_launches += cuda_tts.tts_decode.launches_int8_lstm
+    ref = mels["float32 plain"]
+    deltas = {}
+    for name in ("bf16 kernel", "int8_lstm kernel"):
+        n = min(ref.shape[1], mels[name].shape[1])
+        d = np.abs(mels[name][:, :n] - ref[:, :n])
+        deltas[name] = (float(d.mean()), float(d.max()))
+    print(f"trained step-6 Tacotron, {len(seq)} symbols, r=2: frames "
+          + ", ".join(f"{k} {m.shape[1]}" for k, m in mels.items())
+          + "; mel |d| to the float32 plain decoder (mean / max): "
+          + ", ".join(f"{k} {a:.5f} / {b:.5f}" for k, (a, b) in
+                      deltas.items()) + f" | {card}", flush=True)
+    if tts_launches == 0:
+        fail("TTSGenerator(int8_lstm=True) did not launch the int8_lstm "
+             "kernel")
+
+    # one text -> wav through both int8 variants
+    blob = load_pytree(TACO_DIR / "tiny_tacotron.msgpack")
+    taco = {"params": blob["params"], "batch_stats": blob["batch_stats"]}
+    tts = TTSGenerator(TacotronConfig(**meta["dims"]), taco, dev, steps=400,
+                       backend="kernel", int8_lstm=True)
+    voc = Generator(cfg, golden, device=dev, fold_bucket=16,
+                    input_dtype="float16", output_dtype="int16",
+                    int8_gates=True)
+    torch.cuda.synchronize()
+    cuda_tts.tts_decode.launches_int8_lstm = 0
+    zero_decode_counts()
+    t0 = time.perf_counter()
+    _, lin, _ = tts(text_to_sequence(meta["eval_text"], ["english_cleaners"]),
+                    r=meta["r"])
+    wav = voc(mel_from_linear(lin), batched=True, **geom)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n_lstm = cuda_tts.tts_decode.launches_int8_lstm
+    tts_launches += n_lstm
+    launches += gates_run("text -> wav through both int8 variants")
+    print(f"text -> wav through int8_lstm and int8_gates: {lin.shape[1]} "
+          f"frames -> {len(wav)} int16 samples in {secs:.3f} s; launches: "
+          f"int8_lstm {n_lstm}, int8_gates "
+          f"{cuda_decode.decode.launches_int8_gates} | {card}", flush=True)
+    if n_lstm == 0 or wav.dtype != np.int16 or len(wav) != (
+            lin.shape[1] - 1) * cfg.hop_length:
+        fail("text -> wav did not run through both int8 variants")
+    print(f"phase 42 in {time.perf_counter() - t_phase:.1f} s", flush=True)
+    hp.reset()
+    return {
+        "int8_gates": {"launches": launches, "max_abs_err": max(errs),
+                       "ms": g_ms, "plain_ms": gp_ms,
+                       "plain_shape": "16 x 1024",
+                       "bound_ms": g_bound[0], "bound_by": g_bound[1]},
+        "int8_lstm": {"launches": tts_launches, "max_abs_err": lstm_err,
+                      "ms": l_ms, "plain_ms": lp_ms, "bound_ms": l_bound[0],
+                      "bound_by": l_bound[1]},
+    }
 
 
 if __name__ == "__main__":

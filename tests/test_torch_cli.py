@@ -175,15 +175,17 @@ def test_tts_cli_writes_a_wav_on_cpu(tts_args):
 
 
 def test_tts_cli_refuses_what_is_not_ported(tts_args, monkeypatch):
-    """``--int8`` is not ported; a mesh that does not start on
+    """``--int8`` and ``--no_int8`` together are refused (they exclude each
+    other, as in the JAX CLI); a mesh that does not start on
     ``--device``, or ``--mesh_devices`` without ``--mesh``, is a wrong
     plan; without CUDA the default device raises."""
     from wavernn_tpu_torch import gen_tacotron
 
     voc = ["wavernn", "--voc_weights", str(WEIGHTS)]
     hp.reset()
-    with pytest.raises(NotImplementedError, match="int8"):
-        gen_tacotron.main(tts_args + ["--device", "cpu", "--int8"] + voc)
+    with pytest.raises(SystemExit):
+        gen_tacotron.main(tts_args + ["--device", "cpu", "--int8",
+                                      "--no_int8"] + voc)
     for extra, what in ((["--mesh_devices", "cpu,cpu"], "needs --mesh"),
                         (["--mesh", "--mesh_devices", "meta,cpu"],
                          "first device")):

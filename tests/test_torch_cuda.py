@@ -157,6 +157,36 @@ def test_int8_ff_kernel_matches_plain_version(cuda_device, mode, int8_hh,
                            ablate=frozenset({"gates"}))
 
 
+@pytest.mark.parametrize("det", [True, False], ids=["argmax", "sampling"])
+@pytest.mark.parametrize("mode", ["RAW", "MOL"])
+def test_int8_gates_kernel_matches_plain_version(cuda_device, mode, det):
+    """The int8_gates variant (each operand quantized per row on the fly)
+    against its plain version: the row maxima, the divisions and the int8
+    sums are exact in both, so they agree to the bit."""
+    cfg, model = small(mode)
+    B, T = 5, 300
+    cond = conditioning(cfg, B, T, cuda_device)
+    packed = cuda_decode.pack_weights(
+        extract_decode_weights(model.to(cuda_device)), cfg.feat_dims,
+        cfg.aux_dims, int8_gates=True)
+    n = (cuda_decode.decode.launches, cuda_decode.decode.launches_int8_ff,
+         cuda_decode.decode.launches_int8_gates)
+    got = cuda_decode.decode(packed, cond, T, 3, mode, cfg.n_classes, det)
+    torch.cuda.synchronize()
+    assert (cuda_decode.decode.launches, cuda_decode.decode.launches_int8_ff,
+            cuda_decode.decode.launches_int8_gates) == (n[0] + 1, n[1],
+                                                        n[2] + 1)
+    want = cuda_decode.decode_reference(packed, cond, T, 3, mode,
+                                        cfg.n_classes, det)
+    print(f"int8_gates {mode} det={det}: max|d| "
+          f"{float((got - want).abs().max()):.3g}")
+    assert torch.equal(got, want)
+    assert torch.isfinite(got).all() and got.abs().max() <= 1.0
+    with pytest.raises(ValueError, match="int8_gates"):
+        cuda_decode.decode(packed, cond, T, 3, mode, cfg.n_classes, det,
+                           rows_per_cta=2)
+
+
 @pytest.mark.parametrize("mode", ["RAW", "MOL"])
 def test_ff_ranges_graph_equals_eager_on_card(cuda_device, mode):
     """The calibration's step replayed from a CUDA graph gives the bounds
@@ -469,7 +499,7 @@ SMALL_TACO = TacotronConfig(embed_dims=32, encoder_dims=32, decoder_dims=64,
                             postnet_K=2, num_highways=1)
 
 
-def taco_inputs(device, r, L, dtype=torch.bfloat16):
+def taco_inputs(device, r, L, dtype=torch.bfloat16, int8_lstm=False):
     """Packed weights and encoder outputs of a seeded small Tacotron."""
     cfg = SMALL_TACO
     model = taco_from_jax(init_variables(cfg, 0), cfg, device)
@@ -477,7 +507,7 @@ def taco_inputs(device, r, L, dtype=torch.bfloat16):
     with torch.no_grad():
         enc, encp = model.encode(torch.from_numpy(x).to(device))
     packed = pack_tts_weights(extract_tts_decode_weights(model), r,
-                              cfg.n_mels, dtype=dtype)
+                              cfg.n_mels, dtype=dtype, int8_lstm=int8_lstm)
     return packed, enc[0].contiguous(), encp[0].contiguous()
 
 
@@ -521,6 +551,32 @@ def test_tts_kernel_matches_plain_version(cuda_device, r, L, chunks, grid,
         assert float(d.max()) <= 2e-2, f
 
 
+@pytest.mark.parametrize("grid", [None, 7], ids=["all_sms", "grid7"])
+def test_tts_int8_lstm_kernel_matches_plain_version(cuda_device, grid,
+                                                    monkeypatch):
+    """The int8_lstm variant against its plain version: the operands'
+    maxima and the int8 sums are exact, so they agree to the bit."""
+    monkeypatch.setattr(cuda_tts, "CTAS", grid)
+    packed, enc, encp = taco_inputs(cuda_device, 2, 24, int8_lstm=True)
+    n = (cuda_tts.tts_decode.launches, cuda_tts.tts_decode.launches_int8_lstm)
+    run = lambda p, *a: cuda_tts.tts_decode(p, *a, int8_lstm=True)
+    got = taco_run(run, packed, enc, encp, 96, 2)
+    torch.cuda.synchronize()
+    assert (cuda_tts.tts_decode.launches,
+            cuda_tts.tts_decode.launches_int8_lstm) == (n[0] + 2, n[1] + 2)
+    want = taco_run(tts_decode_reference, packed, enc, encp, 96, 2)
+    for name, a, b in zip(("mels", "scores", "stop"), got[:3], want[:3]):
+        print(f"int8_lstm grid {grid or 'all SMs'} {name}: max|d| "
+              f"{float((a - b).abs().max()):.3g}")
+        assert torch.equal(a, b), name
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(got[3], f), getattr(want[3], f)), f
+    with pytest.raises(ValueError, match="bf16 packing"):
+        cuda_tts.tts_decode_spans(packed, enc, encp, init_tts_decode_state(
+            SMALL_TACO.decoder_dims, SMALL_TACO.lstm_dims, 24,
+            SMALL_TACO.n_mels, cuda_device), 4)
+
+
 def test_tts_spans_stamp_every_phase_of_every_step(cuda_device):
     """The spans instantiation computes what the kernel computes and stamps
     the clock, in increasing order, at the end of each of a step's ten
@@ -559,7 +615,7 @@ def test_tts_kernel_rejects_what_it_does_not_take(cuda_device):
     c = SMALL_TACO
     state = init_tts_decode_state(c.decoder_dims, c.lstm_dims, 24, c.n_mels,
                                   cuda_device)
-    with pytest.raises(NotImplementedError, match="int8_lstm"):
+    with pytest.raises(ValueError, match="int8_lstm"):
         cuda_tts.tts_decode(packed, enc, encp, state, 4, int8_lstm=True)
     f32, _, _ = taco_inputs(cuda_device, 2, 24, dtype=torch.float32)
     with pytest.raises(ValueError, match="bfloat16"):

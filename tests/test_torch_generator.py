@@ -157,7 +157,7 @@ def test_cuda_generator_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("option,exc", [
-    (dict(int8_gates=True), NotImplementedError),
+    (dict(input_dtype="int16"), ValueError),   # not a wire format
     (dict(mesh=object()), ValueError),          # not a parallel.MeshPlan
     (dict(output_dtype="int8"), ValueError),
     (dict(backend="pallas"), ValueError),

@@ -186,8 +186,8 @@ def test_location_windows_are_the_zero_padded_conv_taps():
 def test_packing_and_wrapper_refuse_what_they_do_not_take(full):
     _, _, model = full
     w = extract_tts_decode_weights(model)
-    with pytest.raises(NotImplementedError, match="int8_lstm"):
-        pack_tts_weights(w, 2, 80, int8_lstm=True)
+    with pytest.raises(ValueError, match="dtype"):
+        pack_tts_weights(w, 2, 80, dtype=torch.float16, int8_lstm=True)
     with pytest.raises(ValueError, match="dtype"):
         pack_tts_weights(w, 2, 80, dtype=torch.float16)
     with pytest.raises(ValueError, match="r=21"):
@@ -196,8 +196,11 @@ def test_packing_and_wrapper_refuse_what_they_do_not_take(full):
     c = model.cfg
     enc = torch.zeros(8, c.decoder_dims)
     state = init_tts_decode_state(c.decoder_dims, c.lstm_dims, 8, c.n_mels)
-    with pytest.raises(NotImplementedError, match="int8_lstm"):
+    with pytest.raises(ValueError, match="int8_lstm"):   # a bf16 pack
         cuda_tts.tts_decode(packed, enc, enc, state, 4, int8_lstm=True)
+    with pytest.raises(ValueError, match="int8_lstm"):   # an int8 one
+        cuda_tts.tts_decode(pack_tts_weights(w, 2, 80, int8_lstm=True), enc,
+                            enc, state, 4)
     with pytest.raises(ValueError, match="state.cum"):
         cuda_tts.tts_decode(packed, enc, enc, init_tts_decode_state(
             c.decoder_dims, c.lstm_dims, 9, c.n_mels), 4)

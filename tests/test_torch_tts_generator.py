@@ -133,8 +133,9 @@ def test_generator_refuses_what_it_does_not_take(golden, monkeypatch):
     world = MeshPlan(n_data=2, devices=(torch.device("cpu"),), world=True)
     with pytest.raises(ValueError, match="local plan"):
         TTSGenerator(cfg, v, "cpu", mesh=world)
-    with pytest.raises(NotImplementedError, match="int8_lstm"):
-        TTSGenerator(cfg, v, "cpu", int8_lstm=True)
+    # int8_lstm is taken: the kernel backend packs its LSTM rows as int8
+    gen = TTSGenerator(cfg, v, "cpu", backend="kernel", int8_lstm=True)
+    assert gen.int8_lstm and gen._packed_for(2)["l1_ih"].dtype == torch.int8
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         TTSGenerator(cfg, v, "cuda")

@@ -19,7 +19,8 @@ writes each utterance's attention beside its WAV, as ``<stem>.png`` and
 
 ``--mesh`` shards the WaveRNN vocoder's fold rows over a device mesh, as
 ``gen_wavernn --mesh`` does (Tacotron decodes one utterance at a time, on
-``--device``).  Not ported (raises): ``--int8`` (``int8_gates``).
+``--device``).  ``--int8`` / ``--no_int8`` set ``hp.gen_int8``, the
+WaveRNN decode kernel's ``int8_gates`` variant, as in ``gen_wavernn``.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from wavernn_tpu_torch.dsp import audio, wavio
 from wavernn_tpu_torch.dsp.torch_audio import reconstruct_waveform
 from wavernn_tpu_torch.infer.pipeline import mel_from_linear
 from wavernn_tpu_torch.infer.tacotron import TTSGenerator
+from wavernn_tpu_torch.gen_wavernn import int8_overrides
 from wavernn_tpu_torch.infer.wavernn import make_generator
 from wavernn_tpu_torch.models.tacotron import TacotronConfig
 from wavernn_tpu_torch.models.wavernn import WaveRNNConfig
@@ -72,9 +74,10 @@ def main(argv=None):
     int8_group = parser.add_mutually_exclusive_group()
     int8_group.add_argument("--int8", action="store_true",
                             help="int8 gate weights in the vocoder kernel "
-                                 "(int8_gates)")
+                                 "(int8_gates; sets hp.gen_int8)")
     int8_group.add_argument("--no_int8", action="store_true",
-                            help="no int8 gate weights (the default)")
+                            help="no int8 gate weights (overrides "
+                                 "hp.gen_int8)")
     add_mesh_args(parser)
     parser.add_argument("--output_dir", type=str,
                         help="where the WAVs go (default "
@@ -98,10 +101,7 @@ def main(argv=None):
                     help="[int] griffinlim iterations")
     args = parser.parse_args(argv)
 
-    if args.int8:
-        raise NotImplementedError("--int8 (int8_gates) is not ported yet")
-
-    hp.configure(args.hp_file)
+    hp.configure(args.hp_file, **int8_overrides(args))
     out_dir = Path(args.output_dir if args.output_dir else
                    Path("model_outputs") / f"{hp.tts_model_id}.tacotron")
     tts_cfg = TacotronConfig.from_hp(hp, num_chars=len(symbols))
@@ -135,7 +135,7 @@ def main(argv=None):
         v_type = "wavernn_batched" if batched else "wavernn_unbatched"
         print(head + f"WaveRNN {voc_step // 1000}k, "
               f"{'batched' if batched else 'unbatched'} target {target} "
-              f"overlap {overlap}")
+              f"overlap {overlap}{', int8_gates' if voc.int8_gates else ''}")
 
         def vocode(mel, path):
             wav = voc(mel, batched=batched, target=target, overlap=overlap,

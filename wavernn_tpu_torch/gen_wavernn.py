@@ -9,6 +9,7 @@ or the test set's copy-synthesis MCD.
         [--hp_file hparams.py]
     python -m wavernn_tpu_torch.gen_wavernn --file mel.npy --mesh \\
         [--mesh_devices cuda:0,cuda:1]
+    python -m wavernn_tpu_torch.gen_wavernn --file mel.npy --int8
 
 Without ``--file`` the first ``--samples`` utterances of the test split of
 ``data_path`` are vocoded beside their targets into
@@ -20,7 +21,9 @@ swapped for another: without CUDA the command fails.  ``--device cpu`` runs
 the kernel's plain PyTorch version instead, at CPU speed.  ``--mesh``
 splits each launch's fold rows over a device mesh (``hp.mesh_shape`` when
 set): every visible CUDA device, or ``--mesh_devices``, whose first must
-be ``--device``'s.
+be ``--device``'s.  ``--int8`` / ``--no_int8`` set ``hp.gen_int8``, the
+decode kernel's ``int8_gates`` variant (off unless the hp file or
+``--int8`` turns it on).
 """
 
 from __future__ import annotations
@@ -40,6 +43,12 @@ from wavernn_tpu_torch.parallel.mesh import add_mesh_args, mesh_from_args
 from wavernn_tpu_torch.paths import Paths
 from wavernn_tpu_torch.training.state import TrainState
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+
+def int8_overrides(args) -> dict:
+    """``hp.configure`` overrides of ``--int8`` / ``--no_int8``."""
+    return ({"gen_int8": False} if args.no_int8
+            else {"gen_int8": True} if args.int8 else {})
 
 
 def main(argv=None):
@@ -77,12 +86,19 @@ def main(argv=None):
                              "sampling")
     parser.add_argument("--seed", type=int, default=0)
     add_mesh_args(parser)
+    int8_group = parser.add_mutually_exclusive_group()
+    int8_group.add_argument("--int8", action="store_true",
+                            help="int8 gate weights in the decode kernel "
+                                 "(int8_gates; sets hp.gen_int8)")
+    int8_group.add_argument("--no_int8", action="store_true",
+                            help="no int8 gate weights (overrides "
+                                 "hp.gen_int8)")
     parser.add_argument("--hp_file", metavar="FILE", default="hparams.py",
                         help="the file to use for the hyperparameters")
     parser.set_defaults(batched=None)
     args = parser.parse_args(argv)
 
-    hp.configure(args.hp_file)
+    hp.configure(args.hp_file, **int8_overrides(args))
     target = hp.voc_target if args.target is None else args.target
     overlap = hp.voc_overlap if args.overlap is None else args.overlap
     batched = hp.voc_gen_batched if args.batched is None else args.batched
@@ -123,7 +139,7 @@ def main(argv=None):
                          deterministic=args.deterministic)
     print(f"Using device: {gen.device} | weights {weights} (step {step}) | "
           f"{'batched' if batched else 'unbatched'} target {target} "
-          f"overlap {overlap}")
+          f"overlap {overlap}{' | int8_gates' if gen.int8_gates else ''}")
     out = gen_from_file(gen, Path(args.file).expanduser(), out_dir, batched,
                         target, overlap, hp.mu_law, step=step,
                         seed=args.seed)

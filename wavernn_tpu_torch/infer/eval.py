@@ -42,8 +42,12 @@ def eval_testset_mcd(cfg: WaveRNNConfig, variables, test_set, samples: int,
                      batched: bool, target: int, overlap: int,
                      device) -> List[float]:
     """MCD of copy-synthesis for the first ``samples`` held-out
-    (mel, wav) pairs, on a float64-egress Generator on ``device``."""
-    gen = Generator(cfg, variables, device=device)
+    (mel, wav) pairs, on a float64-egress Generator on ``device``
+    (``int8_gates`` as ``hp.gen_int8`` says, as the JAX package's
+    ``make_generator`` reads it)."""
+    from wavernn_tpu_torch.infer.wavernn import make_generator
+
+    gen = make_generator(cfg, variables, device, output_dtype="float64")
     scores = []
     for i, (m, _x) in enumerate(test_set, 1):
         if i > samples:

@@ -30,7 +30,7 @@ class TTSPipeline:
     ``mesh`` (a local ``parallel.mesh.MeshPlan`` whose first device is
     ``device``) shards the vocoder's fold rows over its devices, as
     ``gen_wavernn --mesh`` does; the Tacotron decode stays on ``device``.
-    ``int8_gates`` is not ported (the vocoder raises)."""
+    ``int8_gates`` is the vocoder's (``Generator``'s), off by default."""
 
     def __init__(self, tts_cfg: TacotronConfig, tts_variables,
                  voc_cfg: WaveRNNConfig, voc_variables,

@@ -78,7 +78,11 @@ class TTSGenerator:
     utterance (:meth:`submit`) stays on the first device, through the
     kernel.
 
-    Not ported (raises): ``int8_lstm``."""
+    ``int8_lstm`` (off by default, as in the JAX package) packs the
+    kernel backend's LSTM matrices as int8, their operands quantized on
+    the fly (``ops/tts_decode.py``): the kernel on the card, its plain
+    version on the CPU.  The plain backend ignores it, as the JAX
+    package's XLA backend does."""
 
     def __init__(self, cfg: TacotronConfig, variables, device,
                  steps: int = 2000, text_bucket: int = 32,
@@ -90,8 +94,6 @@ class TTSGenerator:
                                "not available")
         if stop_patience < 1:
             raise ValueError("stop_patience must be >= 1")
-        if int8_lstm:
-            raise NotImplementedError("int8_lstm is not ported")
         self.mesh = mesh
         if mesh is not None:
             check_plan(mesh, False, "TTSGenerator(mesh=)")
@@ -117,6 +119,7 @@ class TTSGenerator:
         self.steps = steps
         self.text_bucket = text_bucket
         self.stop_patience = int(stop_patience)
+        self.int8_lstm = bool(int8_lstm)
         self.model = from_jax_variables(variables, cfg, self.device)
         # the model on each device of the mesh, for the sharded batch,
         # keyed as a tensor's .device names the device
@@ -189,10 +192,12 @@ class TTSGenerator:
         return _round_up(self.steps if steps is None else steps, r)
 
     def _packed_for(self, r: int) -> dict:
-        """The kernel's bf16 weight set for ``r`` frames per step."""
+        """The kernel's weight set for ``r`` frames per step (bf16, the
+        LSTM matrices int8 with ``int8_lstm``)."""
         if r not in self._packed:
             self._packed[r] = pack_tts_weights(
-                extract_tts_decode_weights(self.model), r, self.cfg.n_mels)
+                extract_tts_decode_weights(self.model), r, self.cfg.n_mels,
+                int8_lstm=self.int8_lstm)
         return self._packed[r]
 
     def _finish(self, mels_seq, scores_seq, done_seq, n_req: int, r: int,
@@ -246,7 +251,7 @@ class TTSGenerator:
             if done:
                 break
             mels_c, scores_c, stop_c, state = cuda_tts.tts_decode(
-                packed, enc, encp, state, CHUNK)
+                packed, enc, encp, state, CHUNK, int8_lstm=self.int8_lstm)
             mels_buf[t0:t0 + CHUNK] = mels_c
             scores_buf[t0:t0 + CHUNK] = scores_c
             for k, s in enumerate(stop_c.cpu().numpy()):

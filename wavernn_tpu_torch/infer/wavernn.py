@@ -23,13 +23,17 @@ from wavernn_tpu_torch.utils.display import stream
 
 
 def make_generator(cfg: WaveRNNConfig, variables, device, mesh=None,
-                   **kwargs) -> Generator:
+                   int8_gates=None, **kwargs) -> Generator:
     """A Generator serving int16 PCM (the WAV payload) on ``device``,
     its fold rows sharded over ``mesh`` (a local
-    ``parallel.mesh.MeshPlan``) when one is given; ``kwargs`` go to
-    :class:`Generator`."""
+    ``parallel.mesh.MeshPlan``) when one is given; ``int8_gates`` is
+    ``hp.gen_int8`` when None (as the JAX package's ``make_generator``
+    reads it); ``kwargs`` go to :class:`Generator`."""
+    if int8_gates is None:
+        int8_gates = bool(hp.get("gen_int8", False))
     kwargs.setdefault("output_dtype", "int16")
-    return Generator(cfg, variables, device=device, mesh=mesh, **kwargs)
+    return Generator(cfg, variables, device=device, mesh=mesh,
+                     int8_gates=int8_gates, **kwargs)
 
 
 def _timed_generate(gen: Generator, mel, batched, target, overlap, mu_law,

@@ -103,7 +103,7 @@ def load_library():
                            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.tts_decode_max_ctas.argtypes = [ctypes.POINTER(ctypes.c_int),
-                                            ctypes.c_longlong]
+                                            ctypes.c_longlong, ctypes.c_int]
         lib.tts_decode_max_ctas.restype = ctypes.c_int
         lib.tts_decode_smem_bytes.argtypes = [
             ctypes.POINTER(ctypes.c_longlong)]

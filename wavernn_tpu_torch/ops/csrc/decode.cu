@@ -35,6 +35,17 @@
 // operand, and the dot's int32 sum times the column's fused scale (weight
 // scale x S / 127) replaces the float64 sum.  The clip keeps every value in
 // the int8 range, so no second byte plane is needed.
+// With G8 (the TPU kernel's ``int8_gates``) the same five dots are int8 at
+// per-column weight scales, and each operand (h1, xr, h2, xr after GRU2,
+// relu(f1)) is quantized at its own row's scale: the phase that makes it
+// keeps each row's largest |value| (a warp maximum, then an atomicMax in
+// shared memory), and after one more barrier every thread packs its words
+// at sa = max(m, 1e-8) * (1/127), round(v / sa) by a true division, half to
+// even.  The epilogue multiplies the dot's exact int32 sum by (sa * s_w).
+// A maximum does not depend on the order of its terms, so this variant too
+// equals its plain version bit for bit.  It costs three barriers a step
+// more than FF (the operands of GRU2's input dot, FC1 and FC2; h1's and
+// h2's maxima are known a phase ahead).
 // The order of the float64 terms then hardly matters, so this kernel and
 // its plain version (float64 GEMMs) agree to the bit nearly always, and a
 // deterministic decode can be held to a tight tolerance over thousands of
@@ -74,7 +85,8 @@
 // ptrs = cond, out, then the packed weights in cuda_decode.WEIGHT_ORDER;
 // dims = B, Tc, C, T, H, F, feat, aux_d, n_out, mode (0 RAW, 1 MOL),
 //        deterministic, int8_hh, rows_per_cta, seed, ablation mask, int8_ff,
-//        row0.
+//        row0, int8_gates (then int8_hh and int8_ff are 0, one row per CTA,
+//        no ablation).
 // Returns a cudaError_t (0 = launched).
 
 #include <cuda_bf16.h>
@@ -108,6 +120,9 @@ struct Params {
   // quantization multipliers 127 / S of their operands
   const float* fs_ih2; const float* fs_fc1; const float* fs_fc2;
   const float* ffq;
+  // G8: the int8 feed-forward matrices' column scales (s_hh1 / s_hh2 hold
+  // the recurrent ones')
+  const float* s_ih2; const float* s_fc1; const float* s_fc2;
   int B, Tc, C, T, H, F, feat, d, n_out, mode, det;
   uint32_t seed;
   uint32_t row0;      // the random bits' row of this launch's row 0
@@ -121,6 +136,9 @@ struct Params {
 // h2 @ w_hh2), FC1 (x, a3), FC2 (x, a4), FC3.
 enum { D_IM1, D_IM, D_HH1, D_IH2, D_AUX2, D_HH2, D_FC1, D_AUX3, D_FC2,
        D_AUX4, D_FC3, ND };
+// G8's operands quantized per row: h1, xr (GRU2's input), h2, xr after
+// GRU2 (FC1's), relu(f1) (FC2's)
+enum { Q_H1, Q_X1, Q_H2, Q_X2, Q_F1, NQ };
 
 // float32 arithmetic with one rounding per operation
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
@@ -208,7 +226,8 @@ __device__ __forceinline__ bool sync_or(bool v, bool want) {
   return false;
 }
 
-template <int R, bool I8, bool FF, int MASK>
+// G8 runs with I8 and FF set: its five dots are the int8 ones of those.
+template <int R, bool I8, bool FF, bool G8, int MASK>
 __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
   using dot::psum;
   constexpr int NT = threads(R), NWARP = NT / 32;
@@ -232,6 +251,9 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
   uint32_t* opQ = reinterpret_cast<uint32_t*>(xs + R);  // [H/4][R] int8
   uint32_t* opQh = opQ + (H / 4) * R;  // [H/4][R] its high bytes (GATES)
   uint32_t* opF = opQh + (H / 4) * R;  // [W/4][R] int8 feed-forward operand
+  uint32_t* amax = opF + (W / 4) * R;  // [NQ][R] G8: bits of a row's max|v|
+  float* qscale = reinterpret_cast<float*>(amax + NQ * R);  // [NQ][R] its sa
+  float* f1s = reinterpret_cast<float*>(opH);  // [F][R] G8: relu(f1)
   const int tid = threadIdx.x;
   const int b0 = blockIdx.x * R;
   float keep = 0.f;  // AB_GATES only
@@ -266,7 +288,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
   // FF: the operand of feed-forward dot q, v at its calibrated scale,
   // stored as byte k of row r of opF
   float ffq[3] = {0.f, 0.f, 0.f};
-  if constexpr (FF) {
+  if constexpr (FF && !G8) {
     ffq[0] = p.ffq[0]; ffq[1] = p.ffq[1]; ffq[2] = p.ffq[2];
   }
   auto ff_operand = [&](int q, float v, int k, int r) {
@@ -284,24 +306,47 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
                               static_cast<const __nv_bfloat16*>(w), N,
                               p.sp[i], first);
   };
-  // column n of a feed-forward dot, scaled back from int8 (FF)
-  auto ff_col = [&](int i, const float* fs, int N, int n, int r) {
-    if constexpr (FF)
+  // G8: operand q of row r packed at its row's scale (into ``plane``),
+  // the scale kept for the epilogue
+  auto quantize = [&](int q, uint32_t* plane, const float* v, int K) {
+    if (tid < R) qscale[q * R + tid] = dot::row_scale(amax[q * R + tid]);
+    dot::pack_scaled<NT, R>(plane, v, K, amax + q * R);
+  };
+  // G8: column n of a dot on operand q, scaled back from int8 (s: the
+  // weight's column scales)
+  auto g8_col = [&](int i, int q, const float* s, int N, int n, int r) {
+    return mul(psum<R>(ipart(i), p.sp[i].S, N, n, r),
+               mul(qscale[q * R + r], s[n]));
+  };
+  // column n of a feed-forward dot (on G8's operand q), scaled back from
+  // int8 (FF, G8)
+  auto ff_col = [&](int i, int q, const float* fs, const float* s, int N,
+                    int n, int r) {
+    if constexpr (G8)
+      return g8_col(i, q, s, N, n, r);
+    else if constexpr (FF)
       return mul(psum<R>(ipart(i), p.sp[i].S, N, n, r), fs[n]);
     else
       return psum<R>(part(i), p.sp[i].S, N, n, r);
   };
-  // gate g of column j of a recurrent dot, scaled back from int8
-  auto hidden_gate = [&](int i, const float* s_hh, int g, int j, int r) {
-    if constexpr (I8)
+  // gate g of column j of a recurrent dot (on G8's operand q), scaled back
+  // from int8
+  auto hidden_gate = [&](int i, int q, const float* s_hh, int g, int j,
+                         int r) {
+    if constexpr (G8)
+      return g8_col(i, q, s_hh, H3, g * H + j, r);
+    else if constexpr (I8)
       return mul(psum<R>(ipart(i), p.sp[i].S, H3, g * H + j, r),
                  mul(s_hh[g * H + j], 1.0f / 127.0f));
     else
       return psum<R>(part(i), p.sp[i].S, H3, g * H + j, r);
   };
+  // G8: the bits of |v| (a float >= 0 orders as its bits do)
+  auto abits = [](float v) { return __float_as_uint(fabsf(v)); };
 
   for (int i = tid; i < H * R; i += NT) { h1[i] = 0.f; h2[i] = 0.f; }
   for (int i = tid; i < R; i += NT) xs[i] = 0.f;
+  for (int i = tid; i < NQ * R; i += NT) amax[i] = 0u;
   __syncthreads();
 
   for (int t = 0; t < p.T; ++t) {
@@ -316,7 +361,16 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
                           : 0.0;
       }
     }
-    const bool wide1 = sync_or(hidden_operand(h1), GATES);
+    bool wide1 = false;
+    if constexpr (G8) {
+      quantize(Q_H1, opQ, h1, H);
+      __syncthreads();
+      // no thread reads these maxima again before this step's GRU1
+      // epilogue makes them anew
+      if (tid < R) { amax[Q_H1 * R + tid] = 0u; amax[Q_X1 * R + tid] = 0u; }
+    } else {
+      wide1 = sync_or(hidden_operand(h1), GATES);
+    }
 
     // GRU1 (inputs precomposed through I) and the I projection
     int first = 0;
@@ -326,6 +380,9 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
                             first);
     hidden_dot(D_HH1, p.w_hh1, wide1, first);
     __syncthreads();
+    uint32_t mh[R], mx[R];   // G8: this thread's largest |h|, |xr| a row
+#pragma unroll
+    for (int r = 0; r < R; ++r) { mh[r] = 0u; mx[r] = 0u; }
     for (int j = tid; j < H; j += NT) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
@@ -335,7 +392,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
         for (int g = 0; g < 3; ++g) {
           a[g] = add(mul(x, p.u1[g * H + j]),
                      psum<R>(part(D_IM1), p.sp[D_IM1].S, H3, g * H + j, r));
-          h[g] = hidden_gate(D_HH1, p.s_hh1, g, j, r);
+          h[g] = hidden_gate(D_HH1, Q_H1, p.s_hh1, g, j, r);
         }
         const float hn = GATES
             ? gru_ablated(a, h, h1[j * R + r], keep)
@@ -345,11 +402,28 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
                                     psum<R>(part(D_IM), p.sp[D_IM].S, H, j, r)),
                                 p.b_I[j]), hn);
         xr[j * R + r] = v;
-        if constexpr (FF) ff_operand(0, v, j, r);
-        else opX[j * R + r] = bfr64(v);
+        if constexpr (G8) {
+          mh[r] = max(mh[r], abits(hn));
+          mx[r] = max(mx[r], abits(v));
+        } else if constexpr (FF) {
+          ff_operand(0, v, j, r);
+        } else {
+          opX[j * R + r] = bfr64(v);
+        }
       }
     }
-    const bool wide2 = sync_or(hidden_operand(h2), GATES);
+    bool wide2 = false;
+    if constexpr (G8) {
+      dot::commit_max<R>(amax + Q_H1 * R, mh);
+      dot::commit_max<R>(amax + Q_X1 * R, mx);
+      __syncthreads();
+      quantize(Q_X1, opF, xr, H);
+      quantize(Q_H2, opQ, h2, H);
+      __syncthreads();
+      if (tid < R) { amax[Q_H2 * R + tid] = 0u; amax[Q_X2 * R + tid] = 0u; }
+    } else {
+      wide2 = sync_or(hidden_operand(h2), GATES);
+    }
 
     // GRU2 on [xr | a2]
     first = 0;
@@ -358,15 +432,17 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
                             p.sp[D_AUX2], first);
     hidden_dot(D_HH2, p.w_hh2, wide2, first);
     __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) { mh[r] = 0u; mx[r] = 0u; }
     for (int j = tid; j < H; j += NT) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         float a[3], h[3];
 #pragma unroll
         for (int g = 0; g < 3; ++g) {
-          a[g] = add(ff_col(D_IH2, p.fs_ih2, H3, g * H + j, r),
+          a[g] = add(ff_col(D_IH2, Q_X1, p.fs_ih2, p.s_ih2, H3, g * H + j, r),
                      psum<R>(part(D_AUX2), p.sp[D_AUX2].S, H3, g * H + j, r));
-          h[g] = hidden_gate(D_HH2, p.s_hh2, g, j, r);
+          h[g] = hidden_gate(D_HH2, Q_H2, p.s_hh2, g, j, r);
         }
         const float hn = GATES
             ? gru_ablated(a, h, h2[j * R + r], keep)
@@ -374,29 +450,55 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
         h2[j * R + r] = hn;
         const float v = add(xr[j * R + r], hn);
         xr[j * R + r] = v;
-        if constexpr (FF) ff_operand(1, v, j, r);
-        else opX[j * R + r] = bfr64(v);
+        if constexpr (G8) {
+          mh[r] = max(mh[r], abits(hn));
+          mx[r] = max(mx[r], abits(v));
+        } else if constexpr (FF) {
+          ff_operand(1, v, j, r);
+        } else {
+          opX[j * R + r] = bfr64(v);
+        }
       }
+    }
+    if constexpr (G8) {
+      dot::commit_max<R>(amax + Q_H2 * R, mh);
+      dot::commit_max<R>(amax + Q_X2 * R, mx);
+      __syncthreads();
+      quantize(Q_X2, opF, xr, H);
+      if (tid < R) amax[Q_F1 * R + tid] = 0u;
     }
     __syncthreads();
 
-    // FC1 on [xr | a3] -> opH (FF: opF)
+    // FC1 on [xr | a3] -> opH (FF: opF; G8: f1s)
     first = 0;
     ff_dot(D_FC1, opX, H, F, p.w_fc1x, first);
     dot::dot_bf16<NT, R, 8>(part(D_AUX3), cond + (K0 + d) * R, d, F,
                             p.w_aux + (size_t)d * NA + H3, NA, p.sp[D_AUX3],
                             first);
     __syncthreads();
+#pragma unroll
+    for (int r = 0; r < R; ++r) mx[r] = 0u;
     for (int j = tid; j < F; j += NT) {
 #pragma unroll
       for (int r = 0; r < R; ++r) {
         const float f1 = fmaxf(
-            add(add(ff_col(D_FC1, p.fs_fc1, F, j, r),
+            add(add(ff_col(D_FC1, Q_X2, p.fs_fc1, p.s_fc1, F, j, r),
                     psum<R>(part(D_AUX3), p.sp[D_AUX3].S, F, j, r)),
                 p.b_fc1[j]), 0.f);
-        if constexpr (FF) ff_operand(2, f1, j, r);
-        else opH[j * R + r] = bfr64(f1);
+        if constexpr (G8) {
+          f1s[j * R + r] = f1;
+          mx[r] = max(mx[r], abits(f1));
+        } else if constexpr (FF) {
+          ff_operand(2, f1, j, r);
+        } else {
+          opH[j * R + r] = bfr64(f1);
+        }
       }
+    }
+    if constexpr (G8) {
+      dot::commit_max<R>(amax + Q_F1 * R, mx);
+      __syncthreads();
+      quantize(Q_F1, opF, f1s, F);
     }
     __syncthreads();
 
@@ -411,7 +513,7 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
 #pragma unroll
       for (int r = 0; r < R; ++r)
         opX[j * R + r] = bfr64(fmaxf(
-            add(add(ff_col(D_FC2, p.fs_fc2, F, j, r),
+            add(add(ff_col(D_FC2, Q_F1, p.fs_fc2, p.s_fc2, F, j, r),
                     psum<R>(part(D_AUX4), p.sp[D_AUX4].S, F, j, r)),
                 p.b_fc2[j]), 0.f));
     }
@@ -527,26 +629,26 @@ size_t make_plan(Params& p, int R, bool i8, bool ff) {
   const int W = H > F ? H : F;
   return (size_t)(top + (size_t)(p.C + 2 * W) * R) * sizeof(double)
          + (size_t)(3 * H + p.n_out + 1) * R * sizeof(float)
-         + (size_t)(2 * (H / 4) + W / 4) * R * sizeof(uint32_t);
+         + (size_t)(2 * (H / 4) + W / 4 + 2 * NQ) * R * sizeof(uint32_t);
 }
 
-template <int R, bool I8, bool FF, int MASK>
+template <int R, bool I8, bool FF, bool G8, int MASK>
 cudaError_t launch(Params p, cudaStream_t stream) {
   const size_t bytes = make_plan(p, R, I8, FF);
   cudaError_t e = cudaFuncSetAttribute(
-      decode_kernel<R, I8, FF, MASK>,
+      decode_kernel<R, I8, FF, G8, MASK>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   const int grid = (p.B + R - 1) / R;
-  decode_kernel<R, I8, FF, MASK><<<grid, threads(R), bytes, stream>>>(p);
+  decode_kernel<R, I8, FF, G8, MASK><<<grid, threads(R), bytes, stream>>>(p);
   return cudaGetLastError();
 }
 
 template <bool I8, bool FF>
 cudaError_t launch_rows(const Params& p, int R, cudaStream_t s) {
   switch (R) {
-    case 1: return launch<1, I8, FF, 0>(p, s);
-    case 2: return launch<2, I8, FF, 0>(p, s);
+    case 1: return launch<1, I8, FF, false, 0>(p, s);
+    case 2: return launch<2, I8, FF, false, 0>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -559,12 +661,12 @@ constexpr int ABLATION_R = 1;
 cudaError_t launch_ablated(const Params& p, int mask, cudaStream_t s) {
   constexpr int R = ABLATION_R;
   switch (mask) {
-    case AB_SAMPLE: return launch<R, true, false, AB_SAMPLE>(p, s);
-    case AB_GATES: return launch<R, true, false, AB_GATES>(p, s);
+    case AB_SAMPLE: return launch<R, true, false, false, AB_SAMPLE>(p, s);
+    case AB_GATES: return launch<R, true, false, false, AB_GATES>(p, s);
     case AB_SAMPLE | AB_GATES:
-      return launch<R, true, false, AB_SAMPLE | AB_GATES>(p, s);
-    case AB_COND_READ: return launch<R, true, false, AB_COND_READ>(p, s);
-    case AB_OUT_WRITE: return launch<R, true, false, AB_OUT_WRITE>(p, s);
+      return launch<R, true, false, false, AB_SAMPLE | AB_GATES>(p, s);
+    case AB_COND_READ: return launch<R, true, false, false, AB_COND_READ>(p, s);
+    case AB_OUT_WRITE: return launch<R, true, false, false, AB_OUT_WRITE>(p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -602,6 +704,9 @@ extern "C" int wavernn_decode(const void* const* ptrs, const long long* dims,
   p.fs_fc1 = static_cast<const float*>(ptrs[i++]);
   p.fs_fc2 = static_cast<const float*>(ptrs[i++]);
   p.ffq = static_cast<const float*>(ptrs[i++]);
+  p.s_ih2 = static_cast<const float*>(ptrs[i++]);
+  p.s_fc1 = static_cast<const float*>(ptrs[i++]);
+  p.s_fc2 = static_cast<const float*>(ptrs[i++]);
   p.B = (int)dims[0]; p.Tc = (int)dims[1]; p.C = (int)dims[2];
   p.T = (int)dims[3]; p.H = (int)dims[4]; p.F = (int)dims[5];
   p.feat = (int)dims[6]; p.d = (int)dims[7]; p.n_out = (int)dims[8];
@@ -612,7 +717,12 @@ extern "C" int wavernn_decode(const void* const* ptrs, const long long* dims,
   const int mask = (int)dims[14];
   const bool int8_ff = dims[15] != 0;
   p.row0 = (uint32_t)dims[16];
+  const bool int8_gates = dims[17] != 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (int8_gates) {
+    if (int8_hh || int8_ff || R != 1 || mask != 0) return cudaErrorInvalidValue;
+    return launch<1, true, true, true, 0>(p, s);
+  }
   if (mask != 0) {
     if (!int8_hh || int8_ff || R != ABLATION_R) return cudaErrorInvalidValue;
     return launch_ablated(p, mask, s);

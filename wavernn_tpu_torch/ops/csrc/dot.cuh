@@ -292,4 +292,47 @@ __device__ __forceinline__ bool pack_i8(uint32_t* lo, uint32_t* hi,
   return wide;
 }
 
+// Operands quantized on the fly (decode.cu's G8, tts_decode.cu's I8L, the
+// TPU kernels' ``int8_gates`` / ``int8_lstm``): a row's scale from the bits
+// of its largest |value| (a float >= 0, so its bits order as unsigned
+// integers do): sa = max(m, 1e-8) * float32(1/127), in float32.
+__device__ __forceinline__ float row_scale(uint32_t mbits) {
+  return __fmul_rn(fmaxf(__uint_as_float(mbits), 1e-8f), 1.0f / 127.0f);
+}
+
+// round(v / sa) (a true division, half to even) as an int8 byte; |v| <= m
+// keeps it within [-127, 127].
+__device__ __forceinline__ uint32_t quant_byte(float v, float sa) {
+  return static_cast<uint32_t>(__float2int_rn(__fdiv_rn(v, sa)) & 0xff);
+}
+
+// Add this thread's largest |values| m[r] to each row's maximum amax[r]
+// (shared memory): a warp's maximum, then one atomicMax a warp.  Every
+// thread of the CTA calls it.
+template <int R>
+__device__ __forceinline__ void commit_max(uint32_t* amax,
+                                           const uint32_t (&m)[R]) {
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const uint32_t w = __reduce_max_sync(0xffffffffU, m[r]);
+    if ((threadIdx.x & 31) == 0 && w != 0) atomicMax(amax + r, w);
+  }
+}
+
+// The activation v [K][R] quantized at each row's scale (from amax[r],
+// the bits of the row's largest |value|), packed four k rows to a word,
+// [K / 4][R], as dot_i8 reads it.
+template <int NT, int R>
+__device__ __forceinline__ void pack_scaled(uint32_t* aq, const float* v,
+                                            int K, const uint32_t* amax) {
+  for (int i = threadIdx.x; i < (K / 4) * R; i += NT) {
+    const int r = i % R, k = (i / R) * 4;
+    const float sa = row_scale(amax[r]);
+    uint32_t w = 0;
+#pragma unroll
+    for (int b = 0; b < 4; ++b) w |= quant_byte(v[(k + b) * R + r], sa) << (8 * b);
+    aq[i] = w;
+  }
+}
+
 }  // namespace dot

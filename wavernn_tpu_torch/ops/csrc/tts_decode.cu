@@ -56,6 +56,17 @@
 // intrinsics keep nvcc from contracting it), in the plain version's order;
 // sigmoid(v) = 0.5 * tanhf(0.5 * v) + 0.5.
 //
+// I8L (the TPU kernel's ``int8_lstm``): the LSTM units' rows are int8 in
+// shared memory, with their per-row scales (4 + 4 floats a unit), half the
+// bytes of bf16.  The LSTM operands x and h reach every CTA whole, so each
+// CTA finds max|x| and max|h| itself (the same in every CTA, a maximum does
+// not depend on order), quantizes both at sa = max(m, 1e-8) * (1/127),
+// round(v / sa) by a true division, half to even, and sums each half of a
+// row with __dp4a: exact integers, so the order of the terms does not
+// matter.  The gate is (f32(sum_x) * (sa_x * s_ih) + f32(sum_h) * (sa_h *
+// s_hh)) + b, the plain version's order, and the variant equals its plain
+// version bit for bit.
+//
 // What bounds it.  About 5.2 M bf16 weights (10.35 MB at the full-size
 // model) per step, spread over the grid's shared memory: a few hundred
 // cycles of float64 FMAs and integer ops per CTA and phase.  The bound of a
@@ -69,13 +80,14 @@
 //                  void* stream)
 // ptrs = the packed weights in cuda_tts.WEIGHT_ORDER, then enc_t (D, L),
 //        encp (L, D), state_in, state_out, mels, scores, stop, work, bar;
-// dims = n_steps, L, D, Dh, H, n_mels, r, ctas.
+// dims = n_steps, L, D, Dh, H, n_mels, r, ctas, int8_lstm (the LSTM
+//        matrices int8, then their four scale vectors after the pointers).
 // work is the tagged activations (zeroed), bar the step barrier's counter
 // (zeroed).  Returns a cudaError_t (0 = launched).  Beside it:
 // tts_decode_smem_bytes (the layout's bytes for dims), tts_decode_max_ctas
-// (co-resident CTAs for a layout), and, dev only, tts_decode_spans (one
-// more pointer after bar: n_steps x 10 uint64 stamps) and tts_barrier_loop
-// (bare barriers).
+// (co-resident CTAs for a layout and variant), and, dev only,
+// tts_decode_spans (bf16 only; one more pointer after bar: n_steps x 10
+// uint64 stamps) and tts_barrier_loop (bare barriers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -112,6 +124,8 @@ struct Params {
   unsigned long long* work;  // tagged activations passed between CTAs
   unsigned* bar;        // the grid barrier's arrival counter
   unsigned long long* spans;  // SPANS: %globaltimer at each phase's end
+  // I8L: the four LSTM matrices' per-row scales, (4H,) each
+  const float *l1_ih_s, *l1_hh_s, *l2_ih_s, *l2_hh_s;
   int n_steps, L, D, Dh, H, n_mels, r;
 };
 
@@ -137,8 +151,10 @@ struct Layout {
   size_t total;
 };
 
+// With i8l the LSTM regions hold each unit's 4 rows of 2H int8 weights and
+// then its 8 float scales (ih gates, hh gates).
 __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
-                                         int r, int G) {
+                                         int r, int G, bool i8l) {
   Layout y;
   size_t at = 0;
   int op_n = 2 * D + Dh;
@@ -163,7 +179,11 @@ __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
                              (size_t)(3 * (D + Dh) + 3 * D), (size_t)D,
                              (size_t)(2 * D), (size_t)(8 * H), (size_t)(8 * H),
                              (size_t)H};
-  for (int k = 0; k < NWREG; ++k) y.w[k] = take(at, 2 * units[k] * row[k]);
+  for (int k = 0; k < NWREG; ++k) {
+    const bool lstm = k == WL1 || k == WL2;
+    y.w[k] = take(at, lstm && i8l ? units[k] * (row[k] + 8 * sizeof(float))
+                                  : 2 * units[k] * row[k]);
+  }
   y.total = at;
   return y;
 }
@@ -387,6 +407,70 @@ __device__ __forceinline__ void copy_units(bf16* dst, const bf16* a, int KA,
   }
 }
 
+// I8L: acc[OFF + g] += the int8 dot of row g of w (rows ldw bytes apart)
+// with the operand, over 16-byte chunk c of both.
+template <int G, int OFF, int N>
+__device__ __forceinline__ void dot16(int (&acc)[N], const int8_t* w, int ldw,
+                                      int c, const uint32_t* aq) {
+  const uint4 a = reinterpret_cast<const uint4*>(aq)[c];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const uint4 q = reinterpret_cast<const uint4*>(w + (size_t)g * ldw)[c];
+    int v = acc[OFF + g];
+    v = __dp4a((int)q.x, (int)a.x, v);
+    v = __dp4a((int)q.y, (int)a.y, v);
+    v = __dp4a((int)q.z, (int)a.z, v);
+    v = __dp4a((int)q.w, (int)a.w, v);
+    acc[OFF + g] = v;
+  }
+}
+
+// I8L: the nu LSTM units a CTA owns, unit u's G rows [ih row | hh row] of K
+// + K int8 at w + u * G * 2K; aq the operand [x | h] quantized, packed four
+// to a word.  Groups of warps as in units(); epi(u, sums) gets 2G exact
+// int32 sums: each row's x half, then each row's h half.
+template <int G, class Epi>
+__device__ __forceinline__ void units_i8(int nu, const int8_t* w, int K,
+                                         const uint32_t* aq, int* part,
+                                         Epi epi) {
+  if (nu <= 0) return;
+  const int S = nu >= NW ? 1 : NW / nu;
+  const int groups = NW / S;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, s = warp % S;
+  const int nc = K / 16;   // 16-byte chunks of one half row
+  for (int u = warp / S; u < nu; u += groups) {
+    int acc[2 * G];
+#pragma unroll
+    for (int g = 0; g < 2 * G; ++g) acc[g] = 0;
+    const int8_t* wu = w + (size_t)u * G * 2 * K;
+    for (int c = s * 32 + lane; c < nc; c += S * 32) {
+      dot16<G, 0>(acc, wu, 2 * K, c, aq);
+      dot16<G, G>(acc, wu, 2 * K, nc + c, aq);
+    }
+#pragma unroll
+    for (int g = 0; g < 2 * G; ++g) acc[g] = __reduce_add_sync(0xffffffffU, acc[g]);
+    if (S == 1) {
+      if (lane == 0) epi(u, acc);
+    } else if (lane == 0) {
+#pragma unroll
+      for (int g = 0; g < 2 * G; ++g) part[(u * S + s) * 2 * G + g] = acc[g];
+    }
+  }
+  if (S > 1) {
+    __syncthreads();
+    const int u = threadIdx.x;
+    if (u < nu) {
+      int sum[2 * G];
+#pragma unroll
+      for (int g = 0; g < 2 * G; ++g) sum[g] = 0;
+      for (int i = 0; i < S; ++i)
+#pragma unroll
+        for (int g = 0; g < 2 * G; ++g) sum[g] += part[(u * S + i) * 2 * G + g];
+      epi(u, sum);
+    }
+  }
+}
+
 // A segment of a phase's input: n tagged words at p, of step tag - 2.
 struct Seg {
   const unsigned long long* p;
@@ -394,13 +478,13 @@ struct Seg {
   unsigned tag;
 };
 
-template <bool SPANS>
+template <bool SPANS, bool I8L>
 __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   const int L = p.L, D = p.D, Dh = p.Dh, H = p.H, NM = p.n_mels;
   const int RM = p.r * NM;
   const int G = gridDim.x, cta = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const Layout y = layout(L, D, Dh, H, NM, p.r, G);
+  const Layout y = layout(L, D, Dh, H, NM, p.r, G, I8L);
 
   extern __shared__ __align__(16) unsigned char sm[];
   double* opT = reinterpret_cast<double*>(sm + y.op);     // the operand
@@ -485,8 +569,22 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   copy_units(w_gh, p.whh, D, nullptr, 0, d0, nd, 3, D);
   copy_units(w_q, p.W_q, D, nullptr, 0, d0, nd, 1, D);
   copy_units(w_ri, p.ri_c, D, p.ri_h, D, h0, nh, 1, H);
-  copy_units(w_l1, p.l1_ih, H, p.l1_hh, H, h0, nh, 4, H);
-  copy_units(w_l2, p.l2_ih, H, p.l2_hh, H, h0, nh, 4, H);
+  // I8L: an int8 row of H bytes is H / 2 bf16-sized elements
+  const int lk = I8L ? H / 2 : H;
+  copy_units(w_l1, p.l1_ih, lk, p.l1_hh, lk, h0, nh, 4, H);
+  copy_units(w_l2, p.l2_ih, lk, p.l2_hh, lk, h0, nh, 4, H);
+  // I8L: each unit's scales after the rows: [ih gates 0-3 | hh gates 0-3]
+  float* l1_s = reinterpret_cast<float*>(
+      reinterpret_cast<int8_t*>(w_l1) + (size_t)most(H, G) * 8 * H);
+  float* l2_s = reinterpret_cast<float*>(
+      reinterpret_cast<int8_t*>(w_l2) + (size_t)most(H, G) * 8 * H);
+  if constexpr (I8L) {
+    for (int i = tid; i < nh * 8; i += NT) {
+      const int u = i / 8, g = i % 4, n = g * H + h0 + u;
+      l1_s[i] = i % 8 < 4 ? p.l1_ih_s[n] : p.l1_hh_s[n];
+      l2_s[i] = i % 8 < 4 ? p.l2_ih_s[n] : p.l2_hh_s[n];
+    }
+  }
   copy_units(w_mel, p.mel_w, H, nullptr, 0, m0, nm, 1, RM);
   if (nl > 0) {
     const uint16_t* m = reinterpret_cast<const uint16_t*>(p.M_loc);
@@ -722,21 +820,69 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
       const float* bias = layer ? p.l2_b : p.l1_b;
       load_op({xin, H, tag}, {hc, H, tag_cur}, none);
       stamp(step, 6 + layer);
-      units<4, 0>(nh, w, 2 * H, 0, nullptr, 0, 0, opT, 2 * H / 8, part,
-                  [&](int u, const double* s) {
-                    const int j = h0 + u;
-                    float gv[4];
+      // the cell of unit u from its gates' pre-activations (bias added)
+      auto cell = [&](int u, const float (&gv)[4]) {
+        const int j = h0 + u;
+        const float ig = sg(gv[0]), fg = sg(gv[1]);
+        const float gg = tanhf(gv[2]), og = sg(gv[3]);
+        const float c = add(mul(fg, c_own[u]), mul(ig, gg));
+        const float h = mul(og, tanhf(c));
+        c_own[u] = c;
+        put(hn + j, h, tag);
+        put(xo + j, add(opf[j], h), tag);
+        if (last) { o_h[j] = h; o_c[j] = c; }
+      };
+      if constexpr (I8L) {
+        // max|x| and max|h| (opf: [x | h]), the same in every CTA
+        uint32_t mx = 0u, mh = 0u;
+        for (int k = tid; k < H; k += NT) {
+          mx = max(mx, __float_as_uint(fabsf(opf[k])));
+          mh = max(mh, __float_as_uint(fabsf(opf[H + k])));
+        }
+        mx = __reduce_max_sync(0xffffffffU, mx);
+        mh = __reduce_max_sync(0xffffffffU, mh);
+        uint32_t* wmax = reinterpret_cast<uint32_t*>(part);
+        if (lane == 0) { wmax[2 * warp] = mx; wmax[2 * warp + 1] = mh; }
+        __syncthreads();
+        for (int i = 0; i < NW; ++i) {
+          mx = max(mx, wmax[2 * i]);
+          mh = max(mh, wmax[2 * i + 1]);
+        }
+        const float sx = dot::row_scale(mx), sh = dot::row_scale(mh);
+        uint32_t* aq = reinterpret_cast<uint32_t*>(opT);   // [x | h] int8
+        for (int i = tid; i < 2 * H / 4; i += NT) {
+          const float sa = 4 * i < H ? sx : sh;
+          uint32_t q = 0;
 #pragma unroll
-                    for (int g = 0; g < 4; ++g) gv[g] = add(f32(s[g]), bias[g * H + j]);
-                    const float ig = sg(gv[0]), fg = sg(gv[1]);
-                    const float gg = tanhf(gv[2]), og = sg(gv[3]);
-                    const float c = add(mul(fg, c_own[u]), mul(ig, gg));
-                    const float h = mul(og, tanhf(c));
-                    c_own[u] = c;
-                    put(hn + j, h, tag);
-                    put(xo + j, add(opf[j], h), tag);
-                    if (last) { o_h[j] = h; o_c[j] = c; }
-                  });
+          for (int b = 0; b < 4; ++b) q |= dot::quant_byte(opf[4 * i + b], sa) << (8 * b);
+          aq[i] = q;
+        }
+        __syncthreads();
+        const float* sc_l = layer ? l2_s : l1_s;
+        units_i8<4>(nh, reinterpret_cast<const int8_t*>(w), H, aq,
+                    reinterpret_cast<int*>(part),
+                    [&](int u, const int* s) {
+                      const int j = h0 + u;
+                      const float* su = sc_l + 8 * u;
+                      float gv[4];
+#pragma unroll
+                      for (int g = 0; g < 4; ++g)
+                        gv[g] = add(add(mul(__int2float_rn(s[g]), mul(sx, su[g])),
+                                        mul(__int2float_rn(s[4 + g]),
+                                            mul(sh, su[4 + g]))),
+                                    bias[g * H + j]);
+                      cell(u, gv);
+                    });
+      } else {
+        units<4, 0>(nh, w, 2 * H, 0, nullptr, 0, 0, opT, 2 * H / 8, part,
+                    [&](int u, const double* s) {
+                      const int j = h0 + u;
+                      float gv[4];
+#pragma unroll
+                      for (int g = 0; g < 4; ++g) gv[g] = add(f32(s[g]), bias[g * H + j]);
+                      cell(u, gv);
+                    });
+      }
       conv_window(2 + layer);
     }
 
@@ -802,10 +948,10 @@ __global__ void __launch_bounds__(NT, 1) barrier_loop(unsigned* bar, int n) {
 
 Layout layout_of(const long long* dims) {
   return layout((int)dims[1], (int)dims[2], (int)dims[3], (int)dims[4],
-                (int)dims[5], (int)dims[6], (int)dims[7]);
+                (int)dims[5], (int)dims[6], (int)dims[7], dims[8] != 0);
 }
 
-template <bool SPANS>
+template <bool SPANS, bool I8L>
 int launch(const void* const* ptrs, const long long* dims, void* stream) {
   Params p;
   int i = 0;
@@ -828,6 +974,9 @@ int launch(const void* const* ptrs, const long long* dims, void* stream) {
   p.bar = static_cast<unsigned*>(const_cast<void*>(ptrs[i++]));
   p.spans = SPANS ? static_cast<unsigned long long*>(const_cast<void*>(ptrs[i++]))
                   : nullptr;
+  if (I8L) {
+    p.l1_ih_s = fw(); p.l1_hh_s = fw(); p.l2_ih_s = fw(); p.l2_hh_s = fw();
+  }
   p.n_steps = (int)dims[0]; p.L = (int)dims[1]; p.D = (int)dims[2];
   p.Dh = (int)dims[3]; p.H = (int)dims[4]; p.n_mels = (int)dims[5];
   p.r = (int)dims[6];
@@ -835,11 +984,11 @@ int launch(const void* const* ptrs, const long long* dims, void* stream) {
 
   const size_t bytes = layout_of(dims).total;
   cudaError_t e = cudaFuncSetAttribute(
-      tts_decode_kernel<SPANS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      tts_decode_kernel<SPANS, I8L>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)tts_decode_kernel<SPANS>,
+  e = cudaLaunchCooperativeKernel((const void*)tts_decode_kernel<SPANS, I8L>,
                                   dim3(ctas), dim3(NT), args, bytes,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
@@ -850,7 +999,8 @@ int launch(const void* const* ptrs, const long long* dims, void* stream) {
 
 extern "C" int tts_decode(const void* const* ptrs, const long long* dims,
                           void* stream) {
-  return launch<false>(ptrs, dims, stream);
+  return dims[8] ? launch<false, true>(ptrs, dims, stream)
+                 : launch<false, false>(ptrs, dims, stream);
 }
 
 // The same launch with one more pointer after ``bar``: spans, n_steps x 10
@@ -858,7 +1008,8 @@ extern "C" int tts_decode(const void* const* ptrs, const long long* dims,
 // next phase's input has come, and after the step's barrier (dev only).
 extern "C" int tts_decode_spans(const void* const* ptrs, const long long* dims,
                                 void* stream) {
-  return launch<true>(ptrs, dims, stream);
+  if (dims[8]) return cudaErrorInvalidValue;
+  return launch<true, false>(ptrs, dims, stream);
 }
 
 // The dynamic shared memory of one CTA for dims (tts_decode's).
@@ -866,15 +1017,17 @@ extern "C" long long tts_decode_smem_bytes(const long long* dims) {
   return (long long)layout_of(dims).total;
 }
 
-// How many CTAs with ``bytes`` of shared memory each can be co-resident.
-extern "C" int tts_decode_max_ctas(int* out, long long bytes) {
+// How many CTAs with ``bytes`` of shared memory each can be co-resident, of
+// the bf16 kernel or (int8_lstm) the I8L one.
+extern "C" int tts_decode_max_ctas(int* out, long long bytes, int int8_lstm) {
+  const void* fn = int8_lstm ? (const void*)tts_decode_kernel<false, true>
+                             : (const void*)tts_decode_kernel<false, false>;
   cudaError_t e = cudaFuncSetAttribute(
-      tts_decode_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   int per_sm = 0, dev = 0, sms = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, tts_decode_kernel<false>, NT, (size_t)bytes);
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, NT,
+                                                    (size_t)bytes);
   if (e != cudaSuccess) return e;
   e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;

@@ -27,6 +27,16 @@ operands whose exact products are summed in float64 and rounded to f32:
 the int8 products exactly, and its sum is multiplied by the column's fused
 scale ``*_fs`` (weight scale x S / 127).
 
+With ``int8_gates`` (the TPU kernel's variant of that name) the five big
+matrices (``w_hh1``, ``w_ih2x``, ``w_hh2``, ``w_fc1x``, ``w_fc2x``) are int8
+with per-column scales ``*_s``, and each of their operands (h1, xr, h2, xr
+after GRU2, relu(f1)) is quantized per row on the fly: ``sa = max(max|a|,
+1e-8) * (1/127)``, ``qa = round(a / sa)`` (a true division, half to even),
+the int32 sum times ``(sa * s_w)``.  A pack records its variant by its
+scale names: ``*_s`` of all five matrices (``int8_gates``), ``*_fs``
+(``int8_ff``), or ``w_hh1_s`` / ``w_hh2_s`` alone (``int8_hh``);
+:func:`variant` reads them.
+
 The TPU kernel's random bits (``pltpu.prng_*``) become a counter-based hash
 of (seed, fold row, step, lane), so the plain version reproduces the
 kernel's draws exactly and a sampling-mode run compares as a trajectory.
@@ -78,6 +88,7 @@ WEIGHT_ORDER = (
     "w_fc1x", "b_fc1", "w_fc2x", "b_fc2",
     "w_aux", "w_fc3", "b_fc3",
     "w_ih2x_fs", "w_fc1x_fs", "w_fc2x_fs", "ffq",
+    "w_ih2x_s", "w_fc1x_s", "w_fc2x_s",
 )
 
 
@@ -91,7 +102,7 @@ def q8(mat: torch.Tensor):
 
 def pack_weights(w: DecodeWeights, feat: int, aux_d: int,
                  int8_hh: bool = True, int8_ff: bool = False,
-                 ff_scales=None) -> dict:
+                 ff_scales=None, int8_gates: bool = False) -> dict:
     """The kernel's weight set (``pallas_decode.pack_weights`` without the
     lane padding).  Conditioning rows are [mel | a1 | a2 | a3 | a4]:
     ``w_Im``/``w_Im1`` take the first feat+aux_d of them, the fused
@@ -104,7 +115,12 @@ def pack_weights(w: DecodeWeights, feat: int, aux_d: int,
     (1/127))`` in float32 (the reference's order), and adds ``ffq = 127 /
     S``: ``ff_scales`` is the (3,) bound S of [xr after GRU1, xr after
     GRU2, relu(fc1)] (:func:`ops.decode.ff_ranges`); it raises without
-    them."""
+    them.
+
+    ``int8_gates`` stores the five big matrices (both ``w_hh``, GRU2's
+    ``w_ih[:H]``, FC1's ``w[:H]``, FC2's ``w[:F]``) as per-column int8 with
+    their raw scales ``*_s``, whatever ``int8_hh`` says (as the JAX pack
+    does); it is exclusive with ``int8_ff``."""
     bf = lambda a: a.to(torch.bfloat16).contiguous()
     f32 = lambda a: a.float().contiguous()
     H = w.gru1_w_hh.shape[0]
@@ -126,7 +142,9 @@ def pack_weights(w: DecodeWeights, feat: int, aux_d: int,
     w_Im1 = I_w[1:] @ ih1
     b1 = f32(b1 + w.I_b.float() @ ih1)
 
-    if int8_hh:
+    if int8_gates and int8_ff:
+        raise ValueError("int8_gates is exclusive with int8_ff")
+    if int8_hh or int8_gates:
         w_hh1, w_hh1_s = q8(w.gru1_w_hh)
         w_hh2, w_hh2_s = q8(w.gru2_w_hh)
     else:
@@ -134,7 +152,12 @@ def pack_weights(w: DecodeWeights, feat: int, aux_d: int,
         w_hh2, w_hh2_s = bf(w.gru2_w_hh), None
 
     ff = {}
-    if int8_ff:
+    if int8_gates:
+        for name, mat in (("w_ih2x", w.gru2_w_ih[:H]), ("w_fc1x", w.fc1_w[:H]),
+                          ("w_fc2x", w.fc2_w[:F])):
+            q, s = q8(mat)
+            ff[name], ff[name + "_s"] = q.contiguous(), s.contiguous()
+    elif int8_ff:
         if ff_scales is None:
             raise ValueError("int8_ff needs calibrated ff_scales")
         S = torch.as_tensor(ff_scales, dtype=torch.float32,
@@ -173,9 +196,33 @@ def pack_weights(w: DecodeWeights, feat: int, aux_d: int,
     )
 
 
+def is_int8_gates(packed: dict) -> bool:
+    """Whether a pack is ``int8_gates``'s (its marker: the raw scales of
+    the int8 feed-forward matrices)."""
+    return packed.get("w_ih2x_s") is not None
+
+
 def is_int8_ff(packed: dict) -> bool:
-    """Whether a pack holds int8 feed-forward matrices."""
-    return packed["w_ih2x"].dtype == torch.int8
+    """Whether a pack holds int8 feed-forward matrices at calibrated
+    bounds (``int8_ff``; its marker: the fused scales)."""
+    return packed.get("w_ih2x_fs") is not None
+
+
+def is_int8_hh(packed: dict) -> bool:
+    """Whether a pack holds int8 recurrent matrices at the fixed state
+    scale (``int8_hh``, beside bf16 or ``int8_ff`` feed-forward ones)."""
+    return (packed["w_hh1"].dtype == torch.int8
+            and not is_int8_gates(packed))
+
+
+def variant(packed: dict) -> str:
+    """The pack's kernel variant: ``"int8_gates"``, or its recurrent
+    matrices (``"int8_hh"`` / ``"bf16"``) with ``"+int8_ff"`` where its
+    feed-forward ones are int8."""
+    if is_int8_gates(packed):
+        return "int8_gates"
+    return (("int8_hh" if is_int8_hh(packed) else "bf16")
+            + ("+int8_ff" if is_int8_ff(packed) else ""))
 
 
 def pack_stream(mels_up: torch.Tensor, aux_mel: torch.Tensor,
@@ -292,18 +339,24 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
     kernel's order.  With int8 feed-forward matrices the operand is
     quantized as the module's docstring says (a float32 multiply, the
     clip, ``torch.round``: half to even, as ``rintf``) and the integer
-    products are summed exactly, as the kernel's ``dp4a`` does.
+    products are summed exactly, as the kernel's ``dp4a`` does.  With
+    ``int8_gates`` each of the five operands is quantized at its row's
+    scale in float32 (the row max, the clamp at 1e-8, the multiply by
+    float32(1/127), a true division, ``torch.round``), the integer
+    products are summed exactly (|sum| <= 127 * 127 * H < 2**24, so its
+    float32 is exact) and the sum is multiplied by ``sa * s_w``.
     ``ablate`` and ``row0`` (the random bits' row of row 0) as in the
     module's docstring."""
     ablation_mask(ablate)
     _check(packed, cond, T, mode)
     f = {k: (v.float() if v is not None and v.dtype != torch.int8 else v)
          for k, v in packed.items()}
+    int8_gates = is_int8_gates(packed)
     int8_ff = is_int8_ff(packed)
+    int8_hh = is_int8_hh(packed)
     w64 = {k: packed[k].double() for k in (
         "w_Im1", "w_Im", "w_hh1", "w_ih2x", "w_hh2", "w_fc1x", "w_fc2x",
         "w_aux", "w_fc3")}
-    int8_hh = packed["w_hh1"].dtype == torch.int8
     B, _, C = cond.shape
     H = f["b_hh1_n"].shape[0]
     H3 = 3 * H
@@ -314,13 +367,23 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
     mm = lambda a, name: (a.double() @ w64[name]).float()
     rows = torch.arange(B, device=dev)
 
+    def gdot(a, name):
+        """int8_gates: the operand quantized per row on the fly."""
+        sa = torch.clamp(a.abs().amax(dim=1, keepdim=True),
+                         min=1e-8) * (1.0 / 127.0)
+        return mm(torch.round(a / sa), name) * (sa * f[name + "_s"])
+
     def gdot_h(h, name):
+        if int8_gates:
+            return gdot(h, name)
         if int8_hh:
             acc = mm(torch.round(h * 127.0), name)
             return acc * (f[name + "_s"] * (1.0 / 127.0))
         return mm(bfr(h), name)
 
     def gdot_ff(a, name, i):
+        if int8_gates:
+            return gdot(a, name)
         if int8_ff:
             qa = torch.round(torch.clamp(a * f["ffq"][i], -127.0, 127.0))
             return mm(qa, name) * f[name + "_fs"]
@@ -401,9 +464,9 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
            ablate: frozenset = frozenset(),
            rows_per_cta: int = ROWS_PER_CTA, row0: int = 0) -> torch.Tensor:
     """(B, T) float32 samples of the sample loop over fold-major bf16
-    conditioning ``cond`` (B, >=T, C).  int8 recurrent matrices and int8
-    feed-forward matrices (with their ``ffq``) are used when ``packed``
-    holds them (:func:`pack_weights`).  ``rows_per_cta`` (1 or 2) is the
+    conditioning ``cond`` (B, >=T, C).  The kernel variant is the pack's
+    (:func:`variant`): int8 recurrent matrices, int8 feed-forward matrices
+    (with their ``ffq``), or ``int8_gates``.  ``rows_per_cta`` (1 or 2) is the
     kernel's fold rows per CTA; ``row0`` is the random bits' row of row 0
     (a shard's offset in its batch); ``ablate`` as in the module's
     docstring (the kernel
@@ -411,17 +474,25 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     recurrent matrices and :data:`ROWS_PER_CTA` rows per CTA).  The
     kernel's 16-byte weight loads take H a multiple of 16 and F of 8 (of 16
     with int8 feed-forward matrices), and 16-byte aligned weights; other
-    shapes raise.
+    shapes raise.  ``int8_gates`` is built for :data:`ROWS_PER_CTA` rows
+    per CTA and no ablation; other settings raise, on the CPU too.
 
     A CUDA tensor launches the kernel (``csrc/decode.cu``) on the current
     stream; a CPU tensor runs :func:`decode_reference`.  ``decode.launches``
     counts kernel launches, ``decode.launches_int8_ff`` those with int8
-    feed-forward matrices."""
+    feed-forward matrices, ``decode.launches_int8_gates`` those of
+    ``int8_gates``."""
     mask = ablation_mask(ablate)
     if rows_per_cta not in (1, 2):
         raise ValueError(f"rows_per_cta must be 1 or 2, got {rows_per_cta}")
     if not 0 <= row0 < 2 ** 32:
         raise ValueError(f"row0 must be in [0, 2**32), got {row0}")
+    int8_gates = is_int8_gates(packed)
+    if int8_gates and (mask or rows_per_cta != ROWS_PER_CTA):
+        raise ValueError(
+            f"the int8_gates kernel is built for {ROWS_PER_CTA} row(s) per "
+            f"CTA and no ablation; got rows_per_cta={rows_per_cta}, "
+            f"ablate={sorted(ablate)}")
     if cond.device.type == "cpu":
         return decode_reference(packed, cond, T, seed, mode, n_classes,
                                 deterministic, ablate, row0)
@@ -435,7 +506,7 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     d = packed["w_aux"].shape[0] // 3
     K0 = packed["w_Im"].shape[0]
     n_out = packed["b_fc3"].shape[0]
-    int8_hh = packed["w_hh1"].dtype == torch.int8
+    int8_hh = is_int8_hh(packed)
     int8_ff = is_int8_ff(packed)
     if n_out != n_classes:
         raise ValueError(f"fc3 has {n_out} outputs, n_classes={n_classes}")
@@ -450,30 +521,37 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     if mode == "MOL" and (n_out % 3 or n_out // 3 > 32):
         raise ValueError(f"MOL kernel takes 3*nm outputs with nm <= 32, "
                          f"got {n_out}")
-    if H % 16 or F % (16 if int8_ff else 8):
+    i8_ff = int8_ff or int8_gates
+    if H % 16 or F % (16 if i8_ff else 8):
         raise ValueError(f"the kernel's 16-byte weight loads take H a "
-                         f"multiple of 16 and F of 8 (16 with int8_ff), got "
-                         f"H={H}, F={F}, int8_ff={int8_ff}")
+                         f"multiple of 16 and F of 8 (16 with int8 "
+                         f"feed-forward matrices), got H={H}, F={F}, "
+                         f"variant {variant(packed)}")
     if not cond.is_contiguous():
         raise ValueError("cond must be contiguous")
-    ff_dtype = torch.int8 if int8_ff else torch.bfloat16
+    ff_dtype = torch.int8 if i8_ff else torch.bfloat16
+    hh_dtype = torch.int8 if int8_hh or int8_gates else torch.bfloat16
     shapes = dict(
         w_Im1=((K0, 3 * H), torch.bfloat16), u1=((3 * H,), torch.float32),
         w_Im=((K0, H), torch.bfloat16), w_x=((H,), torch.float32),
         b_I=((H,), torch.float32),
-        w_hh1=((H, 3 * H), torch.int8 if int8_hh else torch.bfloat16),
+        w_hh1=((H, 3 * H), hh_dtype),
         b1=((3 * H,), torch.float32), b_hh1_n=((H,), torch.float32),
         w_ih2x=((H, 3 * H), ff_dtype),
-        w_hh2=((H, 3 * H), torch.int8 if int8_hh else torch.bfloat16),
+        w_hh2=((H, 3 * H), hh_dtype),
         b2=((3 * H,), torch.float32), b_hh2_n=((H,), torch.float32),
         w_fc1x=((H, F), ff_dtype), b_fc1=((F,), torch.float32),
         w_fc2x=((F, F), ff_dtype), b_fc2=((F,), torch.float32),
         w_aux=((3 * d, 3 * H + 2 * F), torch.bfloat16),
         w_fc3=((F, n_out), torch.bfloat16), b_fc3=((n_out,), torch.float32),
     )
-    if int8_hh:
+    if int8_hh or int8_gates:
         shapes.update(w_hh1_s=((3 * H,), torch.float32),
                       w_hh2_s=((3 * H,), torch.float32))
+    if int8_gates:
+        shapes.update(w_ih2x_s=((3 * H,), torch.float32),
+                      w_fc1x_s=((F,), torch.float32),
+                      w_fc2x_s=((F,), torch.float32))
     if int8_ff:
         shapes.update(w_ih2x_fs=((3 * H,), torch.float32),
                       w_fc1x_fs=((F,), torch.float32),
@@ -500,7 +578,7 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
         for k in WEIGHT_ORDER]
     dims = [B, Tc, C, T, H, F, K0 - d, d, n_out, _MODES[mode],
             int(deterministic), int(int8_hh), rows_per_cta, seed & 0xFFFFFFFF,
-            mask, int(int8_ff), row0]
+            mask, int(int8_ff), row0, int(int8_gates)]
     stream = torch.cuda.current_stream(cond.device).cuda_stream
     with torch.cuda.device(cond.device):
         err = lib.wavernn_decode(
@@ -512,8 +590,10 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
                            f"{lib.wavernn_error_string(err).decode()}")
     decode.launches += 1
     decode.launches_int8_ff += int(int8_ff)
+    decode.launches_int8_gates += int(int8_gates)
     return out
 
 
 decode.launches = 0
 decode.launches_int8_ff = 0
+decode.launches_int8_gates = 0

@@ -4,8 +4,11 @@ Hopper (``csrc/tts_decode.cu``; replaces
 
 :func:`tts_decode` launches the kernel for CUDA tensors and runs its plain
 PyTorch version (``tts_decode.tts_decode_reference``) for CPU tensors; it
-never falls back from one to the other.  ``tts_decode.launches`` counts
-kernel launches.  :func:`tts_smem_plan` is the kernel's shared-memory plan:
+never falls back from one to the other.  The kernel's variant is the
+packed set's: bf16, or ``int8_lstm`` (int8 LSTM rows).
+``tts_decode.launches`` counts kernel launches,
+``tts_decode.launches_int8_lstm`` those of ``int8_lstm``.
+:func:`tts_smem_plan` is the kernel's shared-memory plan:
 which output units, text positions and context columns each CTA owns, and
 the bytes every CTA allocates; a text whose plan does not fit raises.
 """
@@ -18,8 +21,8 @@ import functools
 import torch
 
 from wavernn_tpu_torch.ops.tts_decode import (
-    MATRICES, STATE_FIELDS, TTSDecodeState, check_inputs, packed_dims,
-    tts_decode_reference,
+    LSTM_MATRICES, LSTM_SCALES, MATRICES, STATE_FIELDS, TTSDecodeState,
+    check_inputs, is_int8_lstm, tts_decode_reference,
 )
 
 # pointer order of the C entry point, before enc_t, encp and the buffers
@@ -61,13 +64,15 @@ def _align(n: int) -> int:
 
 
 def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
-                  grid: int, limit: int | None = SMEM_LIMIT) -> dict:
+                  grid: int, limit: int | None = SMEM_LIMIT,
+                  int8_lstm: bool = False) -> dict:
     """The kernel's shared-memory plan on ``grid`` CTAs: each phase's unit
     count, each CTA's owned ranges, the layout every CTA allocates (sized
     for the most units any CTA owns in each phase; the kernel computes the
     same bytes and refuses a launch whose plan disagrees) and each CTA's
-    weight bytes.  Raises ``ValueError`` naming L when the layout exceeds
-    ``limit`` bytes (None: no check)."""
+    weight bytes.  ``int8_lstm`` holds an LSTM unit's rows at one byte a
+    weight, then its 8 float32 scales.  Raises ``ValueError`` naming L
+    when the layout exceeds ``limit`` bytes (None: no check)."""
     if grid < 1:
         raise ValueError(f"grid must be >= 1, got {grid}")
     units = dict(prenet1=D, prenet2=Dh, attn_gru=D, query=D, energies=L,
@@ -76,6 +81,11 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
     row_w = dict(prenet1=n_mels, prenet2=D, attn_gru=3 * (D + Dh) + 3 * D,
                  query=D, energies=0, context=0, rnn_input=2 * D,
                  lstm1=4 * 2 * H, lstm2=4 * 2 * H, mel=H)
+    # bytes a unit's rows take in shared memory
+    unit_bytes = {k: 2 * n for k, n in row_w.items()}
+    if int8_lstm:
+        for k in ("lstm1", "lstm2"):
+            unit_bytes[k] = row_w[k] + 8 * 4
     most = {k: -(-n // grid) for k, n in units.items()}
     op_n = max(n_mels, 2 * D + Dh, 2 * H)
     regions = [                                   # the kernel's order
@@ -89,11 +99,11 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
         ("encp_rows", 4 * most["energies"] * D),
         ("own_state", 4 * (most["attn_gru"] + 2 * most["lstm1"])),
         ("loc_conv", 4 * (NTAP2 // 2) * D),       # bf16 tap pairs
-    ] + [(f"w_{k}", 2 * most[k] * row_w[k]) for k in OWNED if row_w[k]]
+    ] + [(f"w_{k}", most[k] * unit_bytes[k]) for k in OWNED if row_w[k]]
     nbytes = sum(_align(b) for _, b in regions)
     ranges = {k: [owned(n, i, grid) for i in range(grid)]
               for k, n in units.items()}
-    weight_bytes = [sum(2 * (ranges[k][i][1] - ranges[k][i][0]) * row_w[k]
+    weight_bytes = [sum((ranges[k][i][1] - ranges[k][i][0]) * unit_bytes[k]
                         for k in OWNED) for i in range(grid)]
     if limit is not None and nbytes > limit:
         raise ValueError(
@@ -107,10 +117,11 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
 
 @functools.lru_cache(maxsize=64)
 def _layout_bytes(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
-                  grid: int) -> int:
+                  grid: int, int8_lstm: bool) -> int:
     """The plan's bytes, once per shape: building the plan takes ~0.8 ms
     on the host, as long as a 48-step launch's work on the card."""
-    return tts_smem_plan(D, Dh, H, n_mels, r, L, grid)["bytes"]
+    return tts_smem_plan(D, Dh, H, n_mels, r, L, grid,
+                         int8_lstm=int8_lstm)["bytes"]
 
 
 def _shapes(D: int, Dh: int, H: int, n_mels: int, r: int) -> dict:
@@ -129,14 +140,22 @@ def _shapes(D: int, Dh: int, H: int, n_mels: int, r: int) -> dict:
 def _check_cuda(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
                 state: TTSDecodeState, n_steps: int):
     D, Dh, H, n_mels, r, L = check_inputs(packed, enc, encp, state, n_steps)
+    int8_lstm = is_int8_lstm(packed)
     for name, n in (("D", D), ("D/2", Dh), ("H", H), ("n_mels", n_mels)):
         if n % 8:
             raise ValueError(f"the kernel takes widths that are multiples "
                              f"of 8, got {name}={n}")
+    if int8_lstm and H % 16:
+        raise ValueError(f"the int8_lstm kernel's 16-byte rows take H a "
+                         f"multiple of 16, got H={H}")
     dev = enc.device
-    for name, shape in _shapes(D, Dh, H, n_mels, r).items():
+    shapes = _shapes(D, Dh, H, n_mels, r)
+    if int8_lstm:
+        shapes.update({k: (4 * H,) for k in LSTM_SCALES})
+    for name, shape in shapes.items():
         t = packed[name]
-        dtype = torch.bfloat16 if name in MATRICES else torch.float32
+        dtype = (torch.int8 if int8_lstm and name in LSTM_MATRICES
+                 else torch.bfloat16 if name in MATRICES else torch.float32)
         if (tuple(t.shape) != shape or t.dtype != dtype or t.device != dev
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(
@@ -159,14 +178,20 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
     ``enc``/``encp`` (L, D) float32.  Returns (mels (n_steps, r, n_mels),
     scores (n_steps, L), stop_max (n_steps,), new state).
 
-    CUDA tensors launch the kernel on the current stream (bf16 packing
-    only); CPU tensors run :func:`tts_decode_reference`."""
-    if int8_lstm:
-        raise NotImplementedError("int8_lstm is not ported")
+    ``int8_lstm`` names the variant the caller packed for, as the JAX
+    kernel's flag does; a packed set of the other variant raises
+    ``ValueError``.  CUDA tensors launch the kernel on the current stream
+    (bf16 matrices; int8 LSTM rows with ``int8_lstm``); CPU tensors run
+    :func:`tts_decode_reference`."""
+    if bool(int8_lstm) != is_int8_lstm(packed):
+        raise ValueError(
+            f"int8_lstm={bool(int8_lstm)}, but the packed set is "
+            f"{'int8_lstm' if is_int8_lstm(packed) else 'bf16'}'s")
     if enc.device.type == "cpu":
         return tts_decode_reference(packed, enc, encp, state, n_steps)
     out = _launch(packed, enc, encp, state, n_steps, None)
     tts_decode.launches += 1
+    tts_decode.launches_int8_lstm += int(bool(int8_lstm))
     return out
 
 
@@ -181,6 +206,8 @@ def tts_decode_spans(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
     if enc.device.type != "cuda":
         raise ValueError(f"the spans launch needs CUDA tensors, got "
                          f"{enc.device}")
+    if is_int8_lstm(packed):
+        raise ValueError("the spans launch is built for bf16 packing only")
     spans = torch.zeros(n_steps, PHASES_PER_STEP, dtype=torch.int64,
                         device=enc.device)
     return _launch(packed, enc, encp, state, n_steps, spans), spans
@@ -191,14 +218,15 @@ def _launch(packed, enc, encp, state, n_steps, spans):
         raise ValueError(f"tts_decode runs on CUDA or CPU tensors, got "
                          f"{enc.device}")
     D, Dh, H, n_mels, r, L = _check_cuda(packed, enc, encp, state, n_steps)
+    int8_lstm = is_int8_lstm(packed)
 
     from wavernn_tpu_torch.ops.build import load_library
 
     lib = load_library()
     dev = enc.device
     grid = CTAS or torch.cuda.get_device_properties(dev).multi_processor_count
-    nbytes = _layout_bytes(D, Dh, H, n_mels, r, L, grid)
-    dims = [n_steps, L, D, Dh, H, n_mels, r, grid]
+    nbytes = _layout_bytes(D, Dh, H, n_mels, r, L, grid, int8_lstm)
+    dims = [n_steps, L, D, Dh, H, n_mels, r, grid, int(int8_lstm)]
     c_dims = (ctypes.c_longlong * len(dims))(*dims)
     if lib.tts_decode_smem_bytes(c_dims) != nbytes:
         raise RuntimeError(
@@ -206,7 +234,8 @@ def _launch(packed, enc, encp, state, n_steps, spans):
             f"{lib.tts_decode_smem_bytes(c_dims)} bytes, the plan {nbytes}")
     with torch.cuda.device(dev):
         fit = ctypes.c_int(0)
-        err = lib.tts_decode_max_ctas(ctypes.byref(fit), nbytes)
+        err = lib.tts_decode_max_ctas(ctypes.byref(fit), nbytes,
+                                      int(int8_lstm))
         if err != 0 or fit.value < grid:
             raise RuntimeError(
                 f"tts_decode kernel: {grid} CTAs of {nbytes} bytes "
@@ -229,6 +258,8 @@ def _launch(packed, enc, encp, state, n_steps, spans):
                                    scores, stop, work, bar)]
         if spans is not None:
             ptrs.append(spans.data_ptr())
+        if int8_lstm:
+            ptrs += [packed[k].data_ptr() for k in LSTM_SCALES]
         stream = torch.cuda.current_stream(dev).cuda_stream
         entry = lib.tts_decode if spans is None else lib.tts_decode_spans
         err = entry((ctypes.c_void_p * len(ptrs))(*ptrs), c_dims,
@@ -242,3 +273,4 @@ def _launch(packed, enc, encp, state, n_steps, spans):
 
 
 tts_decode.launches = 0
+tts_decode.launches_int8_lstm = 0

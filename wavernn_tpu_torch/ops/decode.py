@@ -549,7 +549,12 @@ class Generator:
     kernel pads to 16 rows a chip); the scales are calibrated once per
     Generator and their pack copied to each device.
 
-    Not ported (raises): ``int8_gates``."""
+    ``int8_gates`` (off by default, as in the JAX package) streams the five
+    big matrices as int8 with each operand quantized per row on the fly
+    (``cuda_decode``'s ``int8_gates``).  It turns ``int8_hh`` and
+    ``int8_ff`` off, so nothing is calibrated; the scan backend ignores
+    it, as the JAX package's does.  With a mesh every shard takes the same
+    pack."""
 
     def __init__(self, cfg: WaveRNNConfig, variables, device,
                  backend: str = "kernel", fold_bucket: int = 4,
@@ -564,8 +569,6 @@ class Generator:
                                "not available")
         if backend not in ("kernel", "scan"):
             raise ValueError(f"unknown backend {backend!r}")
-        if int8_gates:
-            raise NotImplementedError("int8_gates is not ported yet")
         self.mesh = mesh
         if mesh is not None:
             check_plan(mesh, False, "Generator(mesh=)")
@@ -588,8 +591,10 @@ class Generator:
         self.output_np_dtype = _OUTPUT_NP[output_dtype]
         self.packed_output = output_dtype in ("int16", "mulaw8")
         self.input_dtype = input_dtype
-        self.int8_hh = int8_hh
-        self.int8_ff = None if int8_ff is None else bool(int8_ff)
+        self.int8_gates = bool(int8_gates)
+        self.int8_hh = bool(int8_hh) and not self.int8_gates
+        self.int8_ff = (False if self.int8_gates else
+                        None if int8_ff is None else bool(int8_ff))
         self.fade_len = 20 * cfg.hop_length
         self.update_variables(variables)
 
@@ -601,7 +606,8 @@ class Generator:
         self.weights = extract_decode_weights(self.model)
         self.packed = (cuda_decode.pack_weights(
             self.weights, self.cfg.feat_dims, self.cfg.aux_dims,
-            int8_hh=self.int8_hh) if self.backend == "kernel" else None)
+            int8_hh=self.int8_hh, int8_gates=self.int8_gates)
+            if self.backend == "kernel" else None)
         self.ff_scales = None   # (3,) float32 bounds on the device
         self.packed_ff = None   # the pack with int8 feed-forward matrices
         self._copies = {}       # (id, device) -> (tensors, their copy)

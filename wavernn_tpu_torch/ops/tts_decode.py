@@ -26,6 +26,13 @@ to float32, and ``sg(v) = 0.5 * tanh(0.5 * v) + 0.5``:
     mels = x @ mel_w   (r frames of n_mels);  prev_mel = the last frame
     stop_max = max(mels)
 
+With ``int8_lstm`` (the TPU kernel's variant of that name) the four LSTM
+matrices are int8 with per-output scales ``*_s``, and each LSTM's operands
+``x`` and ``h`` are quantized on the fly, each at its own scale: ``sa =
+max(max|a|, 1e-8) * (1/127)``, ``qa = round(a / sa)`` (a true division,
+half to even); the gates are ``(ldot(x, ih) + ldot(h, hh)) + b`` with
+``ldot(a, w) = f32(exact int sum) * (sa * s_w)``.
+
 A float64 sum of exact products hardly depends on the order of its terms,
 so the kernel, which sums in another order, agrees with this version to
 the bit nearly always; the sigmoid is written through tanh for the same
@@ -97,11 +104,15 @@ def extract_tts_decode_weights(model) -> TTSDecodeWeights:
     )
 
 
-# the matrices of the packed set, all (out, in) in the weight dtype
+# the matrices of the packed set, all (out, in) in the weight dtype (the
+# LSTM ones int8 with int8_lstm)
 MATRICES = ("p1_w", "p2_w", "wih_c", "wih_p", "whh", "M_loc", "W_q", "v",
             "ri_c", "ri_h", "l1_ih", "l1_hh", "l2_ih", "l2_hh", "mel_w")
+LSTM_MATRICES = ("l1_ih", "l1_hh", "l2_ih", "l2_hh")
 VECTORS = ("p1_b", "p2_b", "b_attn", "b_attn_hn", "b_q", "ri_b", "l1_b",
            "l2_b")
+# int8_lstm: each LSTM matrix's per-output scales, float32 (4H,)
+LSTM_SCALES = tuple(k + "_s" for k in LSTM_MATRICES)
 
 
 def pack_tts_weights(w: TTSDecodeWeights, r: int, n_mels: int,
@@ -112,11 +123,12 @@ def pack_tts_weights(w: TTSDecodeWeights, r: int, n_mels: int,
     for n (``b_attn_hn`` = the hidden-side n bias); the location conv
     folded with L into one (D, 62) matrix, taps [cumulative | previous];
     ``b_q = L_b + W_b``; each LSTM's two biases summed; the mel kernel cut
-    to its first r frame slots, rows ordered frame-major."""
-    if int8_lstm:
-        raise NotImplementedError(
-            "int8_lstm (int8 LSTM weights, an opt-in fidelity knob of the "
-            "TPU kernel) is not ported")
+    to its first r frame slots, rows ordered frame-major.
+
+    ``int8_lstm`` stores the four LSTM matrices as int8 with per-output
+    symmetric scales (``pallas_tts.pack_tts_weights``' q8 per column of
+    the (in, out) matrix), the scales as ``l1_ih_s`` ... ``l2_hh_s``; the
+    other matrices stay in ``dtype``."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     f32 = lambda a: a.float().contiguous()
@@ -134,6 +146,21 @@ def pack_tts_weights(w: TTSDecodeWeights, r: int, n_mels: int,
     mel = w.mel_w.float().reshape(H, n_mels, max_r)[:, :, :r]
     mel = mel.permute(0, 2, 1).reshape(H, r * n_mels)    # column j*n_mels + m
 
+    def q8(a):
+        """(in, out) -> int8 (out, in) and its (out,) scales."""
+        a = a.float()
+        m = a.abs().amax(dim=0)
+        sc = torch.where(m > 0, m, torch.ones_like(m)) / 127.0
+        return (torch.round(a / sc).to(torch.int8).T.contiguous(),
+                sc.contiguous())
+
+    lstm = dict(l1_ih=mat(w.lstm1_w_ih), l1_hh=mat(w.lstm1_w_hh),
+                l2_ih=mat(w.lstm2_w_ih), l2_hh=mat(w.lstm2_w_hh))
+    if int8_lstm:
+        for name, a in (("l1_ih", w.lstm1_w_ih), ("l1_hh", w.lstm1_w_hh),
+                        ("l2_ih", w.lstm2_w_ih), ("l2_hh", w.lstm2_w_hh)):
+            lstm[name], lstm[name + "_s"] = q8(a)
+
     b_ih, b_hh = w.attn_b_ih.float(), w.attn_b_hh.float()
     return dict(
         p1_w=mat(w.prenet_fc1_w), p1_b=f32(w.prenet_fc1_b),
@@ -147,12 +174,17 @@ def pack_tts_weights(w: TTSDecodeWeights, r: int, n_mels: int,
         v=mat(w.v_w),                                    # (1, D)
         ri_c=mat(w.rnn_in_w[:D]), ri_h=mat(w.rnn_in_w[D:]),
         ri_b=f32(w.rnn_in_b),
-        l1_ih=mat(w.lstm1_w_ih), l1_hh=mat(w.lstm1_w_hh),
         l1_b=f32(w.lstm1_b_ih + w.lstm1_b_hh),
-        l2_ih=mat(w.lstm2_w_ih), l2_hh=mat(w.lstm2_w_hh),
         l2_b=f32(w.lstm2_b_ih + w.lstm2_b_hh),
         mel_w=mat(mel),                                  # (r * n_mels, H)
+        **lstm,
     )
+
+
+def is_int8_lstm(packed: dict) -> bool:
+    """Whether a packed set is ``int8_lstm``'s (its marker: the LSTM
+    scales)."""
+    return packed.get("l1_ih_s") is not None
 
 
 def packed_dims(packed: dict):
@@ -233,12 +265,16 @@ def tts_decode_reference(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
 
     Returns (mels (n_steps, r, n_mels), scores (n_steps, L), stop_max
     (n_steps,), new state).  The operand dtype is the packed matrices'
-    dtype (float32 or bfloat16)."""
+    dtype (float32 or bfloat16); an ``int8_lstm`` set quantizes the LSTM
+    operands as the module's docstring says (float32 scales, exact integer
+    sums: |sum| <= 127 * 127 * H < 2**24)."""
     D, Dh, H, n_mels, r, L = check_inputs(packed, enc, encp, state, n_steps)
     dtype = packed["whh"].dtype
+    int8_lstm = is_int8_lstm(packed)
     rd = lambda a: a.to(dtype).double()                  # round, then widen
     w64 = {k: packed[k].double() for k in MATRICES}
-    f = {k: packed[k].float() for k in VECTORS}
+    f = {k: packed[k].float() for k in VECTORS
+         + (LSTM_SCALES if int8_lstm else ())}
 
     def mm(name, x):
         """f32(f64 dot of matrix ``name`` with the rounded operand x)."""
@@ -279,8 +315,15 @@ def tts_decode_reference(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
 
         x = mm2("ri_c", s.context, "ri_h", s.h_attn) + f["ri_b"]
 
+        def ldot(name, a):
+            """int8_lstm: the operand quantized on the fly."""
+            sa = torch.clamp(a.abs().amax(), min=1e-8) * (1.0 / 127.0)
+            return ((w64[name] @ torch.round(a / sa).double()).float()
+                    * (sa * f[name + "_s"]))
+
         def lstm(x, h, c, ih, hh, b):
-            g = mm2(ih, x, hh, h) + f[b]
+            g = ((ldot(ih, x) + ldot(hh, h)) + f[b] if int8_lstm
+                 else mm2(ih, x, hh, h) + f[b])
             ig, fg = sg(g[:H]), sg(g[H:2 * H])
             gg, og = torch.tanh(g[2 * H:3 * H]), sg(g[3 * H:])
             c = fg * c + ig * gg
