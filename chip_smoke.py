@@ -16,10 +16,11 @@ trained model generates through both kernels), data parallelism
 multi-process training), and the modules through which weights enter and
 leave the port (the DeepMind WaveRNN and its NB1 example, the reference
 checkpoint converters both ways, and ``quick_start`` through both
-kernels), and the two kernels' opt-in int8 variants (``int8_gates`` through
-the ``gen_int8`` path, ``int8_lstm``).  Phases, in order; any failure exits
-non-zero
-and prints no result line:
+kernels), the two kernels' opt-in int8 variants (``int8_gates`` through
+the ``gen_int8`` path, ``int8_lstm``), and the quality and golden tools
+(``wavernn_tpu_torch/tools/``: ``check_mel_parity``, ``kernel_quality``,
+``tts_kernel_parity``, ``tts_train_probe``, ``train_golden``).  Phases, in
+order; any failure exits non-zero and prints no result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
    toolchain (torch, CUDA, nvcc).
@@ -31,15 +32,19 @@ and prints no result line:
    rows x 1024 steps of the golden eval mel) and the committed tiny RAW
    golden: every production configuration (RAW and MOL, int8 recurrent
    matrices on and off, deterministic and sampling, one and two rows per
-   CTA).  Deterministic: the first 64 steps within 1e-3 and at least 99%
+   CTA; the plain version runs once for both rows-per-CTA settings).
+   Deterministic: the first 64 steps within 1e-3 and at least 99%
    of all samples within 2e-2.  Sampling with the shared counter-based
    bits: the first 64 steps within 1e-2.  Each prints its max |d| over all
    steps.  Then the main path's Generator calibrates its int8_ff bounds on
    the first 1920-frame request (``ff_ranges``, its wall time printed), and
-   both variants (bf16 and int8 feed-forward matrices) and their plain
-   versions are timed at the main path's shape (48 folds x 12,100 steps,
-   sampling, int8 recurrent matrices) in turns: plain, kernel, int8_ff
-   kernel, int8_ff kernel, kernel, int8_ff plain.
+   both variants (bf16 and int8 feed-forward matrices) are timed at the
+   main path's shape (48 folds x 12,100 steps, sampling, int8 recurrent
+   matrices), their plain versions at 16 x 1,024 of the same conditioning
+   (the record says so: ``plain_shape``; at the full shape each takes ~31
+   s a run), in turns: plain, kernel, int8_ff kernel, int8_ff kernel,
+   kernel, int8_ff plain; each plain output must equal the kernel's rows
+   0-15, steps 0-1023.
 4. Drives the copy-synthesis path: ``Generator`` on the golden MOL model,
    f16 mel in, int16 PCM out, folds of 11,000 + 2 x 550 samples, serving
    three requests through prestage/submit/prefetch/collect (the 1200-frame
@@ -255,7 +260,7 @@ Phases 31-33 train ``hparams.py``'s Tacotron at full width
    weights (phase 6's tolerances, 200 steps).
 33. ``tts_train_ms_per_step`` at ``tools/tts_train_probe.py``'s shape (B=16,
    L=100, T=600, r=2, its seeded inputs): 2 warm-up steps, the median of 10
-   steps timed by CUDA events, then 5 steps under ``torch.profiler`` (the
+   steps timed by CUDA events, then 2 steps under ``torch.profiler`` (the
    card's activity only): its busy share, device events a step and the
    top kernels by time.
 
@@ -335,11 +340,10 @@ True)`` the Tacotron kernel's):
    trained step-6 Tacotron into its GTA-trained vocoder; one
    ``/synthesize`` on the daemon (``serve.setup`` in process, on a
    loopback port) from an hp file that sets ``gen_int8 = True``.  Then
-   each feed-forward variant's quality, as ``tools/kernel_quality.py``
-   measures it and not gated: bf16, int8_ff and int8_gates, deterministic,
-   their mean |sample diff| against the float32 scan decoder on the
-   golden eval mel; int8_gates' copy-synthesis MCD over seeds 0-2 beside
-   phase 15's and phase 30's.
+   each kernel variant's quality by ``tools.kernel_quality.measure``, not
+   gated: bf16, int8_ff and int8_gates, deterministic, their mean |sample
+   diff| against the float32 scan decoder on the golden eval mel (phase 44
+   adds every decoder's MCD).
 42. ``int8_lstm`` against its plain version at full width (phase 6's
    seeded model and 60-symbol text, L=64, r=2, 750 steps, phase 6's
    tolerances), both timed in turns, the shared-memory plan's bytes
@@ -350,15 +354,49 @@ True)`` the Tacotron kernel's):
    int8_lstm, the golden MOL with int8_gates), both kernels' counters set
    to 0 before and risen after.
 
+Phases 43-47 run the quality and golden tools of
+``wavernn_tpu_torch/tools/`` in process, each through its ``main(argv)``
+at a cut size; each tool's JSON must hold finite numbers, and each phase
+prints its seconds:
+
+43. ``check_mel_parity`` with its defaults: the numpy mel against the
+   card's (cuFFT) on three synthetic signals; the worst MCD below 0.1 dB.
+44. ``kernel_quality --weights`` the golden MOL ``--eval_mel`` the golden
+   eval mel ``--seeds 3`` (the four decoders: scan, bf16, int8_ff,
+   int8_gates), cut to folds of 1,100 + 2 x 55 samples by ``--hp_file``
+   (``hparams.py`` with ``voc_target = 1100``, ``voc_overlap = 55``: the
+   float32 scan decoder takes ~1 ms a step on the card, 12 s a decode at
+   the production folds); each kernel variant launched at least 4 times
+   (3 seeds and the deterministic decode), each deterministic |sample
+   diff| between 0 and the signal's std, printed beside phase 41's;
+   every decoder's MCD printed beside phases 15 and 30's.
+45. ``tts_kernel_parity --int8 --train 50``: full width, 50 overfit steps,
+   then the plain decoder, the kernel and the int8_lstm kernel on a
+   60-symbol text (400 frames at most, best of 3); both kernel variants'
+   counters, set to 0 just before, must have risen.
+46. ``tts_train_probe 16 100 600 --passes 1``: the Tacotron train step
+   split into pieces (K = 4 calls, one pass, CUDA events; the tool's
+   default is the best of 3), each piece's kernels counted under
+   ``torch.profiler``; the full step printed beside phase 33's.
+47. ``train_golden --which full --steps 20`` with phase 44's hp file into
+   a temporary ``--out`` under ``build/chip_smoke/``: 20 steps of the MOL
+   vocoder on the speech-shaped corpus, then its MCD on the 1200-frame
+   eval mel at phase 44's folds (scan 6 seeds, the decode kernel 3 seeds,
+   its counter set to 0 before and risen after); the msgpack, the eval
+   mel and the meta must load.  Then ``--which taco-pin
+   --from tests/golden`` into the same directory: the committed tiny
+   Tacotron decoded on the CPU must give the committed mel within 1e-3 and
+   the committed gates (``mel_gt_l1`` within 1e-3).
+
 The decode kernel's launch counts (all launches, those with int8
 feed-forward matrices and those of int8_gates) are set to 0 just before
 each main-path run and read just after; the record's ``launches`` sum
 phase 4's, phases 15-21's, phase 25's, phases 29-30's, phase 32's, phase
-35's, phases 38-39's and phases 41-42's, split between the three
-variants, and the TTS kernel's sums phase 8's, phases 20-21's, phase 32's
-and phase 39's (bf16) and phase 42's (int8_lstm; phase 37 runs no
-hand-written kernel: the JAX package scans the DeepMind cell with XLA
-ops).
+35's, phases 38-39's, phases 41-42's, phase 44's and phase 47's, split
+between the three variants, and the TTS kernel's sums phase 8's, phases
+20-21's, phase 32's, phase 39's and phase 45's (bf16) and phase 42's and
+phase 45's (int8_lstm; phase 37 runs no hand-written kernel: the JAX
+package scans the DeepMind cell with XLA ops).
 
 Float32 matmuls, convolutions and cuDNN's GRU run in full float32 (TF32
 off).  The last
@@ -395,6 +433,10 @@ SMOKE_DIR = REPO / "build" / "chip_smoke"
 # H100 SXM dense peaks at 700 W: bf16 and int8 tensor-core rates, HBM rate
 PEAK_BF16, PEAK_INT8, HBM_RATE = 989e12, 1979e12, 3.35e12
 BREAKDOWN_B, BREAKDOWN_T, BREAKDOWN_REPS = 64, 2048, 2
+PLAIN_STEPS = 1024  # the plain decode versions are timed at 16 x these
+# phases 44 and 47: folds of 1,100 + 2 x 55 samples, so that each float32
+# scan decode (~1 ms a step on the card) takes 1,210 steps, not 12,100
+SHORT_FOLDS = dict(voc_target=1100, voc_overlap=55)
 
 
 def bound(ops, nbytes: int):
@@ -464,8 +506,8 @@ def in_turns(run_plain, run_kernel):
 
 
 # the decode kernel's launches in the main path's runs (phases 4, 15-21,
-# 25, 29-30, 32, 35, 38-39, 41 and 42): all of them, those with int8
-# feed-forward matrices and those of int8_gates
+# 25, 29-30, 32, 35, 38-39, 41-42, 44 and 47): all of them, those with
+# int8 feed-forward matrices and those of int8_gates
 MAIN_DECODE = {"all": 0, "int8_ff": 0, "int8_gates": 0}
 
 
@@ -558,13 +600,12 @@ def main():
     # -- 3. kernel against plain ----------------------------------------
     errs = []
 
-    def compare(tag, packed, cond, T, cfg, det, seed, rows_per_cta):
+    def compare(tag, packed, cond, T, cfg, det, seed, rows_per_cta, out_p):
+        """The kernel against ``out_p``, its plain version's output."""
         out_k = cuda_decode.decode(packed, cond, T, seed, cfg.mode,
                                    cfg.n_classes, det,
                                    rows_per_cta=rows_per_cta)
         torch.cuda.synchronize()
-        out_p = cuda_decode.decode_reference(packed, cond, T, seed, cfg.mode,
-                                             cfg.n_classes, det)
         d = (out_k - out_p).abs()
         first = float(d[:, :64].max())
         agree = float((d <= 2e-2).float().mean())
@@ -595,11 +636,16 @@ def main():
                             int8_hh=int8_hh)
             cond = real_cond(gen, mel, 16, 1024, *geom)
             q = "int8_hh" if int8_hh else "bf16"
-            for rows in (1, 2):
-                for det in (True, False):
-                    kind = "deterministic" if det else "sampling"
+            for det in (True, False):
+                kind = "deterministic" if det else "sampling"
+                seed = 0 if det else 1234
+                # the plain version once for both rows-per-CTA settings
+                out_p = cuda_decode.decode_reference(
+                    gen.packed, cond, 1024, seed, cfg.mode, cfg.n_classes,
+                    det)
+                for rows in (1, 2):
                     compare(f"{tag} {q} R={rows} {kind}", gen.packed, cond,
-                            1024, cfg, det, 0 if det else 1234, rows)
+                            1024, cfg, det, seed, rows, out_p)
 
     # timing at the main path's shape: a 1920-frame mel, 48 folds
     rng = np.random.default_rng(0)
@@ -630,12 +676,16 @@ def main():
           flush=True)
 
     # both variants (bf16 and int8 feed-forward matrices) at the main
-    # path's shape, in turns with their plain versions
+    # path's shape, in turns with their plain versions; the plain versions
+    # at 16 x 1,024 of the same conditioning (at the full shape each takes
+    # ~31 s a run), whose output must equal the kernel's rows 0-15, steps
+    # 0-1023
     variants = {"bf16 ff": gen.packed, "int8_ff": gen.packed_ff}
+    head = cond[:16, :PLAIN_STEPS].contiguous()
     runs = {v: (lambda p=p: cuda_decode.decode(p, cond, T, 7, "MOL", 30,
                                                False),
-                lambda p=p: cuda_decode.decode_reference(p, cond, T, 7,
-                                                         "MOL", 30, False))
+                lambda p=p: cuda_decode.decode_reference(
+                    p, head, PLAIN_STEPS, 7, "MOL", 30, False))
             for v, p in variants.items()}
     for run_k, _ in runs.values():
         run_k()  # warm
@@ -644,24 +694,26 @@ def main():
     main_ms = {}
     errs_ff = []
     for v, (run_k, run_p) in runs.items():
-        d = (outs[run_k] - outs[run_p]).abs()
+        d = (outs[run_k][:16, :PLAIN_STEPS] - outs[run_p]).abs()
         main_err = float(d[:, :64].max())
-        print(f"kernel vs plain [main path, sampling int8_hh, {v}] rows "
-              f"{cond.shape[0]} steps {T}: first-64 max|d| {main_err:.3g}, "
-              f"within 2e-2 {float((d <= 2e-2).float().mean()):.5f}, "
-              f"max|d| {float(d.max()):.3g}")
+        print(f"kernel vs plain [main path rows 0-15, steps 0-"
+              f"{PLAIN_STEPS - 1}, sampling int8_hh, {v}]: first-64 max|d| "
+              f"{main_err:.3g}, within 2e-2 "
+              f"{float((d <= 2e-2).float().mean()):.5f}, max|d| "
+              f"{float(d.max()):.3g}")
         if main_err > 1e-2 or not torch.isfinite(outs[run_k]).all():
             fail(f"kernel disagrees with its plain version at the main "
                  f"shape [{v}]")
         (errs if v == "bf16 ff" else errs_ff).append(main_err)
         k_ms, p_ms = (float(np.mean(times[f])) for f in (run_k, run_p))
         main_ms[v] = (k_ms, p_ms)
-        print(f"decode time at {cond.shape[0]} x {T} [{v}]: kernel "
+        print(f"decode time [{v}]: kernel at {cond.shape[0]} x {T} "
               f"{[round(x, 3) for x in times[run_k]]} ms "
-              f"({k_ms * 1e3 / T:.2f} us/step), plain "
+              f"({k_ms * 1e3 / T:.2f} us/step), plain at 16 x {PLAIN_STEPS} "
               f"{[round(x, 1) for x in times[run_p]]} ms "
-              f"({p_ms * 1e3 / T:.2f} us/step) | {card}", flush=True)
-    del outs
+              f"({p_ms * 1e3 / PLAIN_STEPS:.2f} us/step) | {card}",
+              flush=True)
+    del outs, head
 
     # -- 4. the main path -----------------------------------------------
     requests = [eval_mel] + long_mels
@@ -774,6 +826,10 @@ def main():
                              long_mels[0], tts_train,
                              {"bf16 ff": serving["mcd"], "int8_ff": ff["mcd"]})
     clock("40-42")
+    tools = quality_tool_phases(dev, card, i8["quality"], i8["mcd_of"],
+                                tts_train["ms_per_step"])
+    i8["int8_lstm"]["launches"] += tools["int8_lstm_launches"]
+    clock("43-47")
 
     # -- the record -----------------------------------------------------
     n_ff = MAIN_DECODE["int8_ff"]
@@ -789,9 +845,11 @@ def main():
           f"{tts_train['decode_launches']}, mesh serving "
           f"{par['launches']}, converters and quick_start "
           f"{wts['decode_launches']}, the gen_int8 path "
-          f"{i8['int8_gates']['launches']})")
+          f"{i8['int8_gates']['launches']}, the quality tools "
+          f"{tools['decode_launches']})")
     if n_bf == 0 or n_ff == 0 or n_g == 0 or i8["int8_lstm"]["launches"] == 0:
         fail("a kernel variant was not launched on the main path")
+    i8["int8_gates"]["launches"] = n_g   # phases 41-42's and phase 44's
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
@@ -801,6 +859,7 @@ def main():
         "max_abs_err": max(errs),
         "ms": main_ms["bf16 ff"][0],
         "plain_ms": main_ms["bf16 ff"][1],
+        "plain_shape": f"16 x {PLAIN_STEPS}",
         "bound_ms": voc_bound["bf16 ff"][0],
         "bound_by": voc_bound["bf16 ff"][1],
         "library_ms": None,
@@ -813,6 +872,7 @@ def main():
         "max_abs_err": max(errs_ff),
         "ms": main_ms["int8_ff"][0],
         "plain_ms": main_ms["int8_ff"][1],
+        "plain_shape": f"16 x {PLAIN_STEPS}",
         "bound_ms": voc_bound["int8_ff"][0],
         "bound_by": voc_bound["int8_ff"][1],
         "library_ms": None,
@@ -822,7 +882,8 @@ def main():
         "source": "wavernn_tpu_torch/ops/csrc/tts_decode.cu",
         "replaces": "wavernn_tpu/ops/pallas_tts.py:237",
         "launches": (tts["launches"] + text_serving["tts_launches"]
-                     + tts_train["tts_launches"] + wts["tts_launches"]),
+                     + tts_train["tts_launches"] + wts["tts_launches"]
+                     + tools["tts_launches"]),
         "max_abs_err": max(tts["max_abs_err"], tts_train["max_abs_err"]),
         "ms": tts["ms"],
         "plain_ms": tts["plain_ms"],
@@ -2897,23 +2958,25 @@ def tts_training_phases(dev, card) -> dict:
         fail("a Tacotron train step gave a non-finite loss")
     torch.cuda.synchronize()
     # the card's activity only: ~80 k kernels a step, and the host's op
-    # events would multiply what the profiler has to collect
+    # events would multiply what the profiler has to collect; two steps
+    n_prof = 2
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        timed_steps(5)
+        timed_steps(n_prof)
         wall = time.perf_counter() - t0
     n_events, busy, gap = device_busy(prof)
     by_name = kernel_times(prof)
     if n_events:
-        print(f"tts train step x 5 under torch.profiler: wall {wall:.3f} s, "
-              f"{n_events} device events ({n_events // 5} a step), busy "
+        print(f"tts train step x {n_prof} under torch.profiler: wall "
+              f"{wall:.3f} s, {n_events} device events "
+              f"({n_events // n_prof} a step), busy "
               f"{busy / 1e6:.3f} s = {busy / 1e6 / wall:.4f} of the wall "
               f"time, longest idle gap {gap / 1e3:.1f} ms | {card}",
               flush=True)
         for name, (us, n) in sorted(by_name.items(),
                                     key=lambda kv: -kv[1][0])[:8]:
-            print(f"  {us / 1e3 / 5:9.2f} ms/step  {us / busy:.3f} of busy "
-                  f" {n // 5} launches/step  {name[:100]}")
+            print(f"  {us / 1e3 / n_prof:9.2f} ms/step  {us / busy:.3f} of "
+                  f"busy  {n // n_prof} launches/step  {name[:100]}")
     else:
         print("tts train step under torch.profiler: no device events "
               "recorded; busy share not measured", flush=True)
@@ -3373,7 +3436,6 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
 
     from wavernn_tpu_torch import gen_tacotron, gen_wavernn, serve
     from wavernn_tpu_torch.dsp import wavio
-    from wavernn_tpu_torch.infer.eval import copy_synthesis_mcd
     from wavernn_tpu_torch.infer.pipeline import mel_from_linear
     from wavernn_tpu_torch.infer.tacotron import TTSGenerator
     from wavernn_tpu_torch.models.tacotron import (
@@ -3386,6 +3448,9 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
     )
     from wavernn_tpu_torch.text import text_to_sequence
     from wavernn_tpu_torch.tools.http_serve_probe import post
+    from wavernn_tpu_torch.tools.kernel_quality import (
+        KERNEL_VARIANTS, measure,
+    )
     from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
     geom = dict(target=TARGET, overlap=OVERLAP, mu_law=False)
@@ -3550,32 +3615,17 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
         hp.reset()
     hp.configure(REPO / "hparams.py")       # the MCD's mel front end
 
-    # each feed-forward variant's quality, as tools/kernel_quality.py
-    # measures it: the deterministic mean |sample diff| against the float32
-    # scan decoder on the golden eval mel, and (int8_gates) the MCD
-    kw = dict(fold_bucket=16, deterministic=True, output_dtype="float64")
-    ref = Generator(cfg, golden, device=dev, backend="scan", **kw)(
-        eval_mel, batched=True, **geom)
-    quality = {}
-    for name, extra in (("bf16 ff", dict(int8_ff=False)),
-                        ("int8_ff", dict(int8_ff=True)),
-                        ("int8_gates", dict(int8_gates=True))):
-        w = Generator(cfg, golden, device=dev, **kw, **extra)(
-            eval_mel, batched=True, **geom)
-        quality[name] = float(np.mean(np.abs(w - ref)))
-    gen_m = Generator(cfg, golden, device=dev, fold_bucket=16,
-                      input_dtype="float16", output_dtype="float64",
-                      int8_gates=True)
-    scores = [copy_synthesis_mcd(gen_m, eval_mel, batched=True, seed=s,
-                                 **geom)[0] for s in range(3)]
-    mcd_of = dict(mcd_of, int8_gates=float(np.mean(scores)))
+    # each kernel variant's quality, by tools.kernel_quality's measure:
+    # the deterministic mean |sample diff| of bf16, int8_ff and int8_gates
+    # to the float32 scan decoder on the golden eval mel (phase 44 adds
+    # the MCD over seeds 0-2)
+    quality = measure(cfg, golden, eval_mel, dev, 0, TARGET, OVERLAP, False)
     print(f"decode quality on the golden eval mel ({eval_mel.shape[1]} "
-          f"frames): deterministic mean |sample diff| to the float32 scan "
-          f"(signal std {float(np.std(ref)):.5f}): "
-          + ", ".join(f"{k} {q:.6f}" for k, q in quality.items())
-          + f"; int8_gates MCD seeds 0-2 {[round(x, 4) for x in scores]}; "
-          f"MCD means " + ", ".join(f"{k} {m:.4f}" for k, m in mcd_of.items())
-          + f" (gate 892.40, not applied here) | {card}", flush=True)
+          f"frames, tools.kernel_quality.measure): deterministic mean "
+          f"|sample diff| to the float32 scan (signal std "
+          f"{quality['det_signal_std']:.5f}): "
+          + ", ".join(f"{k} {quality[f'det_absdiff_{k}']:.6f}"
+                      for k in KERNEL_VARIANTS) + f" | {card}", flush=True)
     print(f"phase 41 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
 
@@ -3694,7 +3744,156 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
         "int8_lstm": {"launches": tts_launches, "max_abs_err": lstm_err,
                       "ms": l_ms, "plain_ms": lp_ms, "bound_ms": l_bound[0],
                       "bound_by": l_bound[1]},
+        "quality": quality,
+        "mcd_of": mcd_of,
     }
+
+
+def finite_numbers(rec, path="") -> list:
+    """The paths of the numbers in a tool's JSON record that are not
+    finite (an empty list when all are)."""
+    if isinstance(rec, dict):
+        return [p for k, v in rec.items()
+                for p in finite_numbers(v, f"{path}.{k}")]
+    if isinstance(rec, (int, float)) and not isinstance(rec, bool):
+        return [] if np.isfinite(rec) else [path]
+    return []
+
+
+def quality_tool_phases(dev, card, quality41: dict, mcd_of: dict,
+                        tts_ms_step: float) -> dict:
+    """Phases 43-47: the quality and golden tools in process at cut sizes,
+    each one's JSON checked finite, its kernels' launches read and the
+    files it wrote loaded.  Returns the TTS kernel's launches (bf16 and
+    int8_lstm) and the decode kernel's, which also go to
+    ``MAIN_DECODE``."""
+    import tempfile
+
+    import torch
+
+    from wavernn_tpu_torch.ops import cuda_tts
+    from wavernn_tpu_torch.tools import (
+        check_mel_parity, kernel_quality, train_golden, tts_kernel_parity,
+        tts_train_probe,
+    )
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+    def run(phase: int, tool, argv) -> dict:
+        t0 = time.perf_counter()
+        rec = tool.main(argv)
+        bad = finite_numbers(rec)
+        print(f"phase {phase}: {tool.__name__.rsplit('.', 1)[1]} "
+              f"{' '.join(argv)} in {time.perf_counter() - t0:.1f} s | "
+              f"{card}", flush=True)
+        if bad:
+            fail(f"phase {phase}: non-finite numbers at {bad}")
+        return rec
+
+    # -- 43. check_mel_parity ----------------------------------------------
+    rec = run(43, check_mel_parity, [])
+    if not rec["ok"] or rec["worst_numpy_vs_torch_mcd"] >= 0.1:
+        fail(f"mel pipelines diverge: {rec}")
+
+    hp_short = SMOKE_DIR / "hp_short_folds.py"
+    hp_short.write_text(
+        "import runpy\n"
+        f"globals().update({{k: v for k, v in runpy.run_path("
+        f"{str(REPO / 'hparams.py')!r}).items() if not k.startswith('__')}})\n"
+        + "".join(f"{k} = {v!r}\n" for k, v in SHORT_FOLDS.items()))
+
+    # -- 44. kernel_quality on the golden MOL -------------------------------
+    torch.cuda.synchronize(dev)
+    zero_decode_counts()
+    rec = run(44, kernel_quality, [
+        "--weights", str(GOLDEN), "--eval_mel",
+        str(REPO / "bench_assets" / "golden_eval_mel.npy"), "--seeds", "3",
+        "--hp_file", str(hp_short)])
+    n = count_main_decode()
+    decode_launches = n
+    got = rec["kernel_launches"]
+    n_bf = got["launches"] - got["launches_int8_ff"] - got[
+        "launches_int8_gates"]
+    if min(n_bf, got["launches_int8_ff"], got["launches_int8_gates"]) < 4 \
+            or n != got["launches"]:
+        fail(f"kernel_quality's decode launches: {got} ({n} counted)")
+    print(f"  folds {SHORT_FOLDS}: MCD means over seeds 0-2 (float32 in): "
+          + ", ".join(f"{k} {rec[f'mcd_{k}_mean']:.4f}"
+                      for k in kernel_quality.VARIANTS)
+          + "; at target 11,000 / overlap 550, float16 in: " + ", ".join(
+              f"{k} {m:.4f}" for k, m in mcd_of.items())
+          + " (phases 15, 30; gate 892.40)", flush=True)
+    for k in kernel_quality.KERNEL_VARIANTS:
+        a, b = rec[f"det_absdiff_{k}"], quality41[f"det_absdiff_{k}"]
+        print(f"  det |sample diff| {k}: {a:.6f} (phase 41, target 11,000:"
+              f" {b:.6f})")
+        if not 0 < a < rec["det_signal_std"]:
+            fail(f"kernel_quality's {k} |sample diff| {a} is out of range")
+
+    # -- 45. tts_kernel_parity --int8 --train 50 ----------------------------
+    torch.cuda.synchronize(dev)
+    cuda_tts.tts_decode.launches = 0
+    cuda_tts.tts_decode.launches_int8_lstm = 0
+    rec = run(45, tts_kernel_parity, ["--int8", "--train", "50"])
+    n_lstm = cuda_tts.tts_decode.launches_int8_lstm
+    n_tts = cuda_tts.tts_decode.launches - n_lstm
+    print(f"  frames plain {rec['frames_plain']}, kernel "
+          f"{rec['frames_kernel']}, int8_lstm {rec['frames_kernel_int8']}; "
+          f"mel |d| mean / max {rec['mel_mean_abs_diff']:.5f} / "
+          f"{rec['mel_max_abs_diff']:.5f} (int8_lstm "
+          f"{rec['mel_mean_abs_diff_int8']:.5f} / "
+          f"{rec['mel_max_abs_diff_int8']:.5f}); frames/s plain "
+          f"{rec['frames_per_s_plain']:.1f}, kernel "
+          f"{rec['frames_per_s_kernel']:.1f}, int8_lstm "
+          f"{rec['frames_per_s_kernel_int8']:.1f}; loss after 50 steps "
+          f"{rec['final_train_loss']:.4f}; TTS launches {n_tts} + "
+          f"{n_lstm} int8_lstm", flush=True)
+    if min(n_tts, n_lstm, rec["kernel_launches"],
+           rec["kernel_launches_int8"]) == 0:
+        fail("tts_kernel_parity did not run both TTS kernel variants")
+
+    # -- 46. tts_train_probe at 16 100 600 ----------------------------------
+    rec = run(46, tts_train_probe, ["16", "100", "600", "--passes", "1"])
+    full = rec["full_step"]["ms"]
+    print(f"  full step {full:.2f} ms = {full / tts_ms_step:.3f} x phase "
+          f"33's {tts_ms_step:.2f}; kernels a step "
+          f"{rec['full_step']['kernels']}", flush=True)
+
+    # -- 47. train_golden full (20 steps) and taco-pin ----------------------
+    with tempfile.TemporaryDirectory(dir=SMOKE_DIR) as tmp:
+        out = Path(tmp)
+        torch.cuda.synchronize(dev)
+        zero_decode_counts()
+        rec = run(47, train_golden, ["--which", "full", "--steps", "20",
+                                     "--hp_file", str(hp_short),
+                                     "--out", str(out)])
+        n = count_main_decode()
+        decode_launches += n
+        blob = load_pytree(out / "wavernn_mol_golden.msgpack")
+        mel = np.load(out / "golden_eval_mel.npy")
+        meta = json.loads((out / "golden_meta.json").read_text())
+        print(f"  loss after 20 steps {rec['final_loss']:.4f}; MCD at "
+              f"{SHORT_FOLDS}: scan "
+              f"{meta['mcd_scan_mean']:.4f} (spread "
+              f"{meta['mcd_scan_spread']:.4f}), kernel "
+              f"{meta['mcd_kernel_mean']:.4f}; decode launches {n}; "
+              f"{len(blob['params'])} parameter groups, step "
+              f"{int(blob['step'])}, eval mel {mel.shape}", flush=True)
+        if n < 3 or mel.shape != (80, 1200) or int(blob["step"]) != 20:
+            fail("train_golden --which full wrote unexpected files")
+        rec = run(47, train_golden, ["--which", "taco-pin", "--from",
+                                     str(TACO_DIR), "--out", str(out)])
+        want = json.loads((TACO_DIR / "tiny_tacotron_meta.json").read_text(
+        ))["pinned_gates_cpu_xla"]
+        d = float(np.abs(np.load(out / "tiny_tacotron_mel.npy") - np.load(
+            TACO_DIR / "tiny_tacotron_mel.npy")).max())
+        print(f"  taco-pin mel max |d| to the committed pin {d:.3g}",
+              flush=True)
+        if d > 1e-3 or abs(rec["mel_gt_l1"] - want["mel_gt_l1"]) > 1e-3 \
+                or any(rec[k] != v for k, v in want.items()
+                       if k != "mel_gt_l1"):
+            fail("train_golden --which taco-pin disagrees with the pins")
+    return {"tts_launches": n_tts, "int8_lstm_launches": n_lstm,
+            "decode_launches": decode_launches}
 
 
 if __name__ == "__main__":

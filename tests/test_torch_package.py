@@ -50,10 +50,13 @@ def test_no_forbidden_import_in_the_source():
                "examples/nb1_sine_wave.py",
                "tools/convert_torch_checkpoint.py",
                "tools/export_torch_checkpoint.py", "quick_start.py"}
+    quality = {f"tools/{t}.py" for t in (
+        "check_mel_parity", "kernel_quality", "tts_kernel_parity",
+        "tts_train_probe", "train_golden")}
     ported = {str(p.relative_to(PORT)) for p in _sources()
               if PORT in p.parents}
     assert serving <= ported and training <= ported and parallel <= ported
-    assert weights <= ported
+    assert weights <= ported and quality <= ported
 
 
 @pytest.mark.parametrize("line,hit", [

@@ -3,9 +3,11 @@ package): the kernel-measurement tools ``kernel_breakdown``,
 ``kernel_sampling_stats``, ``fold_geometry_probe``, ``tts_step_probe`` and
 ``tts_phase_spans``, the serving probes ``http_serve_probe``,
 ``stream_server_probe``, ``stream_latency`` and ``wire_format_probe``, and
-the parallel probes ``mesh_kernel_probe`` and ``multihost_smoke``, and the
+the parallel probes ``mesh_kernel_probe`` and ``multihost_smoke``, the
 checkpoint converters ``convert_torch_checkpoint`` and
-``export_torch_checkpoint`` (host only: reference ``.pyt`` <-> msgpack).
+``export_torch_checkpoint`` (host only: reference ``.pyt`` <-> msgpack),
+and the quality and golden tools ``check_mel_parity``, ``kernel_quality``,
+``tts_kernel_parity``, ``tts_train_probe`` and ``train_golden``.
 
 Each runs as ``python -m wavernn_tpu_torch.tools.<name>``; the probes run
 on the card by default: ``--device cuda`` raises where CUDA is absent, and
@@ -15,6 +17,7 @@ gives, with every time labelled as a CPU host time.
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 from pathlib import Path
 
@@ -22,6 +25,7 @@ import torch
 
 REPO = Path(__file__).resolve().parents[2]
 GOLDEN = REPO / "bench_assets" / "wavernn_mol_golden.msgpack"
+HPARAMS = REPO / "hparams.py"
 
 
 def device_of(name: str) -> torch.device:
@@ -79,3 +83,17 @@ def sync_of(dev: torch.device):
     if dev.type == "cuda":
         return lambda: torch.cuda.synchronize(dev)
     return lambda: None
+
+
+@contextlib.contextmanager
+def hparams(path=None, **overrides):
+    """``hp`` configured from ``path`` (the repository's ``hparams.py`` by
+    default) and ``overrides`` inside the block, and cleared after it."""
+    from wavernn_tpu_torch.config import hp
+
+    hp.reset()
+    hp.configure(HPARAMS if path is None else path, **overrides)
+    try:
+        yield hp
+    finally:
+        hp.reset()
