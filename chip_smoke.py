@@ -38,13 +38,10 @@ order; any failure exits non-zero and prints no result line:
    bits: the first 64 steps within 1e-2.  Each prints its max |d| over all
    steps.  Then the main path's Generator calibrates its int8_ff bounds on
    the first 1920-frame request (``ff_ranges``, its wall time printed), and
-   both variants (bf16 and int8 feed-forward matrices) are timed at the
-   main path's shape (48 folds x 12,100 steps, sampling, int8 recurrent
-   matrices), their plain versions at 16 x 1,024 of the same conditioning
-   (the record says so: ``plain_shape``; at the full shape each takes ~31
-   s a run), in turns: plain, kernel, int8_ff kernel, int8_ff kernel,
-   kernel, int8_ff plain; each plain output must equal the kernel's rows
-   0-15, steps 0-1023.
+   both variants (bf16 and int8 feed-forward matrices) and their plain
+   versions are timed at the main path's shape (48 folds x 12,100 steps,
+   sampling, int8 recurrent matrices) in turns: plain, kernel, int8_ff
+   kernel, int8_ff kernel, kernel, int8_ff plain.
 4. Drives the copy-synthesis path: ``Generator`` on the golden MOL model,
    f16 mel in, int16 PCM out, folds of 11,000 + 2 x 550 samples, serving
    three requests through prestage/submit/prefetch/collect (the 1200-frame
@@ -186,11 +183,12 @@ GRUs and FCs, batch 32, 1,375-sample windows, Adam at 1e-4, clip 4):
    utterances of 44,000 samples (2.0 s, 160 hops) from
    ``np.random.default_rng(0)``, sines of random pitch with harmonics plus
    noise, written with ``metadata.csv``.  (a) ``python -m
-   wavernn_tpu_torch.preprocess`` in a subprocess; (b) ``voc_train_loop``
-   in process to step 30, a checkpoint with one audition every 15 steps:
-   every loss it fetched must be finite (the averages it logs), the decode
-   kernel's counter, set to 0 just before, must read 2 just after (one
-   launch per audition), each audition must be int16 PCM of its
+   wavernn_tpu_torch.preprocess --num_workers 1`` in a subprocess; (b)
+   ``voc_train_loop`` in process to step 30, a checkpoint with one
+   audition every 15 steps: every loss it fetched must be finite (the
+   averages it logs), the decode kernel's counter, set to 0 just before,
+   must read 2 just after (one launch per audition), each audition must
+   be int16 PCM of its
    utterance's length and not silence, a latest and a named pair must
    exist and the written weights must equal the model's; (c) ``python -m
    wavernn_tpu_torch.train_wavernn`` in a subprocess must restore that
@@ -244,7 +242,7 @@ Phases 31-33 train ``hparams.py``'s Tacotron at full width
 32. The training path end to end, on phase 25's synthetic corpus (its
    first 64 utterances, two whole batches of 32) with seeded word texts
    in ``metadata.csv``, under ``build/chip_smoke/
-   tts_train/``: ``preprocess``; ``python -m
+   tts_train/``: ``preprocess --num_workers 1``; ``python -m
    wavernn_tpu_torch.train_tacotron`` with ``tts_schedule`` cut to
    sessions of two steps (r = 7, 5, 2; hparams' learning rates and
    batches): a first run of session 1 only, then a run of all three that
@@ -260,7 +258,7 @@ Phases 31-33 train ``hparams.py``'s Tacotron at full width
    weights (phase 6's tolerances, 200 steps).
 33. ``tts_train_ms_per_step`` at ``tools/tts_train_probe.py``'s shape (B=16,
    L=100, T=600, r=2, its seeded inputs): 2 warm-up steps, the median of 10
-   steps timed by CUDA events, then 2 steps under ``torch.profiler`` (the
+   steps timed by CUDA events, then 5 steps under ``torch.profiler`` (the
    card's activity only): its busy share, device events a step and the
    top kernels by time.
 
@@ -281,15 +279,16 @@ Phases 34-36 run the data axis of ``wavernn_tpu_torch/parallel``:
    frames).  Each must be byte-equal, with one decode launch per shard
    for each meshless launch; kHz of both printed.  Then ``gen_wavernn
    --mesh --mesh_devices cuda:0,cuda:0`` must write phase 5's WAV byte for
-   byte, and ``tools.mesh_kernel_probe`` must pass.
-36. Data-parallel training, ``tools.multihost_smoke --size full``: two
-   gloo ranks on cuda:0 (half the batch each) and a world of one under
-   NCCL, one step of ``hparams.py``'s vocoder (global batch 8 x 1,375) and
-   Tacotron (B 4, L 40, T 48, r 2), each against the single-process step
-   on the card in float32 and float64: the loss and the BatchNorm
-   statistics within 1e-5, every parameter within 1e-5 in float64 (in
-   float32 printed beside float32's own distance from float64); the world
-   of one bit-equal.  Each step's ms printed.
+   byte, and ``tools.mesh_kernel_probe`` (in process) must pass.
+36. Data-parallel training, ``tools.multihost_smoke --size full`` (its
+   launcher in process, its ranks in worker processes): two gloo ranks on
+   cuda:0 (half the batch each) and a world of one under NCCL, one step
+   of ``hparams.py``'s vocoder (global batch 8 x 1,375) and Tacotron (B 4,
+   L 40, T 48, r 2), each against the single-process step on the card in
+   float32 and float64: the loss and the BatchNorm statistics within
+   1e-5, every parameter within 1e-5 in float64 (in float32 printed beside
+   float32's own distance from float64); the world of one bit-equal.  Each
+   step's ms printed.
 
 Phases 37-39 run the modules through which weights enter and leave the
 port:
@@ -339,11 +338,9 @@ True)`` the Tacotron kernel's):
    length checked); ``gen_tacotron --int8 wavernn`` from phase 32's
    trained step-6 Tacotron into its GTA-trained vocoder; one
    ``/synthesize`` on the daemon (``serve.setup`` in process, on a
-   loopback port) from an hp file that sets ``gen_int8 = True``.  Then
-   each kernel variant's quality by ``tools.kernel_quality.measure``, not
-   gated: bf16, int8_ff and int8_gates, deterministic, their mean |sample
-   diff| against the float32 scan decoder on the golden eval mel (phase 44
-   adds every decoder's MCD).
+   loopback port) from an hp file that sets ``gen_int8 = True``.  The
+   variants' quality is read in phase 44, by one ``tools.kernel_quality``
+   run for every decoder.
 42. ``int8_lstm`` against its plain version at full width (phase 6's
    seeded model and 60-symbol text, L=64, r=2, 750 steps, phase 6's
    tolerances), both timed in turns, the shared-memory plan's bytes
@@ -367,9 +364,10 @@ prints its seconds:
    (``hparams.py`` with ``voc_target = 1100``, ``voc_overlap = 55``: the
    float32 scan decoder takes ~1 ms a step on the card, 12 s a decode at
    the production folds); each kernel variant launched at least 4 times
-   (3 seeds and the deterministic decode), each deterministic |sample
-   diff| between 0 and the signal's std, printed beside phase 41's;
-   every decoder's MCD printed beside phases 15 and 30's.
+   (3 seeds and the deterministic decode); each kernel variant's
+   deterministic mean |sample diff| to the scan, which must lie between 0
+   and the signal's std, and every decoder's MCD, printed beside phases 15
+   and 30's.
 45. ``tts_kernel_parity --int8 --train 50``: full width, 50 overfit steps,
    then the plain decoder, the kernel and the int8_lstm kernel on a
    60-symbol text (400 frames at most, best of 3); both kernel variants'
@@ -377,7 +375,9 @@ prints its seconds:
 46. ``tts_train_probe 16 100 600 --passes 1``: the Tacotron train step
    split into pieces (K = 4 calls, one pass, CUDA events; the tool's
    default is the best of 3), each piece's kernels counted under
-   ``torch.profiler``; the full step printed beside phase 33's.
+   ``torch.profiler``; the full step printed beside phase 33's, and the
+   dropout/zoneout share (the train forward against the train forward
+   with neither).
 47. ``train_golden --which full --steps 20`` with phase 44's hp file into
    a temporary ``--out`` under ``build/chip_smoke/``: 20 steps of the MOL
    vocoder on the speech-shaped corpus, then its MCD on the 1200-frame
@@ -433,7 +433,6 @@ SMOKE_DIR = REPO / "build" / "chip_smoke"
 # H100 SXM dense peaks at 700 W: bf16 and int8 tensor-core rates, HBM rate
 PEAK_BF16, PEAK_INT8, HBM_RATE = 989e12, 1979e12, 3.35e12
 BREAKDOWN_B, BREAKDOWN_T, BREAKDOWN_REPS = 64, 2048, 2
-PLAIN_STEPS = 1024  # the plain decode versions are timed at 16 x these
 # phases 44 and 47: folds of 1,100 + 2 x 55 samples, so that each float32
 # scan decode (~1 ms a step on the card) takes 1,210 steps, not 12,100
 SHORT_FOLDS = dict(voc_target=1100, voc_overlap=55)
@@ -676,16 +675,12 @@ def main():
           flush=True)
 
     # both variants (bf16 and int8 feed-forward matrices) at the main
-    # path's shape, in turns with their plain versions; the plain versions
-    # at 16 x 1,024 of the same conditioning (at the full shape each takes
-    # ~31 s a run), whose output must equal the kernel's rows 0-15, steps
-    # 0-1023
+    # path's shape, in turns with their plain versions
     variants = {"bf16 ff": gen.packed, "int8_ff": gen.packed_ff}
-    head = cond[:16, :PLAIN_STEPS].contiguous()
     runs = {v: (lambda p=p: cuda_decode.decode(p, cond, T, 7, "MOL", 30,
                                                False),
-                lambda p=p: cuda_decode.decode_reference(
-                    p, head, PLAIN_STEPS, 7, "MOL", 30, False))
+                lambda p=p: cuda_decode.decode_reference(p, cond, T, 7,
+                                                         "MOL", 30, False))
             for v, p in variants.items()}
     for run_k, _ in runs.values():
         run_k()  # warm
@@ -694,26 +689,24 @@ def main():
     main_ms = {}
     errs_ff = []
     for v, (run_k, run_p) in runs.items():
-        d = (outs[run_k][:16, :PLAIN_STEPS] - outs[run_p]).abs()
+        d = (outs[run_k] - outs[run_p]).abs()
         main_err = float(d[:, :64].max())
-        print(f"kernel vs plain [main path rows 0-15, steps 0-"
-              f"{PLAIN_STEPS - 1}, sampling int8_hh, {v}]: first-64 max|d| "
-              f"{main_err:.3g}, within 2e-2 "
-              f"{float((d <= 2e-2).float().mean()):.5f}, max|d| "
-              f"{float(d.max()):.3g}")
+        print(f"kernel vs plain [main path, sampling int8_hh, {v}] rows "
+              f"{cond.shape[0]} steps {T}: first-64 max|d| {main_err:.3g}, "
+              f"within 2e-2 {float((d <= 2e-2).float().mean()):.5f}, "
+              f"max|d| {float(d.max()):.3g}")
         if main_err > 1e-2 or not torch.isfinite(outs[run_k]).all():
             fail(f"kernel disagrees with its plain version at the main "
                  f"shape [{v}]")
         (errs if v == "bf16 ff" else errs_ff).append(main_err)
         k_ms, p_ms = (float(np.mean(times[f])) for f in (run_k, run_p))
         main_ms[v] = (k_ms, p_ms)
-        print(f"decode time [{v}]: kernel at {cond.shape[0]} x {T} "
+        print(f"decode time at {cond.shape[0]} x {T} [{v}]: kernel "
               f"{[round(x, 3) for x in times[run_k]]} ms "
-              f"({k_ms * 1e3 / T:.2f} us/step), plain at 16 x {PLAIN_STEPS} "
+              f"({k_ms * 1e3 / T:.2f} us/step), plain "
               f"{[round(x, 1) for x in times[run_p]]} ms "
-              f"({p_ms * 1e3 / PLAIN_STEPS:.2f} us/step) | {card}",
-              flush=True)
-    del outs, head
+              f"({p_ms * 1e3 / T:.2f} us/step) | {card}", flush=True)
+    del outs
 
     # -- 4. the main path -----------------------------------------------
     requests = [eval_mel] + long_mels
@@ -823,11 +816,11 @@ def main():
     clock("37-39")
     i8 = int8_variant_phases(dev, card, golden_cfg, golden, raw_cfg,
                              tiny_raw, eval_mel, raw_mel, cond, T,
-                             long_mels[0], tts_train,
-                             {"bf16 ff": serving["mcd"], "int8_ff": ff["mcd"]})
+                             long_mels[0], tts_train)
     clock("40-42")
-    tools = quality_tool_phases(dev, card, i8["quality"], i8["mcd_of"],
-                                tts_train["ms_per_step"])
+    tools = quality_tool_phases(
+        dev, card, {"bf16 ff": serving["mcd"], "int8_ff": ff["mcd"]},
+        tts_train["ms_per_step"])
     i8["int8_lstm"]["launches"] += tools["int8_lstm_launches"]
     clock("43-47")
 
@@ -859,7 +852,6 @@ def main():
         "max_abs_err": max(errs),
         "ms": main_ms["bf16 ff"][0],
         "plain_ms": main_ms["bf16 ff"][1],
-        "plain_shape": f"16 x {PLAIN_STEPS}",
         "bound_ms": voc_bound["bf16 ff"][0],
         "bound_by": voc_bound["bf16 ff"][1],
         "library_ms": None,
@@ -872,7 +864,6 @@ def main():
         "max_abs_err": max(errs_ff),
         "ms": main_ms["int8_ff"][0],
         "plain_ms": main_ms["int8_ff"][1],
-        "plain_shape": f"16 x {PLAIN_STEPS}",
         "bound_ms": voc_bound["int8_ff"][0],
         "bound_by": voc_bound["int8_ff"][1],
         "library_ms": None,
@@ -2201,6 +2192,10 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
 # phases 24-26 train hparams.py's vocoder at full width; the corpus of
 # phase 25
 TRAIN_UTTS, TRAIN_SAMPLES = 72, 44_000
+# phases 25 and 32 preprocess in one process: each spawned worker of the
+# pool imports torch, which for a few dozen utterances costs more than it
+# saves (tests/test_torch_data.py holds the pool to one worker's output)
+PREPROCESS_WORKERS = 1
 
 
 def synthetic_corpus(wav_dir: Path, sr: int, texts=None) -> None:
@@ -2401,8 +2396,8 @@ def training_phases(dev, card) -> dict:
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "wavernn_tpu_torch.preprocess", "--hp_file",
-         str(hp_file)], cwd=work, env=env, capture_output=True, text=True,
-        timeout=600)
+         str(hp_file), "--num_workers", str(PREPROCESS_WORKERS)], cwd=work,
+        env=env, capture_output=True, text=True, timeout=600)
     if proc.returncode != 0:
         fail(f"preprocess exited {proc.returncode}:\n{proc.stderr[-3000:]}")
     n_mels = len(list((work / "data" / "mel").glob("*.npy")))
@@ -2811,7 +2806,8 @@ def tts_training_phases(dev, card) -> dict:
                  f"{proc.stderr[-3000:]}")
         return proc, time.perf_counter() - t0
 
-    _, secs = run("wavernn_tpu_torch.preprocess", "--hp_file", str(hp3))
+    _, secs = run("wavernn_tpu_torch.preprocess", "--hp_file", str(hp3),
+                  "--num_workers", str(PREPROCESS_WORKERS))
     print(f"tts train path (a): preprocess of {TTS_UTTS} text/audio pairs "
           f"in {secs:.1f} s", flush=True)
     tts_dir = work / "checkpoints" / f"{tts_id}.tacotron"
@@ -2958,8 +2954,8 @@ def tts_training_phases(dev, card) -> dict:
         fail("a Tacotron train step gave a non-finite loss")
     torch.cuda.synchronize()
     # the card's activity only: ~80 k kernels a step, and the host's op
-    # events would multiply what the profiler has to collect; two steps
-    n_prof = 2
+    # events would multiply what the profiler has to collect
+    n_prof = 5
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         timed_steps(n_prof)
@@ -3004,6 +3000,7 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
     from wavernn_tpu_torch.ops import cuda_decode
     from wavernn_tpu_torch.ops.decode import Generator
     from wavernn_tpu_torch.parallel.mesh import make_mesh
+    from wavernn_tpu_torch.tools import mesh_kernel_probe, multihost_smoke
 
     def make(mesh=None, **kw):
         kw = {"fold_bucket": 16, "input_dtype": "float16",
@@ -3128,13 +3125,12 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
           f"WAV: {same}")
     if not same:
         fail("gen_wavernn --mesh differs from gen_wavernn")
-    proc = subprocess.run(
-        [sys.executable, "-m", "wavernn_tpu_torch.tools.mesh_kernel_probe"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    print(f"mesh_kernel_probe: {proc.stdout.strip()[-1500:]}")
-    if proc.returncode != 0:
-        fail(f"mesh_kernel_probe exited {proc.returncode}:\n"
-             f"{proc.stderr[-3000:]}")
+    # the probe and the launcher of phase 36 in process: each subprocess
+    # would only add its own start-up
+    try:
+        mesh_kernel_probe.main([])
+    except SystemExit as e:
+        fail(str(e))
     print(f"phase 35 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
@@ -3143,15 +3139,12 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
     for argv, what in ((["--backend", "gloo"], "two gloo ranks on one card"),
                        (["--backend", "nccl", "--processes", "1"],
                         "a world of one under NCCL")):
-        proc = subprocess.run(
-            [sys.executable, "-m", "wavernn_tpu_torch.tools.multihost_smoke",
-             "--device", "cuda", "--size", "full", "--timeout", "400"]
-            + argv, cwd=REPO, env=env, capture_output=True, text=True,
-            timeout=600)
-        if proc.returncode != 0:
-            fail(f"multihost_smoke ({what}) exited {proc.returncode}:\n"
-                 f"{proc.stderr[-3000:]}")
-        summary = json.loads(proc.stdout.strip().splitlines()[-1])
+        try:
+            summary = multihost_smoke.main(
+                ["--device", "cuda", "--size", "full", "--timeout", "400"]
+                + argv)
+        except RuntimeError as e:
+            fail(f"multihost_smoke ({what}): {e}")
         for w in summary["workers"]:
             for key, r in w.items():
                 if isinstance(r, dict):
@@ -3422,14 +3415,14 @@ def weights_phases(dev, card, cfg, golden, long_mel, tts_weights) -> dict:
 
 
 def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
-                        raw_mel, main_cond, T: int, long_mel, tts_train,
-                        mcd_of: dict) -> dict:
+                        raw_mel, main_cond, T: int, long_mel,
+                        tts_train) -> dict:
     """Phases 40-42: the two opt-in kernel variants, int8_gates of the
     decode kernel and int8_lstm of the Tacotron kernel: each against its
     plain version and timed, the ``gen_int8`` path (``gen_wavernn --int8``,
     ``gen_tacotron --int8``, the daemon from an hp file that sets
-    ``gen_int8``), each variant's quality and one text -> wav through
-    both.  Returns both kernels' records."""
+    ``gen_int8``) and one text -> wav through both.  Returns both
+    kernels' records."""
     import threading
 
     import torch
@@ -3448,9 +3441,6 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
     )
     from wavernn_tpu_torch.text import text_to_sequence
     from wavernn_tpu_torch.tools.http_serve_probe import post
-    from wavernn_tpu_torch.tools.kernel_quality import (
-        KERNEL_VARIANTS, measure,
-    )
     from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
     geom = dict(target=TARGET, overlap=OVERLAP, mu_law=False)
@@ -3613,19 +3603,8 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
         httpd.server_close()
         service.close()
         hp.reset()
-    hp.configure(REPO / "hparams.py")       # the MCD's mel front end
+    hp.configure(REPO / "hparams.py")       # configured through phase 42
 
-    # each kernel variant's quality, by tools.kernel_quality's measure:
-    # the deterministic mean |sample diff| of bf16, int8_ff and int8_gates
-    # to the float32 scan decoder on the golden eval mel (phase 44 adds
-    # the MCD over seeds 0-2)
-    quality = measure(cfg, golden, eval_mel, dev, 0, TARGET, OVERLAP, False)
-    print(f"decode quality on the golden eval mel ({eval_mel.shape[1]} "
-          f"frames, tools.kernel_quality.measure): deterministic mean "
-          f"|sample diff| to the float32 scan (signal std "
-          f"{quality['det_signal_std']:.5f}): "
-          + ", ".join(f"{k} {quality[f'det_absdiff_{k}']:.6f}"
-                      for k in KERNEL_VARIANTS) + f" | {card}", flush=True)
     print(f"phase 41 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
 
@@ -3744,24 +3723,10 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
         "int8_lstm": {"launches": tts_launches, "max_abs_err": lstm_err,
                       "ms": l_ms, "plain_ms": lp_ms, "bound_ms": l_bound[0],
                       "bound_by": l_bound[1]},
-        "quality": quality,
-        "mcd_of": mcd_of,
     }
 
 
-def finite_numbers(rec, path="") -> list:
-    """The paths of the numbers in a tool's JSON record that are not
-    finite (an empty list when all are)."""
-    if isinstance(rec, dict):
-        return [p for k, v in rec.items()
-                for p in finite_numbers(v, f"{path}.{k}")]
-    if isinstance(rec, (int, float)) and not isinstance(rec, bool):
-        return [] if np.isfinite(rec) else [path]
-    return []
-
-
-def quality_tool_phases(dev, card, quality41: dict, mcd_of: dict,
-                        tts_ms_step: float) -> dict:
+def quality_tool_phases(dev, card, mcd_of: dict, tts_ms_step: float) -> dict:
     """Phases 43-47: the quality and golden tools in process at cut sizes,
     each one's JSON checked finite, its kernels' launches read and the
     files it wrote loaded.  Returns the TTS kernel's launches (bf16 and
@@ -3773,15 +3738,15 @@ def quality_tool_phases(dev, card, quality41: dict, mcd_of: dict,
 
     from wavernn_tpu_torch.ops import cuda_tts
     from wavernn_tpu_torch.tools import (
-        check_mel_parity, kernel_quality, train_golden, tts_kernel_parity,
-        tts_train_probe,
+        check_mel_parity, kernel_quality, non_finite, train_golden,
+        tts_kernel_parity, tts_train_probe,
     )
     from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
     def run(phase: int, tool, argv) -> dict:
         t0 = time.perf_counter()
         rec = tool.main(argv)
-        bad = finite_numbers(rec)
+        bad = non_finite(rec)
         print(f"phase {phase}: {tool.__name__.rsplit('.', 1)[1]} "
               f"{' '.join(argv)} in {time.perf_counter() - t0:.1f} s | "
               f"{card}", flush=True)
@@ -3816,18 +3781,21 @@ def quality_tool_phases(dev, card, quality41: dict, mcd_of: dict,
     if min(n_bf, got["launches_int8_ff"], got["launches_int8_gates"]) < 4 \
             or n != got["launches"]:
         fail(f"kernel_quality's decode launches: {got} ({n} counted)")
-    print(f"  folds {SHORT_FOLDS}: MCD means over seeds 0-2 (float32 in): "
+    std = rec["det_signal_std"]
+    print(f"  decode quality on the golden eval mel ({rec['eval_frames']} "
+          f"frames, folds {SHORT_FOLDS}): deterministic mean |sample diff| "
+          f"to the float32 scan (signal std {std:.5f}): " + ", ".join(
+              f"{k} {rec[f'det_absdiff_{k}']:.6f}"
+              for k in kernel_quality.KERNEL_VARIANTS) + f" | {card}")
+    print(f"  MCD means over seeds 0-2 (float32 in): "
           + ", ".join(f"{k} {rec[f'mcd_{k}_mean']:.4f}"
                       for k in kernel_quality.VARIANTS)
           + "; at target 11,000 / overlap 550, float16 in: " + ", ".join(
               f"{k} {m:.4f}" for k, m in mcd_of.items())
           + " (phases 15, 30; gate 892.40)", flush=True)
     for k in kernel_quality.KERNEL_VARIANTS:
-        a, b = rec[f"det_absdiff_{k}"], quality41[f"det_absdiff_{k}"]
-        print(f"  det |sample diff| {k}: {a:.6f} (phase 41, target 11,000:"
-              f" {b:.6f})")
-        if not 0 < a < rec["det_signal_std"]:
-            fail(f"kernel_quality's {k} |sample diff| {a} is out of range")
+        if not 0 < rec[f"det_absdiff_{k}"] < std:
+            fail(f"kernel_quality's {k} |sample diff| is out of range")
 
     # -- 45. tts_kernel_parity --int8 --train 50 ----------------------------
     torch.cuda.synchronize(dev)
@@ -3856,7 +3824,10 @@ def quality_tool_phases(dev, card, quality41: dict, mcd_of: dict,
     full = rec["full_step"]["ms"]
     print(f"  full step {full:.2f} ms = {full / tts_ms_step:.3f} x phase "
           f"33's {tts_ms_step:.2f}; kernels a step "
-          f"{rec['full_step']['kernels']}", flush=True)
+          f"{rec['full_step']['kernels']}; dropout/zoneout share "
+          f"{rec['shares']['dropout_zoneout']['ms']:.2f} ms (train forward "
+          f"{rec['forward_train']['ms']:.2f}, without dropout and zoneout "
+          f"{rec['forward_train_nodrop']['ms']:.2f})", flush=True)
 
     # -- 47. train_golden full (20 steps) and taco-pin ----------------------
     with tempfile.TemporaryDirectory(dir=SMOKE_DIR) as tmp:

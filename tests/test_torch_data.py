@@ -5,7 +5,8 @@ A synthetic sine corpus is preprocessed by both packages with one worker
 them): the mel and quant files and the manifest must be equal.  The split,
 ``collate_vocoder`` (RAW and MOL, the global ``np.random`` seeded alike),
 the loaders' batch order over two epochs, ``collate_tts`` and the
-``BinnedLengthSampler`` must give exactly JAX's arrays.  Loaders run with
+``BinnedLengthSampler`` must give exactly JAX's arrays.  The port's pool
+of two workers must write what one worker writes.  Loaders run with
 no prefetch threads here: threads interleave their draws from the global
 ``np.random``."""
 
@@ -82,6 +83,41 @@ def test_preprocess_matches_jax(corpus):
             a = np.load(getattr(tp, sub) / f"{item_id}.npy")
             b = np.load(getattr(jp, sub) / f"{item_id}.npy")
             assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+
+
+def test_preprocess_pool_matches_one_worker(tmp_path):
+    """Two spawned workers, each given ``hp`` by the pool's initializer,
+    write the same mel and quant files and the same manifest, in the order
+    they finish, as one worker."""
+    hp.reset()
+    hp.configure(REPO / "hparams.py", voc_mode="RAW")
+    wav_dir = tmp_path / "wavs"
+    wav_dir.mkdir()
+    rng = np.random.default_rng(1)
+    for i in range(3):
+        y = 0.3 * np.sin(2 * np.pi * rng.uniform(100, 400)
+                         * np.arange(11025) / 22050)
+        wavio.save_wav(y.astype(np.float32), wav_dir / f"u{i}.wav",
+                       sr=22050)
+    try:
+        got = {}
+        for n in (1, 2):
+            paths = Paths(tmp_path / f"w{n}" / "data", "voc", "tts",
+                          base=tmp_path / f"w{n}")
+            got[n] = (paths, preprocess_dataset(get_files(wav_dir, ".wav"),
+                                                paths, n_workers=n))
+    finally:
+        hp.reset()
+    (p1, m1), (p2, m2) = got[1], got[2]
+    assert sorted(m2) == sorted(m1) and len(m1) == 3
+    with open(p2.data / "dataset.pkl", "rb") as f:
+        assert pickle.load(f) == m2
+    for item_id, _ in m1:
+        for sub in ("mel", "quant"):
+            a = np.load(getattr(p1, sub) / f"{item_id}.npy")
+            b = np.load(getattr(p2, sub) / f"{item_id}.npy")
+            assert a.dtype == b.dtype
             np.testing.assert_array_equal(a, b)
 
 

@@ -71,8 +71,12 @@ def test_harmonic_signal_equals_the_jax_tools():
 
 @pytest.mark.parametrize("mode", ["RAW", "MOL"])
 def test_batch_draws_equal_the_jax_tools(mode, monkeypatch):
-    """Both tools' ``main --steps 2 --batch_size 3 --mode mode``."""
+    """Both tools' ``main --steps 2 --batch_size 3 --mode mode``.  The JAX
+    modules that bind ``WaveRNN`` by name are imported before it is
+    stubbed, so that they keep the real one."""
+    import wavernn_tpu.infer.eval  # noqa: F401
     import wavernn_tpu.models.wavernn as jax_wavernn
+    import wavernn_tpu.ops.decode  # noqa: F401
     import wavernn_tpu.training.state as jax_state
     import wavernn_tpu.training.wavernn as jax_training
     import wavernn_tpu_torch.training.wavernn as port_training
@@ -126,3 +130,4 @@ def test_main_on_the_tiny_golden(tmp_path, capsys):
     # the plain versions are near the scan, but not equal to it
     for v in kernel_quality.KERNEL_VARIANTS:
         assert 0 < rec[f"det_absdiff_{v}"] < 0.1 * rec["det_signal_std"], v
+

@@ -19,8 +19,8 @@ import pytest
 import torch
 
 from wavernn_tpu_torch.tools import (
-    check_mel_parity, kernel_quality, train_golden, tts_kernel_parity,
-    tts_train_probe,
+    check_mel_parity, kernel_quality, non_finite, train_golden,
+    tts_kernel_parity, tts_train_probe,
 )
 from tests.test_torch_kernel_quality import MEASURED, tiny_hp
 from tests.torch_cpu import one_torch_thread  # noqa: F401
@@ -39,11 +39,14 @@ def last_json(capsys) -> dict:
 
 
 def finite(rec) -> bool:
-    if isinstance(rec, dict):
-        return all(finite(v) for v in rec.values())
-    if isinstance(rec, (int, float)):
-        return bool(np.isfinite(rec))
-    return True
+    return not non_finite(rec)
+
+
+def test_non_finite_names_the_paths():
+    rec = {"a": 1.0, "ok": True, "s": "x", "b": {"c": float("nan"),
+                                                  "d": {"e": float("inf")}}}
+    assert non_finite(rec) == [".b.c", ".b.d.e"]
+    assert non_finite({"a": 0, "b": {"c": -2.5}}) == []
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))
@@ -125,3 +128,37 @@ def test_tts_train_probe_on_cpu(capsys):
     ms = {p: rec[p]["cpu_host_ms"] for p in tts_train_probe.PIECES}
     assert rec["shares"]["backward"]["cpu_host_ms"] == (ms["loss_grad"]
                                                         - ms["forward_train"])
+    assert rec["shares"]["dropout_zoneout"]["cpu_host_ms"] == (
+        ms["forward_train"] - ms["forward_train_nodrop"])
+
+
+def test_train_forward_without_dropout_or_zoneout():
+    """The probe's ``forward_train_nodrop``: train mode with both prenets'
+    dropout at 0 and four None masks equals train mode given all-keep
+    prenet masks and all-False zoneout masks (dropout 0: a kept value is
+    scaled by 1), and differs from train mode with its drawn masks."""
+    from wavernn_tpu_torch.models.tacotron import (
+        TacotronConfig, draw_decoder_masks, from_jax_variables,
+        init_variables,
+    )
+
+    cfg = TacotronConfig(embed_dims=16, num_chars=20, encoder_dims=8,
+                         decoder_dims=16, postnet_dims=8, encoder_K=2,
+                         lstm_dims=16, postnet_K=2, num_highways=1)
+    model = from_jax_variables(init_variables(cfg, 0), cfg, "cpu").train()
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.integers(1, 20, (2, 5)))
+    m = torch.from_numpy(rng.uniform(-4, 4, (2, 6, 80)).astype(np.float32))
+    drawn = model(x, m, 2, True, generator=torch.Generator().manual_seed(1))
+    for p in (model.encoder.pre_net, model.decoder.prenet):
+        p.dropout = 0.0
+    with torch.no_grad():
+        off = model(x, m, 2, True, masks=(None,) * 4)
+        pm1, pm2, z1, z2 = draw_decoder_masks(cfg, 3, 2, "cpu")
+        given = model(x, m, 2, True, masks=(
+            torch.ones_like(pm1), torch.ones_like(pm2),
+            torch.zeros_like(z1), torch.zeros_like(z2)))
+    for a, b, c in zip(off, given, drawn):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        assert a.shape == c.shape
+    assert not torch.equal(off[0], drawn[0])

@@ -382,7 +382,9 @@ class Tacotron(nn.Module):
         (:func:`draw_decoder_masks`, each (T/r, B, .)) are ``masks`` when
         given, else drawn from ``generator`` in one pass before the step
         loop; the encoder prenet's two keep-masks are ``encoder_masks``, or
-        drawn from ``generator`` too.  ``generate_gta`` forces eval mode."""
+        drawn from ``generator`` too.  ``masks`` of four Nones, with both
+        prenets' ``dropout`` at 0, runs train mode with neither dropout nor
+        zoneout.  ``generate_gta`` forces eval mode."""
         if generate_gta:
             train = False
         c = self.cfg
@@ -407,7 +409,7 @@ class Tacotron(nn.Module):
         for t in range(T_dec):
             carry, (mel, score) = self.decoder.after_prenet(
                 carry, encoder_seq, encoder_seq_proj, prenet_out[t], r,
-                (z1[t], z2[t]) if train else None)
+                None if z1 is None else (z1[t], z2[t]))
             mels.append(mel)
             scores.append(score)
         # (T/r, B, n_mels, r) -> (B, T, n_mels)

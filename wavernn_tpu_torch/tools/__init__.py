@@ -18,6 +18,7 @@ gives, with every time labelled as a CPU host time.
 from __future__ import annotations
 
 import contextlib
+import math
 import subprocess
 from pathlib import Path
 
@@ -55,6 +56,17 @@ def metric(name: str, dev: torch.device) -> str:
     """A timing key: the card's metric name on CUDA, a host-time name on the
     CPU, so that no CPU number sits under a device metric's name."""
     return name if dev.type == "cuda" else f"cpu_host_{name}"
+
+
+def non_finite(rec, path: str = "") -> list:
+    """The key paths of the numbers in a tool's JSON record (nested dicts)
+    that are not finite; an empty list when all are."""
+    if isinstance(rec, dict):
+        return [p for k, v in rec.items()
+                for p in non_finite(v, f"{path}.{k}")]
+    if isinstance(rec, (int, float)) and not math.isfinite(rec):
+        return [path]
+    return []
 
 
 def load_variables(path) -> dict:

@@ -11,16 +11,19 @@ generator seeded 2, Adam at 1e-4 without clipping.  The pieces:
 
 * the full step (``make_tts_train_step``: forward, backward, Adam);
 * the loss gradient only (forward and backward, no optimizer);
-* the forward only, in train mode (dropout and zoneout) and in eval mode;
+* the forward only: in train mode (dropout and zoneout), in train mode
+  with neither (both prenets' dropout at 0 and no masks: the same batch
+  statistics and fused BiGRUs), and in eval mode;
 * the encoder and the postnet forward, in train mode;
 
 and the shares derived from them: optimizer = full - loss-grad, backward
-= loss-grad - forward, dropout/zoneout = train forward - eval forward,
-decoder = train forward - encoder - postnet (a residual estimate).  The
-eval forward runs the CBHG BiGRUs as step loops, where train mode fuses
-each into one call (``models/tacotron.py``), so it can take longer than
-the train forward, and the dropout/zoneout share can come out
-negative.
+= loss-grad - forward, dropout/zoneout = train forward - train forward
+without them, decoder = train forward - encoder - postnet (a residual
+estimate).  The JAX tool takes the dropout/zoneout share as train forward
+- eval forward; here that difference mixes in the CBHG BiGRUs, which eval
+mode runs as step loops and train mode fuses into one call each
+(``models/tacotron.py``), so the eval forward is reported but no share
+is derived from it.
 
 Each piece is timed as K = 4 calls made back to back, best of
 ``--passes`` passes (a pass times every piece in turn): CUDA events
@@ -41,6 +44,7 @@ left out.  Prints a line per piece, then one JSON line.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import time
 
@@ -50,8 +54,8 @@ from wavernn_tpu_torch.tools import card, device_of, metric, sync_of
 
 R = 2
 K = 4  # calls made back to back in a timed pass
-PIECES = ("full_step", "loss_grad", "forward_train", "forward_eval",
-          "encoder_train", "postnet_train")
+PIECES = ("full_step", "loss_grad", "forward_train", "forward_train_nodrop",
+          "forward_eval", "encoder_train", "postnet_train")
 
 
 def pass_ms(fn, dev) -> float:
@@ -137,6 +141,25 @@ def main(argv=None) -> dict:
         model.train(train)
         return loss_of(train)
 
+    @contextlib.contextmanager
+    def dropout_off():
+        prenets = (model.encoder.pre_net, model.decoder.prenet)
+        saved = [p.dropout for p in prenets]
+        for p in prenets:
+            p.dropout = 0.0
+        try:
+            yield
+        finally:
+            for p, d in zip(prenets, saved):
+                p.dropout = d
+
+    @torch.no_grad()
+    def forward_nodrop():
+        model.train()
+        with dropout_off():
+            m1, m2, _ = model(x, m, R, True, masks=(None,) * 4)
+        return (m1 - m).abs().mean() + (m2 - m).abs().mean()
+
     @torch.no_grad()
     def encoder():
         model.train()
@@ -150,6 +173,7 @@ def main(argv=None) -> dict:
     fns = {"full_step": lambda: step(state, x, m, gen),
            "loss_grad": loss_grad,
            "forward_train": lambda: forward(True),
+           "forward_train_nodrop": forward_nodrop,
            "forward_eval": lambda: forward(False),
            "encoder_train": encoder,
            "postnet_train": postnet}
@@ -174,7 +198,7 @@ def main(argv=None) -> dict:
     shares = {
         "optimizer": ms["full_step"] - ms["loss_grad"],
         "backward": ms["loss_grad"] - ms["forward_train"],
-        "dropout_zoneout": ms["forward_train"] - ms["forward_eval"],
+        "dropout_zoneout": ms["forward_train"] - ms["forward_train_nodrop"],
         "decoder_residual": (ms["forward_train"] - ms["encoder_train"]
                              - ms["postnet_train"]),
     }
