@@ -19,7 +19,9 @@ checkpoint converters both ways, and ``quick_start`` through both
 kernels), the two kernels' opt-in int8 variants (``int8_gates`` through
 the ``gen_int8`` path, ``int8_lstm``), and the quality and golden tools
 (``wavernn_tpu_torch/tools/``: ``check_mel_parity``, ``kernel_quality``,
-``tts_kernel_parity``, ``tts_train_probe``, ``train_golden``).  Phases, in
+``tts_kernel_parity``, ``tts_train_probe``, ``train_golden``), and the
+examples (``wavernn_tpu_torch/examples/``: NB2, NB3, NB4, the pruning
+example, the serving demo and the end-to-end TTS example).  Phases, in
 order; any failure exits non-zero and prints no result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
@@ -182,19 +184,20 @@ GRUs and FCs, batch 32, 1,375-sample windows, Adam at 1e-4, clip 4):
 25. The training path end to end on a synthetic corpus made here: 72
    utterances of 44,000 samples (2.0 s, 160 hops) from
    ``np.random.default_rng(0)``, sines of random pitch with harmonics plus
-   noise, written with ``metadata.csv``.  (a) ``python -m
-   wavernn_tpu_torch.preprocess --num_workers 1`` in a subprocess; (b)
+   noise, written with ``metadata.csv``.  (a) ``wavernn_tpu_torch.preprocess
+   --num_workers 1``; (b)
    ``voc_train_loop`` in process to step 30, a checkpoint with one
    audition every 15 steps: every loss it fetched must be finite (the
    averages it logs), the decode kernel's counter, set to 0 just before,
    must read 2 just after (one launch per audition), each audition must
    be int16 PCM of its
    utterance's length and not silence, a latest and a named pair must
-   exist and the written weights must equal the model's; (c) ``python -m
-   wavernn_tpu_torch.train_wavernn`` in a subprocess must restore that
-   pair, start at step 30 and stop at 40; (d) ``python -m
-   wavernn_tpu_torch.gen_wavernn`` on its latest weights must write a WAV
-   that parses.
+   exist and the written weights must equal the model's; (c)
+   ``wavernn_tpu_torch.train_wavernn`` must restore that pair, start at
+   step 30 and stop at 40; (d) ``wavernn_tpu_torch.gen_wavernn`` on its
+   latest weights must write a WAV that parses.  The CLIs of (a), (c) and
+   (d) run in process through their ``main(argv)`` (``cli_output``: the
+   hp singleton cleared around each, its standard output captured).
 26. Training rate, all on one fixed batch of the corpus: 3 warm-up steps,
    then ``voc_train_ms_per_step`` as the median of 20 steps timed by CUDA
    events, and samples/s; the last loss must be below the first.  Then 5
@@ -242,8 +245,9 @@ Phases 31-33 train ``hparams.py``'s Tacotron at full width
 32. The training path end to end, on phase 25's synthetic corpus (its
    first 64 utterances, two whole batches of 32) with seeded word texts
    in ``metadata.csv``, under ``build/chip_smoke/
-   tts_train/``: ``preprocess --num_workers 1``; ``python -m
-   wavernn_tpu_torch.train_tacotron`` with ``tts_schedule`` cut to
+   tts_train/``, every CLI in process (``cli_output``): ``preprocess
+   --num_workers 1``; ``wavernn_tpu_torch.train_tacotron`` with
+   ``tts_schedule`` cut to
    sessions of two steps (r = 7, 5, 2; hparams' learning rates and
    batches): a first run of session 1 only, then a run of all three that
    must restore the pair and train sessions 2 and 3 only, the stored
@@ -278,8 +282,9 @@ Phases 34-36 run the data axis of ``wavernn_tpu_torch/parallel``:
    StreamServer at width 64 (four sessions of 1920 / 1200 / 600 / 300
    frames).  Each must be byte-equal, with one decode launch per shard
    for each meshless launch; kHz of both printed.  Then ``gen_wavernn
-   --mesh --mesh_devices cuda:0,cuda:0`` must write phase 5's WAV byte for
-   byte, and ``tools.mesh_kernel_probe`` (in process) must pass.
+   --mesh --mesh_devices cuda:0,cuda:0`` (in process) must write phase 5's
+   WAV byte for byte, and ``tools.mesh_kernel_probe`` (in process) must
+   pass.
 36. Data-parallel training, ``tools.multihost_smoke --size full`` (its
    launcher in process, its ranks in worker processes): two gloo ranks on
    cuda:0 (half the batch each) and a world of one under NCCL, one step
@@ -388,15 +393,50 @@ prints its seconds:
    Tacotron decoded on the CPU must give the committed mel within 1e-3 and
    the committed gates (``mel_gt_l1`` within 1e-3).
 
+Phases 48-53 run the examples of ``wavernn_tpu_torch/examples/`` in
+process, each through its ``main(argv)`` (``e2e_tts`` through its
+``run_pipeline`` and ``measure_gates``), under ``build/chip_smoke/
+examples/``; both kernels' counters are set to 0 just before each of
+phases 49-53 and read just after, and each phase prints its seconds.  The
+loss-drop checks of NB3 and NB4 and the gates of e2e_tts are set for their
+default depth, so at the cut depths below each phase prints the losses or
+the gates and says that it skips those checks:
+
+48. ``pruning_example`` uncut (300 steps, its tiny RAW model): the
+   measured sparsity every 25 steps must equal the schedule's (the masks
+   ``Pruner.compute`` makes from a freshly drawn model at that step), 0.0
+   at steps 25 and 50, and the losses finite.  No kernel runs.
+49. ``nb2_fit_single_sample --steps 20`` on ``hparams.py``'s model (full
+   width) and a 3 s wav from NB3's ``synth_corpus``: the decode kernel
+   (int8_ff) launched, the ``.resynth.wav`` written, (frames - 1) x 275
+   samples, finite losses.
+50. ``nb3_fit_long_sample --full_size --minutes 0.25 --steps 20
+   --num_workers 1``: 12 utterances preprocessed, one audition through
+   the decode kernel, int16 of its utterance's length, the latest weights
+   on disk.
+51. ``nb4_alternative_model --full_size --steps 20 --num_workers 1``: 8
+   utterances with 16-bit labels, the MOL model trained, the held-out 2 s
+   mel generated through the decode kernel at folds of 2,750 + 2 x 550,
+   finite and longer than a second.
+52. ``serving_demo`` at its defaults (its tiny models, folds of 2,750 + 2
+   x 550, 20-frame mels): its own equalities (stream == handles bit for
+   bit, served == solo within 1e-6, a RIFF body, one served session); both
+   counters must rise.
+53. ``e2e_tts`` on its first 64 texts, 30 Tacotron and 20 vocoder steps
+   (its hp template's widths), the four CLIs in process, then
+   ``measure_gates`` printed: three WAVs and attention matrices, finite
+   gates; both counters must rise (``gen_tacotron``).
+
 The decode kernel's launch counts (all launches, those with int8
 feed-forward matrices and those of int8_gates) are set to 0 just before
 each main-path run and read just after; the record's ``launches`` sum
 phase 4's, phases 15-21's, phase 25's, phases 29-30's, phase 32's, phase
-35's, phases 38-39's, phases 41-42's, phase 44's and phase 47's, split
-between the three variants, and the TTS kernel's sums phase 8's, phases
-20-21's, phase 32's, phase 39's and phase 45's (bf16) and phase 42's and
-phase 45's (int8_lstm; phase 37 runs no hand-written kernel: the JAX
-package scans the DeepMind cell with XLA ops).
+35's, phases 38-39's, phases 41-42's, phase 44's, phase 47's and phases
+49-53's, split between the three variants, and the TTS kernel's sums
+phase 8's, phases 20-21's, phase 32's, phase 39's, phase 45's and phases
+52-53's (bf16) and phase 42's and phase 45's (int8_lstm; phase 37 runs no
+hand-written kernel: the JAX package scans the DeepMind cell with XLA
+ops).
 
 Float32 matmuls, convolutions and cuDNN's GRU run in full float32 (TF32
 off).  The last
@@ -823,6 +863,8 @@ def main():
         tts_train["ms_per_step"])
     i8["int8_lstm"]["launches"] += tools["int8_lstm_launches"]
     clock("43-47")
+    examples = example_phases(dev, card)
+    clock("48-53")
 
     # -- the record -----------------------------------------------------
     n_ff = MAIN_DECODE["int8_ff"]
@@ -839,7 +881,8 @@ def main():
           f"{par['launches']}, converters and quick_start "
           f"{wts['decode_launches']}, the gen_int8 path "
           f"{i8['int8_gates']['launches']}, the quality tools "
-          f"{tools['decode_launches']})")
+          f"{tools['decode_launches']}, the examples "
+          f"{examples['decode']})")
     if n_bf == 0 or n_ff == 0 or n_g == 0 or i8["int8_lstm"]["launches"] == 0:
         fail("a kernel variant was not launched on the main path")
     i8["int8_gates"]["launches"] = n_g   # phases 41-42's and phase 44's
@@ -874,7 +917,7 @@ def main():
         "replaces": "wavernn_tpu/ops/pallas_tts.py:237",
         "launches": (tts["launches"] + text_serving["tts_launches"]
                      + tts_train["tts_launches"] + wts["tts_launches"]
-                     + tools["tts_launches"]),
+                     + tools["tts_launches"] + examples["tts"]),
         "max_abs_err": max(tts["max_abs_err"], tts_train["max_abs_err"]),
         "ms": tts["ms"],
         "plain_ms": tts["plain_ms"],
@@ -2261,6 +2304,7 @@ def training_phases(dev, card) -> dict:
 
     import torch
 
+    from wavernn_tpu_torch import gen_wavernn, preprocess, train_wavernn
     from wavernn_tpu_torch.config import hp
     from wavernn_tpu_torch.data.dataset import get_vocoder_datasets
     from wavernn_tpu_torch.dsp import wavio
@@ -2392,17 +2436,12 @@ def training_phases(dev, card) -> dict:
 
     # -- 25. the training path end to end ----------------------------------
     synthetic_corpus(work / "wavs", hp.sample_rate)
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "wavernn_tpu_torch.preprocess", "--hp_file",
-         str(hp_file), "--num_workers", str(PREPROCESS_WORKERS)], cwd=work,
-        env=env, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        fail(f"preprocess exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    _, secs = cli_output(preprocess.main, [
+        "--hp_file", str(hp_file), "--num_workers", str(PREPROCESS_WORKERS)],
+        work)
     n_mels = len(list((work / "data" / "mel").glob("*.npy")))
     print(f"train path (a): preprocess of {TRAIN_UTTS} utterances -> "
-          f"{n_mels} mels in {time.perf_counter() - t0:.1f} s", flush=True)
+          f"{n_mels} mels in {secs:.1f} s", flush=True)
     if n_mels != TRAIN_UTTS:
         fail(f"preprocess wrote {n_mels} mels")
 
@@ -2471,21 +2510,14 @@ def training_phases(dev, card) -> dict:
 
     hp40 = work / "hp_train40.py"
     hp40.write_text(hp_file.read_text() + "voc_total_steps = 40\n")
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [sys.executable, "-m", "wavernn_tpu_torch.train_wavernn",
-         "--hp_file", str(hp40), "--device", str(dev)], cwd=work, env=env,
-        capture_output=True, text=True, timeout=900)
-    start = re.search(r"Start Step \|\n.*\n\|.*\|\s+(\d+)\s+\|", proc.stdout)
-    print(f"train path (c): train_wavernn exit {proc.returncode} in "
-          f"{time.perf_counter() - t0:.1f} s: "
-          + " | ".join(l.strip() for l in proc.stdout.splitlines()
+    out, secs = cli_output(train_wavernn.main, [
+        "--hp_file", str(hp40), "--device", str(dev)], work)
+    start = re.search(r"Start Step \|\n.*\n\|.*\|\s+(\d+)\s+\|", out)
+    print(f"train path (c): train_wavernn in process in {secs:.1f} s: "
+          + " | ".join(l.strip() for l in out.splitlines()
                        if "Restoring" in l or "Training Complete" in l),
           flush=True)
-    if proc.returncode != 0:
-        fail(f"train_wavernn exited {proc.returncode}:\n"
-             f"{proc.stderr[-3000:]}")
-    if "Restoring from latest checkpoint" not in proc.stdout:
+    if "Restoring from latest checkpoint" not in out:
         fail("train_wavernn did not restore the latest pair")
     if start is None or int(start.group(1)) != hp.voc_total_steps:
         fail(f"train_wavernn did not start at step {hp.voc_total_steps}")
@@ -2493,13 +2525,9 @@ def training_phases(dev, card) -> dict:
     if step40 != 40:
         fail(f"train_wavernn stopped at step {step40}")
     mel = paths.mel / f"{test_id}.npy"
-    proc = subprocess.run(
-        [sys.executable, "-m", "wavernn_tpu_torch.gen_wavernn", "--hp_file",
-         str(hp40), "--file", str(mel), "--output_dir", str(work / "gen"),
-         "--device", str(dev)], cwd=work, env=env, capture_output=True,
-        text=True, timeout=600)
-    if proc.returncode != 0:
-        fail(f"gen_wavernn exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    cli_output(gen_wavernn.main, [
+        "--hp_file", str(hp40), "--file", str(mel), "--output_dir",
+        str(work / "gen"), "--device", str(dev)], work)
     wavs = sorted((work / "gen").glob("*.wav"))
     if len(wavs) != 1:
         fail(f"gen_wavernn wrote {wavs}")
@@ -2635,6 +2663,32 @@ def in_process(main, argv, cwd: Path):
         hp.reset()
 
 
+def cli_output(main, argv, cwd: Path):
+    """``in_process(main, argv, cwd)`` with its standard output captured:
+    returns (that output, seconds).  The caller's hp configuration is put
+    back after it; an exception (SystemExit too) fails the smoke with the
+    output's end.  A CLI run here saves a process start-up, CUDA's and the
+    kernels' loading (~8-15 s a run)."""
+    import io
+    import traceback
+
+    from wavernn_tpu_torch.config import hp
+
+    saved = hp.snapshot()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            in_process(main, argv, cwd)
+    except BaseException as e:
+        fail(f"{main.__module__} {' '.join(argv)} raised {e!r}:\n"
+             f"{buf.getvalue()[-2000:]}\n{traceback.format_exc()[-3000:]}")
+    finally:
+        if saved:
+            hp.configure_from_dict(saved)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
 def tts_training_phases(dev, card) -> dict:
     """Phases 31-33: the Tacotron train step on the card against the CPU,
     the Tacotron training path end to end (train_tacotron, resume, GTA,
@@ -2648,7 +2702,9 @@ def tts_training_phases(dev, card) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from wavernn_tpu_torch import gen_tacotron, gen_wavernn
+    from wavernn_tpu_torch import (
+        gen_tacotron, gen_wavernn, preprocess, train_tacotron, train_wavernn,
+    )
     from wavernn_tpu_torch.config import hp
     from wavernn_tpu_torch.dsp import wavio
     from wavernn_tpu_torch.models.tacotron import (
@@ -2794,36 +2850,28 @@ def tts_training_phases(dev, card) -> dict:
 
     hp1 = hp_file("hp_tts1.py", tts_schedule=TTS_CUT_SCHEDULE[:1])
     hp3 = hp_file("hp_tts3.py", tts_schedule=TTS_CUT_SCHEDULE)
-    env = dict(os.environ, PYTHONPATH=str(REPO))
 
-    def run(*args, timeout=900):
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", *args], cwd=work,
-                              env=env, capture_output=True, text=True,
-                              timeout=timeout)
-        if proc.returncode != 0:
-            fail(f"{args[0]} exited {proc.returncode}:\n"
-                 f"{proc.stderr[-3000:]}")
-        return proc, time.perf_counter() - t0
+    def run(main, *args):
+        return cli_output(main, list(args), work)
 
-    _, secs = run("wavernn_tpu_torch.preprocess", "--hp_file", str(hp3),
+    _, secs = run(preprocess.main, "--hp_file", str(hp3),
                   "--num_workers", str(PREPROCESS_WORKERS))
     print(f"tts train path (a): preprocess of {TTS_UTTS} text/audio pairs "
           f"in {secs:.1f} s", flush=True)
     tts_dir = work / "checkpoints" / f"{tts_id}.tacotron"
     lrs = []
     for i, path in enumerate((hp1, hp3)):
-        proc, secs = run("wavernn_tpu_torch.train_tacotron", "--hp_file",
-                         str(path), "--device", str(dev))
-        sessions = re.findall(r"\| Steps with r=(\d+) ", proc.stdout)
+        out, secs = run(train_tacotron.main, "--hp_file", str(path),
+                        "--device", str(dev))
+        sessions = re.findall(r"\| Steps with r=(\d+) ", out)
         step = int(load_pytree(tts_dir / "latest_weights.msgpack")["step"])
         opt = load_pytree(tts_dir / "latest_optim.msgpack")["opt_state"]
         lrs.append(float(opt["1"]["hyperparams"]["learning_rate"]))
-        restored = "Restoring from latest checkpoint" in proc.stdout
+        restored = "Restoring from latest checkpoint" in out
         print(f"tts train path (b{i + 1}): train_tacotron in {secs:.1f} s: "
               f"sessions r={sessions}, restored {restored}, stored step "
               f"{step}, learning rate {lrs[-1]:.3g}; "
-              + " | ".join(l.strip() for l in proc.stdout.splitlines()
+              + " | ".join(l.strip() for l in out.splitlines()
                            if "Loss:" in l)[-300:] + f" | {card}",
               flush=True)
         want = (["7"], False, 2) if i == 0 else (["5", "2"], True, 6)
@@ -2851,13 +2899,13 @@ def tts_training_phases(dev, card) -> dict:
             p.name for p in mels] or bad:
         fail(f"the GTA export does not cover every utterance ({bad})")
 
-    proc, secs = run("wavernn_tpu_torch.train_wavernn", "--hp_file",
-                     str(hp3), "--gta", "--device", str(dev))
+    out, secs = run(train_wavernn.main, "--hp_file", str(hp3), "--gta",
+                    "--device", str(dev))
     voc_dir = work / "checkpoints" / f"{voc_id}.wavernn"
     voc_step = int(load_pytree(voc_dir / "latest_weights.msgpack")["step"])
     print(f"tts train path (d): train_wavernn --gta to step {voc_step} in "
           f"{secs:.1f} s: " + " | ".join(
-              l.strip()[:80] for l in proc.stdout.splitlines()
+              l.strip()[:80] for l in out.splitlines()
               if "Gen Rate" in l or "Training Complete" in l), flush=True)
     if voc_step != 2:
         fail(f"train_wavernn --gta stopped at step {voc_step}")
@@ -2996,6 +3044,7 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
     variant."""
     import torch
 
+    from wavernn_tpu_torch import gen_wavernn
     from wavernn_tpu_torch.infer.stream_server import StreamServer
     from wavernn_tpu_torch.ops import cuda_decode
     from wavernn_tpu_torch.ops.decode import Generator
@@ -3106,18 +3155,12 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
 
     # the CLI and the probe through the tool, two shards on one card
     out_dir = SMOKE_DIR / "cli_mesh_out"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run(
-        [sys.executable, "-m", "wavernn_tpu_torch.gen_wavernn",
-         "--file", str(SMOKE_DIR / "eval_mel.npy"), "--voc_weights",
-         str(GOLDEN), "--output_dir", str(out_dir), "--hp_file",
-         str(REPO / "hparams.py"), "--device", str(dev), "--mesh",
-         "--mesh_devices", f"{dev},{dev}"], cwd=REPO, env=env,
-        capture_output=True, text=True, timeout=600)
-    print("cli --mesh: " + " | ".join(proc.stdout.strip().splitlines()[-3:]))
-    if proc.returncode != 0:
-        fail(f"gen_wavernn --mesh exited {proc.returncode}:\n"
-             f"{proc.stderr[-3000:]}")
+    out, _ = cli_output(gen_wavernn.main, [
+        "--file", str(SMOKE_DIR / "eval_mel.npy"), "--voc_weights",
+        str(GOLDEN), "--output_dir", str(out_dir), "--hp_file",
+        str(REPO / "hparams.py"), "--device", str(dev), "--mesh",
+        "--mesh_devices", f"{dev},{dev}"], REPO)
+    print("cli --mesh: " + " | ".join(out.strip().splitlines()[-3:]))
     (meshed_wav,) = out_dir.glob("__eval_mel__*.wav")
     (plain_wav,) = (SMOKE_DIR / "cli_out").glob("__eval_mel__*.wav")
     same = meshed_wav.read_bytes() == plain_wav.read_bytes()
@@ -3865,6 +3908,169 @@ def quality_tool_phases(dev, card, mcd_of: dict, tts_ms_step: float) -> dict:
             fail("train_golden --which taco-pin disagrees with the pins")
     return {"tts_launches": n_tts, "int8_lstm_launches": n_lstm,
             "decode_launches": decode_launches}
+
+
+# phases 48-53: the examples, cut as the module docstring says
+EXAMPLE_STEPS = 20           # phases 49-51's training steps
+E2E_TEXTS, E2E_TTS_STEPS, E2E_VOC_STEPS = 64, 30, 20     # phase 53
+
+
+def example_phases(dev, card) -> dict:
+    """Phases 48-53.  Returns the decode kernel's launches (also added to
+    the main path's tally) and the TTS kernel's."""
+    import shutil
+
+    import torch
+
+    from wavernn_tpu_torch.dsp import wavio
+    from wavernn_tpu_torch.examples import (
+        e2e_tts, nb2_fit_single_sample, nb3_fit_long_sample,
+        nb4_alternative_model, pruning_example, serving_demo,
+    )
+    from wavernn_tpu_torch.models.wavernn import WaveRNN
+    from wavernn_tpu_torch.ops import cuda_tts
+    from wavernn_tpu_torch.pruning import Pruner, measured_sparsity
+
+    work = SMOKE_DIR / "examples"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    launches = {"decode": 0, "tts": 0}
+
+    def phase(n, what, fn, kernels=()):
+        """Run ``fn`` in process with both counters set to 0 just before,
+        the hp singleton cleared around it; ``kernels`` must have risen.
+        Returns fn's result."""
+        torch.cuda.synchronize()
+        zero_decode_counts()
+        cuda_tts.tts_decode.launches = 0
+        t0 = time.perf_counter()
+        out = in_process(fn, None, work)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_dec = count_main_decode()
+        n_tts = cuda_tts.tts_decode.launches
+        launches["decode"] += n_dec
+        launches["tts"] += n_tts
+        print(f"phase {n} ({what}) in {secs:.1f} s: decode launches "
+              f"{n_dec}, Tacotron kernel launches {n_tts} | {card}",
+              flush=True)
+        for k, got in (("decode", n_dec), ("tts", n_tts)):
+            if k in kernels and got == 0:
+                fail(f"phase {n} ({what}) launched no {k} kernel")
+        return out
+
+    def pcm_check(n, path, want_len):
+        x, sr = wavio.read_wav_raw(path)
+        ok = (sr == 22050 and x.shape == (want_len,)
+              and np.isfinite(x).all() and float(np.std(x)) > 0)
+        print(f"phase {n}: {path.name}: {x.shape[0]} samples at {sr} Hz "
+              f"(want {want_len}), std {float(np.std(x)):.4f}", flush=True)
+        if not ok:
+            fail(f"phase {n}: {path} is not {want_len} samples of audio")
+
+    # -- 48. pruning_example, uncut ----------------------------------------
+    res = phase(48, "pruning_example, 300 steps",
+                lambda _: pruning_example.main(["--device", str(dev)]))
+    cfg = pruning_example.tiny_config()
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        fresh = WaveRNN(cfg)
+    pruner = Pruner(pruning_example.PRUNE)
+    want = [(s, measured_sparsity(pruner.compute(fresh, s)))
+            for s in range(25, 301, 25)]
+    print(f"phase 48: sparsity every 25 steps {res['sparsity']}; losses "
+          f"{res['losses'][[0, 99, 199, 299]]}", flush=True)
+    if res["sparsity"] != want or want[1][1] != 0.0:
+        fail(f"phase 48: sparsity {res['sparsity']}, the schedule's {want}")
+    if not np.isfinite(res["losses"]).all():
+        fail("phase 48: a loss is not finite")
+
+    # -- 49. nb2, 20 steps at full width -----------------------------------
+    nb3_fit_long_sample.synth_corpus(work / "nb2", 22050, 3.0, 1)
+    wav = work / "nb2" / "long_000.wav"
+    res = phase(49, f"nb2_fit_single_sample, {EXAMPLE_STEPS} steps",
+                lambda _: nb2_fit_single_sample.main([
+                    "--wav", str(wav), "--steps", str(EXAMPLE_STEPS),
+                    "--device", str(dev)]), ("decode",))
+    frames = min(241, nb2_fit_single_sample.GEN_FRAMES)   # 3 s: 241 hops
+    print(f"phase 49: losses {res['losses'][::5]} (nb2 holds no loss check)",
+          flush=True)
+    pcm_check(49, res["path"], (frames - 1) * 275)
+    if not np.isfinite(res["losses"]).all():
+        fail("phase 49: a loss is not finite")
+
+    # -- 50. nb3 at full size, cut ------------------------------------------
+    res = phase(50, f"nb3_fit_long_sample --full_size, {EXAMPLE_STEPS} steps",
+                lambda _: nb3_fit_long_sample.main([
+                    "--full_size", "--minutes", "0.25", "--steps",
+                    str(EXAMPLE_STEPS), "--num_workers", "1", "--workspace",
+                    str(work / "nb3"), "--device", str(dev)]), ("decode",))
+    print(f"phase 50: loss {res['loss0']:.4f} -> {res['loss1']:.4f}; the "
+          f"loss-drop check (>= 0.5) skipped: it is set for 300 steps",
+          flush=True)
+    paths = res["paths"]
+    gen = [p for p in res["auditions"] if "_gen_" in p.name]
+    target = [p for p in res["auditions"] if p.name.endswith("_target.wav")]
+    if res["loss_gate"] or len(gen) != 1 or len(target) != 1:
+        fail(f"phase 50: auditions {res['auditions']}")
+    # the audition is (mel frames - 1) x hop samples: its utterance's
+    # length rounded down to whole hops
+    n_target = wavio.read_wav_raw(target[0])[0].shape[0]
+    pcm_check(50, gen[0], n_target // 275 * 275)
+    if not (paths.voc_latest_weights.exists()
+            and len(list(paths.mel.glob("*.npy"))) == 12):
+        fail("phase 50: no latest weights or not 12 preprocessed mels")
+
+    # -- 51. nb4 at full size, cut ------------------------------------------
+    res = phase(51, f"nb4_alternative_model --full_size, {EXAMPLE_STEPS} "
+                "steps", lambda _: nb4_alternative_model.main([
+                    "--full_size", "--steps", str(EXAMPLE_STEPS),
+                    "--num_workers", "1", "--workspace", str(work / "nb4"),
+                    "--device", str(dev)]), ("decode",))
+    print(f"phase 51: MOL loss {res['loss0']:.4f} -> {res['loss1']:.4f}; "
+          f"the loss-drop check (>= 0.3) skipped: it is set for 150 steps; "
+          f"{len(res['wav'])} samples", flush=True)
+    if (len(res["dataset"]) != 8 or res["loss_gate"]
+            or not np.isfinite(res["wav"]).all()
+            or len(res["wav"]) != (2 * 22050 // 275) * 275
+            or not res["path"].exists()):
+        fail("phase 51: part A or B did not hold")
+
+    # -- 52. serving_demo ---------------------------------------------------
+    res = phase(52, "serving_demo", lambda _: serving_demo.main(
+        ["--device", str(dev)]), ("decode", "tts"))
+    lens = [len(w) for w in res["batched"]]
+    print(f"phase 52: mels {[m.shape for m in res['mels']]}, waveforms "
+          f"{lens}, server launches {res['launches']}, health "
+          f"{res['health']}", flush=True)
+    if (lens != [len(w) for w in res["manual"]]
+            or any(len(w) != (m.shape[1] - 1) * 275
+                   for w, m in zip(res["served"], res["mels"]))):
+        fail("phase 52: the sections' waveforms differ in length")
+
+    # -- 53. e2e_tts, cut -----------------------------------------------------
+    ws = work / "e2e"
+
+    def e2e(_):
+        with contextlib.redirect_stdout(sys.stderr):   # the CLIs' tables
+            e2e_tts.run_pipeline(ws, E2E_VOC_STEPS, E2E_TTS_STEPS, str(dev),
+                                 e2e_tts.TRAIN_TEXTS[:E2E_TEXTS],
+                                 num_workers=1)
+        return e2e_tts.measure_gates(ws)
+
+    gates = phase(53, f"e2e_tts, {E2E_TEXTS} texts, {E2E_TTS_STEPS} "
+                  f"Tacotron and {E2E_VOC_STEPS} vocoder steps", e2e,
+                  ("decode", "tts"))
+    print(f"phase 53: gates {json.dumps(gates)}; not held (0.85 / 0.7 / 0.4 "
+          f"/ 0.6): they are set for 6,000 Tacotron and 3,000 vocoder steps "
+          f"on 1,200 texts", flush=True)
+    nums = [u[k] for u in gates["utterances"] for k in (
+        "attn_monotone", "attn_coverage", "attn_sharpness",
+        "spectral_match", "audio_s")]
+    if len(gates["utterances"]) != 3 or not np.isfinite(nums).all() or min(
+            u["audio_s"] for u in gates["utterances"]) <= 0:
+        fail("phase 53: the gates are not three utterances' finite numbers")
+    return launches
 
 
 if __name__ == "__main__":

@@ -53,10 +53,14 @@ def test_no_forbidden_import_in_the_source():
     quality = {f"tools/{t}.py" for t in (
         "check_mel_parity", "kernel_quality", "tts_kernel_parity",
         "tts_train_probe", "train_golden")}
+    examples = {f"examples/{e}.py" for e in (
+        "nb2_fit_single_sample", "nb3_fit_long_sample",
+        "nb4_alternative_model", "pruning_example", "serving_demo",
+        "e2e_tts")}
     ported = {str(p.relative_to(PORT)) for p in _sources()
               if PORT in p.parents}
     assert serving <= ported and training <= ported and parallel <= ported
-    assert weights <= ported and quality <= ported
+    assert weights <= ported and quality <= ported and examples <= ported
 
 
 @pytest.mark.parametrize("line,hit", [
