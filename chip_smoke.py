@@ -284,7 +284,10 @@ Phases 34-36 run the data axis of ``wavernn_tpu_torch/parallel``:
    for each meshless launch; kHz of both printed.  Then ``gen_wavernn
    --mesh --mesh_devices cuda:0,cuda:0`` (in process) must write phase 5's
    WAV byte for byte, and ``tools.mesh_kernel_probe`` (in process) must
-   pass.
+   pass.  The model axis: ``make_mesh({"data": 2, "model": 2},
+   devices=["cuda:0"] * 4)`` on phase 4's 1920-frame request, sampling
+   and deterministic, byte-equal to the meshless Generator with two
+   decode launches (one a data shard) for each meshless launch.
 36. Data-parallel training, ``tools.multihost_smoke --size full`` (its
    launcher in process, its ranks in worker processes): two gloo ranks on
    cuda:0 (half the batch each) and a world of one under NCCL, one step
@@ -293,7 +296,12 @@ Phases 34-36 run the data axis of ``wavernn_tpu_torch/parallel``:
    float32 and float64: the loss and the BatchNorm statistics within
    1e-5, every parameter within 1e-5 in float64 (in float32 printed beside
    float32's own distance from float64); the world of one bit-equal.  Each
-   step's ms printed.
+   step's ms printed.  Then the model axis: ``--model 2 --backend gloo
+   --processes 2``, data 1 x model 2 on cuda:0 (NCCL refuses two ranks on
+   one card), both models' parameters sharded over the model axis and
+   gathered through the host, held to the one-process step the same way,
+   every shard exactly its slice of the gathered parameter and the
+   weights and optimizer files the one-process files' leaves and shapes.
 
 Phases 37-39 run the modules through which weights enter and leave the
 port:
@@ -3149,6 +3157,30 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
                 if n_m != n * n_p:
                     fail(f"{n_m} decode launches over {n} shards against "
                          f"{n_p} meshless [{name}]")
+    # the model axis: the fold rows split over the data axis, shard k on
+    # the first device of model row k
+    plan = make_mesh({"data": 2, "model": 2}, devices=[dev] * 4)
+    for det in (False, True):
+        mode = "deterministic" if det else "sampling"
+        plain, meshed = (make(deterministic=det),
+                         make(plan, deterministic=det))
+        one_shot = lambda g: g(long_mel, True, seed=3, **geom)
+        for g in (plain, meshed):
+            one_shot(g)
+        (want, n_p, s_p), (got, n_m, s_m) = (counted(lambda: one_shot(
+            plain)), counted(lambda: one_shot(meshed)))
+        launches += n_p + n_m
+        equal = np.array_equal(got, want)
+        print(f"mesh {plan.describe()} [one-shot, {mode}]: byte-equal "
+              f"{equal}, launches {n_m} against {n_p} meshless; "
+              f"{len(want) / s_m / 1e3:.1f} kHz against "
+              f"{len(want) / s_p / 1e3:.1f} | {card}", flush=True)
+        if not equal:
+            fail(f"the (data 2, model 2) mesh's output differs from the "
+                 f"meshless Generator [{mode}]")
+        if n_m != plan.n_data * n_p:
+            fail(f"{n_m} decode launches over the data axis of "
+                 f"{plan.describe()} against {n_p} meshless")
     del plain, meshed
     if launches == 0:
         fail("phase 35 launched no decode kernel")
@@ -3177,11 +3209,13 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
     print(f"phase 35 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
 
-    # -- 36. data-parallel training ----------------------------------------
+    # -- 36. data-parallel and tensor-parallel training -------------------
     t_phase = time.perf_counter()
     for argv, what in ((["--backend", "gloo"], "two gloo ranks on one card"),
                        (["--backend", "nccl", "--processes", "1"],
-                        "a world of one under NCCL")):
+                        "a world of one under NCCL"),
+                       (["--backend", "gloo", "--processes", "2", "--model",
+                         "2"], "data 1 x model 2, gloo, one card")):
         try:
             summary = multihost_smoke.main(
                 ["--device", "cuda", "--size", "full", "--timeout", "400"]
@@ -3202,6 +3236,10 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
                              f"{r['single_param_diff_to_float64']:.3g} "
                              f"from float64)" if key.endswith("32")
                              else "")
+                          + (f"; {r['sharded']} parameters sharded, "
+                             f"shards exact {r['shards_exact']}, weights "
+                             f"file max|d| {r['tree_diff']:.3g}"
+                             if "sharded" in r else "")
                           + f"; {r['ms']:.1f} ms a step against "
                           f"{r['single_ms']:.1f} | {card}", flush=True)
     print(f"phase 36 done in {time.perf_counter() - t_phase:.1f} s",

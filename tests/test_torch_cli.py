@@ -212,6 +212,23 @@ def test_cli_mesh_vocodes_as_without(cli_args):
     assert meshed.read_bytes() == plain
 
 
+def test_cli_mesh_with_a_model_axis_vocodes_as_without(cli_args):
+    """``hp.mesh_shape = {"data": 2, "model": 2}`` over four devices, as
+    the JAX CLI takes it: the fold rows split over the data axis, and the
+    WAV is the meshless one byte for byte."""
+    args = [a for a in cli_args if a != "--deterministic"] + [
+        "--device", "cpu", "--seed", "5"]
+    plain = gen_wavernn.main(args).read_bytes()
+    hp.reset()
+    hp_file = Path(args[args.index("--hp_file") + 1])
+    hp_file.write_text(hp_file.read_text()
+                       + "mesh_shape = {'data': 2, 'model': 2}\n")
+    args[args.index("--output_dir") + 1] += "_mesh"
+    meshed = gen_wavernn.main(args + ["--mesh", "--mesh_devices",
+                                      "cpu,cpu,cpu,cpu"])
+    assert meshed.read_bytes() == plain
+
+
 def test_tts_cli_mesh_vocodes_as_without(tts_args):
     """``gen_tacotron --mesh`` shards the vocoder's fold rows: the WAV is
     the meshless one byte for byte."""

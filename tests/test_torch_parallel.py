@@ -73,8 +73,10 @@ def test_mesh_shapes(monkeypatch):
         make_mesh({"data": 3}, devices=CPU4)
     with pytest.raises(ValueError, match="unknown mesh axes"):
         make_mesh({"pipe": 4}, devices=CPU4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        make_mesh({"data": 2, "model": 2}, devices=CPU4)
+    plan = make_mesh({"data": 2, "model": 2}, devices=CPU4)
+    assert (plan.n_data, plan.n_model) == (2, 2)
+    with pytest.raises(ValueError, match="does not match"):
+        make_mesh({"data": 3, "model": 2}, devices=CPU4)
     # a bare "cuda" names the current card, as a tensor's .device does
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)

@@ -168,6 +168,33 @@ def test_two_ranks_train_on_from_the_stored_step(trained):
         "latest_weights.msgpack"
     start = int(load_pytree(latest)["step"])
     write_hp(ws, start + 2)
+    outs = run_two_ranks(ws)
+    assert "Data-parallel: data=2 model=1 (world, rank 0 on cpu)" \
+        in outs[0][0]
+    assert "Restoring from latest checkpoint" in outs[1][0]
+    assert int(load_pytree(latest)["step"]) == start + 2
+
+
+def test_two_ranks_on_a_model_axis_train_on(trained):
+    """``hp.mesh_shape = {"data": 1, "model": 2}``, as the JAX CLI takes
+    it: both ranks train on the whole batch of 2 with the parameters
+    replicated, and rank 0 writes the pair two steps on."""
+    ws, _, _ = trained
+    latest = ws / "checkpoints" / "ljspeech_mol.wavernn" / \
+        "latest_weights.msgpack"
+    start = int(load_pytree(latest)["step"])
+    write_hp(ws, start + 2)
+    with open(ws / "hp.py", "a") as f:
+        f.write("mesh_shape = {'data': 1, 'model': 2}\n")
+    outs = run_two_ranks(ws)
+    assert "Data-parallel: data=1 model=2 (world, rank 0 on cpu)" \
+        in outs[0][0]
+    assert int(load_pytree(latest)["step"]) == start + 2
+
+
+def run_two_ranks(ws):
+    """``train_wavernn`` on two CPU ranks under torchrun's variables;
+    returns each rank's (stdout, stderr) after both exited 0."""
     env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
                MASTER_ADDR="localhost", MASTER_PORT=str(free_port()),
                WORLD_SIZE="2")
@@ -186,7 +213,4 @@ def test_two_ranks_train_on_from_the_stored_step(trained):
                 p.communicate()
     for p, (_, err) in zip(procs, outs):
         assert p.returncode == 0, err[-3000:]
-    assert "Data-parallel: data=2 model=1 (world, rank 0 on cpu)" \
-        in outs[0][0]
-    assert "Restoring from latest checkpoint" in outs[1][0]
-    assert int(load_pytree(latest)["step"]) == start + 2
+    return outs

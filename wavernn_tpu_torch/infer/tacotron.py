@@ -170,7 +170,7 @@ class TTSGenerator:
         x = torch.zeros(_round_up(len(seqs), shards), L, dtype=torch.long)
         for i, s in enumerate(seqs):
             x[i, :len(s)] = torch.as_tensor(np.asarray(s, dtype=np.int64))
-        devices = self.mesh.devices if self.mesh is not None else (
+        devices = self.mesh.data_devices if self.mesh is not None else (
             self.device,)
         with torch.no_grad():
             outs = self._run_plain(

@@ -32,7 +32,7 @@ without JAX.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Iterator, Mapping, Optional, Tuple
+from typing import Dict, Iterator, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -41,6 +41,9 @@ from torch import nn
 
 from wavernn_tpu_torch.models.wavernn import FlaxBatchNorm
 from wavernn_tpu_torch.ops.rnn import BiGRU, GRUWeights, gru_cell_step, lstm_cell_step
+from wavernn_tpu_torch.parallel.tensor_parallel import (
+    full_parameters, local_tensors, own_parameter_names,
+)
 
 MAX_R = 20  # mel_proj holds MAX_R frame slots; a step uses the first r
 ZONEOUT_P = 0.1  # the residual LSTMs keep their previous h with this chance
@@ -476,11 +479,14 @@ def _conv_to_torch(a):
 
 
 def _leaves(model: nn.Module) -> Iterator[tuple]:
-    """(collection, flax path, state-dict key, module, flax-to-torch map)
-    for every leaf of the flax tree of ``model``; each map is its own
-    inverse."""
+    """(collection, flax path, plain key, module, flax-to-torch map) for
+    every leaf of the flax tree of ``model``; each map is its own inverse.
+    The key is the state-dict key of an unsharded model (a parameter
+    sharded over the model axis keeps it: ``parallel.tensor_parallel``)."""
     same = lambda a: a
     for name, m in model.named_modules():
+        if "parametrizations" in name.split("."):
+            continue
         path = tuple(name.split(".")) if name else ()
         key = lambda p: f"{name}.{p}" if name else p
         if isinstance(m, nn.Conv1d):
@@ -493,8 +499,17 @@ def _leaves(model: nn.Module) -> Iterator[tuple]:
         elif isinstance(m, nn.Embedding):
             yield "params", path + ("embedding",), key("weight"), m, same
         else:
-            for p, _ in m.named_parameters(recurse=False):
+            for p in own_parameter_names(m):
                 yield "params", path + (p,), key(p), m, same
+
+
+def param_layout(model: nn.Module) -> List[Tuple[str, Tuple[str, ...], str]]:
+    """Every parameter as (torch name, flax path under ``params``, move),
+    as ``models.wavernn.param_layout`` gives the vocoder's: ``conv`` for
+    conv kernels, ``copy`` for the rest (the math layout is flax's)."""
+    return [(key, path, "conv" if move is _conv_to_torch else "copy")
+            for coll, path, key, _, move in _leaves(model)
+            if coll == "params"]
 
 
 def _get(tree, path):
@@ -533,7 +548,7 @@ def to_jax_variables(model: Tacotron) -> dict:
     """The JAX-layout numpy pytree ``{"params", "batch_stats"}`` of a port
     model (the inverse of :func:`load_jax_variables`), for a checkpoint,
     a ``TTSGenerator`` or the JAX package."""
-    sd = model.state_dict()
+    sd = {**model.state_dict(), **full_parameters(model)}
     tree: dict = {"params": {}, "batch_stats": {}}
     for coll, path, key, _, move in _leaves(model):
         a = sd[key].detach().to("cpu", torch.float32).numpy()
@@ -555,7 +570,7 @@ def load_jax_variables(model: Tacotron, variables) -> None:
     for name, buf in model.named_buffers():
         if name.endswith("num_batches_tracked"):
             sd[name] = buf
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(local_tensors(sd, model), strict=True)
 
 
 def from_jax_variables(variables, cfg: TacotronConfig, device) -> Tacotron:

@@ -28,6 +28,9 @@ from torch import nn
 
 from wavernn_tpu_torch.ops.rnn import gru_cell_step
 from wavernn_tpu_torch.parallel.mesh import MeshPlan, all_reduce_sum
+from wavernn_tpu_torch.parallel.tensor_parallel import (
+    full_parameters, local_tensors,
+)
 
 
 @dataclass(frozen=True)
@@ -457,7 +460,7 @@ def to_jax_variables(model: WaveRNN) -> dict:
             node = node.setdefault(k, {})
         node[path[-1]] = buffers[name].detach().to("cpu", torch.float32) \
             .numpy().copy()
-    return {"params": to_jax_tree(dict(model.named_parameters()), cfg),
+    return {"params": to_jax_tree(full_parameters(model), cfg),
             "batch_stats": stats}
 
 
@@ -475,7 +478,7 @@ def load_jax_variables(model: WaveRNN, variables) -> None:
     for name, buf in model.named_buffers():
         if name.endswith("num_batches_tracked"):
             sd[name] = buf
-    model.load_state_dict(sd, strict=True)
+    model.load_state_dict(local_tensors(sd, model), strict=True)
 
 
 def from_jax_variables(variables, cfg: WaveRNNConfig,

@@ -1,26 +1,36 @@
-"""Data parallelism over devices (ports the data axis of
-``wavernn_tpu/parallel/mesh.py``).
+"""Data and model axes over devices (ports ``wavernn_tpu/parallel/
+mesh.py``).
 
-The JAX package builds one ``jax.sharding.Mesh`` and lets XLA insert the
-collectives.  Here a :class:`MeshPlan` is one of two kinds, as PyTorch's
-idiom differs by path:
+The JAX package builds one ``jax.sharding.Mesh`` of shape (data, model)
+and lets XLA insert the collectives.  Here a :class:`MeshPlan` is one of
+two kinds, as PyTorch's idiom differs by path:
 
 * a **local** plan: one process drives several devices.  Generation and
   serving use it (``Generator(mesh=)``, ``TTSGenerator(mesh=)``): the HTTP
-  daemon is one process whose scheduler thread owns the cards.
-  :func:`shard_rows` splits a launch's rows over ``plan.devices``.  A
-  device may repeat: ``["cuda:0", "cuda:0"]`` hosts two shards on one
-  card, and the tests shard over ``["cpu"] * 4``, as the JAX tests shard
-  over 8 virtual CPU devices.
+  daemon is one process whose scheduler thread owns the cards.  Its
+  devices are laid out row-major as (n_data, n_model), as JAX's
+  ``np.asarray(devices).reshape(n_data, n_model)``; :func:`shard_rows`
+  splits a launch's rows over the data axis and runs shard k on the first
+  device of row k (JAX's ``shard_map`` with ``P("data")`` repeats each
+  shard along its model row: the result is the same).  A device may
+  repeat: ``["cuda:0", "cuda:0"]`` hosts two shards on one card, and the
+  tests shard over ``["cpu"] * 4``, as the JAX tests shard over 8 virtual
+  CPU devices.
 * a **world** plan: one process per device in a ``torch.distributed``
   process group (``parallel/distributed.py``).  The trainers use it: their
   steps are bound by the host issuing launches, so one thread could not
-  feed several cards.  :func:`shard_batch_fn` slices each global batch to
-  this rank's rows, :func:`all_reduce_mean_` averages the gradients, and
-  :func:`all_reduce_sum` gives BatchNorm the global batch's statistics.
+  feed several cards.  Rank ``d * n_model + m`` sits at data index d and
+  model index m.  :func:`shard_batch_fn` slices each global batch to the
+  rows of the rank's data index, and :func:`all_reduce_mean_`,
+  :func:`mean_over` and :func:`all_reduce_sum` (the gradients' average,
+  the loss, BatchNorm's statistics) reduce over the **data group**, the
+  ranks of one model index: the ranks of one data index hold the same
+  rows, so a sum over the whole world would count each row ``n_model``
+  times.
 
-Only the data axis is ported.  The model axis (tensor parallelism) raises:
-``ROADMAP.md`` queue 1, item 5b.
+The model axis carries tensor parallelism when a caller asks for it
+(``parallel/tensor_parallel.py``: ``make_param_specs``, ``shard_params``).
+Without that, as in every CLI, the parameters are replicated along it.
 """
 
 from __future__ import annotations
@@ -34,33 +44,47 @@ import torch.distributed as dist
 
 from wavernn_tpu_torch.parallel import distributed
 
-MODEL_AXIS = ("the model axis (tensor parallelism) is not ported yet: "
-              "ROADMAP.md queue 1, item 5b")
-
 
 @dataclass(frozen=True)
 class MeshPlan:
-    """A data-parallel layout.  ``devices``: a local plan's shards, one
-    device each (the first holds a launch's inputs and outputs); a world
-    plan's one device, this rank's.  ``rank`` is this process's index on
-    the data axis (0 for a local plan), ``group`` the process group of a
-    world plan."""
+    """A (data, model) layout.  ``devices``: a local plan's devices,
+    row-major over (n_data, n_model) (the first holds a launch's inputs
+    and outputs); a world plan's one device, this rank's.  ``rank`` is
+    this process's rank in the world (0 for a local plan); ``group`` a
+    world plan's data group (the ranks of this rank's model index, which
+    every reduction runs over) and ``model_group`` its model group (the
+    ranks of its data index, which tensor parallelism gathers over; None
+    when ``n_model`` is 1)."""
 
     n_data: int
     devices: Tuple[torch.device, ...]
     world: bool = False
     rank: int = 0
     group: Optional[object] = None
+    n_model: int = 1
+    model_group: Optional[object] = None
 
     @property
-    def n_model(self) -> int:
-        return 1
+    def data_rank(self) -> int:
+        """This rank's index on the data axis: the rows it trains on."""
+        return self.rank // self.n_model
+
+    @property
+    def model_rank(self) -> int:
+        """This rank's index on the model axis: the shard it holds."""
+        return self.rank % self.n_model
 
     @property
     def device(self) -> torch.device:
         """Where inputs and outputs live: a local plan's first device, a
         world plan's own."""
         return self.devices[0]
+
+    @property
+    def data_devices(self) -> Tuple[torch.device, ...]:
+        """A local plan's device of each data shard: the first of each
+        model row."""
+        return self.devices[::self.n_model]
 
     def distinct_devices(self) -> Tuple[torch.device, ...]:
         return tuple(dict.fromkeys(self.devices))
@@ -90,23 +114,34 @@ def _axes(shape: Optional[Dict[str, int]]) -> Tuple[Optional[int], int]:
     if unknown:
         raise ValueError(f"unknown mesh axes {sorted(unknown)}; the axes "
                          "are 'data' and 'model'")
-    n_model = int(shape.get("model", 1))
-    if n_model != 1:
-        raise NotImplementedError(f"mesh shape {shape}: {MODEL_AXIS}")
-    return (int(shape["data"]) if "data" in shape else None), n_model
+    return ((int(shape["data"]) if "data" in shape else None),
+            int(shape.get("model", 1)))
+
+
+def _split(shape, n: int, what: str) -> Tuple[int, int]:
+    """(n_data, n_model) of ``shape`` over ``n`` devices or ranks: the
+    data axis takes what the model axis leaves when ``shape`` does not
+    name it; a product other than ``n`` raises ``ValueError``."""
+    n_data, n_model = _axes(shape)
+    if n_data is None:
+        n_data = n // n_model if n_model > 0 else 0
+    if n_model < 1 or n_data < 1 or n_data * n_model != n:
+        raise ValueError(f"mesh shape {shape} does not match {what} {n}")
+    return n_data, n_model
 
 
 def make_mesh(shape: Optional[Dict[str, int]] = None,
               devices: Optional[Sequence] = None) -> MeshPlan:
-    """Build a data-parallel plan.
+    """Build a (data, model) plan.
 
     Inside a process group of more than one rank this is
     :func:`world_mesh`.  Otherwise it is a local plan over ``devices``
     (default: every visible CUDA device; without one it raises, it never
-    takes the CPU unasked) with ``n_data = len(devices)``.  ``shape``, e.g.
-    ``{"data": 2}``, must match the device count (``ValueError``);
-    ``{"model": k > 1}`` raises ``NotImplementedError``."""
-    n_data, _ = _axes(shape)
+    takes the CPU unasked), laid out row-major as (n_data, n_model).
+    ``shape``, e.g. ``{"data": 4, "model": 2}``, must match the device
+    count (``ValueError``); without it every device is on the data
+    axis."""
+    _axes(shape)
     if distributed.world_size() > 1:
         return world_mesh(shape, devices[0] if devices else None)
     if devices is None:
@@ -119,32 +154,41 @@ def make_mesh(shape: Optional[Dict[str, int]] = None,
     devices = tuple(concrete_device(d) for d in devices)
     if not devices:
         raise ValueError("a mesh needs at least one device")
-    if n_data is not None and n_data != len(devices):
-        raise ValueError(f"mesh shape {shape} does not match device count "
-                         f"{len(devices)}")
-    return MeshPlan(n_data=len(devices), devices=devices)
+    n_data, n_model = _split(shape, len(devices), "device count")
+    return MeshPlan(n_data=n_data, devices=devices, n_model=n_model)
 
 
 def world_mesh(shape: Optional[Dict[str, int]] = None,
                device=None) -> MeshPlan:
     """The plan of this rank in the initialized process group, of any
-    world size (1 included): ``n_data`` = world size.  ``device`` is this
-    rank's; by default ``cuda:LOCAL_RANK`` under NCCL and the CPU under
-    gloo.  ``shape`` must match the world size (``ValueError``)."""
+    world size (1 included): ``n_data * n_model`` = world size, the data
+    axis taking every rank without ``shape``.  ``device`` is this rank's;
+    by default ``cuda:LOCAL_RANK`` under NCCL and the CPU under gloo.
+    With a model axis every rank builds the data and model groups
+    (``dist.new_group``, in the same order on every rank)."""
     if not dist.is_initialized():
         raise RuntimeError("world_mesh needs an initialized process group "
                            "(parallel.distributed."
                            "maybe_initialize_distributed)")
-    n_data, _ = _axes(shape)
     world = dist.get_world_size()
-    if n_data is not None and n_data != world:
-        raise ValueError(f"mesh shape {shape} does not match the world size "
-                         f"{world}")
+    n_data, n_model = _split(shape, world, "the world size")
     if device is None:
         device = (torch.device("cuda", distributed.local_rank())
                   if dist.get_backend() == "nccl" else torch.device("cpu"))
-    return MeshPlan(n_data=world, devices=(concrete_device(device),),
-                    world=True, rank=dist.get_rank(), group=dist.group.WORLD)
+    rank = dist.get_rank()
+    group, model_group = dist.group.WORLD, None
+    if n_model > 1:
+        for m in range(n_model):
+            g = dist.new_group([d * n_model + m for d in range(n_data)])
+            if rank % n_model == m:
+                group = g
+        for d in range(n_data):
+            g = dist.new_group([d * n_model + m for m in range(n_model)])
+            if rank // n_model == d:
+                model_group = g
+    return MeshPlan(n_data=n_data, devices=(concrete_device(device),),
+                    world=True, rank=rank, group=group, n_model=n_model,
+                    model_group=model_group)
 
 
 def check_plan(plan, world: bool, user: str) -> MeshPlan:
@@ -183,7 +227,7 @@ class ShardBatch:
                 raise ValueError(f"batch size {n} must be divisible by the "
                                  f"data-parallel degree {p.n_data}")
             b = n // p.n_data
-            rows = a[p.rank * b:(p.rank + 1) * b]
+            rows = a[p.data_rank * b:(p.data_rank + 1) * b]
             if isinstance(rows, np.ndarray):
                 rows = torch.from_numpy(np.ascontiguousarray(rows))
             out.append(rows.to(p.device, non_blocking=True))
@@ -192,8 +236,8 @@ class ShardBatch:
 
 def shard_batch_fn(plan: MeshPlan) -> ShardBatch:
     """A function that takes numpy or tensor *global* batch arrays and
-    returns this rank's rows of each on this rank's device (rank r takes
-    rows ``[r*b, (r+1)*b)``, b = batch / n_data).  A batch size that is not
+    returns this rank's rows of each on this rank's device (the rank of
+    data index d takes rows ``[d*b, (d+1)*b)``, b = batch / n_data).  A batch size that is not
     a multiple of ``n_data`` raises ``ValueError``, as the reference's
     DataParallel demands (ref: train_wavernn.py:45-46).  Takes a world
     plan; the trainers read it from ``place.plan``."""
@@ -202,8 +246,8 @@ def shard_batch_fn(plan: MeshPlan) -> ShardBatch:
 
 def shard_rows(plan: MeshPlan, fn: Callable, *xs: torch.Tensor):
     """Run ``fn`` once per shard of a local plan: the rows-first tensors
-    ``xs`` are split evenly over ``plan.devices`` (shard k: rows ``[k*b,
-    (k+1)*b)`` on ``devices[k]``) and ``fn(*shards, row0)`` gets each
+    ``xs`` are split evenly over the data axis (shard k: rows ``[k*b,
+    (k+1)*b)`` on ``data_devices[k]``, the first device of model row k) and ``fn(*shards, row0)`` gets each
     shard's global row offset ``row0 = k*b``.  Every shard is launched
     before any is waited on (the copies and launches queue on each
     device's current stream), and the results (rows-first tensors) are
@@ -218,29 +262,32 @@ def shard_rows(plan: MeshPlan, fn: Callable, *xs: torch.Tensor):
     b = B // plan.n_data
     outs = [fn(*(x[k * b:(k + 1) * b].to(dev, non_blocking=True)
                  for x in xs), k * b)
-            for k, dev in enumerate(plan.devices)]
-    return torch.cat([o.to(plan.devices[0], non_blocking=True)
+            for k, dev in enumerate(plan.data_devices)]
+    return torch.cat([o.to(plan.device, non_blocking=True)
                       for o in outs])
 
 
 # -- collectives of a world plan ----------------------------------------
 
-def _all_reduce_(t: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
-    """Sum ``t`` over the ranks in place.  gloo takes host tensors here:
-    a CUDA tensor is copied to the host, reduced and copied back, by
-    design of this function (the backend is never switched)."""
-    if t.is_cuda and dist.get_backend(plan.group) == "gloo":
+def _all_reduce_(t: torch.Tensor, plan: MeshPlan,
+                 group: Optional[object] = None) -> torch.Tensor:
+    """Sum ``t`` over the data group (or ``group``) in place.  gloo takes
+    host tensors here: a CUDA tensor is copied to the host, reduced and
+    copied back, by design of this function (the backend is never
+    switched)."""
+    group = plan.group if group is None else group
+    if t.is_cuda and dist.get_backend(group) == "gloo":
         host = t.cpu()
-        dist.all_reduce(host, group=plan.group)
+        dist.all_reduce(host, group=group)
         t.copy_(host)
     else:
-        dist.all_reduce(t, group=plan.group)
+        dist.all_reduce(t, group=group)
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
-    """y = sum over ranks of x; the gradient of x is the sum over ranks of
-    the gradients of y, since every rank's loss reads y."""
+    """y = sum over the data group of x; the gradient of x is the sum over
+    the group of the gradients of y, since every rank's loss reads y."""
 
     @staticmethod
     def forward(ctx, x, plan):
@@ -253,13 +300,14 @@ class _AllReduceSum(torch.autograd.Function):
 
 
 def all_reduce_sum(x: torch.Tensor, plan: MeshPlan) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of a world plan, differentiable."""
+    """The sum of ``x`` over the data group of a world plan,
+    differentiable."""
     return _AllReduceSum.apply(x, plan)
 
 
 def all_reduce_mean_(tensors: Sequence[torch.Tensor],
                      plan: MeshPlan) -> None:
-    """Average same-shaped tensors over the ranks in place, in one flat
+    """Average tensors over the data group in place, in one flat
     all-reduce (a sum, then a division by ``n_data``)."""
     tensors = list(tensors)
     if not tensors:
@@ -273,15 +321,16 @@ def all_reduce_mean_(tensors: Sequence[torch.Tensor],
 
 
 def mean_over(x: torch.Tensor, plan: Optional[MeshPlan]) -> torch.Tensor:
-    """A detached tensor's mean over the ranks (itself without a plan)."""
+    """A detached tensor's mean over the data group (itself without a
+    plan)."""
     if plan is None:
         return x
     return _all_reduce_(x.detach().clone(), plan).div_(plan.n_data)
 
 
 def average_gradients_(model: torch.nn.Module, plan: MeshPlan) -> None:
-    """Average every parameter's gradient over the ranks (a missing one
-    counts as zeros, so that every rank reduces the same layout)."""
+    """Average every parameter's gradient over the data group (a missing
+    one counts as zeros, so that every rank reduces the same layout)."""
     params = list(model.parameters())
     for p in params:
         if p.grad is None:

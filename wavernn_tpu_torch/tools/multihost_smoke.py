@@ -2,7 +2,8 @@
 process (ports ``tools/multihost_smoke.py``).
 
     python -m wavernn_tpu_torch.tools.multihost_smoke [--device cpu|cuda]
-        [--backend gloo|nccl] [--processes 2] [--size tiny|full]
+        [--backend gloo|nccl] [--processes 2] [--model 1]
+        [--size tiny|full]
 
 The launcher spawns ``--processes`` workers with torchrun's environment
 contract (``MASTER_ADDR=localhost``, a free ``MASTER_PORT``, ``RANK``,
@@ -20,6 +21,18 @@ The launcher fails unless every rank reports the same finite loss and the
 |d|s are within :data:`TOL` (1e-5), and prints one JSON line.  In float64
 every |d| is held, in float32 the loss's and the statistics'.  A world of
 one must be bit-equal in both.
+
+``--model k`` lays the ranks out as the mesh ``{"data": processes / k,
+"model": k}`` and shards both models' parameters over the model axis
+(``parallel.tensor_parallel.shard_params``): the tensor-parallel step is
+held against the one-process step as the data-parallel one is, on the
+full parameters gathered after the step.  Each rank also checks that
+every shard it stores is exactly its slice of the gathered parameter, and
+that its ``TrainState.weights_tree`` and ``optim_tree`` have the
+one-process trees' leaves and shapes, the optimizer tree reading back
+into the sharded state as the moments it holds (``shards_exact``,
+``tree_layout_equal``, ``tree_diff``, ``optim_layout_equal``,
+``optim_round_trip``).
 
 The float32 parameters are printed, not held: Adam's first update is
 ``lr * g / (|g| + 1e-8)``, so a parameter whose gradient is ~1e-9, a sum
@@ -159,15 +172,21 @@ CASES = {"vocoder": vocoder_case, "tacotron": tacotron_case}
 
 def run_step(case, dev: torch.device, dtype: torch.dtype, plan=None):
     """One train step from the seeded model in ``dtype``: (loss, {param},
-    {running statistic}, ms), on the whole global batch without a plan, on
-    this rank's rows with one."""
+    {running statistic}, ms, state), on the whole global batch without a
+    plan, on this rank's rows with one, its parameters sharded over a
+    plan's model axis.  The parameters are the full ones, by plain name."""
     from wavernn_tpu_torch.parallel.mesh import shard_batch_fn
+    from wavernn_tpu_torch.parallel.tensor_parallel import (
+        full_parameters, shard_params,
+    )
     from wavernn_tpu_torch.training.state import (
         make_optimizer, new_train_state,
     )
 
     make_model, make_step, batch, lr, clip = case
     model = make_model(dev).to(dtype)
+    if plan is not None:
+        shard_params(plan, model)
     optimizer = make_optimizer(lr, clip)
     state = new_train_state(model, optimizer)
     step = make_step(optimizer, plan)
@@ -185,14 +204,55 @@ def run_step(case, dev: torch.device, dtype: torch.dtype, plan=None):
     loss = float(step(state, *batch))
     sync()
     ms = (time.perf_counter() - t0) * 1e3
-    params = {n: p.detach().cpu() for n, p in model.named_parameters()}
+    with torch.no_grad():
+        params = {n: p.detach().cpu() for n, p in
+                  full_parameters(model).items()}
     stats = {n: b.detach().cpu() for n, b in model.named_buffers()
              if "running" in n}
-    return loss, params, stats, ms
+    return loss, params, stats, ms, state
 
 
 def max_diff(a: dict, b: dict) -> float:
     return max(float((a[n].double() - b[n].double()).abs().max()) for n in a)
+
+
+def tensor_parallel_checks(state, params: dict, single_state) -> dict:
+    """Whether every shard a rank stores is exactly its slice of the
+    gathered parameter; how the state's weights file compares with the
+    one-process state's (the same leaves and shapes, and the largest |d|
+    of their values); whether its optimizer file has the one-process
+    file's leaves and shapes, and reads back into the sharded state as
+    the moments it holds."""
+    from wavernn_tpu_torch.parallel.tensor_parallel import (
+        plain_name, sharded_parameters,
+    )
+
+    shards = sharded_parameters(state.model)
+    own = dict(state.model.named_parameters())
+    exact = all(torch.equal(own[n].detach().cpu(),
+                            g.shard_of(params[plain_name(n)]))
+                for n, g in shards.items())
+    flat = lambda t, p="": ({k: v for kk, vv in t.items()
+                             for k, v in flat(vv, f"{p}/{kk}").items()}
+                            if isinstance(t, dict) else {p: np.asarray(t)})
+    shapes = lambda t: {k: v.shape for k, v in t.items()}
+    tree, ref = flat(state.weights_tree()), flat(single_state.weights_tree())
+    layout = shapes(tree) == shapes(ref)
+    diff = max(float(np.abs(tree[k].astype(np.float64)
+                            - ref[k].astype(np.float64)).max())
+               for k in ref) if layout else float("inf")
+    optim = state.optim_tree()
+    held = state.opt_state
+    state.load_optim_tree(optim)
+    round_trip = all(torch.equal(held.mu[n].float(), state.opt_state.mu[n])
+                     and torch.equal(held.nu[n].float(),
+                                     state.opt_state.nu[n])
+                     for n in held.mu)
+    return {"sharded": len(shards), "shards_exact": bool(exact),
+            "tree_layout_equal": bool(layout), "tree_diff": diff,
+            "optim_layout_equal": shapes(flat(optim))
+            == shapes(flat(single_state.optim_tree())),
+            "optim_round_trip": bool(round_trip)}
 
 
 def worker(args) -> None:
@@ -216,28 +276,36 @@ def worker(args) -> None:
     if not dist.is_initialized():
         raise RuntimeError("no process group was started")
     dev = distributed.rank_device(name)
-    plan = world_mesh(device=dev)
+    world = dist.get_world_size()
+    plan = world_mesh({"data": world // args.model, "model": args.model},
+                      device=dev)
     ones = float(all_reduce_sum(torch.ones(1, device=dev), plan))
-    out = {"rank": plan.rank, "world": plan.n_data, "device": str(dev),
+    out = {"rank": plan.rank, "world": world, "n_data": plan.n_data,
+           "n_model": plan.n_model, "data_rank": plan.data_rank,
+           "model_rank": plan.model_rank, "device": str(dev),
            "backend": dist.get_backend(), "all_reduce_ones": ones}
     if ones != plan.n_data:
-        raise RuntimeError(f"all_reduce(ones) = {ones}, world {plan.n_data}")
+        raise RuntimeError(f"all_reduce(ones) = {ones} over the data group "
+                           f"of {plan.n_data}")
     for model, case_of in CASES.items():
         case = case_of(args.size)
         run_step(case, dev, torch.float32)        # warm-up
         single = {}
         for dtype in (torch.float64, torch.float32):
-            loss_1, params_1, stats_1, ms_1 = single[dtype] = run_step(
-                case, dev, dtype)
-            loss_w, params_w, stats_w, ms_w = run_step(case, dev, dtype,
-                                                       plan)
-            out[f"{model}_{str(dtype)[6:]}"] = {
+            loss_1, params_1, stats_1, ms_1, state_1 = single[dtype] = \
+                run_step(case, dev, dtype)
+            loss_w, params_w, stats_w, ms_w, state_w = run_step(
+                case, dev, dtype, plan)
+            rec = out[f"{model}_{str(dtype)[6:]}"] = {
                 "loss": loss_w, "single_loss": loss_1,
                 "loss_diff": abs(loss_w - loss_1),
                 "param_diff": max_diff(params_w, params_1),
                 "stats_diff": max_diff(stats_w, stats_1),
                 "ms": ms_w, "single_ms": ms_1,
             }
+            if plan.n_model > 1:
+                rec.update(tensor_parallel_checks(state_w, params_w,
+                                                  state_1))
         # float32 rounding's own reach: the single-process float32 step
         # against the float64 one
         out[f"{model}_float32"]["single_param_diff_to_float64"] = max_diff(
@@ -257,7 +325,7 @@ def launch(args) -> dict:
                                    if p]))
     cmd = [sys.executable, "-m", "wavernn_tpu_torch.tools.multihost_smoke",
            "--worker", "--device", args.device, "--backend", args.backend,
-           "--size", args.size]
+           "--size", args.size, "--model", str(args.model)]
     procs = [subprocess.Popen(cmd, env=dict(base, RANK=str(k),
                                             LOCAL_RANK=str(k)),
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -290,6 +358,12 @@ def launch(args) -> dict:
                 raise RuntimeError(f"{key}: rank {r['rank']} is {worst:.3g} "
                                    f"from the single-process step (tol "
                                    f"{tol}): {r[key]}")
+            if args.model > 1 and not (r[key]["sharded"] > 0 and all(
+                    r[key][k] for k in ("shards_exact", "tree_layout_equal",
+                                        "optim_layout_equal",
+                                        "optim_round_trip"))):
+                raise RuntimeError(f"{key}: rank {r['rank']}'s shards or "
+                                   f"weights tree are wrong: {r[key]}")
     summary = {"ok": True, "tol": tol, "workers": results}
     print(json.dumps(summary), flush=True)
     return summary
@@ -300,6 +374,9 @@ def parse_args(argv=None):
     parser.add_argument("--worker", action="store_true",
                         help="run as one rank (the launcher sets this)")
     parser.add_argument("--processes", type=int, default=2)
+    parser.add_argument("--model", type=int, default=1,
+                        help="ranks on the model axis (tensor parallelism); "
+                             "must divide --processes")
     parser.add_argument("--device", choices=["cpu", "cuda"], default="cuda")
     parser.add_argument("--backend", choices=["gloo", "nccl"], default=None,
                         help="default: gloo on the CPU, nccl on CUDA")
@@ -309,6 +386,9 @@ def parse_args(argv=None):
     args = parser.parse_args(argv)
     if args.backend is None:
         args.backend = "gloo" if args.device == "cpu" else "nccl"
+    if args.model < 1 or args.processes % args.model:
+        parser.error(f"--model {args.model} must divide --processes "
+                     f"{args.processes}")
     if args.device == "cuda" and not args.worker \
             and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked for, but CUDA is not "

@@ -20,7 +20,10 @@ variables) it trains data-parallel, one process per device: each rank
 takes ``cuda:LOCAL_RANK`` (or the device ``--device`` names; ``--device
 cpu`` trains on CPU ranks over gloo), its share of every global batch of
 ``--batch_size``, which must split evenly over the ranks, and rank 0
-alone writes checkpoints.
+alone writes checkpoints.  ``hp.mesh_shape`` with a model axis, e.g.
+``{"data": 2, "model": 2}`` over 4 ranks, splits the batch over the data
+axis only; the ranks of one data index train on the same rows (and the
+same random crops) with the parameters replicated, as the JAX CLI does.
 
 Not ported (each raises): ``voc_seq_chunks > 1`` and ``voc_compute_dtype``.
 """
@@ -30,6 +33,7 @@ from __future__ import annotations
 import argparse
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from wavernn_tpu_torch import set_float32_policy
@@ -55,7 +59,9 @@ def start_ranks(device: str, batch_sizes: Sequence[int]
     (:func:`parallel.distributed.rank_device`) and, with more than one
     rank, the ``shard_batch`` of its world plan (``hp.mesh_shape`` when
     set must match the world); every batch size must split evenly over
-    the ranks."""
+    the data axis.  With a model axis numpy's global generator (the
+    vocoder's random crops) is seeded alike on the ranks of one data
+    index, from a seed rank 0 draws."""
     distributed.maybe_initialize_distributed(device=device)
     dev = distributed.rank_device(device)
     if distributed.world_size() == 1:
@@ -65,6 +71,12 @@ def start_ranks(device: str, batch_sizes: Sequence[int]
         if b % plan.n_data:
             raise ValueError(f"batch size {b} must be evenly divisible by "
                              f"the {plan.n_data} ranks")
+    if plan.n_model > 1:
+        nccl = torch.distributed.get_backend() == "nccl"
+        seed = torch.full((1,), np.random.randint(0, 2 ** 31),
+                          dtype=torch.int64, device=dev if nccl else "cpu")
+        torch.distributed.broadcast(seed, 0)
+        np.random.seed(int(seed[0]) + plan.data_rank)
     print(f"Data-parallel: {plan.describe()}")
     return dev, shard_batch_fn(plan)
 

@@ -6,6 +6,9 @@ optimizer written out in torch, step for step:
 
   * the global norm is taken over every parameter's gradient (BatchNorm
     scale and bias included), before clipping, and is what a step returns;
+    under tensor parallelism (``parallel.tensor_parallel``) it is
+    ``sqrt(sum over the model group of |sharded|^2 + |replicated|^2)``,
+    the single device's norm, and the moments take the shards' shapes;
   * gradients are scaled by ``clip / norm`` only when ``norm >= clip``
     (``torch.nn.utils.clip_grad_norm_`` would divide by ``norm + 1e-6`` on
     every step);
@@ -35,6 +38,9 @@ import torch
 from torch import nn
 
 from wavernn_tpu_torch.models import tacotron, wavernn
+from wavernn_tpu_torch.parallel.tensor_parallel import (
+    full_tensors, local_tensors, model_group_sum, sharded_parameters,
+)
 
 _F32 = np.float32
 
@@ -43,24 +49,29 @@ _F32 = np.float32
 class FlaxLayout:
     """How a model's tensors map to the JAX package's flax trees:
     ``to_tree(tensors, model)`` / ``from_tree(tree, model)`` for a
-    per-parameter dict (the parameters or an Adam moment) and the
-    ``params`` tree, ``to_variables(model)`` / ``load_variables(model,
-    variables)`` for ``{"params", "batch_stats"}``."""
+    per-parameter dict keyed by plain names (the parameters or an Adam
+    moment) and the ``params`` tree, ``to_variables(model)`` /
+    ``load_variables(model, variables)`` for ``{"params",
+    "batch_stats"}``, and ``params(model)``: every parameter as (torch
+    name, flax path, move)."""
 
     to_tree: Callable
     from_tree: Callable
     to_variables: Callable
     load_variables: Callable
+    params: Callable
 
 
 _LAYOUTS = {
     wavernn.WaveRNN: FlaxLayout(
         lambda t, m: wavernn.to_jax_tree(t, m.cfg),
         lambda t, m: wavernn.from_jax_tree(t, m.cfg),
-        wavernn.to_jax_variables, wavernn.load_jax_variables),
+        wavernn.to_jax_variables, wavernn.load_jax_variables,
+        lambda m: wavernn.param_layout(m.cfg)),
     tacotron.Tacotron: FlaxLayout(
         tacotron.to_jax_tree, tacotron.from_jax_tree,
-        tacotron.to_jax_variables, tacotron.load_jax_variables),
+        tacotron.to_jax_variables, tacotron.load_jax_variables,
+        tacotron.param_layout),
 }
 
 
@@ -91,8 +102,10 @@ class AdamState:
         inject}`` behind a clip, else ``inject``, where inject is
         ``{count, hyperparams, hyperparams_states, inner_state: {"0":
         {count, mu, nu}, "1": {}}}`` with mu and nu in the flax
-        ``params`` layout of ``model``."""
-        to_tree = layout_of(model).to_tree
+        ``params`` layout of ``model``, the moments of a parameter
+        sharded over the model axis gathered to their full shape (every
+        rank of the model group calls this)."""
+        to_tree = lambda t, m: layout_of(m).to_tree(full_tensors(t, m), m)
         count = np.asarray(self.count, np.int32)
         inject = {
             "count": count,
@@ -112,15 +125,17 @@ class AdamState:
     def from_state_dict(cls, tree: dict, model: nn.Module,
                         chained: bool) -> "AdamState":
         """Read :meth:`state_dict`'s layout (as either package writes it)
-        onto ``model``'s device.  Raises KeyError on another layout."""
+        onto ``model``'s device, each moment of a sharded parameter cut to
+        this rank's slice.  Raises KeyError on another layout."""
         inject = tree["1"] if chained else tree
         if chained and tree["0"] != {}:
             raise KeyError("unexpected clip state in the optimizer file")
         adam = inject["inner_state"]["0"]
         dev = next(model.parameters()).device
         from_tree = layout_of(model).from_tree
-        moment = lambda t: {k: torch.from_numpy(v).to(dev) for k, v in
-                            from_tree(t, model).items()}
+        moment = lambda t: {k: v.to(dev) for k, v in local_tensors(
+            {k: torch.from_numpy(v) for k, v in from_tree(t, model).items()},
+            model).items()}
         return cls(count=int(adam["count"]), mu=moment(adam["mu"]),
                    nu=moment(adam["nu"]),
                    hyperparams={k: float(_F32(v)) for k, v in
@@ -157,7 +172,18 @@ class Adam:
         ps = [params[n] for n in names]
         gs = [p.grad if p.grad is not None else torch.zeros_like(p)
               for p in ps]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+        norms = torch.stack(torch._foreach_norm(gs))
+        shards = sharded_parameters(model)
+        if shards:
+            # a sharded gradient's norm is its slices' over the model group
+            sharded = torch.tensor([n in shards for n in names],
+                                   device=norms.device)
+            sq = norms.square()
+            norm = (model_group_sum(sq[sharded].sum(),
+                                    next(iter(shards.values())).plan)
+                    + sq[~sharded].sum()).sqrt()
+        else:
+            norm = torch.linalg.vector_norm(norms)
         if self.clip is not None:
             # select(norm < clip, g, (g / norm) * clip), exactly: a divide
             # and a multiply by 1 leave g as it is
@@ -207,7 +233,9 @@ class TrainState:
     def weights_tree(self) -> dict:
         """The JAX package's weights file (its ``_model_blob``): ``params``
         and ``batch_stats`` in the flax layout, and the step as a 0-d
-        array; no optimizer data."""
+        array; no optimizer data.  Parameters sharded over the model axis
+        are gathered to their full shape (every rank of the model group
+        calls this), so the file is the one an unsharded run writes."""
         v = layout_of(self.model).to_variables(self.model)
         return {"params": v["params"], "batch_stats": v["batch_stats"],
                 "step": np.asarray(self.step, np.int32)}

@@ -38,6 +38,7 @@ from wavernn_tpu_torch.parallel import distributed
 from wavernn_tpu_torch.parallel.mesh import (
     MeshPlan, average_gradients_, check_plan, mean_over,
 )
+from wavernn_tpu_torch.parallel.tensor_parallel import gathered
 from wavernn_tpu_torch.paths import Paths
 from wavernn_tpu_torch.training.state import Adam, TrainState, set_learning_rate
 from wavernn_tpu_torch.training.wavernn import append_log
@@ -72,7 +73,11 @@ def make_tts_train_step(model: Tacotron, optimizer: Adam, r: int,
     batch: the masks are drawn for the global batch from ``generator``
     (seeded alike on every rank) and sliced to this rank's rows, BatchNorm
     takes the global statistics, the gradients are averaged over the ranks
-    before the clip, and the loss returned is the global batch's."""
+    before the clip, and the loss returned is the global batch's.  A plan
+    with a model axis takes a model sharded over it
+    (``parallel.tensor_parallel.shard_params``) or replicated along it;
+    the forward gathers each sharded parameter once, not once a decoder
+    step."""
     if plan is not None:
         check_plan(plan, True, "make_tts_train_step")
 
@@ -87,7 +92,7 @@ def make_tts_train_step(model: Tacotron, optimizer: Adam, r: int,
         if plan is not None and masks is None:
             encoder_masks, masks = _rank_masks(model.cfg, plan, x, m, r, dev,
                                                generator)
-        with batch_stats_over(model, plan):
+        with batch_stats_over(model, plan), gathered(model):
             m1_hat, m2_hat, attn = model(x, m, r, True, masks=masks,
                                          generator=generator,
                                          encoder_masks=encoder_masks)
@@ -106,9 +111,9 @@ def make_tts_train_step(model: Tacotron, optimizer: Adam, r: int,
 def _rank_masks(cfg: TacotronConfig, plan: MeshPlan, x, m, r: int, dev,
                 generator):
     """This rank's rows of the global batch's train-mode masks (its B
-    local rows are rows ``[rank*B, (rank+1)*B)``)."""
+    local rows are rows ``[d*B, (d+1)*B)`` of its data index d)."""
     B = x.shape[0]
-    rows = slice(plan.rank * B, (plan.rank + 1) * B)
+    rows = slice(plan.data_rank * B, (plan.data_rank + 1) * B)
     enc, dec = draw_train_masks(cfg, B * plan.n_data, x.shape[1],
                                 m.shape[1] // r, dev, generator)
     enc = None if enc is None else tuple(e[rows] for e in enc)
@@ -171,7 +176,8 @@ def tts_train_loop(
                 x, m = shard_batch(x, m)
                 x = x.long()
                 # this rank's utterances, for the attention example
-                ids = ids[plan.rank * len(x):(plan.rank + 1) * len(x)]
+                d = plan.data_rank
+                ids = ids[d * len(x):(d + 1) * len(x)]
             else:
                 x, m = tts_batch_to(dev, x, m)
             state, loss, grad_norm, attn, m2_hat = train_step(

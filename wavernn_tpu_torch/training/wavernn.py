@@ -35,6 +35,9 @@ from wavernn_tpu_torch.parallel import distributed
 from wavernn_tpu_torch.parallel.mesh import (
     MeshPlan, average_gradients_, check_plan, mean_over,
 )
+from wavernn_tpu_torch.parallel.tensor_parallel import (
+    gathered, sharded_parameters,
+)
 from wavernn_tpu_torch.paths import Paths
 from wavernn_tpu_torch.pruning import Pruner, make_pruner_from_hp
 from wavernn_tpu_torch.training.state import Adam, TrainState, set_learning_rate
@@ -82,7 +85,10 @@ def make_train_step(optimizer: Adam, mode: str,
     does.  With a world ``plan`` the batch is this rank's rows of the
     global batch: BatchNorm takes the global statistics, one all-reduce
     averages the gradients before the clip (which so sees the global
-    norm), and the loss returned is the global batch's."""
+    norm), and the loss returned is the global batch's.  A plan with a
+    model axis takes a model that ``parallel.tensor_parallel.shard_params``
+    sharded over it, or one replicated along it; the forward gathers each
+    sharded parameter once."""
     if mode not in ("RAW", "MOL"):
         raise ValueError(f"Unknown mode {mode}")
     if plan is not None:
@@ -95,8 +101,10 @@ def make_train_step(optimizer: Adam, mode: str,
         if isinstance(x, np.ndarray):
             x, y, mels = batch_to(dev, x, y, mels)
         if masks is not None:
+            if sharded_parameters(model):
+                raise ValueError("pruning masks take an unsharded model")
             Pruner.apply(masks, model)
-        with batch_stats_over(model, plan):
+        with batch_stats_over(model, plan), gathered(model):
             logits = model(x, mels)
         if mode == "RAW":
             loss = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
