@@ -33,17 +33,22 @@ order; any failure exits non-zero and prints no result line:
    the card, on real conditioning: the full-size golden MOL model (16 fold
    rows x 1024 steps of the golden eval mel) and the committed tiny RAW
    golden: every production configuration (RAW and MOL, int8 recurrent
-   matrices on and off, deterministic and sampling, one and two rows per
-   CTA; the plain version runs once for both rows-per-CTA settings).
+   matrices on and off, deterministic and sampling) on both designs (the
+   cluster design, ``csrc/decode_cluster.cu``, and the row design,
+   ``csrc/decode.cu``, at one and two rows per CTA; the plain version runs
+   once for the three).
    Deterministic: the first 64 steps within 1e-3 and at least 99%
    of all samples within 2e-2.  Sampling with the shared counter-based
    bits: the first 64 steps within 1e-2.  Each prints its max |d| over all
    steps.  Then the main path's Generator calibrates its int8_ff bounds on
    the first 1920-frame request (``ff_ranges``, its wall time printed), and
-   both variants (bf16 and int8 feed-forward matrices) and their plain
-   versions are timed at the main path's shape (48 folds x 12,100 steps,
-   sampling, int8 recurrent matrices) in turns: plain, kernel, int8_ff
-   kernel, int8_ff kernel, kernel, int8_ff plain.
+   both variants (bf16 and int8 feed-forward matrices) on both designs and
+   their plain versions are timed at the main path's shape (48 folds x
+   12,100 steps, sampling, int8 recurrent matrices) in turns: plain,
+   cluster, row, int8_ff cluster, int8_ff row, int8_ff row, int8_ff
+   cluster, row, cluster, int8_ff plain.  Then the cluster design's
+   ``decode_cluster_spans`` instantiation prints the median span of each
+   part of a step at 48 rows x 2,048 (int8_ff).
 4. Drives the copy-synthesis path: ``Generator`` on the golden MOL model,
    f16 mel in, int16 PCM out, folds of 11,000 + 2 x 550 samples, serving
    three requests through prestage/submit/prefetch/collect (the 1200-frame
@@ -53,7 +58,7 @@ order; any failure exits non-zero and prints no result line:
    short deterministic request must agree with the same Generator run on
    the CPU (at least 95% of samples within 655 LSB).  Prints kHz per
    request (samples / wall-clock s).
-5. Runs the vocoder CLI in a subprocess and parses the WAV it writes.
+5. Runs the vocoder CLI in process and parses the WAV it writes.
 6. Holds the Tacotron decoder-step kernel against its plain PyTorch
    version on the card, bf16 packing: (a) the committed trained tiny
    Tacotron golden on its eval text, 64 steps; (b) full width,
@@ -78,7 +83,7 @@ order; any failure exits non-zero and prints no result line:
    request, then the TTS rate at B=1 and full width (bench.py's
    ``tts_frames_per_s_b1``: K=5 submits of a 60-symbol text, 1500 frames
    each, median of 5 reps).
-9. Runs the text -> wav CLI in a subprocess and parses the WAV it writes.
+9. Runs the text -> wav CLI in process and parses the WAV it writes.
 10. Holds the matmul floor kernel against its plain version at full width
    (B=64, H=512, 64 steps from a seeded nonzero state): the state within
    1e-5, the discarded columns' sum within 1e-9 of their absolute sum.
@@ -112,8 +117,8 @@ Phases 15-19 run the golden MOL at full width, f16 in, int16 out,
 17. Co-batching on five ``uniform(0, 1, (80, 1920))`` mels from
    ``np.random.default_rng(0)``: the kernel against its plain version on
    the co-batched conditioning (240 rows, first 64 steps, both modes),
-   the 240-row launch timed at one and two rows per CTA (in turns, CUDA
-   events), then three interleaved passes of one-shot ``generate_batch``,
+   the 240-row launch timed on the cluster design and the row design at
+   one and two rows per CTA (in turns, CUDA events), then three interleaved passes of one-shot ``generate_batch``,
    the pipelined prestage/submit/prefetch/collect and the co-batched
    steady state (three serves, each submitted before the one before it is
    collected), each pass's kHz printed; each co-batched serve must be one
@@ -165,8 +170,8 @@ vocoder:
    Griffin-Lim on the card and on the CPU from one initial phase must
    agree within 1e-3 relative RMS; a 440 Hz tone must come back with its
    spectral centroid within 50 Hz of 440 and over 80% of its energy in
-   200-900 Hz; ``gen_tacotron ... griffinlim`` in a subprocess must write
-   a WAV that parses.
+   200-900 Hz; ``gen_tacotron ... griffinlim`` in process must write a
+   WAV that parses.
 
 Phases 24-26 train the full-width MOL WaveRNN (``hparams.py``: 512-wide
 GRUs and FCs, batch 32, 1,375-sample windows, Adam at 1e-4, clip 4):
@@ -213,13 +218,14 @@ width (the golden MOL, f16 in, int16 out, ``fold_bucket=16``):
 27. The variant against its plain version, as phase 3: the golden MOL (16
    rows x 1024 steps of the eval mel) and the tiny RAW golden, each with
    bounds calibrated on its own mel; int8 recurrent matrices on and off,
-   deterministic and sampling, one and two rows per CTA; phase 3's
-   tolerances, max |d| printed.
+   deterministic and sampling, the cluster design and the row design at
+   one and two rows per CTA; phase 3's tolerances, max |d| printed.
 28. The crossover sweep: ``tools.step_opt_probe``'s interleaved A/B of
    int8_hh against int8_hh + int8_ff at 1, 4, 16, 48, 64, 132 and 240
-   rows x 2,048 steps (3 passes of 2 launches, CUDA events), us/step per
-   arm; fails if the policy (``ops.decode.FF_AUTO_MIN_ROWS``) turns the
-   variant on at a width where it lost.
+   rows x 2,048 steps (3 passes of 2 launches, CUDA events), both designs
+   of the kernel as four interleaved arms, us/step per arm; fails if the
+   policy (``ops.decode.FF_AUTO_MIN_ROWS``) turns the variant on at a
+   width where it lost on the cluster design.
 29. Serving with the variant forced on: the kernel against its plain
    version on five co-batched 1920-frame requests' conditioning (240
    rows, 64 steps, both modes), then three co-batched serves of them, each
@@ -435,9 +441,10 @@ the gates and says that it skips those checks:
    ``measure_gates`` printed: three WAVs and attention matrices, finite
    gates; both counters must rise (``gen_tacotron``).
 
-The decode kernel's launch counts (all launches, those with int8
-feed-forward matrices and those of int8_gates) are set to 0 just before
-each main-path run and read just after; the record's ``launches`` sum
+The decode kernel's launch counts (all launches, those of the cluster
+design, those with int8 feed-forward matrices and those of int8_gates) are
+set to 0 just before each main-path run and read just after, and every
+launch but int8_gates' must be the cluster design's; the record's ``launches`` sum
 phase 4's, phases 15-21's, phase 25's, phases 29-30's, phase 32's, phase
 35's, phases 38-39's, phases 41-42's, phase 44's, phase 47's and phases
 49-53's, split between the three variants, and the TTS kernel's sums
@@ -455,8 +462,10 @@ the timed call (the larger of its operations over the H100's dense peak
 for their type and its bytes, each input read once and each output written
 once, over 3.35 TB/s) and ``library_ms`` is null: no single PyTorch call
 computes any of these T-step recurrences.  The decode kernel has three
-entries: ``wavernn_decode`` (bf16 feed-forward matrices),
-``wavernn_decode_int8_ff`` and ``wavernn_decode_int8_gates``; the Tacotron
+entries: ``wavernn_decode`` (bf16 feed-forward matrices) and
+``wavernn_decode_int8_ff``, both the cluster design's
+(``decode_cluster.cu``), and ``wavernn_decode_int8_gates`` (the row
+design's, ``decode.cu``); the Tacotron
 kernel two: ``tacotron_decode`` and ``tacotron_decode_int8_lstm``.
 """
 
@@ -484,6 +493,11 @@ BREAKDOWN_B, BREAKDOWN_T, BREAKDOWN_REPS = 64, 2048, 2
 # phases 44 and 47: folds of 1,100 + 2 x 55 samples, so that each float32
 # scan decode (~1 ms a step on the card) takes 1,210 steps, not 12,100
 SHORT_FOLDS = dict(voc_target=1100, voc_overlap=55)
+# the decode kernel's designs (cuda_decode.DESIGNS) and the rows per CTA
+# each is held at against its plain version: the cluster design (the
+# default: it plans its own rows), the row design at one and two rows
+DESIGNS = ("cluster", "row")
+DESIGN_ARMS = (("cluster", 1), ("row", 1), ("row", 2))
 
 
 def bound(ops, nbytes: int):
@@ -553,9 +567,10 @@ def in_turns(run_plain, run_kernel):
 
 
 # the decode kernel's launches in the main path's runs (phases 4, 15-21,
-# 25, 29-30, 32, 35, 38-39, 41-42, 44 and 47): all of them, those with
-# int8 feed-forward matrices and those of int8_gates
-MAIN_DECODE = {"all": 0, "int8_ff": 0, "int8_gates": 0}
+# 25, 29-30, 32, 35, 38-39, 41-42, 44 and 47): all of them, those of the
+# cluster design, those with int8 feed-forward matrices and those of
+# int8_gates
+MAIN_DECODE = {"all": 0, "cluster": 0, "int8_ff": 0, "int8_gates": 0}
 
 
 def zero_decode_counts():
@@ -563,16 +578,23 @@ def zero_decode_counts():
     from wavernn_tpu_torch.ops import cuda_decode
 
     cuda_decode.decode.launches = 0
+    cuda_decode.decode.launches_cluster = 0
     cuda_decode.decode.launches_int8_ff = 0
     cuda_decode.decode.launches_int8_gates = 0
 
 
 def count_main_decode() -> int:
     """Add the decode launches since the counts were set to 0 to the main
-    path's tally; returns all of them."""
+    path's tally; returns all of them.  Fails unless every launch but
+    int8_gates' went through the cluster design."""
     from wavernn_tpu_torch.ops import cuda_decode
 
+    d = cuda_decode.decode
+    if d.launches_cluster != d.launches - d.launches_int8_gates:
+        fail(f"{d.launches} decode launches, {d.launches_int8_gates} of "
+             f"int8_gates, but {d.launches_cluster} of the cluster design")
     MAIN_DECODE["all"] += cuda_decode.decode.launches
+    MAIN_DECODE["cluster"] += cuda_decode.decode.launches_cluster
     MAIN_DECODE["int8_ff"] += cuda_decode.decode.launches_int8_ff
     MAIN_DECODE["int8_gates"] += cuda_decode.decode.launches_int8_gates
     return cuda_decode.decode.launches
@@ -645,13 +667,15 @@ def main():
     tiny_raw = variables_of(TINY_RAW)
 
     # -- 3. kernel against plain ----------------------------------------
-    errs = []
+    errs, errs_row = [], []   # the cluster design's (bf16 ff), the row's
 
-    def compare(tag, packed, cond, T, cfg, det, seed, rows_per_cta, out_p):
-        """The kernel against ``out_p``, its plain version's output."""
+    def compare(tag, packed, cond, T, cfg, det, seed, design, rows_per_cta,
+                out_p):
+        """The kernel of ``design`` against ``out_p``, its plain version's
+        output."""
         out_k = cuda_decode.decode(packed, cond, T, seed, cfg.mode,
                                    cfg.n_classes, det,
-                                   rows_per_cta=rows_per_cta)
+                                   rows_per_cta=rows_per_cta, design=design)
         torch.cuda.synchronize()
         d = (out_k - out_p).abs()
         first = float(d[:, :64].max())
@@ -663,7 +687,7 @@ def main():
               flush=True)
         if not torch.isfinite(out_k).all() or not ok:
             fail(f"kernel disagrees with its plain version [{tag}]")
-        errs.append(first)
+        (errs if design == "cluster" else errs_row).append(first)
 
     def real_cond(gen, mel, rows, steps, target, overlap):
         staged = gen.prestage(mel, batched=True, target=target,
@@ -686,13 +710,14 @@ def main():
             for det in (True, False):
                 kind = "deterministic" if det else "sampling"
                 seed = 0 if det else 1234
-                # the plain version once for both rows-per-CTA settings
+                # the plain version once for both designs
                 out_p = cuda_decode.decode_reference(
                     gen.packed, cond, 1024, seed, cfg.mode, cfg.n_classes,
                     det)
-                for rows in (1, 2):
-                    compare(f"{tag} {q} R={rows} {kind}", gen.packed, cond,
-                            1024, cfg, det, seed, rows, out_p)
+                for design, rows in DESIGN_ARMS:
+                    compare(f"{tag} {q} {design} R={rows} {kind}",
+                            gen.packed, cond, 1024, cfg, det, seed, design,
+                            rows, out_p)
 
     # timing at the main path's shape: a 1920-frame mel, 48 folds
     rng = np.random.default_rng(0)
@@ -723,38 +748,66 @@ def main():
           flush=True)
 
     # both variants (bf16 and int8 feed-forward matrices) at the main
-    # path's shape, in turns with their plain versions
+    # path's shape on both designs, in turns with their plain versions
     variants = {"bf16 ff": gen.packed, "int8_ff": gen.packed_ff}
-    runs = {v: (lambda p=p: cuda_decode.decode(p, cond, T, 7, "MOL", 30,
-                                               False),
-                lambda p=p: cuda_decode.decode_reference(p, cond, T, 7,
-                                                         "MOL", 30, False))
-            for v, p in variants.items()}
-    for run_k, _ in runs.values():
-        run_k()  # warm
-    (kb, pb), (kf, pf) = runs["bf16 ff"], runs["int8_ff"]
-    outs, times = timed_in_order((pb, kb, kf, kf, kb, pf))
+    run = lambda p, design: (lambda: cuda_decode.decode(
+        p, cond, T, 7, "MOL", 30, False, design=design))
+    plain = lambda p: (lambda: cuda_decode.decode_reference(
+        p, cond, T, 7, "MOL", 30, False))
+    runs = {(v, d): run(p, d) for v, p in variants.items()
+            for d in DESIGNS}
+    for fn in runs.values():
+        fn()  # warm
+    pb, pf = plain(variants["bf16 ff"]), plain(variants["int8_ff"])
+    c, r = "cluster", "row"
+    order = (pb, runs["bf16 ff", c], runs["bf16 ff", r], runs["int8_ff", c],
+             runs["int8_ff", r], runs["int8_ff", r], runs["int8_ff", c],
+             runs["bf16 ff", r], runs["bf16 ff", c], pf)
+    outs, times = timed_in_order(order)
     main_ms = {}
     errs_ff = []
-    for v, (run_k, run_p) in runs.items():
+    for (v, design), run_k in runs.items():
+        run_p = pb if v == "bf16 ff" else pf
         d = (outs[run_k] - outs[run_p]).abs()
         main_err = float(d[:, :64].max())
-        print(f"kernel vs plain [main path, sampling int8_hh, {v}] rows "
-              f"{cond.shape[0]} steps {T}: first-64 max|d| {main_err:.3g}, "
-              f"within 2e-2 {float((d <= 2e-2).float().mean()):.5f}, "
-              f"max|d| {float(d.max()):.3g}")
+        print(f"kernel vs plain [main path, sampling int8_hh, {v}, {design} "
+              f"design] rows {cond.shape[0]} steps {T}: first-64 max|d| "
+              f"{main_err:.3g}, within 2e-2 "
+              f"{float((d <= 2e-2).float().mean()):.5f}, max|d| "
+              f"{float(d.max()):.3g}")
         if main_err > 1e-2 or not torch.isfinite(outs[run_k]).all():
             fail(f"kernel disagrees with its plain version at the main "
-                 f"shape [{v}]")
-        (errs if v == "bf16 ff" else errs_ff).append(main_err)
+                 f"shape [{v}, {design} design]")
+        if design == "row":
+            errs_row.append(main_err)
+        else:
+            (errs if v == "bf16 ff" else errs_ff).append(main_err)
         k_ms, p_ms = (float(np.mean(times[f])) for f in (run_k, run_p))
-        main_ms[v] = (k_ms, p_ms)
-        print(f"decode time at {cond.shape[0]} x {T} [{v}]: kernel "
-              f"{[round(x, 3) for x in times[run_k]]} ms "
+        main_ms[v, design] = (k_ms, p_ms)
+        print(f"decode time at {cond.shape[0]} x {T} [{v}, {design} design]: "
+              f"kernel {[round(x, 3) for x in times[run_k]]} ms "
               f"({k_ms * 1e3 / T:.2f} us/step), plain "
               f"{[round(x, 1) for x in times[run_p]]} ms "
               f"({p_ms * 1e3 / T:.2f} us/step) | {card}", flush=True)
     del outs
+    # where the cluster design's step goes: the spans instantiation's
+    # stamps at the main path's rows, 2,048 steps
+    out_s, spans = cuda_decode.decode_cluster_spans(
+        gen.packed_ff, cond[:, :2048].contiguous(), 2048, 7, "MOL", 30, False)
+    ref = cuda_decode.decode(gen.packed_ff, cond[:, :2048].contiguous(), 2048,
+                             7, "MOL", 30, False)
+    if not torch.equal(out_s, ref):
+        fail("the spans instantiation differs from the cluster kernel")
+    st = spans.cpu().numpy().astype(np.float64)[64:2047]
+    step_ns = np.median(np.diff(st[:, 0]))
+    parts = np.median(np.diff(st, axis=1), axis=0)
+    tail = np.median(st[1:, 0] - st[:-1, -1])
+    names = cuda_decode.CLUSTER_SPANS
+    print(f"cluster design spans (int8_ff, {cond.shape[0]} rows x 2048, CTA "
+          f"0 of cluster 0, medians, us): step {step_ns / 1e3:.2f}; "
+          + ", ".join(f"{names[i + 1]} {parts[i] / 1e3:.2f}"
+                      for i in range(len(parts)))
+          + f", sample {tail / 1e3:.2f} | {card}", flush=True)
 
     # -- 4. the main path -----------------------------------------------
     requests = [eval_mel] + long_mels
@@ -810,16 +863,13 @@ def main():
     mel_path = SMOKE_DIR / "eval_mel.npy"
     np.save(mel_path, eval_mel)
     out_dir = SMOKE_DIR / "cli_out"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run(
-        [sys.executable, "-m", "wavernn_tpu_torch.gen_wavernn",
-         "--file", str(mel_path), "--voc_weights", str(GOLDEN),
-         "--output_dir", str(out_dir), "--hp_file",
-         str(REPO / "hparams.py")],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    print("cli: " + " | ".join(proc.stdout.strip().splitlines()[-2:]))
-    if proc.returncode != 0:
-        fail(f"CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    from wavernn_tpu_torch import gen_wavernn
+
+    log, _ = cli_output(gen_wavernn.main, [
+        "--file", str(mel_path), "--voc_weights", str(GOLDEN),
+        "--output_dir", str(out_dir), "--hp_file", str(REPO / "hparams.py")],
+        REPO)
+    print("cli: " + " | ".join(log.strip().splitlines()[-2:]))
     wavs = sorted(out_dir.glob("__eval_mel__*.wav"))
     if len(wavs) != 1:
         fail(f"CLI wrote {wavs}")
@@ -839,7 +889,7 @@ def main():
     tts = tts_phases(dev, card, wavio, GOLDEN)
     clock("6-9")
     floor = measurement_phases(dev, card, golden_cfg, gen, eval_mel,
-                               long_mels[0], errs)
+                               long_mels[0], errs_row)
     clock("10-14")
     serving = serving_phases(dev, card, golden_cfg, golden, eval_mel, errs)
     clock("15-19")
@@ -851,6 +901,7 @@ def main():
     ff = int8_ff_phases(dev, card, golden_cfg, golden, raw_cfg, tiny_raw,
                         eval_mel, raw_mel)
     errs_ff += ff["errs"]
+    errs_row += ff["errs_row"]
     clock("27-30")
     tts_train = tts_training_phases(dev, card)
     clock("31-33")
@@ -879,8 +930,9 @@ def main():
     n_g = MAIN_DECODE["int8_gates"]
     n_bf = MAIN_DECODE["all"] - n_ff - n_g
     print(f"decode launches on the main path: {MAIN_DECODE['all']} "
-          f"({n_bf} with bf16 feed-forward matrices, {n_ff} with int8, "
-          f"{n_g} of int8_gates; "
+          f"({MAIN_DECODE['cluster']} of the cluster design: {n_bf} with bf16 "
+          f"feed-forward matrices, {n_ff} with int8; {n_g} of int8_gates on "
+          f"the row design; "
           f"phase 4: {launches}, serving {serving['launches']}, text "
           f"serving {text_serving['decode_launches']}, training "
           f"{training['decode_launches']}, int8_ff serving "
@@ -893,28 +945,34 @@ def main():
           f"{examples['decode']})")
     if n_bf == 0 or n_ff == 0 or n_g == 0 or i8["int8_lstm"]["launches"] == 0:
         fail("a kernel variant was not launched on the main path")
+    if MAIN_DECODE["cluster"] != n_bf + n_ff:
+        fail(f"{n_bf + n_ff} bf16 / int8_ff decode launches, "
+             f"{MAIN_DECODE['cluster']} of the cluster design")
+    print(f"the row design (decode.cu), held beside the cluster design in "
+          f"phases 3, 11 and 27: max first-64 |d| {max(errs_row):.3g} over "
+          f"{len(errs_row)} comparisons")
     i8["int8_gates"]["launches"] = n_g   # phases 41-42's and phase 44's
     print(json.dumps({"kernels": [{
         "name": "wavernn_decode",
         "route": "cuda",
-        "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
+        "source": "wavernn_tpu_torch/ops/csrc/decode_cluster.cu",
         "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
         "launches": n_bf,
         "max_abs_err": max(errs),
-        "ms": main_ms["bf16 ff"][0],
-        "plain_ms": main_ms["bf16 ff"][1],
+        "ms": main_ms["bf16 ff", "cluster"][0],
+        "plain_ms": main_ms["bf16 ff", "cluster"][1],
         "bound_ms": voc_bound["bf16 ff"][0],
         "bound_by": voc_bound["bf16 ff"][1],
         "library_ms": None,
     }, {
         "name": "wavernn_decode_int8_ff",
         "route": "cuda",
-        "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
+        "source": "wavernn_tpu_torch/ops/csrc/decode_cluster.cu",
         "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
         "launches": n_ff,
         "max_abs_err": max(errs_ff),
-        "ms": main_ms["int8_ff"][0],
-        "plain_ms": main_ms["int8_ff"][1],
+        "ms": main_ms["int8_ff", "cluster"][0],
+        "plain_ms": main_ms["int8_ff", "cluster"][1],
         "bound_ms": voc_bound["int8_ff"][0],
         "bound_by": voc_bound["int8_ff"][1],
         "library_ms": None,
@@ -1210,17 +1268,14 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     # -- 9. the text -> wav CLI ------------------------------------------
     hp_file = tts_hp_file(meta)
     out_dir = SMOKE_DIR / "tts_cli_out"
-    env = dict(os.environ, PYTHONPATH=str(REPO))
-    proc = subprocess.run(
-        [sys.executable, "-m", "wavernn_tpu_torch.gen_tacotron",
-         "--input_text", meta["eval_text"], "--tts_weights",
-         str(TACO_DIR / "tiny_tacotron.msgpack"), "--hp_file", str(hp_file),
-         "--output_dir", str(out_dir), "wavernn", "--voc_weights",
-         str(voc_weights)],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    print("tts cli: " + " | ".join(proc.stdout.strip().splitlines()[-3:]))
-    if proc.returncode != 0:
-        fail(f"TTS CLI exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    from wavernn_tpu_torch import gen_tacotron
+
+    log, _ = cli_output(gen_tacotron.main, [
+        "--input_text", meta["eval_text"], "--tts_weights",
+        str(TACO_DIR / "tiny_tacotron.msgpack"), "--hp_file", str(hp_file),
+        "--output_dir", str(out_dir), "wavernn", "--voc_weights",
+        str(voc_weights)], REPO)
+    print("tts cli: " + " | ".join(log.strip().splitlines()[-3:]))
     wavs = sorted(out_dir.glob("__input_*.wav"))
     if len(wavs) != 1:
         fail(f"TTS CLI wrote {wavs}")
@@ -1477,22 +1532,22 @@ def serving_phases(dev, card, cfg, golden, eval_mel, errs: list,
             fail(f"kernel disagrees with its plain version at {rows} rows")
         errs.append(err)
     del head
-    step_us = {1: [], 2: []}
-    for r in (1, 2, 2, 1):
+    step_us = {arm: [] for arm in DESIGN_ARMS}
+    for arm in DESIGN_ARMS + DESIGN_ARMS[::-1]:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
         start.record()
         cuda_decode.decode(gen.packed, cond, T, 9, cfg.mode, cfg.n_classes,
-                           False, rows_per_cta=r)
+                           False, design=arm[0], rows_per_cta=arm[1])
         end.record()
         torch.cuda.synchronize()
-        step_us[r].append(start.elapsed_time(end) * 1e3 / T)
+        step_us[arm].append(start.elapsed_time(end) * 1e3 / T)
     del cond
-    print(f"decode step at {rows} x {T} (co-batched, sampling): one row per "
-          f"CTA {[round(x, 2) for x in step_us[1]]} us/step, two rows per "
-          f"CTA {[round(x, 2) for x in step_us[2]]} us/step | {card}",
-          flush=True)
+    print(f"decode step at {rows} x {T} (co-batched, sampling, bf16 ff): "
+          + ", ".join(f"{d} design R={r} "
+                      f"{[round(x, 2) for x in step_us[d, r]]} us/step"
+                      for d, r in DESIGN_ARMS) + f" | {card}", flush=True)
 
     def oneshot(p):
         return gen.generate_batch(mels5, seed=1_000_000 + p, **geom)
@@ -1680,7 +1735,7 @@ def int8_ff_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
 
     if not hp.is_configured():
         hp.configure(REPO / "hparams.py")
-    errs, launches = [], 0
+    errs, errs_row, launches = [], [], 0
     geom = dict(target=TARGET, overlap=OVERLAP, mu_law=False)
 
     # -- 27. the variant against its plain version ------------------------
@@ -1702,10 +1757,10 @@ def int8_ff_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
                 out_p = cuda_decode.decode_reference(
                     gen.packed_ff, cond, 1024, seed, mcfg.mode,
                     mcfg.n_classes, det)
-                for rows in (1, 2):
+                for design, rows in DESIGN_ARMS:
                     out_k = cuda_decode.decode(
                         gen.packed_ff, cond, 1024, seed, mcfg.mode,
-                        mcfg.n_classes, det, rows_per_cta=rows)
+                        mcfg.n_classes, det, rows_per_cta=rows, design=design)
                     torch.cuda.synchronize()
                     d = (out_k - out_p).abs()
                     first = float(d[:, :64].max())
@@ -1713,21 +1768,21 @@ def int8_ff_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
                     ok = ((first <= 1e-3 and agree >= 0.99) if det
                           else first <= 1e-2)
                     kind = "deterministic" if det else "sampling"
-                    print(f"int8_ff kernel vs plain [{tag} {q} R={rows} "
-                          f"{kind}] rows 16 steps 1024: first-64 max|d| "
-                          f"{first:.3g}, within 2e-2 {agree:.5f}, max|d| "
-                          f"{float(d.max()):.3g} -> "
+                    print(f"int8_ff kernel vs plain [{tag} {q} {design} "
+                          f"R={rows} {kind}] rows 16 steps 1024: first-64 "
+                          f"max|d| {first:.3g}, within 2e-2 {agree:.5f}, "
+                          f"max|d| {float(d.max()):.3g} -> "
                           f"{'ok' if ok else 'FAIL'}", flush=True)
                     if not ok or not torch.isfinite(out_k).all():
                         fail(f"the int8_ff kernel disagrees with its plain "
-                             f"version [{tag} {q} R={rows} {kind}]")
-                    errs.append(first)
+                             f"version [{tag} {q} {design} R={rows} {kind}]")
+                    (errs if design == "cluster" else errs_row).append(first)
 
     # -- 28. the crossover sweep ------------------------------------------
     sweep = step_opt_probe.ab_int8_ff(
         *step_opt_probe.golden_setup(dev, golden, cfg, eval_mel),
         widths=step_opt_probe.WIDTHS, T=2048, passes=3, reps=2,
-        log=lambda line: print(line, flush=True))
+        log=lambda line: print(line, flush=True), designs=DESIGNS)
     lost = [w["rows"] for w in sweep["widths"] if w["delta_median"] >= 0]
     print(f"int8_ff policy: auto from {FF_AUTO_MIN_ROWS} rows; the sweep's "
           f"crossover {sweep['crossover_rows']}, int8_ff slower at "
@@ -1842,8 +1897,8 @@ def int8_ff_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
     if not mcd < threshold or n_ff != n or n == 0:
         fail(f"MCD gate with int8_ff: mean {mcd} >= {threshold}, or "
              f"{n - n_ff} launches without the int8 pack")
-    return {"errs": errs, "launches": launches, "mcd": mcd,
-            "crossover": sweep["crossover_rows"]}
+    return {"errs": errs, "errs_row": errs_row, "launches": launches,
+            "mcd": mcd, "crossover": sweep["crossover_rows"]}
 
 
 def http_get(port: int, path: str) -> dict:
@@ -2218,16 +2273,13 @@ def text_serving_phases(dev, card, voc_cfg, golden, eval_mel) -> dict:
     if not (abs(centroid - 440) < 50 and share > 0.8):
         fail("Griffin-Lim does not give back the 440 Hz tone")
     out_dir = SMOKE_DIR / "gl_cli_out"
-    proc = subprocess.run(
-        [sys.executable, "-m", "wavernn_tpu_torch.gen_tacotron",
-         "--input_text", meta["eval_text"], "--tts_weights",
-         str(TACO_DIR / "tiny_tacotron.msgpack"), "--hp_file", str(hp_file),
-         "--output_dir", str(out_dir), "griffinlim"],
-        cwd=REPO, env=env, capture_output=True, text=True, timeout=600)
-    print("gl cli: " + " | ".join(proc.stdout.strip().splitlines()[-3:]))
-    if proc.returncode != 0:
-        fail(f"griffinlim CLI exited {proc.returncode}:\n"
-             f"{proc.stderr[-3000:]}")
+    from wavernn_tpu_torch import gen_tacotron
+
+    log, _ = cli_output(gen_tacotron.main, [
+        "--input_text", meta["eval_text"], "--tts_weights",
+        str(TACO_DIR / "tiny_tacotron.msgpack"), "--hp_file", str(hp_file),
+        "--output_dir", str(out_dir), "griffinlim"], REPO)
+    print("gl cli: " + " | ".join(log.strip().splitlines()[-3:]))
     wavs = sorted(out_dir.glob("__input_*_griffinlim_*.wav"))
     if len(wavs) != 1:
         fail(f"griffinlim CLI wrote {wavs}")

@@ -130,8 +130,10 @@ def ff_packed_on(model, cfg, device, int8_hh, cond):
 @pytest.mark.parametrize("mode", ["RAW", "MOL"])
 def test_int8_ff_kernel_matches_plain_version(cuda_device, mode, int8_hh,
                                               det, rows_per_cta):
-    """The int8 feed-forward variant against its plain version: int8 dots
-    are exact in both, so the tolerance is the one of every variant."""
+    """The int8 feed-forward variant against its plain version on the row
+    design (the cluster design's cases are tests/test_torch_cuda_cluster.py):
+    int8 dots are exact in both, so the tolerance is the one of every
+    variant."""
     cfg, model = small(mode)
     B, T = 5, 300
     cond = conditioning(cfg, B, T, cuda_device)
@@ -139,7 +141,7 @@ def test_int8_ff_kernel_matches_plain_version(cuda_device, mode, int8_hh,
     assert packed["w_fc1x"].dtype == torch.int8
     n, n_ff = cuda_decode.decode.launches, cuda_decode.decode.launches_int8_ff
     got = cuda_decode.decode(packed, cond, T, 3, mode, cfg.n_classes, det,
-                             rows_per_cta=rows_per_cta)
+                             rows_per_cta=rows_per_cta, design="row")
     torch.cuda.synchronize()
     assert cuda_decode.decode.launches == n + 1
     assert cuda_decode.decode.launches_int8_ff == n_ff + 1
@@ -287,7 +289,7 @@ def test_kernel_one_row_per_cta_matches_plain_version(cuda_device, int8_hh):
     packed = packed_on(model, cfg, cuda_device, int8_hh)
     cond = conditioning(cfg, 3, 200, cuda_device)
     got = cuda_decode.decode(packed, cond, 200, 5, "RAW", cfg.n_classes,
-                             False, rows_per_cta=1)
+                             False, rows_per_cta=1, design="row")
     want = cuda_decode.decode_reference(packed, cond, 200, 5, "RAW",
                                         cfg.n_classes, False)
     assert float((got - want).abs()[:, :64].max()) <= 1e-2
@@ -332,7 +334,9 @@ def test_kernel_uneven_splits_match_plain_version_exactly(
         cuda_device, width, mode, int8_hh, rows_per_cta):
     """H = F = 48 or 80: column groups (3H/16 int8, 3H/8 and F/8 bf16) and
     K-slices that do not divide the CTA's threads evenly; K0 = 80 + 9, odd;
-    5 rows, not a multiple of R.  Held to max |d| 0 in both decode modes."""
+    5 rows, not a multiple of R.  Held to max |d| 0 in both decode modes,
+    on the row design (the cluster design's case:
+    tests/test_torch_cuda_cluster.py)."""
     cfg = WaveRNNConfig(rnn_dims=width, fc_dims=width, compute_dims=32,
                         res_out_dims=36, res_blocks=2, mode=mode)
     packed = packed_on(seeded_model(cfg), cfg, cuda_device, int8_hh)
@@ -341,7 +345,7 @@ def test_kernel_uneven_splits_match_plain_version_exactly(
     cond = conditioning(cfg, B, T, cuda_device)
     for det in (True, False):
         got = cuda_decode.decode(packed, cond, T, 3, mode, cfg.n_classes,
-                                 det, rows_per_cta=rows_per_cta)
+                                 det, rows_per_cta=rows_per_cta, design="row")
         torch.cuda.synchronize()
         want = cuda_decode.decode_reference(packed, cond, T, 3, mode,
                                             cfg.n_classes, det)
@@ -405,16 +409,17 @@ def test_generator_on_card_matches_cpu(cuda_device):
 @pytest.mark.parametrize("rows_per_cta", [1, 2])
 def test_kernel_at_240_rows_matches_plain_version_exactly(cuda_device,
                                                           rows_per_cta):
-    """Five co-batched 1920-frame requests make 240 fold rows: two waves
-    of one-row CTAs on 132 SMs.  Held to max |d| 0 over 64 steps in both
-    decode modes."""
+    """Five co-batched 1920-frame requests make 240 fold rows: on the row
+    design, two waves of one-row CTAs on 132 SMs (the cluster design's
+    case: tests/test_torch_cuda_cluster.py).  Held to max |d| 0 over 64
+    steps in both decode modes."""
     cfg, model = small("MOL")
     packed = packed_on(model, cfg, cuda_device, True)
     B, T = 240, 64
     cond = conditioning(cfg, B, T, cuda_device, seed=240)
     for det in (True, False):
         got = cuda_decode.decode(packed, cond, T, 5, "MOL", cfg.n_classes,
-                                 det, rows_per_cta=rows_per_cta)
+                                 det, rows_per_cta=rows_per_cta, design="row")
         torch.cuda.synchronize()
         want = cuda_decode.decode_reference(packed, cond, T, 5, "MOL",
                                             cfg.n_classes, det)

@@ -97,11 +97,22 @@ def load_library():
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
-        for fn in (lib.wavernn_decode, lib.tts_decode, lib.tts_decode_spans,
-                   lib.matmul_floor):
+        for fn in (lib.wavernn_decode, lib.wavernn_decode_cluster,
+                   lib.tts_decode, lib.tts_decode_spans, lib.matmul_floor):
             fn.argtypes = [ctypes.POINTER(ctypes.c_void_p),
                            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.wavernn_decode_cluster_spans.argtypes = [
+            ctypes.POINTER(ctypes.c_void_p),
+            ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p,
+            ctypes.c_void_p]
+        lib.wavernn_decode_cluster_spans.restype = ctypes.c_int
+        lib.wavernn_decode_cluster_max.argtypes = [
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)]
+        lib.wavernn_decode_cluster_max.restype = ctypes.c_int
+        lib.wavernn_decode_cluster_bytes.argtypes = [
+            ctypes.POINTER(ctypes.c_longlong)]
+        lib.wavernn_decode_cluster_bytes.restype = ctypes.c_longlong
         lib.tts_decode_max_ctas.argtypes = [ctypes.POINTER(ctypes.c_int),
                                             ctypes.c_longlong, ctypes.c_int]
         lib.tts_decode_max_ctas.restype = ctypes.c_int

@@ -1,4 +1,5 @@
-// WaveRNN sample loop, one persistent kernel for Hopper (sm_90a).
+// WaveRNN sample loop, one persistent kernel for Hopper (sm_90a): the row
+// design, one CTA per fold row.
 //
 // Replaces wavernn_tpu/ops/pallas_decode.py::_decode_kernel (launched by
 // pallas_decode.decode).  It computes what that kernel computes, step for
@@ -6,6 +7,13 @@
 // decode_reference is this kernel's plain PyTorch version), not how the TPU
 // lays it out: no 128-lane padding, no chunked DMA double-buffering, no
 // on-core transpose.
+//
+// Route.  The cluster design (decode_cluster.cu: a fold row's columns
+// split over a thread-block cluster) serves the int8 / bf16 recurrent and
+// feed-forward variants by default.  This kernel serves int8_gates (G8,
+// whose per-row operand maxima would need one more cluster-wide reduction
+// per operand) and the ablations, and is the A/B arm of the cluster design
+// (cuda_decode.decode(design="row")).
 //
 // Design.  One CTA owns R fold rows for all T steps, with no communication
 // between CTAs.  Its recurrent state (x, h1, h2), the residual and the
@@ -94,15 +102,17 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "decode_step.cuh"
 #include "dot.cuh"
 
 namespace {
+
+using namespace step;
 
 // Threads per CTA: a CTA of one row fits its registers in 64 a thread and
 // takes 1,024 threads, twice the warps to issue from (PERF.md: the matmul
 // floor 2.2x faster than at R = 2 and 512 threads).
 __host__ __device__ constexpr int threads(int R) { return R == 1 ? 1024 : 512; }
-constexpr float LOG_SCALE_MIN = -32.23619130191664f;  // log(1e-14)
 constexpr int AB_SAMPLE = 1, AB_GATES = 2, AB_COND_READ = 4, AB_OUT_WRITE = 8;
 
 struct Params {
@@ -139,76 +149,6 @@ enum { D_IM1, D_IM, D_HH1, D_IH2, D_AUX2, D_HH2, D_FC1, D_AUX3, D_FC2,
 // G8's operands quantized per row: h1, xr (GRU2's input), h2, xr after
 // GRU2 (FC1's), relu(f1) (FC2's)
 enum { Q_H1, Q_X1, Q_H2, Q_X2, Q_F1, NQ };
-
-// float32 arithmetic with one rounding per operation
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-
-__device__ __forceinline__ float bfr(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-// a dot operand: bf16-rounded, held as double at the dots' scale
-__device__ __forceinline__ double bfr64(float v) {
-  return dot::act(static_cast<double>(bfr(v)));
-}
-__device__ __forceinline__ float sigm(float v) {
-  return add(mul(0.5f, tanhf(mul(0.5f, v))), 0.5f);
-}
-__device__ __forceinline__ uint32_t mix32(uint32_t x) {
-  x ^= x >> 16; x *= 0x7feb352dU;
-  x ^= x >> 15; x *= 0x846ca68bU;
-  x ^= x >> 16;
-  return x;
-}
-__device__ __forceinline__ uint32_t rand_bits(uint32_t seed, uint32_t row,
-                                              uint32_t step, uint32_t lane) {
-  uint32_t h = mix32(seed ^ 0x9e3779b9U);
-  h = mix32(h ^ row);
-  h = mix32(h ^ step);
-  return mix32(h ^ lane);
-}
-__device__ __forceinline__ float uniform(uint32_t bits) {
-  return add(sub(__uint_as_float((bits >> 9) | 0x3f800000U), 1.0f), 1e-7f);
-}
-__device__ __forceinline__ float gumbel(uint32_t bits) {
-  return -logf(-logf(uniform(bits)));
-}
-
-// Warp argmax, first index on ties.
-__device__ __forceinline__ void warp_argmax(float& v, int& i) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    float ov = __shfl_xor_sync(0xffffffffU, v, o);
-    int oi = __shfl_xor_sync(0xffffffffU, i, o);
-    if (ov > v || (ov == v && oi < i)) { v = ov; i = oi; }
-  }
-}
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = add(v, __shfl_xor_sync(0xffffffffU, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffU, v, o));
-  return v;
-}
-
-// Torch-convention GRU update of column j: gi/gh are the input- and
-// hidden-side (r, z, n) pre-activations, b packs b_ih+b_hh for r/z and
-// b_ih for n; the hidden-side n bias is scaled by r.
-__device__ __forceinline__ float gru(const float (&gi)[3], const float (&gh)[3],
-                                     const float* b, const float* b_hh_n,
-                                     int j, int H, float h) {
-  const float rr = sigm(add(add(gi[0], b[j]), gh[0]));
-  const float zz = sigm(add(add(gi[1], b[H + j]), gh[1]));
-  const float nn = tanhf(add(add(gi[2], b[2 * H + j]),
-                             mul(rr, add(gh[2], b_hh_n[j]))));
-  return add(mul(sub(1.0f, zz), nn), mul(zz, h));
-}
 
 // The ablated GRU update; ``keep`` takes the unused gate values, so that
 // their dots stay live.
@@ -536,44 +476,10 @@ __global__ void __launch_bounds__(threads(R)) decode_kernel(Params p) {
                     p.b_fc3[i]);
       __syncwarp();
       float sample;
-      if constexpr ((MASK & AB_SAMPLE) != 0) {
+      if constexpr ((MASK & AB_SAMPLE) != 0)
         sample = tanhf(lg[0]);
-      } else if (p.mode == 0) {  // RAW: (Gumbel-)argmax over the classes
-        float best = -CUDART_INF_F;
-        int bi = NO;
-        for (int i = lane; i < NO; i += 32) {
-          float s = lg[i];
-          if (!p.det) s = add(s, gumbel(rand_bits(p.seed, rb, t, i)));
-          if (s > best) { best = s; bi = i; }
-        }
-        warp_argmax(best, bi);
-        // class -> [-1, 1], dividing as a multiply by the f32 reciprocal
-        const float inv = static_cast<float>(1.0 / (NO - 1.0));
-        sample = sub(mul(mul(2.0f, static_cast<float>(bi)), inv), 1.0f);
-      } else {            // MOL
-        const int nm = NO / 3;
-        const bool on = lane < nm;
-        if (p.det) {
-          float best = on ? lg[lane] : -CUDART_INF_F;
-          int bi = on ? lane : NO;
-          warp_argmax(best, bi);
-          sample = lg[nm + bi];
-        } else {
-          const float s = on ? add(lg[lane],
-                                   gumbel(rand_bits(p.seed, rb, t, lane)))
-                             : -CUDART_INF_F;
-          const float mx = warp_max(s);
-          const float hit = (on && s >= mx) ? 1.f : 0.f;
-          const float oh = __fdiv_rn(hit, warp_sum(hit));
-          const float mean = warp_sum(on ? mul(lg[nm + lane], oh) : 0.f);
-          const float ls = warp_sum(
-              on ? mul(fmaxf(lg[2 * nm + lane], LOG_SCALE_MIN), oh) : 0.f);
-          const float u = fminf(fmaxf(uniform(rand_bits(p.seed, rb, t, nm)),
-                                      1e-5f), 0.99999f);
-          sample = add(mean, mul(expf(ls), sub(logf(u), logf(sub(1.0f, u)))));
-        }
-        sample = fminf(fmaxf(sample, -1.f), 1.f);
-      }
+      else
+        sample = sample_row(lg, NO, p.mode, p.det, p.seed, rb, t, lane);
       if (lane == 0) {
         xs[r] = sample;
         if (!(MASK & AB_OUT_WRITE) && b < p.B)

@@ -240,6 +240,89 @@ __device__ __forceinline__ void dot_i8(int* part, const uint32_t* aq,
   first = (first + tasks) % NT;
 }
 
+// The cluster kernel's dots (decode_cluster.cu): a CTA computes its slice
+// of a matrix's columns for Rt rows, RC of them a task (held in registers).
+// The slice is ng gates of N columns each (gate g's first column at w + g *
+// gs); its partial column of gate g, column n, is g * np + n (np >= N: the
+// most columns any CTA of the cluster owns, so that every CTA has one
+// layout).  Task i takes row chunk i % NRC, column group (i / NRC) % G and
+// slice i / (NRC * G): the lanes of a warp that share a column group share
+// its weight addresses, so a weight is fetched once per warp load for all
+// Rt rows.
+
+// part[s][g * np + n][r], as dot_bf16's partial sums; a holds [K][Rt].
+template <int NT, int RC, int V>
+__device__ __forceinline__ void dot_bf16_rows(double* part, const double* a,
+                                              int Rt, int K, int N, int ng,
+                                              int np, int gs,
+                                              const __nv_bfloat16* w, int ldw,
+                                              Split sp, int& first) {
+  const int NRC = Rt / RC, GN = N / V, G = ng * GN, tasks = NRC * G * sp.S;
+  for (int i = first_task<NT>(first); i < tasks; i += NT) {
+    const int rc = i % NRC, gg = (i / NRC) % G, s = i / (NRC * G);
+    const int g = gg / GN, c0 = (gg % GN) * V, r0 = rc * RC;
+    const int k0 = s * sp.L, k1 = min(K, k0 + sp.L);
+    double acc[V][RC];
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+#pragma unroll
+      for (int r = 0; r < RC; ++r) acc[c][r] = 0.0;
+    const __nv_bfloat16* wp = w + (size_t)k0 * ldw + (size_t)g * gs + c0;
+#pragma unroll 8
+    for (int k = k0; k < k1; ++k, wp += ldw)
+      fma_row<RC, V>(acc, load_raw<V>(wp), a + k * Rt + r0);
+    double* o = part + ((size_t)s * ng * np + g * np + c0) * Rt + r0;
+#pragma unroll
+    for (int c = 0; c < V; ++c)
+#pragma unroll
+      for (int r = 0; r < RC; ++r) o[c * Rt + r] = acc[c][r];
+  }
+  first = (first + tasks) % NT;
+}
+
+// The place of column n (of ng * np), row r in an int8 dot's sums: one pad
+// word every 16 columns, so that the 16-column groups of a warp's lanes
+// fall in different banks.
+__device__ __forceinline__ int acc_at(int n, int r, int Rt) {
+  return (n + (n >> 4)) * Rt + r;
+}
+
+// acc[acc_at(g * np + n, r)] += the int8 dot (int32, exact, so the slices
+// add in any order: with atomics, into sums the consumer set to 0); aq
+// packs [K / 4][Rt] four k rows to a word.
+template <int NT, int RC>
+__device__ __forceinline__ void dot_i8_rows(int* acc_out, const uint32_t* aq,
+                                            int Rt, int K, int N, int ng,
+                                            int np, int gs, const int8_t* w,
+                                            int ldw, Split sp, int& first) {
+  const int NRC = Rt / RC, GN = N / 16, G = ng * GN, tasks = NRC * G * sp.S;
+  for (int i = first_task<NT>(first); i < tasks; i += NT) {
+    const int rc = i % NRC, gg = (i / NRC) % G, s = i / (NRC * G);
+    const int g = gg / GN, c0 = (gg % GN) * 16, r0 = rc * RC;
+    const int k0 = s * sp.L, k1 = min(K, k0 + sp.L);
+    int acc[1][16][RC];
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+#pragma unroll
+      for (int r = 0; r < RC; ++r) acc[0][c][r] = 0;
+    const int8_t* wp = w + (size_t)k0 * ldw + (size_t)g * gs + c0;
+#pragma unroll 4
+    for (int k = k0; k < k1; k += 4, wp += (size_t)4 * ldw) {
+      uint4 q[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        q[j] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)j * ldw));
+      dp4a_rows<RC, 1>(acc, q, aq, nullptr, (k / 4) * Rt + r0);
+    }
+#pragma unroll
+    for (int c = 0; c < 16; ++c)
+#pragma unroll
+      for (int r = 0; r < RC; ++r)
+        atomicAdd(acc_out + acc_at(g * np + c0 + c, r0 + r, Rt), acc[0][c][r]);
+  }
+  first = (first + tasks) % NT;
+}
+
 // Column n, row r of a split dot: its S partial sums added in slice order,
 // rounded once to float32.
 template <int R>

@@ -1,4 +1,4 @@
-"""The WaveRNN sample loop as one hand-written CUDA kernel for Hopper.
+"""The WaveRNN sample loop as hand-written CUDA kernels for Hopper.
 
 Counterpart of ``wavernn_tpu/ops/pallas_decode.py``: the same packed
 weights (without the TPU's 128-lane padding), the same per-step math, and a
@@ -51,6 +51,15 @@ update ``0.5*h + 0.01*(gi[:, :H] + gh[:, :H])``, ``"cond_read"`` reads a
 zero conditioning row, ``"sample"`` makes ``tanh(logits[:, 0])`` the sample
 and the next x, and ``"out_write"`` stores no output (which is then
 unspecified).
+
+The kernel has two designs (:func:`decode`'s ``design``).  ``"cluster"``
+(``csrc/decode_cluster.cu``, the default for every variant but
+``int8_gates`` and the ablations): a fold row's output columns are split
+over a thread-block cluster of K CTAs, each streaming 1/K of the weights a
+step, the operands of the next phase exchanged through distributed shared
+memory; :func:`cluster_plan` lays it out.  ``"row"`` (``csrc/decode.cu``):
+one CTA owns ``rows_per_cta`` fold rows and streams every weight; it is
+``int8_gates``'s and the ablations' route and the A/B arm.
 """
 
 from __future__ import annotations
@@ -66,13 +75,16 @@ if TYPE_CHECKING:
 
 LOG_SCALE_MIN = float(math.log(1e-14))
 _MODES = {"RAW": 0, "MOL": 1}
-# Fold rows per CTA (the ablations are built for this one: ABLATION_R in
-# csrc/decode.cu).  Measured on an H100 (700 W) at 64 rows x 2,048 steps
-# with int8_hh: 72.94 us/step at 1 (1,024 threads), more than twice that
-# at 2 (512 threads; PERF.md): a CTA builds each weight's double once for
-# its R rows, but its float64 FMAs grow with R and it has half the
-# threads.  Up to 132 rows (one CTA per SM) one row per CTA is faster.
+# The row design's fold rows per CTA (the ablations and int8_gates are
+# built for this one: ABLATION_R in csrc/decode.cu).  Measured on an H100
+# (700 W) at 64 rows x 2,048 steps with int8_hh: 72.94 us/step at 1 (1,024
+# threads), more than twice that at 2 (512 threads; PERF.md): a CTA builds
+# each weight's double once for its R rows, but its float64 FMAs grow with
+# R and it has half the threads.  Up to 132 rows (one CTA per SM) one row
+# per CTA is faster.  The cluster design sets its rows per cluster itself
+# (:func:`cluster_plan`).
 ROWS_PER_CTA = 1
+DESIGNS = ("cluster", "row")
 # the kernel's ablation bits (AB_* in csrc/decode.cu), and the masks it is
 # built for: production (0) and the breakdown's five
 ABLATIONS = {"sample": 1, "gates": 2, "cond_read": 4, "out_write": 8}
@@ -457,48 +469,232 @@ def decode_reference(packed: dict, cond: torch.Tensor, T: int, seed: int,
     return out
 
 
+# -- the cluster design's plan ---------------------------------------------
+
+CLUSTER_THREADS = 512      # threads per CTA (NT in csrc/decode_cluster.cu)
+CLUSTER_KMAX = 16          # the largest cluster (non-portable past 8)
+SMEM_LIMIT = 232_448       # shared memory one CTA may use on Hopper
+# bytes one bf16 dot's partial sums may take, largest first: a larger
+# budget splits k finer (shorter chains of L2 round trips)
+DOT_BUDGETS = (65_536, 32_768, 16_384, 8_192, 4_096, 2_048)
+# the step's dots, in csrc/decode_cluster.cu's order
+CLUSTER_DOTS = ("im1", "im", "hh1", "ih2", "aux2", "hh2", "fc1", "aux3",
+                "fc2", "aux4", "fc3")
+# the window (1-4) each dot is computed in for the next step, between the
+# arrival at that cluster barrier and the wait there; 0: in its phase
+CLUSTER_WINDOW = dict(im1=1, im=1, hh1=2, ih2=0, aux2=2, hh2=3, fc1=0,
+                      aux3=3, fc2=0, aux4=4, fc3=0)
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def dot_split(K: int, G: int, nt: int, align: int, smax: int,
+              min_rows: int) -> tuple:
+    """``dot::split`` of ``csrc/dot.cuh``: (S slices, L rows each) of a
+    K-row dot with G column tasks a slice over ``nt`` threads."""
+    if K <= 0:
+        return 1, align
+    S = nt // G if G > 0 else 1
+    S = max(1, min(S, K // min_rows, smax))
+    L = -(-K // S)
+    L = -(-L // align) * align
+    return -(-K // L), L
+
+
+def owned(n_groups: int, group: int, cta: int, K: int) -> tuple:
+    """[start, stop) of the columns CTA ``cta`` of a cluster of ``K`` owns:
+    a balanced share of ``n_groups`` groups of ``group`` columns."""
+    return (group * (cta * n_groups // K),
+            group * ((cta + 1) * n_groups // K))
+
+
+def cluster_size(H: int, F: int, int8_ff: bool) -> int:
+    """The widest cluster the widths take: every CTA owns at least one
+    16-unit GRU group and one FC group (16 columns with int8 feed-forward
+    matrices, else 8), at most :data:`CLUSTER_KMAX` CTAs."""
+    n = min(H // 16, F // (16 if int8_ff else 8), CLUSTER_KMAX)
+    if n < 1:
+        raise ValueError(f"the cluster kernel takes H >= 16 and F >= "
+                         f"{16 if int8_ff else 8}, got H={H}, F={F}")
+    return 1 << (n.bit_length() - 1)
+
+
+def cluster_plan(B: int, H: int, F: int, feat: int, aux_d: int, n_out: int,
+                 int8_hh: bool, int8_ff: bool, max_clusters: int,
+                 K: int | None = None, limit: int = SMEM_LIMIT,
+                 budget: int | None = None) -> dict:
+    """The cluster kernel's plan for ``B`` fold rows on clusters of ``K``
+    CTAs (default :func:`cluster_size`), of which ``max_clusters`` are
+    co-resident on the card (one CTA an SM): ``rows`` per cluster so that
+    ``clusters`` x ``rows`` >= B in one wave, ``rc`` rows a task, each
+    CTA's GRU units and FC columns, each dot's split and the place of its
+    sums, and the shared-memory ``bytes`` every CTA allocates (the kernel
+    computes the same layout and refuses a launch whose plan disagrees).
+    ``budget`` caps the bytes of one bf16 dot's partial sums (default: the
+    largest of :data:`DOT_BUDGETS` whose layout fits).  Raises
+    ``ValueError`` with the numbers when the layout exceeds ``limit``
+    bytes."""
+    if budget is None:
+        for b in DOT_BUDGETS[:-1]:
+            try:
+                return cluster_plan(B, H, F, feat, aux_d, n_out, int8_hh,
+                                    int8_ff, max_clusters, K, limit, b)
+            except ValueError as e:
+                if "do not fit" not in str(e):
+                    raise
+        budget = DOT_BUDGETS[-1]
+    if B < 1 or max_clusters < 1:
+        raise ValueError(f"B and max_clusters must be >= 1, got {B}, "
+                         f"{max_clusters}")
+    if H % 16 or F % (16 if int8_ff else 8):
+        raise ValueError(f"the cluster kernel takes H a multiple of 16 and "
+                         f"F of {16 if int8_ff else 8}, got H={H}, F={F}")
+    K = cluster_size(H, F, int8_ff) if K is None else K
+    gF = 16 if int8_ff else 8
+    nGH, nGF = H // 16, F // gF
+    if K < 1 or K > CLUSTER_KMAX or K & (K - 1) or K > min(nGH, nGF):
+        raise ValueError(f"cluster size {K} is not a power of two up to "
+                         f"{min(nGH, nGF, CLUSTER_KMAX)} for H={H}, F={F}")
+    need = -(-B // max_clusters)
+    rc = 1 if need == 1 else 2
+    rows = -(-need // rc) * rc
+    clusters = -(-B // rows)
+    U = 16 * -(-nGH // K)
+    Fo = gF * -(-nGF // K)
+    d, K0 = aux_d, feat + aux_d
+    C = feat + 4 * aux_d
+    nrc = rows // rc
+    Kd = dict(im1=K0, im=K0, hh1=H, ih2=H, aux2=d, hh2=H, fc1=H, aux3=d,
+              fc2=F, aux4=d, fc3=Fo)
+    ng = dict(im1=3, im=1, hh1=3, ih2=3, aux2=3, hh2=3, fc1=1, aux3=1,
+              fc2=1, aux4=1, fc3=1)
+    np_ = dict(im1=U, im=U, hh1=U, ih2=U, aux2=U, hh2=U, fc1=Fo, aux3=Fo,
+               fc2=Fo, aux4=Fo, fc3=n_out)
+    is8 = dict.fromkeys(CLUSTER_DOTS, False)
+    is8.update(hh1=int8_hh, hh2=int8_hh, ih2=int8_ff, fc1=int8_ff,
+               fc2=int8_ff)
+    # a bf16 dot's partial sums live only until its window or epilogue adds
+    # them up: every window's dots and every phase's dot share one region;
+    # an int8 dot's atomic sums have their own
+    splits, offsets, ints, pre = {}, {}, {}, 0
+    group = dict.fromkeys(range(5), 0)
+    for name in CLUSTER_DOTS:
+        V = 1 if name == "fc3" else 16 if is8[name] else 8
+        min_rows = 16 if is8[name] else 8
+        cols = ng[name] * np_[name]
+        smax = Kd[name] if is8[name] else max(1, budget // (cols * rows * 8))
+        S, L = dot_split(Kd[name], nrc * (cols // V), CLUSTER_THREADS,
+                         4 if is8[name] else 1, smax, min_rows)
+        splits[name] = (S, L)
+        if is8[name]:
+            ints[name] = _align16((cols + cols // 16) * rows * 4)
+            continue
+        n = _align16(S * cols * rows * 8)
+        w = CLUSTER_WINDOW[name]
+        offsets[name] = group[w] if w else 0
+        group[w] = group[w] + n if w else max(group[0], n)
+        if w:
+            pre += _align16(cols * rows * 4)
+    used = max(group.values())
+    for name, n in ints.items():
+        offsets[name] = used
+        used += n
+    regions = {"partial sums": max(group.values()),
+               "int8 sums": sum(ints.values()), "added-up sums": pre}
+    used += pre
+    W = max(H, F)
+    hbytes = _align16(H * rows * (1 if int8_hh else 8))
+    ab = _align16(W * rows * (1 if int8_ff else 8))
+    for name, n in (("cond", _align16(C * rows * 8)),
+                    ("cond rows", 2 * _align16(C * rows * 2)),
+                    ("h1", 2 * hbytes),
+                    ("h2", hbytes), ("a", ab), ("b", ab),
+                    ("own f2", _align16(Fo * rows * 8)),
+                    ("fc3 partials", K * _align16(n_out * rows * 8)),
+                    ("own", 3 * _align16(U * rows * 4)),
+                    ("logits", _align16(rows * n_out * 4)),
+                    ("xs", _align16(rows * 4)),
+                    ("constants", _align16(
+                        ((13 + 6 * int8_hh + 3 * int8_ff) * U
+                         + (4 if int8_ff else 2) * Fo + n_out) * 4))):
+        regions[name] = n
+        used += n
+    if used > limit:
+        raise ValueError(
+            f"{B} fold rows do not fit the cluster kernel on clusters of {K} "
+            f"CTAs ({max_clusters} co-resident): {rows} rows a cluster need "
+            f"{used} bytes of shared memory per CTA, the limit is {limit}")
+    return dict(K=K, rows=rows, rc=rc, clusters=clusters, U=U, Fo=Fo,
+                budget=budget,
+                units=[owned(nGH, 16, q, K) for q in range(K)],
+                fc=[owned(nGF, gF, q, K) for q in range(K)],
+                splits=splits, offsets=offsets, regions=regions, bytes=used)
+
+
+def pick_cluster_plan(B: int, H: int, F: int, feat: int, aux_d: int,
+                      n_out: int, int8_hh: bool, int8_ff: bool,
+                      clusters_at) -> dict:
+    """The plan on the widest cluster whose layout fits in the fewest
+    waves: K from :func:`cluster_size` down to 1, ``clusters_at(K)`` the
+    co-resident clusters of K CTAs (0: the card takes none).  One wave
+    where any K fits; past that (rows no layout holds, e.g. a co-batch of
+    many long utterances) the clusters run in ``waves`` waves, each
+    repeating the T steps.  Raises ``ValueError`` naming every K tried
+    when not even one row a cluster fits."""
+    tried = []
+    waves, most = 1, 1
+    while True:
+        K = cluster_size(H, F, int8_ff)
+        while K >= 1:
+            n = clusters_at(K)
+            most = max(most, n)
+            if n >= 1:
+                try:
+                    plan = cluster_plan(B, H, F, feat, aux_d, n_out, int8_hh,
+                                        int8_ff, n * waves, K)
+                    plan["waves"] = -(-plan["clusters"] // n)
+                    return plan
+                except ValueError as e:
+                    if waves == 1:
+                        tried.append(str(e))
+            elif waves == 1:
+                tried.append(f"no cluster of {K} CTAs fits the card")
+            K //= 2
+        if waves * most >= B:
+            raise ValueError("no cluster plan fits: " + "; ".join(tried))
+        waves += 1
+
+
+_MAX_CLUSTERS: dict = {}
+
+
+def max_clusters(lib, device: torch.device, K: int, int8_hh: bool,
+                 int8_ff: bool) -> int:
+    """The card's co-resident clusters of ``K`` CTAs, one CTA an SM
+    (``wavernn_decode_cluster_max``), asked once per device and variant."""
+    key = (device.index, K, bool(int8_hh), bool(int8_ff))
+    if key not in _MAX_CLUSTERS:
+        out = ctypes.c_int(0)
+        dims = (ctypes.c_longlong * 3)(K, int(int8_hh), int(int8_ff))
+        with torch.cuda.device(device):
+            err = lib.wavernn_decode_cluster_max(ctypes.byref(out), dims)
+        if err != 0:
+            raise RuntimeError(
+                f"cudaOccupancyMaxActiveClusters for clusters of {K}: "
+                f"{lib.wavernn_error_string(err).decode()}")
+        _MAX_CLUSTERS[key] = out.value
+    return _MAX_CLUSTERS[key]
+
+
 # -- the kernel's wrapper -------------------------------------------------
 
-def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
-           n_classes: int, deterministic: bool,
-           ablate: frozenset = frozenset(),
-           rows_per_cta: int = ROWS_PER_CTA, row0: int = 0) -> torch.Tensor:
-    """(B, T) float32 samples of the sample loop over fold-major bf16
-    conditioning ``cond`` (B, >=T, C).  The kernel variant is the pack's
-    (:func:`variant`): int8 recurrent matrices, int8 feed-forward matrices
-    (with their ``ffq``), or ``int8_gates``.  ``rows_per_cta`` (1 or 2) is the
-    kernel's fold rows per CTA; ``row0`` is the random bits' row of row 0
-    (a shard's offset in its batch); ``ablate`` as in the module's
-    docstring (the kernel
-    is built with the ablations in :data:`KERNEL_ABLATIONS`, for int8
-    recurrent matrices and :data:`ROWS_PER_CTA` rows per CTA).  The
-    kernel's 16-byte weight loads take H a multiple of 16 and F of 8 (of 16
-    with int8 feed-forward matrices), and 16-byte aligned weights; other
-    shapes raise.  ``int8_gates`` is built for :data:`ROWS_PER_CTA` rows
-    per CTA and no ablation; other settings raise, on the CPU too.
-
-    A CUDA tensor launches the kernel (``csrc/decode.cu``) on the current
-    stream; a CPU tensor runs :func:`decode_reference`.  ``decode.launches``
-    counts kernel launches, ``decode.launches_int8_ff`` those with int8
-    feed-forward matrices, ``decode.launches_int8_gates`` those of
-    ``int8_gates``."""
-    mask = ablation_mask(ablate)
-    if rows_per_cta not in (1, 2):
-        raise ValueError(f"rows_per_cta must be 1 or 2, got {rows_per_cta}")
-    if not 0 <= row0 < 2 ** 32:
-        raise ValueError(f"row0 must be in [0, 2**32), got {row0}")
+def _check_cuda(packed: dict, cond: torch.Tensor, T: int, mode: str,
+                n_classes: int, ablate, mask: int, rows_per_cta: int):
+    """The checks of a launch on the card; returns (B, Tc, C, H, F, d, K0,
+    n_out, int8_hh, int8_ff)."""
     int8_gates = is_int8_gates(packed)
-    if int8_gates and (mask or rows_per_cta != ROWS_PER_CTA):
-        raise ValueError(
-            f"the int8_gates kernel is built for {ROWS_PER_CTA} row(s) per "
-            f"CTA and no ablation; got rows_per_cta={rows_per_cta}, "
-            f"ablate={sorted(ablate)}")
-    if cond.device.type == "cpu":
-        return decode_reference(packed, cond, T, seed, mode, n_classes,
-                                deterministic, ablate, row0)
-    if cond.device.type != "cuda":
-        raise ValueError(f"decode runs on CUDA or CPU tensors, got "
-                         f"{cond.device}")
     _check(packed, cond, T, mode)
     B, Tc, C = cond.shape
     H = packed["b_hh1_n"].shape[0]
@@ -569,31 +765,169 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
                 f"16-byte aligned on {cond.device}, got {tuple(t.shape)} "
                 f"{t.dtype} {t.device} at {t.data_ptr():#x}")
 
+    return B, Tc, C, H, F, d, K0, n_out, int8_hh, int8_ff
+
+
+def _pointers(packed: dict, cond: torch.Tensor, out: torch.Tensor) -> list:
+    return [cond.data_ptr(), out.data_ptr()] + [
+        packed[k].data_ptr() if packed.get(k) is not None else 0
+        for k in WEIGHT_ORDER]
+
+
+def _cluster_dims(lib, shape, cond, T, seed, mode, deterministic,
+                  row0) -> list:
+    """The cluster kernel's dims: the plan for the card's co-resident
+    clusters, checked against the kernel's own layout."""
+    B, Tc, C, H, F, d, K0, n_out, int8_hh, int8_ff = shape
+    plan = pick_cluster_plan(
+        B, H, F, K0 - d, d, n_out, int8_hh, int8_ff,
+        lambda k: max_clusters(lib, cond.device, k, int8_hh, int8_ff))
+    layout = [H, F, K0 - d, d, n_out, int(int8_hh), int(int8_ff), plan["K"],
+              plan["rows"], plan["rc"], plan["budget"]]
+    nb = lib.wavernn_decode_cluster_bytes(
+        (ctypes.c_longlong * len(layout))(*layout))
+    if nb != plan["bytes"]:
+        raise RuntimeError(f"decode cluster kernel: its layout takes {nb} "
+                           f"bytes, the plan {plan['bytes']}")
+    return [B, Tc, C, T, H, F, K0 - d, d, n_out, _MODES[mode],
+            int(deterministic), int(int8_hh), int(int8_ff), seed & 0xFFFFFFFF,
+            row0, plan["K"], plan["rows"], plan["rc"], plan["clusters"],
+            plan["budget"], plan["bytes"]]
+
+
+def _call(lib, entry, design: str, ptrs: list, dims: list, device,
+          *extra) -> None:
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = entry((ctypes.c_void_p * len(ptrs))(*ptrs),
+                    (ctypes.c_longlong * len(dims))(*dims),
+                    ctypes.c_void_p(stream), *extra)
+    if err != 0:
+        raise RuntimeError(f"decode kernel ({design} design) launch failed: "
+                           f"{lib.wavernn_error_string(err).decode()}")
+
+
+def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
+           n_classes: int, deterministic: bool,
+           ablate: frozenset = frozenset(),
+           rows_per_cta: int = ROWS_PER_CTA, row0: int = 0,
+           design: str | None = None) -> torch.Tensor:
+    """(B, T) float32 samples of the sample loop over fold-major bf16
+    conditioning ``cond`` (B, >=T, C).  The kernel variant is the pack's
+    (:func:`variant`): int8 recurrent matrices, int8 feed-forward matrices
+    (with their ``ffq``), or ``int8_gates``.  ``design`` picks the kernel
+    (the module's docstring): ``"cluster"``, the default for every variant
+    but ``int8_gates`` and the ablations, which take ``"row"`` and raise
+    when asked for ``"cluster"``, on the CPU too.  ``rows_per_cta`` (1 or
+    2) is the row design's fold rows per CTA (the cluster design plans its
+    own and raises on another value); ``row0`` is the random bits' row of
+    row 0 (a shard's offset in its batch); ``ablate`` as in the module's
+    docstring (the row kernel is built with the ablations in
+    :data:`KERNEL_ABLATIONS`, for int8 recurrent matrices and
+    :data:`ROWS_PER_CTA` rows per CTA).  The kernels' 16-byte weight loads
+    take H a multiple of 16 and F of 8 (of 16 with int8 feed-forward
+    matrices), and 16-byte aligned weights; other shapes raise.
+    ``int8_gates`` is built for :data:`ROWS_PER_CTA` rows per CTA and no
+    ablation; other settings raise, on the CPU too.
+
+    A CUDA tensor launches the design's kernel (``csrc/decode_cluster.cu``
+    or ``csrc/decode.cu``) on the current stream, or raises (a cluster
+    launch the card refuses raises with its error; nothing falls back); a
+    CPU tensor runs :func:`decode_reference`.  ``decode.launches`` counts
+    kernel launches, ``decode.launches_cluster`` those of the cluster
+    design, ``decode.launches_int8_ff`` those with int8 feed-forward
+    matrices, ``decode.launches_int8_gates`` those of ``int8_gates``."""
+    mask = ablation_mask(ablate)
+    if rows_per_cta not in (1, 2):
+        raise ValueError(f"rows_per_cta must be 1 or 2, got {rows_per_cta}")
+    if not 0 <= row0 < 2 ** 32:
+        raise ValueError(f"row0 must be in [0, 2**32), got {row0}")
+    int8_gates = is_int8_gates(packed)
+    if int8_gates and (mask or rows_per_cta != ROWS_PER_CTA):
+        raise ValueError(
+            f"the int8_gates kernel is built for {ROWS_PER_CTA} row(s) per "
+            f"CTA and no ablation; got rows_per_cta={rows_per_cta}, "
+            f"ablate={sorted(ablate)}")
+    if design is None:
+        design = "row" if int8_gates or mask else "cluster"
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
+    if design == "cluster" and (int8_gates or mask):
+        raise ValueError(
+            f"the cluster design takes neither int8_gates nor an ablation "
+            f"(they run on design='row'); got variant {variant(packed)}, "
+            f"ablate={sorted(ablate)}")
+    if design == "cluster" and rows_per_cta != ROWS_PER_CTA:
+        raise ValueError(f"rows_per_cta={rows_per_cta} is the row design's; "
+                         f"the cluster design plans its rows itself")
+    if cond.device.type == "cpu":
+        return decode_reference(packed, cond, T, seed, mode, n_classes,
+                                deterministic, ablate, row0)
+    if cond.device.type != "cuda":
+        raise ValueError(f"decode runs on CUDA or CPU tensors, got "
+                         f"{cond.device}")
+    shape = _check_cuda(packed, cond, T, mode, n_classes, ablate, mask,
+                        rows_per_cta)
+
     from wavernn_tpu_torch.ops.build import load_library
 
     lib = load_library()
-    out = torch.empty(B, T, dtype=torch.float32, device=cond.device)
-    ptrs = [cond.data_ptr(), out.data_ptr()] + [
-        packed[k].data_ptr() if packed.get(k) is not None else 0
-        for k in WEIGHT_ORDER]
-    dims = [B, Tc, C, T, H, F, K0 - d, d, n_out, _MODES[mode],
-            int(deterministic), int(int8_hh), rows_per_cta, seed & 0xFFFFFFFF,
-            mask, int(int8_ff), row0, int(int8_gates)]
-    stream = torch.cuda.current_stream(cond.device).cuda_stream
-    with torch.cuda.device(cond.device):
-        err = lib.wavernn_decode(
-            (ctypes.c_void_p * len(ptrs))(*ptrs),
-            (ctypes.c_longlong * len(dims))(*dims),
-            ctypes.c_void_p(stream))
-    if err != 0:
-        raise RuntimeError(f"decode kernel launch failed: "
-                           f"{lib.wavernn_error_string(err).decode()}")
+    out = torch.empty(cond.shape[0], T, dtype=torch.float32,
+                      device=cond.device)
+    if design == "cluster":
+        dims = _cluster_dims(lib, shape, cond, T, seed, mode, deterministic,
+                             row0)
+        entry = lib.wavernn_decode_cluster
+    else:
+        B, Tc, C, H, F, d, K0, n_out, int8_hh, int8_ff = shape
+        dims = [B, Tc, C, T, H, F, K0 - d, d, n_out, _MODES[mode],
+                int(deterministic), int(int8_hh), rows_per_cta,
+                seed & 0xFFFFFFFF, mask, int(int8_ff), row0, int(int8_gates)]
+        entry = lib.wavernn_decode
+    _call(lib, entry, design, _pointers(packed, cond, out), dims, cond.device)
     decode.launches += 1
-    decode.launches_int8_ff += int(int8_ff)
+    decode.launches_cluster += int(design == "cluster")
+    decode.launches_int8_ff += int(shape[-1])
     decode.launches_int8_gates += int(int8_gates)
     return out
 
 
 decode.launches = 0
+decode.launches_cluster = 0
 decode.launches_int8_ff = 0
 decode.launches_int8_gates = 0
+
+# stamps a step of decode_cluster_spans (NSPAN in csrc/decode_cluster.cu):
+# each is the time at which CTA 0 of the first cluster passed that point
+CLUSTER_SPANS = ("start", "gru1", "window1+barrier1", "ih2_dot", "gru2",
+                 "window2+barrier2", "fc1", "window3+barrier3", "fc2",
+                 "fc3_partial", "window4", "barrier4")
+
+
+def decode_cluster_spans(packed: dict, cond: torch.Tensor, T: int, seed: int,
+                         mode: str, n_classes: int, deterministic: bool):
+    """Dev only: the cluster kernel's int8_hh + int8_ff instantiation that
+    stamps the card's nanosecond clock (``%globaltimer``) at the points of
+    :data:`CLUSTER_SPANS` in every step.  Returns (:func:`decode`'s
+    samples, the stamps (T, len(CLUSTER_SPANS)) int64 on the card).  Not
+    counted in ``decode.launches``; nothing on the request path calls it."""
+    if cond.device.type != "cuda":
+        raise ValueError(f"the spans launch needs CUDA tensors, got "
+                         f"{cond.device}")
+    if variant(packed) != "int8_hh+int8_ff":
+        raise ValueError(f"the spans launch is built for int8_hh+int8_ff, "
+                         f"got {variant(packed)}")
+    shape = _check_cuda(packed, cond, T, mode, n_classes, frozenset(), 0,
+                        ROWS_PER_CTA)
+    from wavernn_tpu_torch.ops.build import load_library
+
+    lib = load_library()
+    out = torch.empty(cond.shape[0], T, dtype=torch.float32,
+                      device=cond.device)
+    spans = torch.zeros(T, len(CLUSTER_SPANS), dtype=torch.int64,
+                        device=cond.device)
+    dims = _cluster_dims(lib, shape, cond, T, seed, mode, deterministic, 0)
+    _call(lib, lib.wavernn_decode_cluster_spans, "cluster spans",
+          _pointers(packed, cond, out), dims, cond.device,
+          ctypes.c_void_p(spans.data_ptr()))
+    return out, spans

@@ -10,8 +10,10 @@ Defaults: B = 64 rows, T = 12,160 steps.  It runs
 
 * the matmul floor (``ops/matmul_floor.py``: six bf16 dots of a (B, 512)
   state per step, from a seeded nonzero state);
-* the full decode kernel: MOL sampling, int8 recurrent matrices, the
-  production rows per CTA, on the committed trained golden
+* the full decode kernel of the row design (``csrc/decode.cu``, the one
+  the ablations are built in; the cluster design is timed beside it by
+  ``chip_smoke.py`` phases 3 and 28): MOL sampling, int8 recurrent
+  matrices, the production rows per CTA, on the committed trained golden
   (``bench_assets/wavernn_mol_golden.msgpack``) over a seeded uniform bf16
   conditioning (B, T, 208), so that gates and sampling see trained
   activations;
@@ -134,7 +136,7 @@ def run_breakdown(B: int, T: int, dev: torch.device, reps: int = 3,
 
         def fn(seed, steps=T):
             return cuda_decode.decode(p, cond, steps, seed, cfg.mode,
-                                      cfg.n_classes, det, **kw)
+                                      cfg.n_classes, det, design="row", **kw)
         fn(0, min(T, WARM_T))
         t = timed(fn)
         per = t * 1e3 / T

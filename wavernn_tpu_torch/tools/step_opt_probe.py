@@ -6,10 +6,12 @@ TPU-only variants and have no counterpart here.
 
     python -m wavernn_tpu_torch.tools.step_opt_probe --ab \\
         [--widths 1,4,16,48,64,132,240] [--T 2048] [--passes 5] [--reps 2] \\
-        [--device cuda|cpu]
+        [--designs cluster,row] [--device cuda|cpu]
 
 Full width: the committed trained golden MOL
-(``bench_assets/wavernn_mol_golden.msgpack``), sampling, one row per CTA,
+(``bench_assets/wavernn_mol_golden.msgpack``), sampling, the decode
+kernel's cluster design (``--designs`` adds the row design, one row per
+CTA, as further interleaved arms; the first design decides the crossover),
 the feed-forward bounds calibrated (``ops.decode.ff_ranges``, seed 17) on
 the golden eval mel's conditioning, and each width's rows cut from that
 conditioning at seeded start rows.  The passes are strictly interleaved
@@ -111,8 +113,11 @@ def rows_of(stream: torch.Tensor, B: int, T: int, seed: int = 0):
 
 
 def ab_int8_ff(gen, stream: torch.Tensor, widths, T: int, passes: int,
-               reps: int, log=print) -> dict:
-    """Interleaved A/B passes per width; returns the JSON record."""
+               reps: int, log=print, designs=("cluster",)) -> dict:
+    """Interleaved A/B passes per width, for each kernel design in
+    ``designs`` (``cuda_decode.decode``'s; the first one's arms decide the
+    crossover); returns the JSON record: per width the first design's arms
+    at the top and every design's under ``"designs"``."""
     from wavernn_tpu_torch.ops import cuda_decode
 
     dev = stream.device
@@ -120,38 +125,45 @@ def ab_int8_ff(gen, stream: torch.Tensor, widths, T: int, passes: int,
     med, mn = (metric(f"{k}_us_per_step", dev) for k in ("median", "min"))
     timed = _timer(dev, reps)
     c = gen.cfg
-    arms = {"int8_hh": gen.packed, "int8_hh+int8_ff": gen.packed_ff}
+    variants = {"int8_hh": gen.packed, "int8_hh+int8_ff": gen.packed_ff}
+    arms = [(d, name) for d in designs for name in variants]
     rec = {"device": tag, "T": T, "passes": passes, "reps": reps,
+           "designs": list(designs),
            "ff_scales": [float(x) for x in gen.ff_scales.cpu()],
            "widths": []}
     medians = {}
     for B in widths:
         cond = rows_of(stream, B, T)
-        for p in arms.values():    # warm both arms
-            cuda_decode.decode(p, cond, min(T, 64), 0, c.mode, c.n_classes,
-                               False)
-        times = {name: [] for name in arms}
+        for d, name in arms:    # warm every arm
+            cuda_decode.decode(variants[name], cond, min(T, 64), 0, c.mode,
+                               c.n_classes, False, design=d)
+        times = {arm: [] for arm in arms}
         for i in range(passes):
-            for j, (name, p) in enumerate(arms.items()):
+            for j, (d, name) in enumerate(arms):
                 ms = timed(lambda s: cuda_decode.decode(
-                    p, cond, T, s, c.mode, c.n_classes, False),
-                    (2 * i + j) * reps + 1)
-                times[name].append(ms * 1e3 / T)
-        a, b = (float(np.median(times[n])) for n in arms)
-        am, bm = (float(np.min(times[n])) for n in arms)
-        medians[B] = (a, b)
-        rec["widths"].append({
-            "rows": B, "int8_hh": {med: a, mn: am},
-            "int8_ff": {med: b, mn: bm},
-            "delta_median": (b - a) / a, "delta_min": (bm - am) / am})
-        log(f"[{tag}] rows {B:4d} x {T}: int8_hh {a:8.2f} / {am:8.2f} "
-            f"us/step (median / min), +int8_ff {b:8.2f} / {bm:8.2f}: delta "
-            f"median {100 * (b - a) / a:+6.2f}%, min "
-            f"{100 * (bm - am) / am:+6.2f}%")
+                    variants[name], cond, T, s, c.mode, c.n_classes, False,
+                    design=d), (len(arms) * i + j) * reps + 1)
+                times[(d, name)].append(ms * 1e3 / T)
+        row = {"rows": B, "designs": {}}
+        for d in designs:
+            a, b = (float(np.median(times[(d, n)])) for n in variants)
+            am, bm = (float(np.min(times[(d, n)])) for n in variants)
+            row["designs"][d] = {
+                "int8_hh": {med: a, mn: am}, "int8_ff": {med: b, mn: bm},
+                "delta_median": (b - a) / a, "delta_min": (bm - am) / am}
+            if d == designs[0]:
+                medians[B] = (a, b)
+                row.update(row["designs"][d])
+            log(f"[{tag}] {d} design, rows {B:4d} x {T}: int8_hh {a:8.2f} / "
+                f"{am:8.2f} us/step (median / min), +int8_ff {b:8.2f} / "
+                f"{bm:8.2f}: delta median {100 * (b - a) / a:+6.2f}%, min "
+                f"{100 * (bm - am) / am:+6.2f}%")
+        rec["widths"].append(row)
         del cond
     rec["crossover_rows"] = crossover(medians)
-    log(f"[{tag}] int8_ff crossover (fewest rows from which it wins at "
-        f"every measured width): {rec['crossover_rows']}")
+    log(f"[{tag}] int8_ff crossover on the {designs[0]} design (fewest rows "
+        f"from which it wins at every measured width): "
+        f"{rec['crossover_rows']}")
     return rec
 
 
@@ -166,6 +178,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--reps", type=int, default=2,
                     help="back-to-back launches per timed pass")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--designs", default="cluster",
+                    help="the kernel designs to time, comma-separated "
+                         "(cluster, row); the first decides the crossover")
     ap.add_argument("--voc_weights", default=None,
                     help="msgpack weights (default: the golden MOL)")
     ap.add_argument("--hp_file", default=None,
@@ -186,7 +201,7 @@ def main(argv=None) -> dict:
         gen, stream = golden_setup(dev, variables, voc_config(args.hp_file),
                                    mel)
         rec = ab_int8_ff(gen, stream, widths, args.T, args.passes,
-                         args.reps)
+                         args.reps, designs=tuple(args.designs.split(",")))
     print(f"card: {rec['device']}")
     print(json.dumps(rec))
     return rec
