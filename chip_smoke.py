@@ -68,7 +68,20 @@ order; any failure exits non-zero and prints no result line:
    The first 64 steps within 1e-3 on mels and scores, at least 99% of mel
    values within 2e-2.  Then both versions are timed at (b), and
    ``tools.tts_phase_spans`` prints the kernel's span per phase at (b) and
-   the cost of one bare grid barrier.
+   the cost of one bare grid barrier.  The kernel pinned to each
+   placement of the L-sized state (shared memory, the global workspace)
+   at L = 64 (b's inputs, 750 steps) and 2,404 (96 steps): the same bits,
+   each timed in turns.  Then texts past the shared
+   placement's limit (the global placement: the L-sized state in a
+   workspace in global memory): (c)'s model and criteria at L = 2,405,
+   4,096 and 16,384 (bf16) and 3,169 (int8_lstm), r=2, 96 steps, each
+   max |d| printed and each L timed; and a 3,000-symbol text through
+   ``TTSGenerator(backend="kernel", steps=480)``, whose global launches
+   (set to 0 just before) must be one per 48-step chunk, against the same
+   generator with the kernel's plain version in its place (the criteria
+   above on the first 128 frames) and the float32 plain backend (a mean
+   mel |d| under 0.05 over the first 128 frames, JAX's bound for its bf16
+   kernel against the float32 rollout).
 7. The TTS gate on the card: the tiny golden through
    ``TTSGenerator(backend="kernel", steps=400, stop_patience=6)`` must pass
    the bench's criteria (monotone >= 0.85, coverage >= 0.7, tempo in
@@ -267,8 +280,8 @@ Phases 31-33 train ``hparams.py``'s Tacotron at full width
    must rise); the TTS kernel against its plain version on the trained
    weights (phase 6's tolerances, 200 steps).
 33. ``tts_train_ms_per_step`` at ``tools/tts_train_probe.py``'s shape (B=16,
-   L=100, T=600, r=2, its seeded inputs): 2 warm-up steps, the median of 10
-   steps timed by CUDA events, then 5 steps under ``torch.profiler`` (the
+   L=100, T=600, r=2, its seeded inputs): 1 warm-up step, the median of 5
+   steps timed by CUDA events, then 2 steps under ``torch.profiler`` (the
    card's activity only): its busy share, device events a step and the
    top kernels by time.
 
@@ -308,6 +321,9 @@ Phases 34-36 run the data axis of ``wavernn_tpu_torch/parallel``:
    gathered through the host, held to the one-process step the same way,
    every shard exactly its slice of the gathered parameter and the
    weights and optimizer files the one-process files' leaves and shapes.
+   The three groups run at once (each on its own port; their five worker
+   processes share the card), so each step's ms is taken under the
+   others' load.
 
 Phases 37-39 run the modules through which weights enter and leave the
 port:
@@ -323,8 +339,8 @@ port:
    the eager steps (2 rows x 300 steps: the same classes, logits within
    1e-5); ``generate`` of 24,000 samples (the graph) and 2,400 eager
    steps, their time and samples/s; then ``examples.nb1_sine_wave`` in
-   process at ``--steps 20
-   --sample_rate 24000``: its loss must fall and its WAV parse.
+   process at ``--steps 10 --sample_rate 24000``: its loss must fall and
+   its WAV parse.
 38. The converters at full width (``tools.export_torch_checkpoint`` then
    ``tools.convert_torch_checkpoint``, in process, ``hparams.py``): the
    golden MOL vocoder and a seeded ``hparams.py`` Tacotron
@@ -391,9 +407,10 @@ prints its seconds:
    then the plain decoder, the kernel and the int8_lstm kernel on a
    60-symbol text (400 frames at most, best of 3); both kernel variants'
    counters, set to 0 just before, must have risen.
-46. ``tts_train_probe 16 100 600 --passes 1``: the Tacotron train step
-   split into pieces (K = 4 calls, one pass, CUDA events; the tool's
-   default is the best of 3), each piece's kernels counted under
+46. ``tts_train_probe 16 100 600 --passes 1 --calls 2``: the Tacotron
+   train step split into pieces (2 calls, one pass, CUDA events; the
+   tool's default is 4 calls, the best of 3), each piece's kernels counted
+   under
    ``torch.profiler``; the full step printed beside phase 33's, and the
    dropout/zoneout share (the train forward against the train forward
    with neither).
@@ -991,6 +1008,13 @@ def main():
         "bound_by": tts["bound_by"],
         "library_ms": None,
     }, {
+        "name": "tacotron_decode_global",
+        "route": "cuda",
+        "source": "wavernn_tpu_torch/ops/csrc/tts_decode.cu",
+        "replaces": "wavernn_tpu/ops/pallas_tts.py:237",
+        **tts["global"],
+        "library_ms": None,
+    }, {
         "name": "wavernn_decode_int8_gates",
         "route": "cuda",
         "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
@@ -1098,6 +1122,187 @@ def tts_compare(dev, tag, packed, enc, encp, n: int) -> float:
     return max(float(dm.max()), float(ds.max()))
 
 
+def tts_timed(dev, fn, packed, enc, encp, n: int) -> float:
+    """ms of one ``fn(packed, enc, encp, state, n)`` from a fresh state, by
+    CUDA events."""
+    import torch
+
+    state = tts_fresh_state(dev, packed, enc.shape[0])
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    fn(packed, enc, encp, state, n)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def tts_placement_ab(dev, card, cfg, variables, packed, enc, encp) -> dict:
+    """Phase 6's placement A/B on texts that fit shared memory: the kernel
+    pinned to each placement (``cuda_tts._launch``'s ``placement``, not
+    counted) at L = 64 (phase 6's (b) inputs, 750 steps) and L = 2,404 (the
+    shared placement's longest text at full width on 132 CTAs, 96 steps):
+    the two must give the same bits, and each is timed in turns (shared,
+    global, global, shared).  Returns {L: (shared us/step, global
+    us/step)}."""
+    import torch
+
+    from wavernn_tpu_torch.ops import cuda_tts
+
+    def pinned(placement):
+        return lambda p, e, ep, st, k: cuda_tts._launch(
+            p, e, ep, st, k, None, placement=placement)[0]
+
+    shared, glob = pinned("shared"), pinned("global")
+    seq = [int(i) for i in np.random.default_rng(2_404).integers(
+        1, cfg.num_chars, 2_404)]
+    out = {}
+    for L, n in ((64, 750), (2_404, 96)):
+        if L != enc.shape[0]:
+            packed, enc, encp = tts_kernel_inputs(dev, cfg, variables, seq, L,
+                                                  2)
+        D = packed["W_q"].shape[0]
+        grid = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = cuda_tts.tts_smem_plan(D, D // 2, cfg.lstm_dims, cfg.n_mels,
+                                      2, L, grid)
+        if plan["placement"] != "shared":
+            fail(f"L={L}: the plan chose the {plan['placement']} placement")
+        got = [fn(packed, enc, encp, tts_fresh_state(dev, packed, L), n)
+               for fn in (shared, glob)]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got[0][:3], got[1][:3]))
+        times = {shared: [], glob: []}
+        for fn in (shared, glob, glob, shared):
+            times[fn].append(tts_timed(dev, fn, packed, enc, encp, n))
+        us = [float(np.mean(times[fn])) * 1e3 / n for fn in (shared, glob)]
+        print(f"tts placement A/B at L {L}, full width, r=2, {n} steps: "
+              f"shared {[round(x, 3) for x in times[shared]]} ms "
+              f"({us[0]:.2f} us/step), global pinned "
+              f"{[round(x, 3) for x in times[glob]]} ms ({us[1]:.2f} "
+              f"us/step), global / shared {us[1] / us[0]:.3f}; the same "
+              f"bits {same} | {card}", flush=True)
+        if not same:
+            fail(f"L={L}: the global placement's bits differ from the "
+                 f"shared placement's")
+        out[L] = tuple(us)
+    return out
+
+
+def tts_long_texts(dev, card, cfg, variables) -> dict:
+    """Phase 6's long texts, past the shared placement's limit at full
+    width (2,404 symbols, 3,168 with int8_lstm, on 132 CTAs): the kernel
+    in its global placement against its plain version (``tts_compare``,
+    r=2, 96 steps) and timed (plain, kernel, kernel, plain) at L = 2,405,
+    4,096 and 16,384 (bf16) and 3,169 (int8_lstm); then one 3,000-symbol
+    text through ``TTSGenerator(backend="kernel", steps=480)``, one
+    launch per 48-step chunk, against the same generator with the
+    kernel's plain version in its place and against the float32 plain
+    backend.  Returns the global placement's record (its time and bound
+    at 16,384 symbols, its launches from the generator's run)."""
+    import torch
+
+    from wavernn_tpu_torch.infer.tacotron import TTSGenerator
+    from wavernn_tpu_torch.ops import cuda_tts
+    from wavernn_tpu_torch.ops.tts_decode import (
+        LSTM_MATRICES, MATRICES, tts_decode_reference,
+    )
+
+    t_phase = time.perf_counter()
+    grid = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(21)
+    errs, rec = [], {}
+    n = 96
+    for L, int8 in ((2_405, False), (4_096, False), (16_384, False),
+                    (3_169, True)):
+        seq = [int(i) for i in rng.integers(1, cfg.num_chars, L)]
+        packed, enc, encp = tts_kernel_inputs(dev, cfg, variables, seq, L, 2,
+                                              int8_lstm=int8)
+        D = packed["W_q"].shape[0]
+        plan = cuda_tts.tts_smem_plan(D, D // 2, cfg.lstm_dims, cfg.n_mels,
+                                      2, L, grid, int8_lstm=int8)
+        if plan["placement"] != "global":
+            fail(f"L={L}: the plan chose the {plan['placement']} placement")
+        tag = f"{'int8_lstm' if int8 else 'bf16'}, full width, r=2, global"
+        errs.append(tts_compare(dev, tag, packed, enc, encp, n))
+        kernel = lambda *a: cuda_tts.tts_decode(*a, int8_lstm=int8)
+        times = {kernel: [], tts_decode_reference: []}
+        for fn in (tts_decode_reference, kernel, kernel, tts_decode_reference):
+            times[fn].append(tts_timed(dev, fn, packed, enc, encp, n))
+        k_ms = float(np.mean(times[kernel]))
+        p_ms = float(np.mean(times[tts_decode_reference]))
+        macs_i8 = sum(packed[k].numel() for k in LSTM_MATRICES) if int8 else 0
+        macs = (sum(packed[k].numel() for k in MATRICES
+                    if k not in ("M_loc", "v")) - macs_i8
+                + L * (packed["M_loc"].numel() + 2 * D))
+        b = bound([(2 * macs * n, PEAK_BF16), (2 * macs_i8 * n, PEAK_INT8)],
+                  nbytes(*packed.values(), enc, encp)
+                  + n * (2 * cfg.n_mels + L + 1) * 4)
+        # were enc and encp read again every step (33.6 MB at 16,384)
+        restream_us = nbytes(enc, encp) / HBM_RATE * 1e6
+        print(f"tts decode time at L {L} ({tag}), {n} steps: kernel "
+              f"{[round(x, 3) for x in times[kernel]]} ms "
+              f"({k_ms * 1e3 / n:.2f} us/step), plain "
+              f"{[round(x, 1) for x in times[tts_decode_reference]]} ms "
+              f"({p_ms * 1e3 / n:.2f} us/step); bound {b[0]:.4f} ms "
+              f"({b[1]}; {b[0] * 1e3 / n:.3f} us/step), enc + encp re-read "
+              f"a step {restream_us:.2f} us; {plan['bytes']} bytes of shared "
+              f"memory per CTA on {plan['grid']} CTAs, workspace "
+              f"{plan['workspace']} bytes | {card}", flush=True)
+        if L == 16_384:
+            rec = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b[0],
+                   "bound_by": b[1]}
+        del packed, enc, encp
+
+    # the long text through the generator
+    L = 3_000
+    seq = [int(i) for i in rng.integers(1, cfg.num_chars, L)]
+    kernel_fn = cuda_tts.tts_decode
+    torch.cuda.synchronize()
+    cuda_tts.tts_decode.launches = 0
+    cuda_tts.tts_decode.launches_global = 0
+    mel_k, _, attn_k = TTSGenerator(cfg, variables, dev, steps=480,
+                                    backend="kernel")(seq, r=2)
+    torch.cuda.synchronize()
+    launches = (cuda_tts.tts_decode.launches,
+                cuda_tts.tts_decode.launches_global)
+    want = -(-(mel_k.shape[1] // 2) // TTS_CHUNK)
+    # the same generator with the kernel's plain version in its place
+    cuda_tts.tts_decode = lambda p, e, ep, st, k, int8_lstm=False: (
+        tts_decode_reference(p, e, ep, st, k))
+    try:
+        mel_p, _, attn_p = TTSGenerator(cfg, variables, dev, steps=480,
+                                        backend="kernel")(seq, r=2)
+    finally:
+        cuda_tts.tts_decode = kernel_fn
+    mel_f, _, _ = TTSGenerator(cfg, variables, dev, steps=480,
+                               backend="plain")(seq, r=2)
+    if mel_k.shape != mel_p.shape or attn_k.shape != attn_p.shape:
+        fail(f"the long text: kernel {mel_k.shape}, its plain version "
+             f"{mel_p.shape}")
+    dm = np.abs(mel_k - mel_p)                     # (n_mels, frames)
+    first = float(dm[:, :128].max())
+    agree = float((dm <= 2e-2).mean())
+    nf = min(mel_k.shape[1], mel_f.shape[1])
+    df = np.abs(mel_k[:, :nf] - mel_f[:, :nf])
+    f64 = float(df[:, :128].mean())
+    ok = (first <= 1e-3 and agree >= 0.99 and np.isfinite(mel_k).all()
+          and launches == (want, want) and f64 < 0.05)
+    print(f"long text, {L} symbols, TTSGenerator(backend='kernel', "
+          f"steps=480): {mel_k.shape[1]} frames; against the kernel's plain "
+          f"version first-64-step max|d| {first:.3g}, within 2e-2 "
+          f"{agree:.5f}, max|d| {float(dm.max()):.3g}; against the float32 "
+          f"plain backend ({mel_f.shape[1]} frames) mean|d| first 64 steps "
+          f"{f64:.4f}, all {float(df.mean()):.4f}, max {float(df.max()):.3g}"
+          f"; launches {launches[0]} (global {launches[1]}, want {want}) -> "
+          f"{'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        fail("the long text through the TTS kernel")
+    print(f"phase 6 long texts in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": launches[1], "max_abs_err": max(errs), **rec}
+
+
 def tts_phases(dev, card, wavio, voc_weights) -> dict:
     """Phases 6-9: the Tacotron kernel against its plain version, the TTS
     gate, the text -> wav path and its CLI.  Returns the kernel's record."""
@@ -1130,9 +1335,6 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     def kernel_inputs(cfg, variables, seq, L, r):
         return tts_kernel_inputs(dev, cfg, variables, seq, L, r)
 
-    def fresh_state(packed, L):
-        return tts_fresh_state(dev, packed, L)
-
     errs = []
 
     def compare(tag, packed, enc, encp, n):
@@ -1152,15 +1354,7 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     compare("full width, r=2", packed, enc, encp, 750)
 
     def timed(fn):
-        state = fresh_state(packed, enc.shape[0])
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn(packed, enc, encp, state, 750)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
+        return tts_timed(dev, fn, packed, enc, encp, 750)
 
     timed(cuda_tts.tts_decode)  # warm
     plain_ms, kernel_ms = [], []
@@ -1183,9 +1377,11 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
           f"{[round(x, 3) for x in kernel_ms]} ms ({k_ms * 1e3 / 750:.2f} "
           f"us/step), plain {[round(x, 1) for x in plain_ms]} ms "
           f"({p_ms * 1e3 / 750:.2f} us/step) | {card}", flush=True)
+    tts_placement_ab(dev, card, full, full_vars, packed, enc, encp)
     spans = tts_phase_spans.main(["--steps", "750", "--L", "64"])
     if spans["max_abs_err"] > 1e-3:
         fail("the spans launch disagrees with the plain version")
+    long_texts = tts_long_texts(dev, card, full, full_vars)
 
     # -- 7. the TTS gate through the kernel ------------------------------
     gt = np.load(TACO_DIR / "tiny_tacotron_gt_mel.npy") * 8.0 - 4.0
@@ -1285,7 +1481,7 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     print(f"tts cli: {wavs[0].name} parses: {x.shape[0]} samples at {sr} Hz")
     return {"launches": tts_launches, "max_abs_err": max(errs),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": tts_bound[0],
-            "bound_by": tts_bound[1]}
+            "bound_by": tts_bound[1], "global": long_texts}
 
 
 def measurement_phases(dev, card, cfg, gen, eval_mel, long_mel,
@@ -3050,12 +3246,12 @@ def tts_training_phases(dev, card) -> dict:
         return [a.elapsed_time(b) for a, b in events], [float(l) for l in
                                                        losses]
 
-    _, warm = timed_steps(2)
-    ms, losses = timed_steps(10)
+    _, warm = timed_steps(1)
+    ms, losses = timed_steps(5)
     ms_step = float(np.median(ms))
     print(f"tts_train_ms_per_step (B={Bp}, L={Lp}, T={Tp}, r={rp}, "
           f"{num_params(model):.3f}M params, dropout and zoneout on, TF32 "
-          f"off): median {ms_step:.2f} ms over 10 steps (min {min(ms):.2f}, "
+          f"off): median {ms_step:.2f} ms over 5 steps (min {min(ms):.2f}, "
           f"max {max(ms):.2f}); loss {warm[0]:.4f} -> {losses[-1]:.4f} | "
           f"{card}", flush=True)
     if not np.isfinite(losses).all():
@@ -3063,7 +3259,7 @@ def tts_training_phases(dev, card) -> dict:
     torch.cuda.synchronize()
     # the card's activity only: ~80 k kernels a step, and the host's op
     # events would multiply what the profiler has to collect
-    n_prof = 5
+    n_prof = 2
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         timed_steps(n_prof)
@@ -3263,17 +3459,25 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
 
     # -- 36. data-parallel and tensor-parallel training -------------------
     t_phase = time.perf_counter()
-    for argv, what in ((["--backend", "gloo"], "two gloo ranks on one card"),
-                       (["--backend", "nccl", "--processes", "1"],
-                        "a world of one under NCCL"),
-                       (["--backend", "gloo", "--processes", "2", "--model",
-                         "2"], "data 1 x model 2, gloo, one card")):
+    groups = ((["--backend", "gloo"], "two gloo ranks on one card"),
+              (["--backend", "nccl", "--processes", "1"],
+               "a world of one under NCCL"),
+              (["--backend", "gloo", "--processes", "2", "--model", "2"],
+               "data 1 x model 2, gloo, one card"))
+
+    def run_group(argv):
+        # the launcher waits on its workers, so the groups run at once
         try:
-            summary = multihost_smoke.main(
+            return multihost_smoke.main(
                 ["--device", "cuda", "--size", "full", "--timeout", "400"]
                 + argv)
         except RuntimeError as e:
-            fail(f"multihost_smoke ({what}): {e}")
+            return e
+
+    summaries = concurrently(run_group, [argv for argv, _ in groups])
+    for (_, what), summary in zip(groups, summaries):
+        if isinstance(summary, RuntimeError):
+            fail(f"multihost_smoke ({what}): {summary}")
         for w in summary["workers"]:
             for key, r in w.items():
                 if isinstance(r, dict):
@@ -3293,7 +3497,8 @@ def parallel_phases(dev, card, cfg, golden, eval_mel, long_mel) -> dict:
                              f"file max|d| {r['tree_diff']:.3g}"
                              if "sharded" in r else "")
                           + f"; {r['ms']:.1f} ms a step against "
-                          f"{r['single_ms']:.1f} | {card}", flush=True)
+                          f"{r['single_ms']:.1f} (three groups at once) | "
+                          f"{card}", flush=True)
     print(f"phase 36 done in {time.perf_counter() - t_phase:.1f} s",
           flush=True)
     return {"launches": launches, "errs": errs}
@@ -3431,13 +3636,13 @@ def weights_phases(dev, card, cfg, golden, long_mel, tts_weights) -> dict:
 
     out = SMOKE_DIR / "nb1" / "nb1_sine.wav"
     t0 = time.perf_counter()
-    res = nb1_sine_wave.main(["--steps", "20", "--sample_rate", str(NB1_SR),
+    res = nb1_sine_wave.main(["--steps", "10", "--sample_rate", str(NB1_SR),
                               "--out", str(out), "--device", str(dev)])
     secs = time.perf_counter() - t0
     losses = res["losses"]
     x, sr = wavio.read_wav_raw(out)
-    print(f"nb1 example, 20 steps at {NB1_SR} Hz on {dev}: loss "
-          f"{losses[0]:.4f} -> {losses[9]:.4f} -> {losses[-1]:.4f} in "
+    print(f"nb1 example, 10 steps at {NB1_SR} Hz on {dev}: loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} in "
           f"{secs:.1f} s with generation; {out.name}: {x.shape[0]} samples "
           f"at {sr} Hz | {card}", flush=True)
     if (not np.isfinite(losses).all() or not losses[-1] < losses[0]
@@ -3751,15 +3956,7 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
                            encp, 750)
 
     def timed(fn):
-        state = tts_fresh_state(dev, packed, enc.shape[0])
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        start.record()
-        fn(packed, enc, encp, state, 750)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
+        return tts_timed(dev, fn, packed, enc, encp, 750)
 
     kernel = lambda *a: cuda_tts.tts_decode(*a, int8_lstm=True)
     timed(kernel)  # warm
@@ -3953,7 +4150,8 @@ def quality_tool_phases(dev, card, mcd_of: dict, tts_ms_step: float) -> dict:
         fail("tts_kernel_parity did not run both TTS kernel variants")
 
     # -- 46. tts_train_probe at 16 100 600 ----------------------------------
-    rec = run(46, tts_train_probe, ["16", "100", "600", "--passes", "1"])
+    rec = run(46, tts_train_probe, ["16", "100", "600", "--passes", "1",
+                                    "--calls", "2"])
     full = rec["full_step"]["ms"]
     print(f"  full step {full:.2f} ms = {full / tts_ms_step:.3f} x phase "
           f"33's {tts_ms_step:.2f}; kernels a step "

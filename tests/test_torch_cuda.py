@@ -604,15 +604,95 @@ def test_tts_spans_stamp_every_phase_of_every_step(cuda_device):
     assert (np.diff(t) >= 0).all() and t[-1] > t[0]
 
 
+def close_to_plain(got, want, tag):
+    """chip_smoke.py's criteria: mels and scores within 1e-3 over the first
+    64 steps, at least 99% of values within 2e-2, all finite."""
+    for name, a, b in zip(("mels", "scores", "stop"), got[:3], want[:3]):
+        d = (a - b).abs()
+        print(f"{tag} {name}: max|d| {float(d.max()):.3g}")
+        assert float(d[:64].max()) <= 1e-3, name
+        assert float((d <= 2e-2).float().mean()) >= 0.99, name
+        assert torch.isfinite(a).all(), name
+
+
 def test_tts_kernel_raises_for_a_text_that_does_not_fit(cuda_device):
+    """A text of 12,000 symbols does not fit the shared placement on any
+    grid at this width; it no longer raises but decodes in the global
+    placement, equal to the plain version."""
     packed, enc, encp = taco_inputs(cuda_device, 2, 24)
     c = SMALL_TACO
     L = 12000
     enc, encp = enc.repeat(500, 1), encp.repeat(500, 1)
-    state = init_tts_decode_state(c.decoder_dims, c.lstm_dims, L, c.n_mels,
-                                  cuda_device)
-    with pytest.raises(ValueError, match=f"L={L}"):
-        cuda_tts.tts_decode(packed, enc, encp, state, 2)
+    grid = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = cuda_tts.tts_smem_plan(c.decoder_dims, c.decoder_dims // 2,
+                                  c.lstm_dims, c.n_mels, 2, L, grid)
+    assert plan["placement"] == "global"
+    n = cuda_tts.tts_decode.launches
+    got = taco_run(cuda_tts.tts_decode, packed, enc, encp, 96, 2)
+    torch.cuda.synchronize()
+    assert cuda_tts.tts_decode.launches == n + 2
+    close_to_plain(got, taco_run(tts_decode_reference, packed, enc, encp, 96,
+                                 2), f"L {L}")
+
+
+def test_tts_int8_lstm_kernel_decodes_past_its_shared_limit(cuda_device):
+    """int8_lstm at full width past 3,168 symbols (its shared placement's
+    limit on 132 CTAs): the global placement, bit-equal to the plain
+    version, as the shared one is."""
+    cfg = TacotronConfig()
+    model = taco_from_jax(init_variables(cfg, 0), cfg, cuda_device)
+    L = 3_169
+    x = np.random.default_rng(L).integers(1, cfg.num_chars, (1, L))
+    with torch.no_grad():
+        enc, encp = model.encode(torch.from_numpy(x).to(cuda_device))
+    enc, encp = enc[0].contiguous(), encp[0].contiguous()
+    packed = pack_tts_weights(extract_tts_decode_weights(model), 2,
+                              cfg.n_mels, int8_lstm=True)
+    grid = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    plan = cuda_tts.tts_smem_plan(cfg.decoder_dims, cfg.decoder_dims // 2,
+                                  cfg.lstm_dims, cfg.n_mels, 2, L, grid,
+                                  int8_lstm=True)
+    assert plan["placement"] == "global"
+    state = lambda: init_tts_decode_state(cfg.decoder_dims, cfg.lstm_dims, L,
+                                          cfg.n_mels, cuda_device)
+    n = cuda_tts.tts_decode.launches_int8_lstm
+    got = cuda_tts.tts_decode(packed, enc, encp, state(), 48, int8_lstm=True)
+    torch.cuda.synchronize()
+    assert cuda_tts.tts_decode.launches_int8_lstm == n + 1
+    want = tts_decode_reference(packed, enc, encp, state(), 48)
+    close_to_plain(got, want, f"int8_lstm L {L}")
+
+
+@pytest.mark.parametrize("int8_lstm", [False, True], ids=["bf16", "int8_lstm"])
+@pytest.mark.parametrize("grid", [None, 7], ids=["all_sms", "grid7"])
+def test_tts_global_placement_equals_shared(cuda_device, grid, int8_lstm,
+                                            monkeypatch):
+    """The same short text in both placements (pinned through
+    ``_launch``'s ``placement``): the same ownership, phase order and sums,
+    so the same bits; and each against the plain version."""
+    monkeypatch.setattr(cuda_tts, "CTAS", grid)
+    packed, enc, encp = taco_inputs(cuda_device, 2, 200, int8_lstm=int8_lstm)
+    outs = {}
+    for placement in ("shared", "global"):
+        run = lambda p, *a: cuda_tts._launch(p, *a, None,
+                                             placement=placement)[0]
+        outs[placement] = taco_run(run, packed, enc, encp, 96, 2)
+    torch.cuda.synchronize()
+    for a, b in zip(outs["shared"][:3], outs["global"][:3]):
+        assert torch.equal(a, b)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(outs["shared"][3], f),
+                           getattr(outs["global"][3], f)), f
+    close_to_plain(outs["global"], taco_run(tts_decode_reference, packed,
+                                            enc, encp, 96, 2),
+                   f"global grid {grid or 'all SMs'} int8_lstm {int8_lstm}")
+    if not int8_lstm:   # the spans launch takes the shared placement only
+        spans = torch.zeros(4, cuda_tts.PHASES_PER_STEP, dtype=torch.int64,
+                            device=cuda_device)
+        with pytest.raises(ValueError, match="shared placement"):
+            cuda_tts._launch(packed, enc, encp, init_tts_decode_state(
+                SMALL_TACO.decoder_dims, SMALL_TACO.lstm_dims, 200,
+                SMALL_TACO.n_mels, cuda_device), 4, spans, placement="global")
 
 
 def test_tts_kernel_rejects_what_it_does_not_take(cuda_device):

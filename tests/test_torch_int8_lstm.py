@@ -167,12 +167,13 @@ FULL = (256, 128, 512, 80, 2)    # D, Dh, H, n_mels, r of TacotronConfig()
 
 
 def text_limit(grid: int, int8_lstm: bool) -> int:
-    """The longest text whose plan fits on ``grid`` CTAs."""
+    """The longest text whose shared placement fits on ``grid`` CTAs."""
     lo, hi = 1, 20_000
     while lo < hi:
         mid = (lo + hi + 1) // 2
         try:
-            tts_smem_plan(*FULL, mid, grid, int8_lstm=int8_lstm)
+            tts_smem_plan(*FULL, mid, grid, int8_lstm=int8_lstm,
+                          placement="shared")
             lo = mid
         except ValueError:
             hi = mid - 1
@@ -194,11 +195,15 @@ def test_int8_lstm_plan_bytes_are_pinned():
 
 
 def test_int8_lstm_moves_the_text_limit():
-    """At full width on 132 CTAs (an H100's SMs): 2,404 symbols with bf16
-    LSTM rows, 3,168 with int8 ones; a text past the limit still raises."""
+    """At full width on 132 CTAs (an H100's SMs) the shared placement
+    holds 2,404 symbols with bf16 LSTM rows, 3,168 with int8 ones; pinned
+    to it, a text past the limit still raises, and unpinned it plans the
+    global placement."""
     assert text_limit(132, False) == 2_404
     assert text_limit(132, True) == 3_168
-    assert tts_smem_plan(*FULL, 3_168, 132, int8_lstm=True)["bytes"] <= (
-        SMEM_LIMIT)
+    plan = tts_smem_plan(*FULL, 3_168, 132, int8_lstm=True)
+    assert plan["bytes"] <= SMEM_LIMIT and plan["placement"] == "shared"
     with pytest.raises(ValueError, match="L=3169"):
-        tts_smem_plan(*FULL, 3_169, 132, int8_lstm=True)
+        tts_smem_plan(*FULL, 3_169, 132, int8_lstm=True, placement="shared")
+    plan = tts_smem_plan(*FULL, 3_169, 132, int8_lstm=True)
+    assert plan["bytes"] <= SMEM_LIMIT and plan["placement"] == "global"

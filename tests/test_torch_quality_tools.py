@@ -132,6 +132,14 @@ def test_tts_train_probe_on_cpu(capsys):
         ms["forward_train"] - ms["forward_train_nodrop"])
 
 
+def test_tts_train_probe_takes_its_calls_a_pass(capsys):
+    rec = tts_train_probe.main(["2", "6", "8", "--passes", "1", "--calls",
+                                "1", "--device", "cpu"])
+    assert last_json(capsys) == rec and finite(rec) and rec["K"] == 1
+    for piece in tts_train_probe.PIECES:
+        assert rec[piece]["cpu_host_ms"] > 0
+
+
 def test_train_forward_without_dropout_or_zoneout():
     """The probe's ``forward_train_nodrop``: train mode with both prenets'
     dropout at 0 and four None masks equals train mode given all-keep

@@ -2,7 +2,8 @@
 ``examples/e2e_tts.py``).
 
     python -m wavernn_tpu_torch.examples.e2e_tts [--workspace DIR] [--keep] \\
-        [--voc_steps 3000] [--tts_steps 6000] [--gates_only] [--device cuda]
+        [--voc_steps 3000] [--tts_steps 6000] [--seed 0] [--gates_only] \
+        [--device cuda]
 
 The reference's convergence criterion is a diagonal attention alignment
 plus recognizable audio (ref: README.md:36, train_tacotron.py:163-166).
@@ -25,7 +26,9 @@ configuration outlives a run.  Artifacts (wavs, attention PNG + .npy) land
 in ``<workspace>/model_outputs``.  :func:`run_pipeline` and
 :func:`measure_gates` let a caller run a cut corpus and depth.  The device
 defaults to ``cuda`` and is never swapped for another: without CUDA the
-command fails.  Prints one JSON line with the measured gates.
+command fails.  ``--seed`` is the Tacotron trainer's mask seed
+(``train_tacotron --seed``; 0 is the JAX example's stream).  Prints one
+JSON line with the measured gates.
 """
 
 from __future__ import annotations
@@ -183,10 +186,10 @@ def run_cli(main, argv, cwd: Path, tag: str):
 
 def run_pipeline(ws: Path, voc_steps: int, tts_steps: int, device: str,
                  texts: Sequence[str] = TRAIN_TEXTS,
-                 num_workers: int = None) -> None:
+                 num_workers: int = None, seed: int = 0) -> None:
     """The corpus of ``texts``, the hp file and the four CLI runs in
     ``ws``; ``num_workers`` is the preprocess CLI's (its default when
-    None)."""
+    None), ``seed`` the Tacotron trainer's."""
     from wavernn_tpu_torch import (
         gen_tacotron, preprocess, train_tacotron, train_wavernn,
     )
@@ -204,7 +207,8 @@ def run_pipeline(ws: Path, voc_steps: int, tts_steps: int, device: str,
                                               str(num_workers)]
     run_cli(preprocess.main, ["--path", "wavs"] + workers + hp, ws,
             "preprocess")
-    run_cli(train_tacotron.main, hp + dev, ws, "train_tacotron (+GTA export)")
+    run_cli(train_tacotron.main, hp + dev + ["--seed", str(seed)], ws,
+            "train_tacotron (+GTA export)")
     run_cli(train_wavernn.main, ["--gta"] + hp + dev, ws,
             "train_wavernn (GTA)")
     run_cli(gen_tacotron.main, ["--save_attention"] + hp + dev
@@ -317,6 +321,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--voc_steps", type=int, default=3000)
     ap.add_argument("--tts_steps", type=int, default=6000,
                     help="total Tacotron steps across the 2-session schedule")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the Tacotron trainer's mask seed (default 0)")
     ap.add_argument("--gates_only", action="store_true",
                     help="skip the pipeline and re-evaluate the gates on an "
                          "existing workspace's artifacts")
@@ -330,7 +336,8 @@ def main(argv=None) -> dict:
     ws.mkdir(parents=True, exist_ok=True)
     print(f"workspace: {ws}")
     if not args.gates_only:
-        run_pipeline(ws, args.voc_steps, args.tts_steps, args.device)
+        run_pipeline(ws, args.voc_steps, args.tts_steps, args.device,
+                     seed=args.seed)
     return evaluate_gates(ws, args)
 
 

@@ -114,11 +114,12 @@ def load_library():
             ctypes.POINTER(ctypes.c_longlong)]
         lib.wavernn_decode_cluster_bytes.restype = ctypes.c_longlong
         lib.tts_decode_max_ctas.argtypes = [ctypes.POINTER(ctypes.c_int),
-                                            ctypes.c_longlong, ctypes.c_int]
+                                            ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int]
         lib.tts_decode_max_ctas.restype = ctypes.c_int
-        lib.tts_decode_smem_bytes.argtypes = [
-            ctypes.POINTER(ctypes.c_longlong)]
-        lib.tts_decode_smem_bytes.restype = ctypes.c_longlong
+        for fn in (lib.tts_decode_smem_bytes, lib.tts_decode_workspace_bytes):
+            fn.argtypes = [ctypes.POINTER(ctypes.c_longlong)]
+            fn.restype = ctypes.c_longlong
         lib.tts_barrier_loop.argtypes = [ctypes.c_int, ctypes.c_int,
                                          ctypes.c_longlong, ctypes.c_void_p,
                                          ctypes.c_void_p]

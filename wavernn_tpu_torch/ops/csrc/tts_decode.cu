@@ -26,6 +26,20 @@
 // chunk-major in shared memory, so a warp's loads of weights and operand are
 // free of bank conflicts.
 //
+// Two placements of what grows with the text (GLOB, the plan's
+// "placement").  Shared: the context columns, the CTA's copies of the
+// cumulative and previous attention and of the scores, and its text
+// positions' ploc and encp rows sit in shared memory beside the weights
+// (~43.5 bytes a symbol at full width on 132 CTAs; up to 2,404 symbols,
+// 3,168 with I8L).  Global, for a text past that: the weights, operands,
+// partials and conv taps stay in shared memory and those L-sized regions
+// move out.  The context columns and the encp rows are read from enc_t and
+// encp themselves (the column rounded to bf16 at use, the value the shared
+// copy holds); cum, prv and the scores go to this CTA's slice of a global
+// workspace, and ploc to the CTA's own rows of an (L, D) array there.
+// Ownership, phase order and every sum's order are the same in both, so
+// both give the same bits.
+//
 // Between phases, no barrier: a value that crosses CTAs is written together
 // with its step (tag) in one 64-bit word, and a reader polls the words it
 // needs until each carries the step it waits for (fetch()); the words of a
@@ -80,14 +94,17 @@
 //                  void* stream)
 // ptrs = the packed weights in cuda_tts.WEIGHT_ORDER, then enc_t (D, L),
 //        encp (L, D), state_in, state_out, mels, scores, stop, work, bar;
+//        ws (the global placement's workspace, else null);
 // dims = n_steps, L, D, Dh, H, n_mels, r, ctas, int8_lstm (the LSTM
-//        matrices int8, then their four scale vectors after the pointers).
+//        matrices int8, then their four scale vectors after the pointers),
+//        global (1: the global placement).
 // work is the tagged activations (zeroed), bar the step barrier's counter
-// (zeroed).  Returns a cudaError_t (0 = launched).  Beside it:
-// tts_decode_smem_bytes (the layout's bytes for dims), tts_decode_max_ctas
-// (co-resident CTAs for a layout and variant), and, dev only,
-// tts_decode_spans (bf16 only; one more pointer after bar: n_steps x 10
-// uint64 stamps) and tts_barrier_loop (bare barriers).
+// (zeroed); ws needs no zeroing.  Returns a cudaError_t (0 = launched).
+// Beside it: tts_decode_smem_bytes and tts_decode_workspace_bytes (the
+// layout's shared and global bytes for dims), tts_decode_max_ctas
+// (co-resident CTAs for a layout, variant and placement), and, dev only,
+// tts_decode_spans (bf16, shared placement; one more pointer after ws:
+// n_steps x 10 uint64 stamps) and tts_barrier_loop (bare barriers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,6 +140,7 @@ struct Params {
   float* stop;          // (n_steps,)
   unsigned long long* work;  // tagged activations passed between CTAs
   unsigned* bar;        // the grid barrier's arrival counter
+  float* ws;            // GLOB: the workspace (ws_floats)
   unsigned long long* spans;  // SPANS: %globaltimer at each phase's end
   // I8L: the four LSTM matrices' per-row scales, (4H,) each
   const float *l1_ih_s, *l1_hh_s, *l2_ih_s, *l2_hh_s;
@@ -152,23 +170,25 @@ struct Layout {
 };
 
 // With i8l the LSTM regions hold each unit's 4 rows of 2H int8 weights and
-// then its 8 float scales (ih gates, hh gates).
+// then its 8 float scales (ih gates, hh gates).  With glob the L-sized
+// regions take no shared memory (they are in the workspace, ws_floats).
 __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
-                                         int r, int G, bool i8l) {
+                                         int r, int G, bool i8l, bool glob) {
   Layout y;
   size_t at = 0;
   int op_n = 2 * D + Dh;
   if (2 * H > op_n) op_n = 2 * H;
   if (NM > op_n) op_n = NM;
-  const size_t nl = most(L, G), nd = most(D, G), nh = most(H, G);
+  const size_t nd = most(D, G), nh = most(H, G);
+  const size_t Ls = glob ? 0 : (size_t)L, nl = glob ? 0 : most(L, G);
   y.op = take(at, 8 * (size_t)op_n);
-  y.encd = take(at, 8 * nd * L);
+  y.encd = take(at, 8 * nd * Ls);
   y.part = take(at, 8 * NW * MAXG);
   y.win = take(at, 8 * 64);
   y.opf = take(at, 4 * (size_t)op_n);
-  y.cum = take(at, 4 * (size_t)L);
-  y.prv = take(at, 4 * (size_t)L);
-  y.sc = take(at, 4 * (size_t)L);
+  y.cum = take(at, 4 * Ls);
+  y.prv = take(at, 4 * Ls);
+  y.sc = take(at, 4 * Ls);
   y.ploc = take(at, 4 * nl * D);
   y.encp = take(at, 4 * nl * D);
   y.own = take(at, 4 * (nd + 2 * nh));
@@ -186,6 +206,14 @@ __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
   }
   y.total = at;
   return y;
+}
+
+// The global placement's workspace, in floats: each CTA's slice of cum, prv
+// and scores (ws_stride(L) floats each), then ploc (L, D), whose rows each
+// CTA writes for its own text positions.
+__host__ __device__ inline size_t ws_stride(int L) { return ((size_t)L + 3) / 4 * 4; }
+__host__ __device__ inline size_t ws_floats(int L, int D, int G) {
+  return 3 * ws_stride(L) * G + (size_t)L * D;
 }
 
 // ---- arithmetic ----
@@ -478,25 +506,38 @@ struct Seg {
   unsigned tag;
 };
 
-template <bool SPANS, bool I8L>
+template <bool SPANS, bool I8L, bool GLOB>
 __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   const int L = p.L, D = p.D, Dh = p.Dh, H = p.H, NM = p.n_mels;
   const int RM = p.r * NM;
   const int G = gridDim.x, cta = blockIdx.x;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const Layout y = layout(L, D, Dh, H, NM, p.r, G, I8L);
+  const Layout y = layout(L, D, Dh, H, NM, p.r, G, I8L, GLOB);
+
+  // what this CTA owns: [x0, x0 + nx)
+  const int p1_0 = own0(D, cta, G), n_p1 = own0(D, cta + 1, G) - p1_0;
+  const int p2_0 = own0(Dh, cta, G), n_p2 = own0(Dh, cta + 1, G) - p2_0;
+  const int d0 = own0(D, cta, G), nd = own0(D, cta + 1, G) - d0;  // GRU, W_q, context
+  const int l0 = own0(L, cta, G), nl = own0(L, cta + 1, G) - l0;
+  const int h0 = own0(H, cta, G), nh = own0(H, cta + 1, G) - h0;  // rnn_input, LSTMs
+  const int m0 = own0(RM, cta, G), nm = own0(RM, cta + 1, G) - m0;
 
   extern __shared__ __align__(16) unsigned char sm[];
+  // GLOB: this CTA's slice of the workspace (cum | prv | scores)
+  const size_t wst = ws_stride(L);
+  float* wsc = GLOB ? p.ws + (size_t)cta * 3 * wst : nullptr;
   double* opT = reinterpret_cast<double*>(sm + y.op);     // the operand
-  double* encd = reinterpret_cast<double*>(sm + y.encd);  // [nd][L]
+  double* encd = reinterpret_cast<double*>(sm + y.encd);  // [nd][L], shared placement
   double* part = reinterpret_cast<double*>(sm + y.part);  // partial sums
   double* win = reinterpret_cast<double*>(sm + y.win);    // a conv window
   float* opf = reinterpret_cast<float*>(sm + y.opf);      // operand, f32
-  float* cum = reinterpret_cast<float*>(sm + y.cum);
-  float* prv = reinterpret_cast<float*>(sm + y.prv);
-  float* sc = reinterpret_cast<float*>(sm + y.sc);
-  float* ploc = reinterpret_cast<float*>(sm + y.ploc);    // [nl][D]
-  float* encp = reinterpret_cast<float*>(sm + y.encp);    // [nl][D]
+  float* cum = GLOB ? wsc : reinterpret_cast<float*>(sm + y.cum);
+  float* prv = GLOB ? wsc + wst : reinterpret_cast<float*>(sm + y.prv);
+  float* sc = GLOB ? wsc + 2 * wst : reinterpret_cast<float*>(sm + y.sc);
+  float* ploc = GLOB ? p.ws + 3 * wst * G + (size_t)l0 * D   // [nl][D]
+                     : reinterpret_cast<float*>(sm + y.ploc);
+  float* encp_s = reinterpret_cast<float*>(sm + y.encp);  // [nl][D], shared placement
+  const float* encp = GLOB ? p.encp + (size_t)l0 * D : encp_s;
   float* ha_own = reinterpret_cast<float*>(sm + y.own);
   float* c1_own = ha_own + most(D, G);
   float* c2_own = c1_own + most(H, G);
@@ -510,14 +551,6 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   bf16* w_l1 = reinterpret_cast<bf16*>(sm + y.w[WL1]);
   bf16* w_l2 = reinterpret_cast<bf16*>(sm + y.w[WL2]);
   bf16* w_mel = reinterpret_cast<bf16*>(sm + y.w[WMEL]);
-
-  // what this CTA owns: [x0, x0 + nx)
-  const int p1_0 = own0(D, cta, G), n_p1 = own0(D, cta + 1, G) - p1_0;
-  const int p2_0 = own0(Dh, cta, G), n_p2 = own0(Dh, cta + 1, G) - p2_0;
-  const int d0 = own0(D, cta, G), nd = own0(D, cta + 1, G) - d0;  // GRU, W_q, context
-  const int l0 = own0(L, cta, G), nl = own0(L, cta + 1, G) - l0;
-  const int h0 = own0(H, cta, G), nh = own0(H, cta + 1, G) - h0;  // rnn_input, LSTMs
-  const int m0 = own0(RM, cta, G), nm = own0(RM, cta + 1, G) - m0;
 
   // tagged scratch, two slots (by step parity) of each activation
   const size_t slot = (size_t)NM + 4 * D + Dh + L + 5 * H;
@@ -593,10 +626,12 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
       ms[i] = (uint32_t)m[(size_t)d * NTAP2 + 2 * tp] |
               ((uint32_t)m[(size_t)d * NTAP2 + 2 * tp + 1] << 16);
     }
-    for (int i = tid; i < nl * D; i += NT) encp[i] = __ldg(p.encp + (size_t)l0 * D + i);
+    if constexpr (!GLOB)
+      for (int i = tid; i < nl * D; i += NT) encp_s[i] = __ldg(p.encp + (size_t)l0 * D + i);
   }
-  for (int i = tid; i < nd * L; i += NT)
-    encd[i] = (double)bfr(__ldg(p.enc_t + (size_t)d0 * L + i));
+  if constexpr (!GLOB)
+    for (int i = tid; i < nd * L; i += NT)
+      encd[i] = (double)bfr(__ldg(p.enc_t + (size_t)d0 * L + i));
   for (int i = tid; i < L; i += NT) { cum[i] = s_cum[i]; prv[i] = s_prv[i]; }
   for (int i = tid; i < nd; i += NT) ha_own[i] = s_ha[d0 + i];
   for (int i = tid; i < nh; i += NT) { c1_own[i] = s_c1[h0 + i]; c2_own[i] = s_c2[h0 + i]; }
@@ -784,8 +819,14 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
       __syncthreads();
       for (int jd = warp; jd < nd; jd += NW) {
         double acc = 0.0;
-        for (int l = lane; l < L; l += 32)
-          acc = fma((double)bfr(sc[l]), encd[jd * L + l], acc);
+        if constexpr (GLOB) {   // the column as the shared copy holds it
+          const float* col = p.enc_t + (size_t)(d0 + jd) * L;
+          for (int l = lane; l < L; l += 32)
+            acc = fma((double)bfr(sc[l]), (double)bfr(__ldg(col + l)), acc);
+        } else {
+          for (int l = lane; l < L; l += 32)
+            acc = fma((double)bfr(sc[l]), encd[jd * L + l], acc);
+        }
         acc = warp_sum(acc);
         if (lane == 0) {
           const float c = f32(acc);
@@ -948,10 +989,11 @@ __global__ void __launch_bounds__(NT, 1) barrier_loop(unsigned* bar, int n) {
 
 Layout layout_of(const long long* dims) {
   return layout((int)dims[1], (int)dims[2], (int)dims[3], (int)dims[4],
-                (int)dims[5], (int)dims[6], (int)dims[7], dims[8] != 0);
+                (int)dims[5], (int)dims[6], (int)dims[7], dims[8] != 0,
+                dims[9] != 0);
 }
 
-template <bool SPANS, bool I8L>
+template <bool SPANS, bool I8L, bool GLOB>
 int launch(const void* const* ptrs, const long long* dims, void* stream) {
   Params p;
   int i = 0;
@@ -972,6 +1014,8 @@ int launch(const void* const* ptrs, const long long* dims, void* stream) {
   p.stop = const_cast<float*>(fw());
   p.work = static_cast<unsigned long long*>(const_cast<void*>(ptrs[i++]));
   p.bar = static_cast<unsigned*>(const_cast<void*>(ptrs[i++]));
+  p.ws = static_cast<float*>(const_cast<void*>(ptrs[i++]));
+  if (GLOB && p.ws == nullptr) return cudaErrorInvalidValue;
   p.spans = SPANS ? static_cast<unsigned long long*>(const_cast<void*>(ptrs[i++]))
                   : nullptr;
   if (I8L) {
@@ -984,11 +1028,11 @@ int launch(const void* const* ptrs, const long long* dims, void* stream) {
 
   const size_t bytes = layout_of(dims).total;
   cudaError_t e = cudaFuncSetAttribute(
-      tts_decode_kernel<SPANS, I8L>,
+      tts_decode_kernel<SPANS, I8L, GLOB>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;
   void* args[] = {&p};
-  e = cudaLaunchCooperativeKernel((const void*)tts_decode_kernel<SPANS, I8L>,
+  e = cudaLaunchCooperativeKernel((const void*)tts_decode_kernel<SPANS, I8L, GLOB>,
                                   dim3(ctas), dim3(NT), args, bytes,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
@@ -999,17 +1043,21 @@ int launch(const void* const* ptrs, const long long* dims, void* stream) {
 
 extern "C" int tts_decode(const void* const* ptrs, const long long* dims,
                           void* stream) {
-  return dims[8] ? launch<false, true>(ptrs, dims, stream)
-                 : launch<false, false>(ptrs, dims, stream);
+  if (dims[9])
+    return dims[8] ? launch<false, true, true>(ptrs, dims, stream)
+                   : launch<false, false, true>(ptrs, dims, stream);
+  return dims[8] ? launch<false, true, false>(ptrs, dims, stream)
+                 : launch<false, false, false>(ptrs, dims, stream);
 }
 
-// The same launch with one more pointer after ``bar``: spans, n_steps x 10
+// The same launch with one more pointer after ``ws``: spans, n_steps x 10
 // uint64, where CTA 0 writes %globaltimer at the end of each phase: when the
-// next phase's input has come, and after the step's barrier (dev only).
+// next phase's input has come, and after the step's barrier (dev only; bf16,
+// shared placement).
 extern "C" int tts_decode_spans(const void* const* ptrs, const long long* dims,
                                 void* stream) {
-  if (dims[8]) return cudaErrorInvalidValue;
-  return launch<true, false>(ptrs, dims, stream);
+  if (dims[8] || dims[9]) return cudaErrorInvalidValue;
+  return launch<true, false, false>(ptrs, dims, stream);
 }
 
 // The dynamic shared memory of one CTA for dims (tts_decode's).
@@ -1017,11 +1065,22 @@ extern "C" long long tts_decode_smem_bytes(const long long* dims) {
   return (long long)layout_of(dims).total;
 }
 
+// The global placement's workspace bytes for dims (0 for the shared one).
+extern "C" long long tts_decode_workspace_bytes(const long long* dims) {
+  if (!dims[9]) return 0;
+  return (long long)(4 * ws_floats((int)dims[1], (int)dims[2], (int)dims[7]));
+}
+
 // How many CTAs with ``bytes`` of shared memory each can be co-resident, of
-// the bf16 kernel or (int8_lstm) the I8L one.
-extern "C" int tts_decode_max_ctas(int* out, long long bytes, int int8_lstm) {
-  const void* fn = int8_lstm ? (const void*)tts_decode_kernel<false, true>
-                             : (const void*)tts_decode_kernel<false, false>;
+// the bf16 kernel or (int8_lstm) the I8L one, in the shared or (glob) the
+// global placement.
+extern "C" int tts_decode_max_ctas(int* out, long long bytes, int int8_lstm,
+                                   int glob) {
+  const void* fn =
+      glob ? (int8_lstm ? (const void*)tts_decode_kernel<false, true, true>
+                        : (const void*)tts_decode_kernel<false, false, true>)
+           : (int8_lstm ? (const void*)tts_decode_kernel<false, true, false>
+                        : (const void*)tts_decode_kernel<false, false, false>);
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return e;

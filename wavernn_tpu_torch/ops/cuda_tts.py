@@ -7,10 +7,13 @@ PyTorch version (``tts_decode.tts_decode_reference``) for CPU tensors; it
 never falls back from one to the other.  The kernel's variant is the
 packed set's: bf16, or ``int8_lstm`` (int8 LSTM rows).
 ``tts_decode.launches`` counts kernel launches,
-``tts_decode.launches_int8_lstm`` those of ``int8_lstm``.
-:func:`tts_smem_plan` is the kernel's shared-memory plan:
-which output units, text positions and context columns each CTA owns, and
-the bytes every CTA allocates; a text whose plan does not fit raises.
+``tts_decode.launches_int8_lstm`` those of ``int8_lstm`` and
+``tts_decode.launches_global`` those in the global placement.
+:func:`tts_smem_plan` is the kernel's memory plan: which output units,
+text positions and context columns each CTA owns, the shared bytes every
+CTA allocates and, for a text too long for shared memory, the global
+workspace its L-sized state moves to (the plan's ``placement``).  A text
+of any length decodes; only a grid whose fixed part does not fit raises.
 """
 
 from __future__ import annotations
@@ -65,16 +68,36 @@ def _align(n: int) -> int:
 
 def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
                   grid: int, limit: int | None = SMEM_LIMIT,
-                  int8_lstm: bool = False) -> dict:
-    """The kernel's shared-memory plan on ``grid`` CTAs: each phase's unit
-    count, each CTA's owned ranges, the layout every CTA allocates (sized
-    for the most units any CTA owns in each phase; the kernel computes the
-    same bytes and refuses a launch whose plan disagrees) and each CTA's
-    weight bytes.  ``int8_lstm`` holds an LSTM unit's rows at one byte a
-    weight, then its 8 float32 scales.  Raises ``ValueError`` naming L
-    when the layout exceeds ``limit`` bytes (None: no check)."""
+                  int8_lstm: bool = False,
+                  placement: str | None = None) -> dict:
+    """The kernel's memory plan on ``grid`` CTAs: each phase's unit
+    count, each CTA's owned ranges, the shared-memory layout every CTA
+    allocates (sized for the most units any CTA owns in each phase; the
+    kernel computes the same bytes and refuses a launch whose plan
+    disagrees), each CTA's weight bytes, and the placement of the L-sized
+    state.  ``int8_lstm`` holds an LSTM unit's rows at one byte a weight,
+    then its 8 float32 scales.
+
+    ``placement`` "shared" keeps the L-sized regions (context columns,
+    cum, prv, scores, ploc and encp rows) in shared memory; "global" keeps
+    them out of it: the context columns and encp rows are read from the
+    kernel's inputs, and cum, prv and the scores (one slice per CTA) and
+    ploc ((L, D), each CTA its rows) go to a workspace of ``workspace``
+    bytes.  None picks "shared" when it fits ``limit`` (or ``limit`` is
+    None), else "global".  Raises ``ValueError`` when the layout exceeds
+    ``limit`` bytes: naming L in the shared placement, the grid in the
+    global one (its fixed part alone does not fit)."""
     if grid < 1:
         raise ValueError(f"grid must be >= 1, got {grid}")
+    if placement not in (None, "shared", "global"):
+        raise ValueError(f"placement must be None, 'shared' or 'global', "
+                         f"got {placement!r}")
+    if placement is None:
+        shared = tts_smem_plan(D, Dh, H, n_mels, r, L, grid, None,
+                               int8_lstm, "shared")
+        if limit is None or shared["bytes"] <= limit:
+            return shared
+        placement = "global"
     units = dict(prenet1=D, prenet2=Dh, attn_gru=D, query=D, energies=L,
                  context=D, rnn_input=H, lstm1=H, lstm2=H, mel=r * n_mels)
     # bf16 weights per unit: the rows it owns, operand segments concatenated
@@ -88,15 +111,17 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
             unit_bytes[k] = row_w[k] + 8 * 4
     most = {k: -(-n // grid) for k, n in units.items()}
     op_n = max(n_mels, 2 * D + Dh, 2 * H)
+    glob = placement == "global"
+    Ls, nl = (0, 0) if glob else (L, most["energies"])
     regions = [                                   # the kernel's order
         ("operand", 8 * op_n),                    # act-scaled doubles
-        ("enc_cols", 8 * most["context"] * L),    # bf16-rounded doubles
+        ("enc_cols", 8 * most["context"] * Ls),   # bf16-rounded doubles
         ("partials", 8 * NW * MAXG),
         ("window", 8 * 64),                       # one conv window
         ("operand_f32", 4 * op_n),
-        ("cum", 4 * L), ("prv", 4 * L), ("scores", 4 * L),
-        ("ploc", 4 * most["energies"] * D),
-        ("encp_rows", 4 * most["energies"] * D),
+        ("cum", 4 * Ls), ("prv", 4 * Ls), ("scores", 4 * Ls),
+        ("ploc", 4 * nl * D),
+        ("encp_rows", 4 * nl * D),
         ("own_state", 4 * (most["attn_gru"] + 2 * most["lstm1"])),
         ("loc_conv", 4 * (NTAP2 // 2) * D),       # bf16 tap pairs
     ] + [(f"w_{k}", most[k] * unit_bytes[k]) for k in OWNED if row_w[k]]
@@ -107,21 +132,30 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
                         for k in OWNED) for i in range(grid)]
     if limit is not None and nbytes > limit:
         raise ValueError(
-            f"a text of L={L} symbols does not fit the TTS kernel on {grid} "
-            f"CTAs: it needs {nbytes} bytes of shared memory per CTA, the "
-            f"limit is {limit}")
+            f"the TTS kernel's fixed part does not fit on grid={grid} CTAs: "
+            f"it needs {nbytes} bytes of shared memory per CTA, the limit is "
+            f"{limit}" if glob else
+            f"a text of L={L} symbols does not fit the TTS kernel's shared "
+            f"placement on {grid} CTAs: it needs {nbytes} bytes of shared "
+            f"memory per CTA, the limit is {limit}")
+    # the workspace: each CTA's cum | prv | scores (16-byte aligned), then
+    # ploc (L, D)
+    workspace = 4 * (3 * -(-L // 4) * 4 * grid + L * D) if glob else 0
     return dict(grid=grid, units=units, most=most, ranges=ranges,
                 regions=dict(regions), bytes=nbytes,
-                weight_bytes=weight_bytes)
+                weight_bytes=weight_bytes, placement=placement,
+                workspace=workspace)
 
 
 @functools.lru_cache(maxsize=64)
-def _layout_bytes(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
-                  grid: int, int8_lstm: bool) -> int:
-    """The plan's bytes, once per shape: building the plan takes ~0.8 ms
-    on the host, as long as a 48-step launch's work on the card."""
-    return tts_smem_plan(D, Dh, H, n_mels, r, L, grid,
-                         int8_lstm=int8_lstm)["bytes"]
+def _plan_of(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
+             grid: int, int8_lstm: bool, placement: str | None) -> tuple:
+    """The plan's (shared bytes, placement, workspace bytes), once per
+    shape and asked placement: building the plan takes ~0.8 ms on the
+    host, as long as a 48-step launch's work on the card."""
+    plan = tts_smem_plan(D, Dh, H, n_mels, r, L, grid, int8_lstm=int8_lstm,
+                         placement=placement)
+    return plan["bytes"], plan["placement"], plan["workspace"]
 
 
 def _shapes(D: int, Dh: int, H: int, n_mels: int, r: int) -> dict:
@@ -189,9 +223,10 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
             f"{'int8_lstm' if is_int8_lstm(packed) else 'bf16'}'s")
     if enc.device.type == "cpu":
         return tts_decode_reference(packed, enc, encp, state, n_steps)
-    out = _launch(packed, enc, encp, state, n_steps, None)
+    out, glob = _launch(packed, enc, encp, state, n_steps, None)
     tts_decode.launches += 1
     tts_decode.launches_int8_lstm += int(bool(int8_lstm))
+    tts_decode.launches_global += glob
     return out
 
 
@@ -210,10 +245,15 @@ def tts_decode_spans(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
         raise ValueError("the spans launch is built for bf16 packing only")
     spans = torch.zeros(n_steps, PHASES_PER_STEP, dtype=torch.int64,
                         device=enc.device)
-    return _launch(packed, enc, encp, state, n_steps, spans), spans
+    return _launch(packed, enc, encp, state, n_steps, spans)[0], spans
 
 
-def _launch(packed, enc, encp, state, n_steps, spans):
+def _launch(packed, enc, encp, state, n_steps, spans, placement=None):
+    """One launch, uncounted; returns (outputs, 1 if in the global
+    placement else 0).  ``placement`` pins the plan's placement of the
+    L-sized state ("shared" or "global"; None is the plan's choice): the
+    card tests and ``chip_smoke.py`` pin "global" to hold it and time it
+    on short texts."""
     if enc.device.type != "cuda":
         raise ValueError(f"tts_decode runs on CUDA or CPU tensors, got "
                          f"{enc.device}")
@@ -225,17 +265,25 @@ def _launch(packed, enc, encp, state, n_steps, spans):
     lib = load_library()
     dev = enc.device
     grid = CTAS or torch.cuda.get_device_properties(dev).multi_processor_count
-    nbytes = _layout_bytes(D, Dh, H, n_mels, r, L, grid, int8_lstm)
-    dims = [n_steps, L, D, Dh, H, n_mels, r, grid, int(int8_lstm)]
+    nbytes, placement, ws_bytes = _plan_of(D, Dh, H, n_mels, r, L, grid,
+                                           int8_lstm, placement)
+    glob = int(placement == "global")
+    if glob and spans is not None:
+        raise ValueError(f"the spans launch is built for the shared "
+                         f"placement only (L={L} plans the global one)")
+    dims = [n_steps, L, D, Dh, H, n_mels, r, grid, int(int8_lstm), glob]
     c_dims = (ctypes.c_longlong * len(dims))(*dims)
-    if lib.tts_decode_smem_bytes(c_dims) != nbytes:
+    if (lib.tts_decode_smem_bytes(c_dims) != nbytes
+            or lib.tts_decode_workspace_bytes(c_dims) != ws_bytes):
         raise RuntimeError(
             f"tts_decode kernel: its layout takes "
-            f"{lib.tts_decode_smem_bytes(c_dims)} bytes, the plan {nbytes}")
+            f"{lib.tts_decode_smem_bytes(c_dims)} bytes and a workspace of "
+            f"{lib.tts_decode_workspace_bytes(c_dims)}, the plan {nbytes} "
+            f"and {ws_bytes}")
     with torch.cuda.device(dev):
         fit = ctypes.c_int(0)
         err = lib.tts_decode_max_ctas(ctypes.byref(fit), nbytes,
-                                      int(int8_lstm))
+                                      int(int8_lstm), glob)
         if err != 0 or fit.value < grid:
             raise RuntimeError(
                 f"tts_decode kernel: {grid} CTAs of {nbytes} bytes "
@@ -253,9 +301,13 @@ def _launch(packed, enc, encp, state, n_steps, spans):
         work = torch.zeros(2 * (n_mels + 4 * D + Dh + L + 5 * H),
                            dtype=torch.int64, device=dev)
         bar = torch.zeros(1, dtype=torch.int32, device=dev)
+        # the global placement's cum, prv, scores and ploc (no zeroing: the
+        # kernel writes each before it reads it)
+        ws = torch.empty(ws_bytes // 4, **f32) if glob else None
         ptrs = [packed[k].data_ptr() for k in WEIGHT_ORDER] + [
             t.data_ptr() for t in (enc_t, encp, state_in, state_out, mels,
-                                   scores, stop, work, bar)]
+                                   scores, stop, work, bar)] + [
+            ws.data_ptr() if glob else None]
         if spans is not None:
             ptrs.append(spans.data_ptr())
         if int8_lstm:
@@ -269,8 +321,9 @@ def _launch(packed, enc, encp, state, n_steps, spans):
                            f"{lib.wavernn_error_string(err).decode()}")
     sizes = [getattr(state, f).shape[0] for f in STATE_FIELDS]
     new_state = TTSDecodeState(*torch.split(state_out, sizes))
-    return mels.view(n_steps, r, n_mels), scores, stop, new_state
+    return (mels.view(n_steps, r, n_mels), scores, stop, new_state), glob
 
 
 tts_decode.launches = 0
 tts_decode.launches_int8_lstm = 0
+tts_decode.launches_global = 0

@@ -2,7 +2,7 @@
 ``tools/tts_train_probe.py``).
 
     python -m wavernn_tpu_torch.tools.tts_train_probe [B] [L] [T]
-        [--passes 3] [--device cuda|cpu]
+        [--passes 3] [--calls 4] [--device cuda|cpu]
 
 ``TacotronConfig()`` with seeded weights (``init_variables(cfg, 0)``),
 r = 2, B utterances of L symbols and T frames (defaults 16, 100, 600),
@@ -25,9 +25,9 @@ mode runs as step loops and train mode fuses into one call each
 (``models/tacotron.py``), so the eval forward is reported but no share
 is derived from it.
 
-Each piece is timed as K = 4 calls made back to back, best of
-``--passes`` passes (a pass times every piece in turn): CUDA events
-recorded around the host launching the four, then a synchronize.  The
+Each piece is timed as ``--calls`` (K, 4) calls made back to back, best
+of ``--passes`` passes (a pass times every piece in turn): CUDA events
+recorded around the host launching them, then a synchronize.  The
 step is host-bound, so this wall time of the card's queue is what
 counts.  On the card each piece's device kernel
 count comes from one call under ``torch.profiler`` (its CUDA activity
@@ -58,8 +58,8 @@ PIECES = ("full_step", "loss_grad", "forward_train", "forward_train_nodrop",
           "forward_eval", "encoder_train", "postnet_train")
 
 
-def pass_ms(fn, dev) -> float:
-    """ms per call of K calls of ``fn`` made back to back."""
+def pass_ms(fn, dev, k: int = K) -> float:
+    """ms per call of ``k`` calls of ``fn`` made back to back."""
     import torch
 
     if dev.type == "cuda":
@@ -67,15 +67,15 @@ def pass_ms(fn, dev) -> float:
         end = torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize(dev)
         start.record()
-        for _ in range(K):
+        for _ in range(k):
             fn()
         end.record()
         torch.cuda.synchronize(dev)
-        return start.elapsed_time(end) / K
+        return start.elapsed_time(end) / k
     t0 = time.perf_counter()
-    for _ in range(K):
+    for _ in range(k):
         fn()
-    return (time.perf_counter() - t0) * 1e3 / K
+    return (time.perf_counter() - t0) * 1e3 / k
 
 
 def device_kernels(fn, dev) -> int:
@@ -99,6 +99,8 @@ def main(argv=None) -> dict:
     ap.add_argument("L", type=int, nargs="?", default=100)
     ap.add_argument("T", type=int, nargs="?", default=600)
     ap.add_argument("--passes", type=int, default=3)
+    ap.add_argument("--calls", type=int, default=K,
+                    help="calls made back to back in a timed pass")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = device_of(args.device)
@@ -179,13 +181,13 @@ def main(argv=None) -> dict:
            "postnet_train": postnet}
     tag = card(dev)
     key = metric("ms", dev)
-    rec = {"device": tag, "B": B, "L": L, "T": T, "r": R, "K": K,
+    rec = {"device": tag, "B": B, "L": L, "T": T, "r": R, "K": args.calls,
            "passes": args.passes}
     for name in PIECES:
         fns[name]()                                   # warm
     # each pass times every piece in turn, so that the host's slow spells
     # fall on all of them alike
-    passes = [{name: pass_ms(fns[name], dev) for name in PIECES}
+    passes = [{name: pass_ms(fns[name], dev, args.calls) for name in PIECES}
               for _ in range(args.passes)]
     ms = {name: min(p[name] for p in passes) for name in PIECES}
     for name in PIECES:

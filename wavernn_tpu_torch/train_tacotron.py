@@ -2,7 +2,8 @@
 and the GTA export (ports ``train_tacotron.py``).
 
     python -m wavernn_tpu_torch.train_tacotron --hp_file hp.py \
-        [--force_train] [--force_gta] [--profile DIR] [--device cuda]
+        [--force_train] [--force_gta] [--profile DIR] [--seed 0] \
+        [--device cuda]
     torchrun --nproc_per_node=N -m wavernn_tpu_torch.train_tacotron \
         --hp_file hp.py
 
@@ -11,7 +12,9 @@ wrote, through ``hp.tts_schedule``'s sessions of (r, lr, max_step,
 batch_size), and resumes from the latest checkpoint pair of
 ``checkpoints/<tts_model_id>.tacotron/`` in the session its step selects
 (the JAX package's file names and layout: a pair either package wrote
-resumes in either).  Then it writes ground-truth-aligned mels to
+resumes in either).  ``--seed`` seeds the dropout and zoneout masks
+(each session's generator starts at seed + step; 0, the default, is the
+JAX CLI's stream); the weights' init stays at seed 0.  Then it writes ground-truth-aligned mels to
 ``<data_path>/gta/`` at the r of the stored step, for ``python -m
 wavernn_tpu_torch.train_wavernn --gta``.  The device defaults to ``cuda``
 and is never swapped for another: without CUDA the command fails.
@@ -54,6 +57,8 @@ def main(argv=None):
     parser.add_argument("--profile", metavar="DIR", default=None,
                         help="write a torch.profiler trace of the run to "
                              "DIR/trace.json")
+    parser.add_argument("--seed", type=int, default=0,
+                        help="the train masks' seed (default 0)")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda)")
     parser.add_argument("--hp_file", metavar="FILE", default="hparams.py",
@@ -84,7 +89,7 @@ def main(argv=None):
         with trace(args.profile):
             state = run_schedule(paths, cfg, state, optimizer, get_datasets,
                                  force_train=args.force_train,
-                                 shard_batch=shard_batch)
+                                 shard_batch=shard_batch, seed=args.seed)
         print("Training Complete.")
         print("To continue training increase the schedule in hparams.py or "
               "use --force_train\n")

@@ -255,10 +255,13 @@ def run_schedule(
     force_train: bool = False,
     train_loop: Callable = None,
     shard_batch: Optional[Callable] = None,
+    seed: int = 0,
 ) -> TrainState:
     """Run the progressive (r, lr, max_step, batch_size) curriculum from
     the session the state's step falls in (ref: train_tacotron.py:68-98).
-    ``get_datasets(batch_size, r) -> (train_set, attn_example)``."""
+    ``get_datasets(batch_size, r) -> (train_set, attn_example)``.  ``seed``
+    is each session's mask seed (``tts_train_loop``); 0 is the JAX CLI's
+    stream."""
     train_loop = train_loop or tts_train_loop
 
     for i, session in enumerate(hp.tts_schedule):
@@ -284,6 +287,8 @@ def run_schedule(
 
         train_set, attn_example = get_datasets(batch_size, r)
         kwargs = {"shard_batch": shard_batch} if shard_batch is not None else {}
+        if seed:
+            kwargs["seed"] = seed
         state = train_loop(
             paths, cfg, state, optimizer, train_set, r, lr,
             training_steps, attn_example, **kwargs,
