@@ -236,7 +236,8 @@ width (the golden MOL, f16 in, int16 out, ``fold_bucket=16``):
 28. The crossover sweep: ``tools.step_opt_probe``'s interleaved A/B of
    int8_hh against int8_hh + int8_ff at 1, 4, 16, 48, 64, 132 and 240
    rows x 2,048 steps (3 passes of 2 launches, CUDA events), both designs
-   of the kernel as four interleaved arms, us/step per arm; fails if the
+   of the kernel as four interleaved arms, us/step per arm, and at 1, 48
+   and 240 rows an ``int8_gates`` arm on each design; fails if the
    policy (``ops.decode.FF_AUTO_MIN_ROWS``) turns the variant on at a
    width where it lost on the cluster design.
 29. Serving with the variant forced on: the kernel against its plain
@@ -359,16 +360,21 @@ MOL; ``gen_int8`` turns the decode kernel's on, ``TTSGenerator(int8_lstm=
 True)`` the Tacotron kernel's):
 
 40. ``int8_gates`` (the five big matrices int8, each operand quantized per
-   row on the fly) against its plain version, as phase 27: the golden MOL
-   (16 rows x 1024 steps of the eval mel) and the tiny RAW golden,
-   deterministic and sampling, one row per CTA (the variant's only
-   build); phase 3's tolerances, max |d| printed.  Timed in turns with
-   CUDA events: the kernel at the main path's shape (48 x 12,100,
-   sampling), the plain version at 16 x 1,024 of the same conditioning
-   (the record says so: ``plain_shape``), whose output must equal the
-   kernel's rows 0-15, steps 0-1023.
+   row on the fly) on the cluster design against its plain version, as
+   phase 27: the golden MOL (16 rows x 1024 steps of the eval mel) and
+   the tiny RAW golden, deterministic and sampling, each launch counted
+   as the cluster design's; phase 3's tolerances, max |d| printed.  Timed
+   with CUDA events: plain, cluster, row, row, cluster; the kernel at the
+   main path's shape (48 x 12,100, sampling) on the cluster design and
+   on the row design (the A/B arm), the plain version at 16 x 1,024 of
+   the same conditioning (the record says so: ``plain_shape``), whose
+   output must equal both designs' rows 0-15, steps 0-1023.  Then the
+   ``decode_cluster_spans`` instantiation of int8_gates prints the median
+   span of each part of a step at 48 rows x 2,048, as phase 3 does for
+   int8_ff.
 41. The ``gen_int8`` path, the decode counts set to 0 before each step
-   and read after (every launch must be int8_gates'): ``gen_wavernn
+   and read after (every launch must be int8_gates' and the cluster
+   design's): ``gen_wavernn
    --int8 --file`` phase 4's first 1920-frame mel in process (the WAV's
    length checked); ``gen_tacotron --int8 wavernn`` from phase 32's
    trained step-6 Tacotron into its GTA-trained vocoder; one
@@ -461,7 +467,9 @@ the gates and says that it skips those checks:
 The decode kernel's launch counts (all launches, those of the cluster
 design, those with int8 feed-forward matrices and those of int8_gates) are
 set to 0 just before each main-path run and read just after, and every
-launch but int8_gates' must be the cluster design's; the record's ``launches`` sum
+launch must be the cluster design's (int8_gates' too; the row design is
+left to the A/B arms, the ablations and the breakdown, none of them on
+the main path); the record's ``launches`` sum
 phase 4's, phases 15-21's, phase 25's, phases 29-30's, phase 32's, phase
 35's, phases 38-39's, phases 41-42's, phase 44's, phase 47's and phases
 49-53's, split between the three variants, and the TTS kernel's sums
@@ -479,10 +487,9 @@ the timed call (the larger of its operations over the H100's dense peak
 for their type and its bytes, each input read once and each output written
 once, over 3.35 TB/s) and ``library_ms`` is null: no single PyTorch call
 computes any of these T-step recurrences.  The decode kernel has three
-entries: ``wavernn_decode`` (bf16 feed-forward matrices) and
-``wavernn_decode_int8_ff``, both the cluster design's
-(``decode_cluster.cu``), and ``wavernn_decode_int8_gates`` (the row
-design's, ``decode.cu``); the Tacotron
+entries, all the cluster design's (``decode_cluster.cu``):
+``wavernn_decode`` (bf16 feed-forward matrices),
+``wavernn_decode_int8_ff`` and ``wavernn_decode_int8_gates``; the Tacotron
 kernel two: ``tacotron_decode`` and ``tacotron_decode_int8_lstm``.
 """
 
@@ -515,6 +522,8 @@ SHORT_FOLDS = dict(voc_target=1100, voc_overlap=55)
 # default: it plans its own rows), the row design at one and two rows
 DESIGNS = ("cluster", "row")
 DESIGN_ARMS = (("cluster", 1), ("row", 1), ("row", 2))
+# phase 28's widths with an int8_gates arm on both designs
+GATES_WIDTHS = (1, 48, 240)
 
 
 def bound(ops, nbytes: int):
@@ -602,14 +611,15 @@ def zero_decode_counts():
 
 def count_main_decode() -> int:
     """Add the decode launches since the counts were set to 0 to the main
-    path's tally; returns all of them.  Fails unless every launch but
-    int8_gates' went through the cluster design."""
+    path's tally; returns all of them.  Fails unless every launch went
+    through the cluster design (int8_gates' too; the main path runs no
+    ablation)."""
     from wavernn_tpu_torch.ops import cuda_decode
 
     d = cuda_decode.decode
-    if d.launches_cluster != d.launches - d.launches_int8_gates:
-        fail(f"{d.launches} decode launches, {d.launches_int8_gates} of "
-             f"int8_gates, but {d.launches_cluster} of the cluster design")
+    if d.launches_cluster != d.launches:
+        fail(f"{d.launches} decode launches ({d.launches_int8_gates} of "
+             f"int8_gates), but {d.launches_cluster} of the cluster design")
     MAIN_DECODE["all"] += cuda_decode.decode.launches
     MAIN_DECODE["cluster"] += cuda_decode.decode.launches_cluster
     MAIN_DECODE["int8_ff"] += cuda_decode.decode.launches_int8_ff
@@ -948,8 +958,7 @@ def main():
     n_bf = MAIN_DECODE["all"] - n_ff - n_g
     print(f"decode launches on the main path: {MAIN_DECODE['all']} "
           f"({MAIN_DECODE['cluster']} of the cluster design: {n_bf} with bf16 "
-          f"feed-forward matrices, {n_ff} with int8; {n_g} of int8_gates on "
-          f"the row design; "
+          f"feed-forward matrices, {n_ff} with int8, {n_g} of int8_gates; "
           f"phase 4: {launches}, serving {serving['launches']}, text "
           f"serving {text_serving['decode_launches']}, training "
           f"{training['decode_launches']}, int8_ff serving "
@@ -962,8 +971,8 @@ def main():
           f"{examples['decode']})")
     if n_bf == 0 or n_ff == 0 or n_g == 0 or i8["int8_lstm"]["launches"] == 0:
         fail("a kernel variant was not launched on the main path")
-    if MAIN_DECODE["cluster"] != n_bf + n_ff:
-        fail(f"{n_bf + n_ff} bf16 / int8_ff decode launches, "
+    if MAIN_DECODE["cluster"] != n_bf + n_ff + n_g:
+        fail(f"{n_bf + n_ff + n_g} decode launches, "
              f"{MAIN_DECODE['cluster']} of the cluster design")
     print(f"the row design (decode.cu), held beside the cluster design in "
           f"phases 3, 11 and 27: max first-64 |d| {max(errs_row):.3g} over "
@@ -1017,7 +1026,7 @@ def main():
     }, {
         "name": "wavernn_decode_int8_gates",
         "route": "cuda",
-        "source": "wavernn_tpu_torch/ops/csrc/decode.cu",
+        "source": "wavernn_tpu_torch/ops/csrc/decode_cluster.cu",
         "replaces": "wavernn_tpu/ops/pallas_decode.py:103",
         **i8["int8_gates"],
         "library_ms": None,
@@ -1978,7 +1987,17 @@ def int8_ff_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
     sweep = step_opt_probe.ab_int8_ff(
         *step_opt_probe.golden_setup(dev, golden, cfg, eval_mel),
         widths=step_opt_probe.WIDTHS, T=2048, passes=3, reps=2,
-        log=lambda line: print(line, flush=True), designs=DESIGNS)
+        log=lambda line: print(line, flush=True), designs=DESIGNS,
+        gates_widths=GATES_WIDTHS)
+    for w in sweep["widths"]:
+        if w["rows"] in GATES_WIDTHS:
+            g = {d: w["designs"][d]["int8_gates"]["median_us_per_step"]
+                 for d in DESIGNS}
+            ff_us = w["designs"]["cluster"]["int8_ff"]["median_us_per_step"]
+            print(f"int8_gates at {w['rows']} rows x 2048: cluster design "
+                  f"{g['cluster']:.2f} us/step, row design {g['row']:.2f} "
+                  f"(medians; int8_ff on the cluster design {ff_us:.2f}) | "
+                  f"{card}", flush=True)
     lost = [w["rows"] for w in sweep["widths"] if w["delta_median"] >= 0]
     print(f"int8_ff policy: auto from {FF_AUTO_MIN_ROWS} rows; the sweep's "
           f"crossover {sweep['crossover_rows']}, int8_ff slower at "
@@ -3797,9 +3816,12 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
             fail(f"conditioning {tuple(cond.shape)} too small")
         for det in (True, False):
             seed = 0 if det else 1234
+            n_c = cuda_decode.decode.launches_cluster
             out_k = cuda_decode.decode(gen.packed, cond, 1024, seed,
                                        mcfg.mode, mcfg.n_classes, det)
             torch.cuda.synchronize()
+            if cuda_decode.decode.launches_cluster != n_c + 1:
+                fail("int8_gates did not launch on the cluster design")
             out_p = cuda_decode.decode_reference(gen.packed, cond, 1024,
                                                  seed, mcfg.mode,
                                                  mcfg.n_classes, det)
@@ -3817,41 +3839,72 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
                      f"version [{tag} {kind}]")
             errs.append(float(d.max()))
 
-    # timed: the kernel at the main path's shape (48 x 12,100, sampling),
-    # the plain version at 16 x 1,024 of the same conditioning (at the full
-    # shape it takes ~35 s a run), in turns
+    # timed: the kernel at the main path's shape (48 x 12,100, sampling)
+    # on the cluster design and the row design (the A/B arm), the plain
+    # version at 16 x 1,024 of the same conditioning (at the full shape it
+    # takes ~35 s a run): plain, cluster, row, row, cluster
     gen_g = Generator(cfg, golden, device=dev, fold_bucket=16,
                       input_dtype="float16", output_dtype="int16",
                       int8_gates=True)
     head = main_cond[:16, :1024].contiguous()
 
-    def run_k():
+    def run_c():
         return cuda_decode.decode(gen_g.packed, main_cond, T, 7, "MOL",
                                   cfg.n_classes, False)
+
+    def run_r():
+        return cuda_decode.decode(gen_g.packed, main_cond, T, 7, "MOL",
+                                  cfg.n_classes, False, design="row")
 
     def run_p():
         return cuda_decode.decode_reference(gen_g.packed, head, 1024, 7,
                                             "MOL", cfg.n_classes, False)
 
-    run_k()   # warm
-    outs, times = timed_in_order((run_p, run_k, run_k, run_p))
-    d = (outs[run_k][:16, :1024] - outs[run_p]).abs()
-    errs.append(float(d.max()))
-    print(f"int8_gates kernel vs plain [main path rows 0-15, steps 0-1023, "
-          f"sampling]: max|d| {float(d.max()):.3g}", flush=True)
-    if float(d[:, :64].max()) > 1e-2 or not torch.isfinite(outs[run_k]).all():
-        fail("the int8_gates kernel disagrees with its plain version at the "
-             "main shape")
-    g_ms = float(np.mean(times[run_k]))
+    outs, times = timed_in_order((run_p, run_c, run_r, run_r, run_c))
+    for design, run in (("cluster", run_c), ("row", run_r)):
+        d = (outs[run][:16, :1024] - outs[run_p]).abs()
+        if design == "cluster":
+            errs.append(float(d.max()))
+        print(f"int8_gates kernel vs plain [main path rows 0-15, steps "
+              f"0-1023, sampling, {design} design]: max|d| "
+              f"{float(d.max()):.3g}", flush=True)
+        if float(d[:, :64].max()) > 1e-2 or not torch.isfinite(
+                outs[run]).all():
+            fail(f"the int8_gates kernel ({design} design) disagrees with "
+                 f"its plain version at the main shape")
+    g_ms = float(np.mean(times[run_c]))
+    gr_ms = float(np.mean(times[run_r]))
     gp_ms = float(np.mean(times[run_p]))
     g_bound = decode_bound(gen_g.packed, main_cond.shape[0], T,
                            main_cond.shape[2])
-    print(f"int8_gates decode time: kernel at {main_cond.shape[0]} x {T} "
-          f"{[round(x, 3) for x in times[run_k]]} ms ({g_ms * 1e3 / T:.2f} "
-          f"us/step), plain at 16 x 1024 {[round(x, 1) for x in times[run_p]]}"
+    print(f"int8_gates decode time at {main_cond.shape[0]} x {T}: cluster "
+          f"design {[round(x, 3) for x in times[run_c]]} ms "
+          f"({g_ms * 1e3 / T:.2f} us/step), row design "
+          f"{[round(x, 3) for x in times[run_r]]} ms ({gr_ms * 1e3 / T:.2f} "
+          f"us/step); plain at 16 x 1024 {[round(x, 1) for x in times[run_p]]}"
           f" ms ({gp_ms * 1e3 / 1024:.2f} us/step); bound "
           f"{g_bound[0]:.3f} ms ({g_bound[1]}) | {card}", flush=True)
     del outs, head
+    # where int8_gates' step goes on the cluster design: the spans
+    # instantiation at the main path's rows, 2,048 steps (phase 3's for
+    # int8_ff)
+    cond_s = main_cond[:, :2048].contiguous()
+    out_s, spans = cuda_decode.decode_cluster_spans(gen_g.packed, cond_s, 2048,
+                                                    7, "MOL", 30, False)
+    if not torch.equal(out_s, cuda_decode.decode(gen_g.packed, cond_s, 2048,
+                                                 7, "MOL", 30, False)):
+        fail("the int8_gates spans instantiation differs from the kernel")
+    st = spans.cpu().numpy().astype(np.float64)[64:2047]
+    parts = np.median(np.diff(st, axis=1), axis=0)
+    names = cuda_decode.CLUSTER_SPANS
+    print(f"cluster design spans (int8_gates, {cond_s.shape[0]} rows x 2048, "
+          f"CTA 0 of cluster 0, medians, us): step "
+          f"{np.median(np.diff(st[:, 0])) / 1e3:.2f}; "
+          + ", ".join(f"{names[i + 1]} {parts[i] / 1e3:.2f}"
+                      for i in range(len(parts)))
+          + f", sample {np.median(st[1:, 0] - st[:-1, -1]) / 1e3:.2f} | "
+          f"{card}", flush=True)
+    del cond_s, out_s, spans
     print(f"phase 40 in {time.perf_counter() - t_phase:.1f} s", flush=True)
     t_phase = time.perf_counter()
 

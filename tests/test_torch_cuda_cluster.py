@@ -13,10 +13,13 @@ wavernn_mol_golden.msgpack``, full width) and the tiny RAW golden
 for more fold rows than the mel has.  Each variant (int8 recurrent
 matrices on and off, int8 feed-forward matrices on and off), deterministic
 and sampling, at 1, 3 and 48 rows x 1,024 steps, 240 rows x 64 steps and
-with ``row0`` != 0.  Tolerances are ``chip_smoke.py`` phase 3's: the first
-64 steps within 1e-3 and at least 99% of samples within 2e-2
-(deterministic), the first 64 steps within 1e-2 (sampling); every max |d|
-is printed (0 so far: both sum the exact bf16 products in float64).
+with ``row0`` != 0; ``int8_gates`` (each operand quantized at its row's
+scale from the CTAs' exchanged maxima) at 1, 16 and 48 rows x 1,024
+steps, 240 rows x 64 steps, uneven widths and ``row0`` != 0.  Tolerances
+are ``chip_smoke.py`` phase 3's: the first 64 steps within 1e-3 and at
+least 99% of samples within 2e-2 (deterministic), the first 64 steps
+within 1e-2 (sampling); every max |d| is printed (0 so far: both sum the
+exact bf16 products in float64 and the int8 products exactly).
 """
 
 import ctypes
@@ -63,7 +66,8 @@ _CACHE = {}
 
 def model_inputs(dev, model, int8_hh):
     """(cfg, {variant: pack}, conditioning (rows, 1024 steps)) of a model,
-    its int8 feed-forward bounds calibrated on its mel."""
+    its int8 feed-forward bounds calibrated on its mel; ``int8_gates``'
+    pack beside them (it calibrates nothing)."""
     key = (model, int8_hh)
     if key not in _CACHE:
         cfg, weights, mel_path, (target, overlap) = MODELS[model]
@@ -75,8 +79,10 @@ def model_inputs(dev, model, int8_hh):
                               overlap=overlap)
         gen._ensure_ff_scales(staged.mels_dev, 16)
         cond = gen.fold_conditioning(staged)[0][:, :1024].contiguous()
-        _CACHE[key] = (cfg, {"bf16 ff": gen.packed, "int8_ff": gen.packed_ff},
-                       cond)
+        gates = cuda_decode.pack_weights(gen.weights, cfg.feat_dims,
+                                         cfg.aux_dims, int8_gates=True)
+        _CACHE[key] = (cfg, {"bf16 ff": gen.packed, "int8_ff": gen.packed_ff,
+                             "int8_gates": gates}, cond)
     return _CACHE[key]
 
 
@@ -121,8 +127,20 @@ def test_cluster_kernel_matches_plain_version(cuda_device, model, int8_hh,
          rows_of(cond, B), 1024, cfg, det)
 
 
+@pytest.mark.parametrize("B", [1, 16, 48])
 @pytest.mark.parametrize("det", [True, False], ids=["argmax", "sampling"])
-@pytest.mark.parametrize("ff", ["int8_ff", "bf16 ff"])
+@pytest.mark.parametrize("model", sorted(MODELS))
+def test_cluster_int8_gates_matches_plain_version(cuda_device, model, det,
+                                                  B):
+    """int8_gates on the cluster design: every operand's row scale from
+    the K CTAs' maxima, handed over with the float32 operand."""
+    cfg, packs, cond = model_inputs(cuda_device, model, True)
+    hold(f"{model} int8_gates", packs["int8_gates"], rows_of(cond, B), 1024,
+         cfg, det)
+
+
+@pytest.mark.parametrize("det", [True, False], ids=["argmax", "sampling"])
+@pytest.mark.parametrize("ff", ["int8_ff", "bf16 ff", "int8_gates"])
 @pytest.mark.parametrize("model", sorted(MODELS))
 def test_cluster_kernel_at_240_rows(cuda_device, model, ff, det):
     """Five co-batched 24 s requests' rows: a narrower cluster, or more
@@ -132,7 +150,7 @@ def test_cluster_kernel_at_240_rows(cuda_device, model, ff, det):
          .contiguous(), 64, cfg, det)
 
 
-@pytest.mark.parametrize("ff", ["int8_ff", "bf16 ff"])
+@pytest.mark.parametrize("ff", ["int8_ff", "bf16 ff", "int8_gates"])
 def test_row0_keys_the_bits_of_the_whole_launch(cuda_device, ff):
     """A launch over rows [row0, row0 + b) draws what the whole launch
     draws for them (a mesh shard), in sampling mode."""
@@ -172,27 +190,55 @@ def test_cluster_kernel_uneven_widths_match_exactly(cuda_device, width,
                     det) == 0.0
 
 
+@pytest.mark.parametrize("width,mode", [(48, "MOL"), (80, "RAW")])
+def test_cluster_int8_gates_uneven_widths_match_exactly(cuda_device, width,
+                                                         mode):
+    """int8_gates at H = F = 48 or 80 (owned ranges of unequal length, so
+    the CTAs' maxima cover slices of unequal length), an odd K0, 5 rows:
+    max |d| 0 in both decode modes."""
+    cfg = WaveRNNConfig(rnn_dims=width, fc_dims=width, compute_dims=32,
+                        res_out_dims=36, res_blocks=2, mode=mode)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        model = WaveRNN(cfg).eval()
+    packed = cuda_decode.pack_weights(extract_decode_weights(model),
+                                      cfg.feat_dims, cfg.aux_dims,
+                                      int8_gates=True)
+    packed = {k: (t.to(cuda_device) if t is not None else None)
+              for k, t in packed.items()}
+    cond = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (5, 200, cfg.feat_dims + cfg.res_out_dims)).astype(
+            np.float32)).to(torch.bfloat16).to(cuda_device)
+    for det in (True, False):
+        assert hold(f"width {width} {mode} int8_gates", packed, cond, 200,
+                    cfg, det) == 0.0
+
+
 def test_kernel_layout_equals_the_plan(cuda_device):
     """The kernel's own layout bytes equal the plan's for every variant,
     width and row count the tests run (and a few more)."""
     from wavernn_tpu_torch.ops.build import load_library
 
     lib = load_library()
+    variants = [(i8, ff, False) for i8 in (True, False)
+                for ff in (True, False)] + [(True, True, True)]
     for H, F, feat, d, n_out in ((512, 512, 80, 32, 30),
                                  (32, 32, 80, 4, 512)):
-        for i8 in (True, False):
-            for ff in (True, False):
-                for B in (1, 3, 16, 48, 132, 240, 400):
-                    plan = cuda_decode.pick_cluster_plan(
-                        B, H, F, feat, d, n_out, i8, ff,
-                        lambda k: cuda_decode.max_clusters(
-                            lib, cuda_device, k, i8, ff))
-                    dims = [H, F, feat, d, n_out, int(i8), int(ff),
-                            plan["K"], plan["rows"], plan["rc"],
-                            plan["budget"]]
-                    got = lib.wavernn_decode_cluster_bytes(
-                        (ctypes.c_longlong * len(dims))(*dims))
-                    assert got == plan["bytes"], (H, i8, ff, B, plan)
+        for i8, ff, g8 in variants:
+            for B in (1, 3, 16, 48, 132, 240, 400):
+                plan = cuda_decode.pick_cluster_plan(
+                    B, H, F, feat, d, n_out, i8, ff,
+                    lambda k: cuda_decode.max_clusters(
+                        lib, cuda_device, k, i8, ff, g8), g8)
+                dims = [H, F, feat, d, n_out, int(i8), int(ff), plan["K"],
+                        plan["rows"], plan["rc"], plan["budget"], int(g8)]
+                got = lib.wavernn_decode_cluster_bytes(
+                    (ctypes.c_longlong * len(dims))(*dims))
+                assert got == plan["bytes"], (H, i8, ff, g8, B, plan)
+    # int8_gates without int8 matrices is no plan the kernel takes
+    dims = [512, 512, 80, 32, 30, 0, 1, 16, 1, 1, 65536, 1]
+    assert lib.wavernn_decode_cluster_bytes(
+        (ctypes.c_longlong * len(dims))(*dims)) == -1
 
 
 def test_refused_launch_raises_and_nothing_falls_back(cuda_device,
@@ -210,8 +256,9 @@ def test_refused_launch_raises_and_nothing_falls_back(cuda_device,
 
     monkeypatch.setattr(cuda_decode, "_cluster_dims", bad)
     n = (cuda_decode.decode.launches, cuda_decode.decode.launches_cluster)
-    with pytest.raises(RuntimeError, match="cluster design"):
-        cuda_decode.decode(packs["int8_ff"], cond, 64, 1, "MOL", 30, False)
+    for pack in ("int8_ff", "int8_gates"):
+        with pytest.raises(RuntimeError, match="cluster design"):
+            cuda_decode.decode(packs[pack], cond, 64, 1, "MOL", 30, False)
     assert (cuda_decode.decode.launches,
             cuda_decode.decode.launches_cluster) == n
 
@@ -231,3 +278,20 @@ def test_generator_serves_through_the_cluster_kernel(cuda_device):
     assert np.isfinite(wav).all() and wav.shape == (199 * cfg.hop_length,)
     assert (cuda_decode.decode.launches - n[0],
             cuda_decode.decode.launches_cluster - n[1]) == (1, 1)
+
+
+def test_int8_gates_generator_serves_through_the_cluster_kernel(cuda_device):
+    """``Generator(int8_gates=True)``: one launch, int8_gates' and the
+    cluster design's."""
+    cfg, weights, mel_path, _ = MODELS["golden MOL"]
+    blob = load_pytree(weights)
+    gen = Generator(cfg, {"params": blob["params"],
+                          "batch_stats": blob["batch_stats"]},
+                    device=cuda_device, fold_bucket=16, int8_gates=True)
+    mel = np.load(mel_path)[:, :200]
+    d = cuda_decode.decode
+    n = (d.launches, d.launches_cluster, d.launches_int8_gates)
+    wav = gen(mel, batched=True, target=2750, overlap=550, mu_law=False)
+    assert np.isfinite(wav).all() and wav.shape == (199 * cfg.hop_length,)
+    assert (d.launches - n[0], d.launches_cluster - n[1],
+            d.launches_int8_gates - n[2]) == (1, 1, 1)

@@ -7,11 +7,13 @@ columns over a thread-block cluster of K CTAs and computes the same layout
 as the plan; the wrapper refuses a launch where they differ (held on the
 card by ``tests/test_torch_cuda_cluster.py``).  Here, at the full-size MOL
 widths and the tiny RAW golden's, for 1 to 241 fold rows and 8, 16 or 33
-co-resident clusters: every GRU unit and FC column is owned exactly once in
-a cluster, in ranges aligned to the kernel's 16-byte loads and balanced
-within one group; the rows fit in one wave; the layout fits a CTA's
-shared memory, or the plan raises with the numbers.  No JAX: the plan is
-pure Python, and the route's plain version is ``decode_reference``.
+co-resident clusters, for every variant (``int8_gates`` included): every
+GRU unit and FC column is owned exactly once in a cluster, in ranges
+aligned to the kernel's 16-byte loads and balanced within one group; the
+rows fit in one wave; the layout (``int8_gates``' float32 operands, int8
+plane and per-CTA maxima included) fits a CTA's shared memory, or the plan
+raises with the numbers.  No JAX: the plan is pure Python, and the route's
+plain version is ``decode_reference``.
 """
 
 import pytest
@@ -20,18 +22,43 @@ import torch
 from wavernn_tpu_torch.models.wavernn import WaveRNN, WaveRNNConfig
 from wavernn_tpu_torch.ops import cuda_decode
 from wavernn_tpu_torch.ops.cuda_decode import (
-    SMEM_LIMIT, cluster_plan, cluster_size, pick_cluster_plan,
+    SMEM_LIMIT, cluster_plan, cluster_size, design_for, pick_cluster_plan,
 )
 from wavernn_tpu_torch.ops.decode import extract_decode_weights
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 # (H, F, feat, aux_d, n_out): hparams.py's MOL model and the tiny RAW golden
 WIDTHS = {"full MOL": (512, 512, 80, 32, 30), "tiny RAW": (32, 32, 80, 4, 512)}
-VARIANTS = {"int8_hh+int8_ff": (True, True), "int8_hh": (True, False),
-            "bf16+int8_ff": (False, True), "bf16": (False, False)}
+# name -> (int8_hh, int8_ff, int8_gates)
+VARIANTS = {"int8_hh+int8_ff": (True, True, False),
+            "int8_hh": (True, False, False),
+            "bf16+int8_ff": (False, True, False),
+            "bf16": (False, False, False),
+            "int8_gates": (False, False, True)}
 # an H100's co-resident clusters of K CTAs, one CTA an SM (measured by
 # cudaOccupancyMaxActiveClusters on an NVIDIA H100 80GB HBM3)
 H100_CLUSTERS = {16: 7, 8: 15, 4: 30, 2: 66, 1: 132}
+
+
+def align16(n):
+    return -(-n // 16) * 16
+
+
+def operand_regions(H, F, rows, K, int8_hh, int8_ff, int8_gates):
+    """The operand buffers' bytes, written out apart from the plan: the
+    h1 operands (two, by step parity), h2, the A and B operands, and
+    int8_gates' int8 plane, maxima (five operands, a word a row and CTA)
+    and five operands' row scales."""
+    W = max(H, F)
+    hsz = 4 if int8_gates else 1 if int8_hh else 8
+    fsz = 4 if int8_gates else 1 if int8_ff else 8
+    want = {"h1": 2 * align16(H * rows * hsz), "h2": align16(H * rows * hsz),
+            "a": align16(W * rows * fsz), "b": align16(W * rows * fsz)}
+    if int8_gates:
+        want.update({"int8 plane": align16(W * rows),
+                     "maxima": align16(5 * rows * K * 4),
+                     "row scales": align16(5 * rows * 4)})
+    return want
 
 
 def check_ranges(ranges, n, group, most):
@@ -56,18 +83,22 @@ def check_ranges(ranges, n, group, most):
 def test_plan_owns_every_unit_once_in_one_wave(widths, variant, B,
                                                max_clusters):
     H, F, feat, d, n_out = WIDTHS[widths]
-    int8_hh, int8_ff = VARIANTS[variant]
+    int8_hh, int8_ff, int8_gates = VARIANTS[variant]
     args = (B, H, F, feat, d, n_out, int8_hh, int8_ff, max_clusters)
     try:
-        plan = cluster_plan(*args)
+        plan = cluster_plan(*args, int8_gates=int8_gates)
     except ValueError as e:
         # only a layout past a CTA's shared memory raises, with its numbers
-        whole = cluster_plan(*args, limit=10 ** 9, budget=2048)
+        whole = cluster_plan(*args, limit=10 ** 9, budget=2048,
+                             int8_gates=int8_gates)
         assert whole["bytes"] > SMEM_LIMIT
         assert f"{B} fold rows" in str(e) and str(SMEM_LIMIT) in str(e)
         return
     K, rows, rc, clusters = (plan[k] for k in ("K", "rows", "rc",
                                                "clusters"))
+    # int8_gates' five big matrices are int8: its dots are int8_hh's and
+    # int8_ff's
+    int8_hh, int8_ff = int8_hh or int8_gates, int8_ff or int8_gates
     assert K == cluster_size(H, F, int8_ff)
     gF = 16 if int8_ff else 8
     assert len(plan["units"]) == len(plan["fc"]) == K
@@ -80,6 +111,9 @@ def test_plan_owns_every_unit_once_in_one_wave(widths, variant, B,
     # the layout: 16-byte aligned regions inside a CTA's shared memory
     assert plan["bytes"] == sum(plan["regions"].values()) <= SMEM_LIMIT
     assert all(n % 16 == 0 for n in plan["regions"].values())
+    want = operand_regions(H, F, rows, K, int8_hh, int8_ff, int8_gates)
+    assert {k: plan["regions"].get(k) for k in want} == want
+    assert ("maxima" in plan["regions"]) == int8_gates
     assert all(o % 16 == 0 for o in plan["offsets"].values())
     for name, (S, L) in plan["splits"].items():
         assert S >= 1 and L >= 1
@@ -169,7 +203,7 @@ def counts():
 
 
 @pytest.mark.parametrize("design", [None, "cluster", "row"])
-@pytest.mark.parametrize("pack", ["int8_hh", "int8_ff"])
+@pytest.mark.parametrize("pack", ["int8_hh", "int8_ff", "int8_gates"])
 def test_cpu_tensors_run_the_plain_version(small, pack, design):
     cfg, packs, cond = small
     n = counts()
@@ -182,20 +216,26 @@ def test_cpu_tensors_run_the_plain_version(small, pack, design):
 
 
 def test_int8_gates_and_ablations_take_the_row_design(small):
+    """The route: int8_gates defaults to the cluster design (and takes the
+    row design only when asked, the A/B arm); an ablation defaults to the
+    row design and raises on the cluster design."""
     cfg, packs, cond = small
     args = (cond, 40, 5, "MOL", cfg.n_classes, True)
-    with pytest.raises(ValueError, match="cluster design"):
-        cuda_decode.decode(packs["int8_gates"], *args, design="cluster")
+    assert design_for(packs["int8_gates"]) == "cluster"
+    assert design_for(packs["int8_gates"], design="row") == "row"
+    assert design_for(packs["int8_ff"]) == "cluster"
+    assert design_for(packs["int8_hh"], frozenset({"gates"})) == "row"
     with pytest.raises(ValueError, match="cluster design"):
         cuda_decode.decode(packs["int8_hh"], *args, design="cluster",
                            ablate=frozenset({"gates"}))
+    with pytest.raises(ValueError, match="cluster design"):
+        design_for(packs["int8_hh"], frozenset({"sample"}), "cluster")
     with pytest.raises(ValueError, match="design must be one of"):
         cuda_decode.decode(packs["int8_hh"], *args, design="tiles")
     with pytest.raises(ValueError, match="row design's"):
         cuda_decode.decode(packs["int8_hh"], *args, design="cluster",
                            rows_per_cta=2)
-    # their default is the row design, which the CPU runs as its plain
-    # version
+    # either default runs as its plain version on the CPU
     got = cuda_decode.decode(packs["int8_gates"], *args)
     assert torch.equal(got, cuda_decode.decode_reference(
         packs["int8_gates"], *args))

@@ -102,7 +102,8 @@ def cpu_argv(name, tmp_path):
         "stream_latency": ["--frames", "16", "--group", "16", "--reps",
                            "1"] + tiny,
         "step_opt_probe": ["--ab", "--widths", "1,4", "--T", "16",
-                           "--passes", "1", "--reps", "1", "--voc_weights",
+                           "--passes", "1", "--reps", "1",
+                           "--gates_widths", "4", "--voc_weights",
                            str(TINY_RAW), "--hp_file", hp_file,
                            "--mel", str(REPO / "tests" / "golden"
                                         / "tiny_wavernn_raw_mel.npy")],
@@ -179,6 +180,10 @@ def test_tool_runs_plain_versions_on_cpu(name, tmp_path, capsys):
         for w in rec["widths"]:
             for arm in ("int8_hh", "int8_ff"):
                 assert w[arm]["cpu_host_median_us_per_step"] > 0
+        # the int8_gates arm only at --gates_widths
+        assert "int8_gates" not in rec["widths"][0]
+        assert rec["widths"][1]["int8_gates"][
+            "cpu_host_median_us_per_step"] > 0
     elif name == "tts_phase_spans":
         # the plan alone: the spans and the barrier loop need the card
         assert rec["grid"] == 132 and rec["smem_bytes"] == 137_456

@@ -384,9 +384,13 @@ __device__ __forceinline__ float row_scale(uint32_t mbits) {
 }
 
 // round(v / sa) (a true division, half to even) as an int8 byte; |v| <= m
-// keeps it within [-127, 127].
+// keeps it within [-127, 127].  A zero v (relu's, h(-1)'s) gives 0 without
+// dividing it: the division's range check sends a zero dividend down its
+// slow path.
 __device__ __forceinline__ uint32_t quant_byte(float v, float sa) {
-  return static_cast<uint32_t>(__float2int_rn(__fdiv_rn(v, sa)) & 0xff);
+  const bool zero = v == 0.f;
+  const int q = __float2int_rn(__fdiv_rn(zero ? sa : v, sa));
+  return zero ? 0u : static_cast<uint32_t>(q & 0xff);
 }
 
 // Add this thread's largest |values| m[r] to each row's maximum amax[r]

@@ -53,13 +53,15 @@ and the next x, and ``"out_write"`` stores no output (which is then
 unspecified).
 
 The kernel has two designs (:func:`decode`'s ``design``).  ``"cluster"``
-(``csrc/decode_cluster.cu``, the default for every variant but
-``int8_gates`` and the ablations): a fold row's output columns are split
-over a thread-block cluster of K CTAs, each streaming 1/K of the weights a
-step, the operands of the next phase exchanged through distributed shared
-memory; :func:`cluster_plan` lays it out.  ``"row"`` (``csrc/decode.cu``):
-one CTA owns ``rows_per_cta`` fold rows and streams every weight; it is
-``int8_gates``'s and the ablations' route and the A/B arm.
+(``csrc/decode_cluster.cu``, the default for every variant, ``int8_gates``
+included; not the ablations): a fold row's output columns are split over a
+thread-block cluster of K CTAs, each streaming 1/K of the weights a step,
+the operands of the next phase exchanged through distributed shared
+memory; :func:`cluster_plan` lays it out.  ``int8_gates`` hands its
+operands over as float32 with each CTA's per-row maxima, and every CTA
+quantizes the whole operand behind the same barrier.  ``"row"``
+(``csrc/decode.cu``): one CTA owns ``rows_per_cta`` fold rows and streams
+every weight; it is the ablations' route and the A/B arm.
 """
 
 from __future__ import annotations
@@ -75,7 +77,7 @@ if TYPE_CHECKING:
 
 LOG_SCALE_MIN = float(math.log(1e-14))
 _MODES = {"RAW": 0, "MOL": 1}
-# The row design's fold rows per CTA (the ablations and int8_gates are
+# The row design's fold rows per CTA (its ablations and int8_gates are
 # built for this one: ABLATION_R in csrc/decode.cu).  Measured on an H100
 # (700 W) at 64 rows x 2,048 steps with int8_hh: 72.94 us/step at 1 (1,024
 # threads), more than twice that at 2 (512 threads; PERF.md): a CTA builds
@@ -524,7 +526,8 @@ def cluster_size(H: int, F: int, int8_ff: bool) -> int:
 def cluster_plan(B: int, H: int, F: int, feat: int, aux_d: int, n_out: int,
                  int8_hh: bool, int8_ff: bool, max_clusters: int,
                  K: int | None = None, limit: int = SMEM_LIMIT,
-                 budget: int | None = None) -> dict:
+                 budget: int | None = None,
+                 int8_gates: bool = False) -> dict:
     """The cluster kernel's plan for ``B`` fold rows on clusters of ``K``
     CTAs (default :func:`cluster_size`), of which ``max_clusters`` are
     co-resident on the card (one CTA an SM): ``rows`` per cluster so that
@@ -533,14 +536,20 @@ def cluster_plan(B: int, H: int, F: int, feat: int, aux_d: int, n_out: int,
     sums, and the shared-memory ``bytes`` every CTA allocates (the kernel
     computes the same layout and refuses a launch whose plan disagrees).
     ``budget`` caps the bytes of one bf16 dot's partial sums (default: the
-    largest of :data:`DOT_BUDGETS` whose layout fits).  Raises
-    ``ValueError`` with the numbers when the layout exceeds ``limit``
-    bytes."""
+    largest of :data:`DOT_BUDGETS` whose layout fits).  ``int8_gates``
+    makes all five big dots int8 (``int8_hh`` and ``int8_ff`` are then
+    implied), holds their operands as float32 and adds the int8 plane and
+    the five operands' maxima (a word a row and CTA) and row scales.
+    Raises ``ValueError`` with the numbers when the layout exceeds
+    ``limit`` bytes."""
+    int8_hh = int8_hh or int8_gates
+    int8_ff = int8_ff or int8_gates
     if budget is None:
         for b in DOT_BUDGETS[:-1]:
             try:
                 return cluster_plan(B, H, F, feat, aux_d, n_out, int8_hh,
-                                    int8_ff, max_clusters, K, limit, b)
+                                    int8_ff, max_clusters, K, limit, b,
+                                    int8_gates)
             except ValueError as e:
                 if "do not fit" not in str(e):
                     raise
@@ -605,8 +614,8 @@ def cluster_plan(B: int, H: int, F: int, feat: int, aux_d: int, n_out: int,
                "int8 sums": sum(ints.values()), "added-up sums": pre}
     used += pre
     W = max(H, F)
-    hbytes = _align16(H * rows * (1 if int8_hh else 8))
-    ab = _align16(W * rows * (1 if int8_ff else 8))
+    hbytes = _align16(H * rows * (4 if int8_gates else 1 if int8_hh else 8))
+    ab = _align16(W * rows * (4 if int8_gates else 1 if int8_ff else 8))
     for name, n in (("cond", _align16(C * rows * 8)),
                     ("cond rows", 2 * _align16(C * rows * 2)),
                     ("h1", 2 * hbytes),
@@ -621,6 +630,12 @@ def cluster_plan(B: int, H: int, F: int, feat: int, aux_d: int, n_out: int,
                          + (4 if int8_ff else 2) * Fo + n_out) * 4))):
         regions[name] = n
         used += n
+    if int8_gates:
+        for name, n in (("int8 plane", _align16(W * rows)),
+                        ("maxima", _align16(5 * rows * K * 4)),
+                        ("row scales", _align16(5 * rows * 4))):
+            regions[name] = n
+            used += n
     if used > limit:
         raise ValueError(
             f"{B} fold rows do not fit the cluster kernel on clusters of {K} "
@@ -635,25 +650,27 @@ def cluster_plan(B: int, H: int, F: int, feat: int, aux_d: int, n_out: int,
 
 def pick_cluster_plan(B: int, H: int, F: int, feat: int, aux_d: int,
                       n_out: int, int8_hh: bool, int8_ff: bool,
-                      clusters_at) -> dict:
+                      clusters_at, int8_gates: bool = False) -> dict:
     """The plan on the widest cluster whose layout fits in the fewest
     waves: K from :func:`cluster_size` down to 1, ``clusters_at(K)`` the
     co-resident clusters of K CTAs (0: the card takes none).  One wave
     where any K fits; past that (rows no layout holds, e.g. a co-batch of
     many long utterances) the clusters run in ``waves`` waves, each
     repeating the T steps.  Raises ``ValueError`` naming every K tried
-    when not even one row a cluster fits."""
+    when not even one row a cluster fits.  ``int8_gates`` as in
+    :func:`cluster_plan`."""
     tried = []
     waves, most = 1, 1
     while True:
-        K = cluster_size(H, F, int8_ff)
+        K = cluster_size(H, F, int8_ff or int8_gates)
         while K >= 1:
             n = clusters_at(K)
             most = max(most, n)
             if n >= 1:
                 try:
                     plan = cluster_plan(B, H, F, feat, aux_d, n_out, int8_hh,
-                                        int8_ff, n * waves, K)
+                                        int8_ff, n * waves, K,
+                                        int8_gates=int8_gates)
                     plan["waves"] = -(-plan["clusters"] // n)
                     return plan
                 except ValueError as e:
@@ -671,13 +688,16 @@ _MAX_CLUSTERS: dict = {}
 
 
 def max_clusters(lib, device: torch.device, K: int, int8_hh: bool,
-                 int8_ff: bool) -> int:
+                 int8_ff: bool, int8_gates: bool = False) -> int:
     """The card's co-resident clusters of ``K`` CTAs, one CTA an SM
-    (``wavernn_decode_cluster_max``), asked once per device and variant."""
-    key = (device.index, K, bool(int8_hh), bool(int8_ff))
+    (``wavernn_decode_cluster_max``), asked once per device and variant
+    (``int8_gates`` implies ``int8_hh`` and ``int8_ff``)."""
+    int8_hh, int8_ff = int8_hh or int8_gates, int8_ff or int8_gates
+    key = (device.index, K, bool(int8_hh), bool(int8_ff), bool(int8_gates))
     if key not in _MAX_CLUSTERS:
         out = ctypes.c_int(0)
-        dims = (ctypes.c_longlong * 3)(K, int(int8_hh), int(int8_ff))
+        dims = (ctypes.c_longlong * 4)(K, int(int8_hh), int(int8_ff),
+                                       int(int8_gates))
         with torch.cuda.device(device):
             err = lib.wavernn_decode_cluster_max(ctypes.byref(out), dims)
         if err != 0:
@@ -775,15 +795,17 @@ def _pointers(packed: dict, cond: torch.Tensor, out: torch.Tensor) -> list:
 
 
 def _cluster_dims(lib, shape, cond, T, seed, mode, deterministic,
-                  row0) -> list:
+                  row0, int8_gates: bool = False) -> list:
     """The cluster kernel's dims: the plan for the card's co-resident
     clusters, checked against the kernel's own layout."""
     B, Tc, C, H, F, d, K0, n_out, int8_hh, int8_ff = shape
+    int8_hh, int8_ff = int8_hh or int8_gates, int8_ff or int8_gates
     plan = pick_cluster_plan(
         B, H, F, K0 - d, d, n_out, int8_hh, int8_ff,
-        lambda k: max_clusters(lib, cond.device, k, int8_hh, int8_ff))
+        lambda k: max_clusters(lib, cond.device, k, int8_hh, int8_ff,
+                               int8_gates), int8_gates)
     layout = [H, F, K0 - d, d, n_out, int(int8_hh), int(int8_ff), plan["K"],
-              plan["rows"], plan["rc"], plan["budget"]]
+              plan["rows"], plan["rc"], plan["budget"], int(int8_gates)]
     nb = lib.wavernn_decode_cluster_bytes(
         (ctypes.c_longlong * len(layout))(*layout))
     if nb != plan["bytes"]:
@@ -792,7 +814,7 @@ def _cluster_dims(lib, shape, cond, T, seed, mode, deterministic,
     return [B, Tc, C, T, H, F, K0 - d, d, n_out, _MODES[mode],
             int(deterministic), int(int8_hh), int(int8_ff), seed & 0xFFFFFFFF,
             row0, plan["K"], plan["rows"], plan["rc"], plan["clusters"],
-            plan["budget"], plan["bytes"]]
+            plan["budget"], plan["bytes"], int(int8_gates)]
 
 
 def _call(lib, entry, design: str, ptrs: list, dims: list, device,
@@ -807,6 +829,25 @@ def _call(lib, entry, design: str, ptrs: list, dims: list, device,
                            f"{lib.wavernn_error_string(err).decode()}")
 
 
+def design_for(packed: dict, ablate: frozenset = frozenset(),
+               design: str | None = None) -> str:
+    """The kernel design a launch of ``packed`` takes: ``design``, by
+    default ``"cluster"`` for every variant (``int8_gates`` too) and
+    ``"row"`` for an ablation.  Raises for an unknown design and for an
+    ablation asked of the cluster design."""
+    mask = ablation_mask(ablate)
+    if design is None:
+        design = "row" if mask else "cluster"
+    if design not in DESIGNS:
+        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
+    if design == "cluster" and mask:
+        raise ValueError(
+            f"the cluster design takes no ablation (they run on "
+            f"design='row'); got variant {variant(packed)}, "
+            f"ablate={sorted(ablate)}")
+    return design
+
+
 def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
            n_classes: int, deterministic: bool,
            ablate: frozenset = frozenset(),
@@ -817,8 +858,8 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     (:func:`variant`): int8 recurrent matrices, int8 feed-forward matrices
     (with their ``ffq``), or ``int8_gates``.  ``design`` picks the kernel
     (the module's docstring): ``"cluster"``, the default for every variant
-    but ``int8_gates`` and the ablations, which take ``"row"`` and raise
-    when asked for ``"cluster"``, on the CPU too.  ``rows_per_cta`` (1 or
+    (``int8_gates`` too); the ablations take ``"row"`` and raise when asked
+    for ``"cluster"``, on the CPU too.  ``rows_per_cta`` (1 or
     2) is the row design's fold rows per CTA (the cluster design plans its
     own and raises on another value); ``row0`` is the random bits' row of
     row 0 (a shard's offset in its batch); ``ablate`` as in the module's
@@ -827,8 +868,9 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
     :data:`ROWS_PER_CTA` rows per CTA).  The kernels' 16-byte weight loads
     take H a multiple of 16 and F of 8 (of 16 with int8 feed-forward
     matrices), and 16-byte aligned weights; other shapes raise.
-    ``int8_gates`` is built for :data:`ROWS_PER_CTA` rows per CTA and no
-    ablation; other settings raise, on the CPU too.
+    ``int8_gates`` takes no ablation and, on the row design,
+    :data:`ROWS_PER_CTA` rows per CTA; other settings raise, on the CPU
+    too.
 
     A CUDA tensor launches the design's kernel (``csrc/decode_cluster.cu``
     or ``csrc/decode.cu``) on the current stream, or raises (a cluster
@@ -848,15 +890,7 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
             f"the int8_gates kernel is built for {ROWS_PER_CTA} row(s) per "
             f"CTA and no ablation; got rows_per_cta={rows_per_cta}, "
             f"ablate={sorted(ablate)}")
-    if design is None:
-        design = "row" if int8_gates or mask else "cluster"
-    if design not in DESIGNS:
-        raise ValueError(f"design must be one of {DESIGNS}, got {design!r}")
-    if design == "cluster" and (int8_gates or mask):
-        raise ValueError(
-            f"the cluster design takes neither int8_gates nor an ablation "
-            f"(they run on design='row'); got variant {variant(packed)}, "
-            f"ablate={sorted(ablate)}")
+    design = design_for(packed, ablate, design)
     if design == "cluster" and rows_per_cta != ROWS_PER_CTA:
         raise ValueError(f"rows_per_cta={rows_per_cta} is the row design's; "
                          f"the cluster design plans its rows itself")
@@ -876,7 +910,7 @@ def decode(packed: dict, cond: torch.Tensor, T: int, seed: int, mode: str,
                       device=cond.device)
     if design == "cluster":
         dims = _cluster_dims(lib, shape, cond, T, seed, mode, deterministic,
-                             row0)
+                             row0, int8_gates)
         entry = lib.wavernn_decode_cluster
     else:
         B, Tc, C, H, F, d, K0, n_out, int8_hh, int8_ff = shape
@@ -906,17 +940,18 @@ CLUSTER_SPANS = ("start", "gru1", "window1+barrier1", "ih2_dot", "gru2",
 
 def decode_cluster_spans(packed: dict, cond: torch.Tensor, T: int, seed: int,
                          mode: str, n_classes: int, deterministic: bool):
-    """Dev only: the cluster kernel's int8_hh + int8_ff instantiation that
-    stamps the card's nanosecond clock (``%globaltimer``) at the points of
-    :data:`CLUSTER_SPANS` in every step.  Returns (:func:`decode`'s
+    """Dev only: the cluster kernel's int8_hh + int8_ff (or int8_gates)
+    instantiation that stamps the card's nanosecond clock
+    (``%globaltimer``) at the points of :data:`CLUSTER_SPANS` in every
+    step.  Returns (:func:`decode`'s
     samples, the stamps (T, len(CLUSTER_SPANS)) int64 on the card).  Not
     counted in ``decode.launches``; nothing on the request path calls it."""
     if cond.device.type != "cuda":
         raise ValueError(f"the spans launch needs CUDA tensors, got "
                          f"{cond.device}")
-    if variant(packed) != "int8_hh+int8_ff":
-        raise ValueError(f"the spans launch is built for int8_hh+int8_ff, "
-                         f"got {variant(packed)}")
+    if variant(packed) not in ("int8_hh+int8_ff", "int8_gates"):
+        raise ValueError(f"the spans launch is built for int8_hh+int8_ff "
+                         f"and int8_gates, got {variant(packed)}")
     shape = _check_cuda(packed, cond, T, mode, n_classes, frozenset(), 0,
                         ROWS_PER_CTA)
     from wavernn_tpu_torch.ops.build import load_library
@@ -926,7 +961,8 @@ def decode_cluster_spans(packed: dict, cond: torch.Tensor, T: int, seed: int,
                       device=cond.device)
     spans = torch.zeros(T, len(CLUSTER_SPANS), dtype=torch.int64,
                         device=cond.device)
-    dims = _cluster_dims(lib, shape, cond, T, seed, mode, deterministic, 0)
+    dims = _cluster_dims(lib, shape, cond, T, seed, mode, deterministic, 0,
+                         is_int8_gates(packed))
     _call(lib, lib.wavernn_decode_cluster_spans, "cluster spans",
           _pointers(packed, cond, out), dims, cond.device,
           ctypes.c_void_p(spans.data_ptr()))

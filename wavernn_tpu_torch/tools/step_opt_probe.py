@@ -6,7 +6,8 @@ TPU-only variants and have no counterpart here.
 
     python -m wavernn_tpu_torch.tools.step_opt_probe --ab \\
         [--widths 1,4,16,48,64,132,240] [--T 2048] [--passes 5] [--reps 2] \\
-        [--designs cluster,row] [--device cuda|cpu]
+        [--designs cluster,row] [--gates_widths 1,48,240] \
+        [--device cuda|cpu]
 
 Full width: the committed trained golden MOL
 (``bench_assets/wavernn_mol_golden.msgpack``), sampling, the decode
@@ -20,6 +21,9 @@ CUDA events, so that drift of the card's clock hits both arms alike.  Per
 width it prints the median and the minimum us/step of each arm and B's
 signed delta against A; then the crossover: the fewest rows from which B's
 median is below A's at every measured width (none if B never wins there).
+``--gates_widths`` adds, at those widths, a third interleaved arm on each
+design: ``int8_gates`` (the five big matrices int8, each operand quantized
+per row on the fly), which the crossover does not read.
 ``--device cpu`` runs the plain versions at the (small) size given, every
 time labelled as a CPU host time.  The last line is one JSON object.
 """
@@ -113,11 +117,13 @@ def rows_of(stream: torch.Tensor, B: int, T: int, seed: int = 0):
 
 
 def ab_int8_ff(gen, stream: torch.Tensor, widths, T: int, passes: int,
-               reps: int, log=print, designs=("cluster",)) -> dict:
+               reps: int, log=print, designs=("cluster",),
+               gates_widths=()) -> dict:
     """Interleaved A/B passes per width, for each kernel design in
     ``designs`` (``cuda_decode.decode``'s; the first one's arms decide the
-    crossover); returns the JSON record: per width the first design's arms
-    at the top and every design's under ``"designs"``."""
+    crossover), with an ``int8_gates`` arm at the widths in
+    ``gates_widths``; returns the JSON record: per width the first
+    design's arms at the top and every design's under ``"designs"``."""
     from wavernn_tpu_torch.ops import cuda_decode
 
     dev = stream.device
@@ -126,7 +132,10 @@ def ab_int8_ff(gen, stream: torch.Tensor, widths, T: int, passes: int,
     timed = _timer(dev, reps)
     c = gen.cfg
     variants = {"int8_hh": gen.packed, "int8_hh+int8_ff": gen.packed_ff}
-    arms = [(d, name) for d in designs for name in variants]
+    packs = dict(variants)
+    if gates_widths:
+        packs["int8_gates"] = cuda_decode.pack_weights(
+            gen.weights, c.feat_dims, c.aux_dims, int8_gates=True)
     rec = {"device": tag, "T": T, "passes": passes, "reps": reps,
            "designs": list(designs),
            "ff_scales": [float(x) for x in gen.ff_scales.cpu()],
@@ -134,14 +143,17 @@ def ab_int8_ff(gen, stream: torch.Tensor, widths, T: int, passes: int,
     medians = {}
     for B in widths:
         cond = rows_of(stream, B, T)
+        names = list(variants) + (["int8_gates"] if B in gates_widths
+                                  else [])
+        arms = [(d, name) for d in designs for name in names]
         for d, name in arms:    # warm every arm
-            cuda_decode.decode(variants[name], cond, min(T, 64), 0, c.mode,
+            cuda_decode.decode(packs[name], cond, min(T, 64), 0, c.mode,
                                c.n_classes, False, design=d)
         times = {arm: [] for arm in arms}
         for i in range(passes):
             for j, (d, name) in enumerate(arms):
                 ms = timed(lambda s: cuda_decode.decode(
-                    variants[name], cond, T, s, c.mode, c.n_classes, False,
+                    packs[name], cond, T, s, c.mode, c.n_classes, False,
                     design=d), (len(arms) * i + j) * reps + 1)
                 times[(d, name)].append(ms * 1e3 / T)
         row = {"rows": B, "designs": {}}
@@ -151,13 +163,20 @@ def ab_int8_ff(gen, stream: torch.Tensor, widths, T: int, passes: int,
             row["designs"][d] = {
                 "int8_hh": {med: a, mn: am}, "int8_ff": {med: b, mn: bm},
                 "delta_median": (b - a) / a, "delta_min": (bm - am) / am}
+            gates = ""
+            if "int8_gates" in names:
+                g, gm = (f(times[(d, "int8_gates")])
+                         for f in (np.median, np.min))
+                row["designs"][d]["int8_gates"] = {med: float(g),
+                                                   mn: float(gm)}
+                gates = f", int8_gates {g:8.2f} / {gm:8.2f}"
             if d == designs[0]:
                 medians[B] = (a, b)
                 row.update(row["designs"][d])
             log(f"[{tag}] {d} design, rows {B:4d} x {T}: int8_hh {a:8.2f} / "
                 f"{am:8.2f} us/step (median / min), +int8_ff {b:8.2f} / "
                 f"{bm:8.2f}: delta median {100 * (b - a) / a:+6.2f}%, min "
-                f"{100 * (bm - am) / am:+6.2f}%")
+                f"{100 * (bm - am) / am:+6.2f}%{gates}")
         rec["widths"].append(row)
         del cond
     rec["crossover_rows"] = crossover(medians)
@@ -181,6 +200,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--designs", default="cluster",
                     help="the kernel designs to time, comma-separated "
                          "(cluster, row); the first decides the crossover")
+    ap.add_argument("--gates_widths", default="",
+                    help="widths at which to add an int8_gates arm, "
+                         "comma-separated (default: none)")
     ap.add_argument("--voc_weights", default=None,
                     help="msgpack weights (default: the golden MOL)")
     ap.add_argument("--hp_file", default=None,
@@ -201,7 +223,9 @@ def main(argv=None) -> dict:
         gen, stream = golden_setup(dev, variables, voc_config(args.hp_file),
                                    mel)
         rec = ab_int8_ff(gen, stream, widths, args.T, args.passes,
-                         args.reps, designs=tuple(args.designs.split(",")))
+                         args.reps, designs=tuple(args.designs.split(",")),
+                         gates_widths=[int(w) for w in
+                                       args.gates_widths.split(",") if w])
     print(f"card: {rec['device']}")
     print(json.dumps(rec))
     return rec
