@@ -103,8 +103,8 @@
 // Beside it: tts_decode_smem_bytes and tts_decode_workspace_bytes (the
 // layout's shared and global bytes for dims), tts_decode_max_ctas
 // (co-resident CTAs for a layout, variant and placement), and, dev only,
-// tts_decode_spans (bf16, shared placement; one more pointer after ws:
-// n_steps x 10 uint64 stamps) and tts_barrier_loop (bare barriers).
+// tts_decode_spans (every variant and placement; one more pointer after
+// ws: n_steps x 10 uint64 stamps) and tts_barrier_loop (bare barriers).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -1052,12 +1052,15 @@ extern "C" int tts_decode(const void* const* ptrs, const long long* dims,
 
 // The same launch with one more pointer after ``ws``: spans, n_steps x 10
 // uint64, where CTA 0 writes %globaltimer at the end of each phase: when the
-// next phase's input has come, and after the step's barrier (dev only; bf16,
-// shared placement).
+// next phase's input has come, and after the step's barrier (dev only; every
+// variant and placement).
 extern "C" int tts_decode_spans(const void* const* ptrs, const long long* dims,
                                 void* stream) {
-  if (dims[8] || dims[9]) return cudaErrorInvalidValue;
-  return launch<true, false, false>(ptrs, dims, stream);
+  if (dims[9])
+    return dims[8] ? launch<true, true, true>(ptrs, dims, stream)
+                   : launch<true, false, true>(ptrs, dims, stream);
+  return dims[8] ? launch<true, true, false>(ptrs, dims, stream)
+                 : launch<true, false, false>(ptrs, dims, stream);
 }
 
 // The dynamic shared memory of one CTA for dims (tts_decode's).

@@ -231,21 +231,23 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
 
 
 def tts_decode_spans(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
-                     state: TTSDecodeState, n_steps: int):
+                     state: TTSDecodeState, n_steps: int,
+                     placement: str | None = None):
     """Dev only: the kernel's instantiation that stamps the card's
     nanosecond clock (``%globaltimer``, CTA 0) at the end of each of a
     step's phases: when the next phase's input has come, and after the
-    step's grid barrier.  Returns :func:`tts_decode`'s outputs and the
-    stamps, (n_steps, PHASES_PER_STEP) int64 on the card.  Not counted in
+    step's grid barrier.  Every variant (the packed set's) and placement
+    (``placement`` as :func:`_launch` takes it).  Returns
+    :func:`tts_decode`'s outputs and the stamps, (n_steps,
+    PHASES_PER_STEP) int64 on the card.  Not counted in
     ``tts_decode.launches``; nothing on the request path calls it."""
     if enc.device.type != "cuda":
         raise ValueError(f"the spans launch needs CUDA tensors, got "
                          f"{enc.device}")
-    if is_int8_lstm(packed):
-        raise ValueError("the spans launch is built for bf16 packing only")
     spans = torch.zeros(n_steps, PHASES_PER_STEP, dtype=torch.int64,
                         device=enc.device)
-    return _launch(packed, enc, encp, state, n_steps, spans)[0], spans
+    return _launch(packed, enc, encp, state, n_steps, spans,
+                   placement)[0], spans
 
 
 def _launch(packed, enc, encp, state, n_steps, spans, placement=None):
@@ -268,9 +270,6 @@ def _launch(packed, enc, encp, state, n_steps, spans, placement=None):
     nbytes, placement, ws_bytes = _plan_of(D, Dh, H, n_mels, r, L, grid,
                                            int8_lstm, placement)
     glob = int(placement == "global")
-    if glob and spans is not None:
-        raise ValueError(f"the spans launch is built for the shared "
-                         f"placement only (L={L} plans the global one)")
     dims = [n_steps, L, D, Dh, H, n_mels, r, grid, int(int8_lstm), glob]
     c_dims = (ctypes.c_longlong * len(dims))(*dims)
     if (lib.tts_decode_smem_bytes(c_dims) != nbytes
