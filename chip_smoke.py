@@ -74,8 +74,9 @@ order; any failure exits non-zero and prints no result line:
    each timed in turns.  Then texts past the shared
    placement's limit (the global placement: the L-sized state in a
    workspace in global memory): (c)'s model and criteria at L = 2,405,
-   4,096 and 16,384 (bf16) and 3,169 (int8_lstm), r=2, 96 steps, each
-   max |d| printed and each L timed; and a 3,000-symbol text through
+   4,096 and 16,384 (bf16) and 3,169 (int8_lstm, every value equal),
+   r=2, 96 steps, each max |d| printed and each L timed; and a
+   3,000-symbol text through
    ``TTSGenerator(backend="kernel", steps=480)``, whose global launches
    (set to 0 just before) must be one per 48-step chunk, against the same
    generator with the kernel's plain version in its place (the criteria
@@ -383,9 +384,13 @@ True)`` the Tacotron kernel's):
    variants' quality is read in phase 44, by one ``tools.kernel_quality``
    run for every decoder.
 42. ``int8_lstm`` against its plain version at full width (phase 6's
-   seeded model and 60-symbol text, L=64, r=2, 750 steps, phase 6's
-   tolerances), both timed in turns, the shared-memory plan's bytes
-   printed; ``TTSGenerator(int8_lstm=True)`` on phase 32's trained step-6
+   seeded model and 60-symbol text, L=64, r=2, 750 steps, every value
+   equal), both timed in turns, the shared-memory plan's bytes printed;
+   ``tools.tts_phase_spans``' spans launch of int8_lstm (every value
+   equal) prints its span per phase beside phase 6's bf16 spans, with the
+   LSTM phases' share of each step and the first three phases' sum (where
+   int8_lstm loads and dots the h half);
+   ``TTSGenerator(int8_lstm=True)`` on phase 32's trained step-6
    Tacotron (800 frames at most): the mean and max mel |d| of the bf16
    and the int8_lstm kernel against the float32 plain decoder; one text
    -> wav through both int8 variants (the tiny golden Tacotron with
@@ -942,7 +947,7 @@ def main():
     clock("37-39")
     i8 = int8_variant_phases(dev, card, golden_cfg, golden, raw_cfg,
                              tiny_raw, eval_mel, raw_mel, cond, T,
-                             long_mels[0], tts_train)
+                             long_mels[0], tts_train, tts["spans"])
     clock("40-42")
     tools = quality_tool_phases(
         dev, card, {"bf16 ff": serving["mcd"], "int8_ff": ff["mcd"]},
@@ -1098,11 +1103,13 @@ def tts_fresh_state(dev, packed, L: int):
     return init_tts_decode_state(D, H, L, n_mels, dev)
 
 
-def tts_compare(dev, tag, packed, enc, encp, n: int) -> float:
+def tts_compare(dev, tag, packed, enc, encp, n: int,
+                exact: bool = False) -> float:
     """Hold n steps of the TTS kernel (the pack's variant) against its
     plain version: the first 64 steps within 1e-3 on mels and scores, at
-    least 99% of mel values within 2e-2.  Returns the max |d| of mels and
-    scores over all steps."""
+    least 99% of mel values within 2e-2; with ``exact`` (int8_lstm, whose
+    LSTM sums are exact integers) every value equal.  Returns the max |d|
+    of mels and scores over all steps."""
     import torch
 
     from wavernn_tpu_torch.ops import cuda_tts
@@ -1121,6 +1128,8 @@ def tts_compare(dev, tag, packed, enc, encp, n: int) -> float:
     first = max(float(dm[:64].max()), float(ds[:64].max()))
     agree = float((dm <= 2e-2).float().mean())
     ok = first <= 1e-3 and agree >= 0.99
+    if exact:
+        ok = ok and float(dm.max()) == 0.0 and float(ds.max()) == 0.0
     print(f"tts kernel vs plain [{tag}] L {L} steps {n}: first-64 "
           f"max|d| mel {float(dm[:64].max()):.3g} score "
           f"{float(ds[:64].max()):.3g}, mel within 2e-2 {agree:.5f}, "
@@ -1233,7 +1242,7 @@ def tts_long_texts(dev, card, cfg, variables) -> dict:
         if plan["placement"] != "global":
             fail(f"L={L}: the plan chose the {plan['placement']} placement")
         tag = f"{'int8_lstm' if int8 else 'bf16'}, full width, r=2, global"
-        errs.append(tts_compare(dev, tag, packed, enc, encp, n))
+        errs.append(tts_compare(dev, tag, packed, enc, encp, n, exact=int8))
         kernel = lambda *a: cuda_tts.tts_decode(*a, int8_lstm=int8)
         times = {kernel: [], tts_decode_reference: []}
         for fn in (tts_decode_reference, kernel, kernel, tts_decode_reference):
@@ -1490,7 +1499,7 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     print(f"tts cli: {wavs[0].name} parses: {x.shape[0]} samples at {sr} Hz")
     return {"launches": tts_launches, "max_abs_err": max(errs),
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": tts_bound[0],
-            "bound_by": tts_bound[1], "global": long_texts}
+            "bound_by": tts_bound[1], "global": long_texts, "spans": spans}
 
 
 def measurement_phases(dev, card, cfg, gen, eval_mel, long_mel,
@@ -3773,13 +3782,14 @@ def weights_phases(dev, card, cfg, golden, long_mel, tts_weights) -> dict:
 
 def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
                         raw_mel, main_cond, T: int, long_mel,
-                        tts_train) -> dict:
+                        tts_train, bf16_spans: dict) -> dict:
     """Phases 40-42: the two opt-in kernel variants, int8_gates of the
     decode kernel and int8_lstm of the Tacotron kernel: each against its
     plain version and timed, the ``gen_int8`` path (``gen_wavernn --int8``,
     ``gen_tacotron --int8``, the daemon from an hp file that sets
-    ``gen_int8``) and one text -> wav through both.  Returns both
-    kernels' records."""
+    ``gen_int8``) and one text -> wav through both; int8_lstm's span per
+    phase beside ``bf16_spans`` (phase 6's ``tools.tts_phase_spans``
+    record).  Returns both kernels' records."""
     import threading
 
     import torch
@@ -3797,6 +3807,7 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
         LSTM_MATRICES, MATRICES, tts_decode_reference,
     )
     from wavernn_tpu_torch.text import text_to_sequence
+    from wavernn_tpu_torch.tools import tts_phase_spans
     from wavernn_tpu_torch.tools.http_serve_probe import post
     from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
@@ -4006,7 +4017,7 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
     packed, enc, encp = tts_kernel_inputs(dev, full, init_variables(full, 0),
                                           seq60, 64, 2, int8_lstm=True)
     lstm_err = tts_compare(dev, "int8_lstm, full width, r=2", packed, enc,
-                           encp, 750)
+                           encp, 750, exact=True)
 
     def timed(fn):
         return tts_timed(dev, fn, packed, enc, encp, 750)
@@ -4038,6 +4049,22 @@ def int8_variant_phases(dev, card, cfg, golden, raw_cfg, tiny_raw, eval_mel,
           f"({l_bound[1]}); {plan['bytes']} bytes of shared memory per CTA "
           f"on {plan['grid']} CTAs | {card}", flush=True)
     del packed, enc, encp
+
+    # where int8_lstm's step goes, beside phase 6's bf16 spans
+    spans = tts_phase_spans.phase_spans(
+        *tts_phase_spans.kernel_inputs(64, dev, int8_lstm=True), 750)
+    if spans["max_abs_err"] != 0.0:
+        fail("the int8_lstm spans launch disagrees with the plain version")
+    for name, rec in (("bf16 (phase 6)", bf16_spans),
+                      ("int8_lstm", spans)):
+        ph, step_us = rec["phase_us"], rec["us_per_step"]
+        lstm = ph["lstm1"] + ph["lstm2"]
+        first = ph["prenet1"] + ph["prenet2"] + ph["attn_gru"]
+        print(f"tts spans [{name}], L 64, 750 steps: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in ph.items())
+            + f" us; {step_us:.2f} us/step; the LSTM phases {lstm:.2f} us "
+            f"({lstm / step_us:.3f} of the step), phases 1-3 {first:.2f} "
+            f"us | {card}", flush=True)
 
     # the trained step-6 Tacotron: each kernel variant's mel against the
     # float32 plain decoder

@@ -504,9 +504,16 @@ SMALL_TACO = TacotronConfig(embed_dims=32, encoder_dims=32, decoder_dims=64,
                             postnet_K=2, num_highways=1)
 
 
-def taco_inputs(device, r, L, dtype=torch.bfloat16, int8_lstm=False):
+# narrow enough for the whole int8_lstm decoder to fit one CTA (143,584
+# bytes of shared memory at L = 24)
+ONE_CTA_TACO = TacotronConfig(embed_dims=32, encoder_dims=16, decoder_dims=32,
+                              lstm_dims=64, postnet_dims=32, encoder_K=4,
+                              postnet_K=2, num_highways=1)
+
+
+def taco_inputs(device, r, L, dtype=torch.bfloat16, int8_lstm=False,
+                cfg=SMALL_TACO):
     """Packed weights and encoder outputs of a seeded small Tacotron."""
-    cfg = SMALL_TACO
     model = taco_from_jax(init_variables(cfg, 0), cfg, device)
     x = np.random.default_rng(L).integers(1, cfg.num_chars, (1, L))
     with torch.no_grad():
@@ -516,10 +523,23 @@ def taco_inputs(device, r, L, dtype=torch.bfloat16, int8_lstm=False):
     return packed, enc[0].contiguous(), encp[0].contiguous()
 
 
-def taco_run(fn, packed, enc, encp, n, chunks):
-    c = SMALL_TACO
-    state = init_tts_decode_state(c.decoder_dims, c.lstm_dims, enc.shape[0],
-                                  c.n_mels, enc.device)
+def taco_state(device, L, nonzero=False, c=SMALL_TACO):
+    """The decoder state of ``c`` for a text of L symbols: zero, as a
+    decode starts, or with the LSTMs' h and c drawn from a seeded numpy
+    generator."""
+    state = init_tts_decode_state(c.decoder_dims, c.lstm_dims, L, c.n_mels,
+                                  device)
+    if nonzero:
+        rng = np.random.default_rng(23)
+        for f in ("h1", "c1", "h2", "c2"):
+            v = rng.uniform(-0.9, 0.9, c.lstm_dims).astype(np.float32)
+            setattr(state, f, torch.from_numpy(v).to(device))
+    return state
+
+
+def taco_run(fn, packed, enc, encp, n, chunks, state=None):
+    if state is None:
+        state = taco_state(enc.device, enc.shape[0])
     outs = []
     for _ in range(chunks):
         *o, state = fn(packed, enc, encp, state, n // chunks)
@@ -556,30 +576,74 @@ def test_tts_kernel_matches_plain_version(cuda_device, r, L, chunks, grid,
         assert float(d.max()) <= 2e-2, f
 
 
-@pytest.mark.parametrize("grid", [None, 7], ids=["all_sms", "grid7"])
+@pytest.mark.parametrize("state_in", ["zero", "nonzero"])
+@pytest.mark.parametrize("grid", [None, 1, 7, 37],
+                         ids=["all_sms", "grid1", "grid7", "grid37"])
 def test_tts_int8_lstm_kernel_matches_plain_version(cuda_device, grid,
-                                                    monkeypatch):
-    """The int8_lstm variant against its plain version: the operands'
-    maxima and the int8 sums are exact, so they agree to the bit."""
+                                                    state_in, monkeypatch):
+    """The int8_lstm variant against its plain version over two 48-step
+    launches (h and c carried in the state): the operands' maxima and the
+    int8 sums are exact, so they agree to the bit.  At H = 128 7 CTAs own
+    18 or 19 units of each LSTM, 37 CTAs 3 or 4 (as 132 CTAs do at H =
+    512), one CTA per SM 0 or 1; one CTA owns all 64 of the narrower
+    ONE_CTA_TACO (SMALL_TACO's decoder does not fit one CTA).  Step 0's h
+    half comes from the state in: all zero (``quant_byte``'s zero path) or
+    drawn; the spans launch gives the same bits."""
     monkeypatch.setattr(cuda_tts, "CTAS", grid)
-    packed, enc, encp = taco_inputs(cuda_device, 2, 24, int8_lstm=True)
+    cfg = ONE_CTA_TACO if grid == 1 else SMALL_TACO
+    packed, enc, encp = taco_inputs(cuda_device, 2, 24, int8_lstm=True,
+                                    cfg=cfg)
+    nonzero = state_in == "nonzero"
     n = (cuda_tts.tts_decode.launches, cuda_tts.tts_decode.launches_int8_lstm)
     run = lambda p, *a: cuda_tts.tts_decode(p, *a, int8_lstm=True)
-    got = taco_run(run, packed, enc, encp, 96, 2)
+    got = taco_run(run, packed, enc, encp, 96, 2,
+                   taco_state(cuda_device, 24, nonzero, cfg))
     torch.cuda.synchronize()
     assert (cuda_tts.tts_decode.launches,
             cuda_tts.tts_decode.launches_int8_lstm) == (n[0] + 2, n[1] + 2)
-    want = taco_run(tts_decode_reference, packed, enc, encp, 96, 2)
+    want = taco_run(tts_decode_reference, packed, enc, encp, 96, 2,
+                    taco_state(cuda_device, 24, nonzero, cfg))
     for name, a, b in zip(("mels", "scores", "stop"), got[:3], want[:3]):
-        print(f"int8_lstm grid {grid or 'all SMs'} {name}: max|d| "
-              f"{float((a - b).abs().max()):.3g}")
+        print(f"int8_lstm grid {grid or 'all SMs'} state {state_in} {name}: "
+              f"max|d| {float((a - b).abs().max()):.3g}")
         assert torch.equal(a, b), name
     for f in STATE_FIELDS:
         assert torch.equal(getattr(got[3], f), getattr(want[3], f)), f
-    with pytest.raises(ValueError, match="bf16 packing"):
-        cuda_tts.tts_decode_spans(packed, enc, encp, init_tts_decode_state(
-            SMALL_TACO.decoder_dims, SMALL_TACO.lstm_dims, 24,
-            SMALL_TACO.n_mels, cuda_device), 4)
+    spans_run = lambda p, *a: cuda_tts.tts_decode_spans(p, *a)[0]
+    spanned = taco_run(spans_run, packed, enc, encp, 96, 2,
+                       taco_state(cuda_device, 24, nonzero, cfg))
+    torch.cuda.synchronize()
+    assert cuda_tts.tts_decode.launches == n[0] + 2
+    for a, b in zip(spanned[:3], got[:3]):
+        assert torch.equal(a, b)
+
+
+# an LSTM wider than 1,024: phase 2's threads load [h1 | h2] (H / 2 = 520
+# float4) in more than two float4 each, and a row is 65 16-byte chunks
+WIDE_LSTM_TACO = TacotronConfig(embed_dims=32, encoder_dims=32,
+                                decoder_dims=64, lstm_dims=1040,
+                                postnet_dims=32, encoder_K=4, postnet_K=2,
+                                num_highways=1)
+
+
+def test_tts_int8_lstm_kernel_takes_a_wide_lstm(cuda_device):
+    """The int8_lstm variant at H = 1,040 on one CTA per SM, from a drawn
+    state, over two 48-step launches: bit-equal to its plain version."""
+    cfg = WIDE_LSTM_TACO
+    packed, enc, encp = taco_inputs(cuda_device, 2, 24, int8_lstm=True,
+                                    cfg=cfg)
+    run = lambda p, *a: cuda_tts.tts_decode(p, *a, int8_lstm=True)
+    got = taco_run(run, packed, enc, encp, 96, 2,
+                   taco_state(cuda_device, 24, True, cfg))
+    torch.cuda.synchronize()
+    want = taco_run(tts_decode_reference, packed, enc, encp, 96, 2,
+                    taco_state(cuda_device, 24, True, cfg))
+    for name, a, b in zip(("mels", "scores", "stop"), got[:3], want[:3]):
+        print(f"int8_lstm H 1040 {name}: "
+              f"max|d| {float((a - b).abs().max()):.3g}")
+        assert torch.equal(a, b), name
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(got[3], f), getattr(want[3], f)), f
 
 
 def test_tts_spans_stamp_every_phase_of_every_step(cuda_device):
@@ -661,6 +725,10 @@ def test_tts_int8_lstm_kernel_decodes_past_its_shared_limit(cuda_device):
     assert cuda_tts.tts_decode.launches_int8_lstm == n + 1
     want = tts_decode_reference(packed, enc, encp, state(), 48)
     close_to_plain(got, want, f"int8_lstm L {L}")
+    for name, a, b in zip(("mels", "scores", "stop"), got[:3], want[:3]):
+        assert torch.equal(a, b), name
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(got[3], f), getattr(want[3], f)), f
 
 
 @pytest.mark.parametrize("int8_lstm", [False, True], ids=["bf16", "int8_lstm"])
@@ -686,13 +754,23 @@ def test_tts_global_placement_equals_shared(cuda_device, grid, int8_lstm,
     close_to_plain(outs["global"], taco_run(tts_decode_reference, packed,
                                             enc, encp, 96, 2),
                    f"global grid {grid or 'all SMs'} int8_lstm {int8_lstm}")
-    if not int8_lstm:   # the spans launch takes the shared placement only
-        spans = torch.zeros(4, cuda_tts.PHASES_PER_STEP, dtype=torch.int64,
-                            device=cuda_device)
-        with pytest.raises(ValueError, match="shared placement"):
-            cuda_tts._launch(packed, enc, encp, init_tts_decode_state(
-                SMALL_TACO.decoder_dims, SMALL_TACO.lstm_dims, 200,
-                SMALL_TACO.n_mels, cuda_device), 4, spans, placement="global")
+    # the spans instantiation of each placement: the same bits, stamps that
+    # increase
+    for placement in ("shared", "global"):
+        stamps = []
+
+        def spans_run(p, e, ep, st, n):
+            t = torch.zeros(n, cuda_tts.PHASES_PER_STEP, dtype=torch.int64,
+                            device=e.device)
+            stamps.append(t)
+            return cuda_tts._launch(p, e, ep, st, n, t,
+                                    placement=placement)[0]
+        spanned = taco_run(spans_run, packed, enc, encp, 96, 2)
+        torch.cuda.synchronize()
+        for a, b in zip(spanned[:3], outs[placement][:3]):
+            assert torch.equal(a, b), placement
+        t = torch.cat(stamps).cpu().numpy().reshape(-1)
+        assert (t > 0).all() and (np.diff(t) >= 0).all()
 
 
 def test_tts_kernel_rejects_what_it_does_not_take(cuda_device):

@@ -182,12 +182,16 @@ def text_limit(grid: int, int8_lstm: bool) -> int:
 
 def test_int8_lstm_plan_bytes_are_pinned():
     """At full width, L = 64, 132 CTAs: the LSTM rows take one byte a
-    weight and 32 bytes of scales a unit (the kernel's layout() computes
-    the same bytes); the ownership is the bf16 plan's."""
+    weight and 32 bytes of scales a unit, and ``lstm_hh`` 192 bytes: the 8
+    warps' two maxima and the h half of both LSTMs' gates (4 units x 2
+    layers x 4 gates, float32; the kernel's layout() computes the same
+    bytes); the ownership is the bf16 plan's."""
     plan = tts_smem_plan(*FULL, 64, 132, int8_lstm=True)
     bf16 = tts_smem_plan(*FULL, 64, 132)
-    assert plan["bytes"] == 97_520 and bf16["bytes"] == 130_032
+    assert plan["bytes"] == 97_712 and bf16["bytes"] == 130_032
     assert plan["regions"]["w_lstm1"] == 4 * (8 * 512 + 32)
+    assert plan["regions"]["lstm_hh"] == 192 and "lstm_hh" not in bf16[
+        "regions"]
     assert max(plan["weight_bytes"]) == 48_704
     assert plan["ranges"] == bf16["ranges"]
     assert plan["bytes"] == sum(-(-b // 16) * 16
@@ -207,3 +211,39 @@ def test_int8_lstm_moves_the_text_limit():
         tts_smem_plan(*FULL, 3_169, 132, int8_lstm=True, placement="shared")
     plan = tts_smem_plan(*FULL, 3_169, 132, int8_lstm=True)
     assert plan["bytes"] <= SMEM_LIMIT and plan["placement"] == "global"
+
+
+@pytest.mark.parametrize("placement", ["shared", "global"])
+@pytest.mark.parametrize("grid", [1, 7, 64, 132])
+def test_int8_lstm_plan_is_the_layout_written_out(grid, placement):
+    """At full width, L = 64, the plan's bytes against the kernel's layout
+    written out region by region (each rounded up to 16 bytes, sized for
+    the most units a CTA owns): the operand as doubles and as float32 (the
+    widest phase's; phase 2's p1 with h1 and h2 is narrower here), the
+    L-sized state (none in the global placement), the partials, the conv
+    window and taps, the owned state, the 8 warps' two maxima and the h
+    half of both LSTMs' gates (2 layers x 4 gates a unit, float32), and
+    the weight rows, the LSTM ones int8 with 8 float32 scales a unit."""
+    D, Dh, H, NM, r = FULL
+    L = 64
+    a = lambda n: -(-n // 16) * 16
+    most = lambda n: -(-n // grid)
+    Ls, nl = (L, most(L)) if placement == "shared" else (0, 0)
+    op_n = max(NM, 2 * D + Dh, 2 * H, D + H)
+    nd, nh = most(D), most(H)
+    fixed = (a(8 * op_n) + a(8 * 8 * 6) + a(8 * 64) + a(4 * op_n)
+             + a(4 * (nd + 2 * nh)) + a(4 * 31 * D))
+    text = a(8 * nd * Ls) + 3 * a(4 * Ls) + 2 * a(4 * nl * D)
+    hoisted = a(4 * (2 * 8 + 2 * 4 * nh))
+    weights = (a(2 * nd * NM) + a(2 * most(Dh) * D)
+               + a(2 * nd * (3 * (D + Dh) + 3 * D)) + a(2 * nd * D)
+               + a(2 * nh * 2 * D) + 2 * a(nh * (8 * H + 8 * 4))
+               + a(2 * most(r * NM) * H))
+    plan = tts_smem_plan(*FULL, L, grid, limit=None, int8_lstm=True,
+                         placement=placement)
+    assert plan["placement"] == placement
+    assert plan["regions"]["lstm_hh"] == 64 + 32 * nh
+    assert plan["bytes"] == fixed + text + hoisted + weights
+    bf16 = tts_smem_plan(*FULL, L, grid, limit=None, placement=placement)
+    assert bf16["bytes"] - plan["bytes"] == (
+        2 * a(2 * nh * 8 * H) - 2 * a(nh * (8 * H + 32)) - hoisted)

@@ -193,6 +193,20 @@ def test_tool_runs_plain_versions_on_cpu(name, tmp_path, capsys):
         assert rec["plain"]["steps_per_call"] == 4
 
 
+@pytest.mark.parametrize("L", [256, 3_169])
+def test_tts_phase_spans_int8_lstm_prints_its_plan_on_cpu(L, capsys):
+    """``--int8_lstm`` on the CPU: the int8_lstm variant's plan, in the
+    shared placement or, past its 3,168 symbols, the global one; nothing
+    timed."""
+    rec = tts_phase_spans.main(["--L", str(L), "--int8_lstm", "--device",
+                                "cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
+    assert rec["variant"] == "int8_lstm" and rec["grid"] == 132
+    assert (rec["placement"], rec["smem_bytes"]) == (
+        ("shared", 105_136) if L == 256 else ("global", 93_872))
+    assert "phase_us" not in rec and "barrier_us" not in rec
+
+
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_on_cuda_without_a_card_raises(name):
     if torch.cuda.is_available():

@@ -16,6 +16,8 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
@@ -25,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _lib = None
 build_log = ""  # nvcc's messages of the last build in this process
+build_seconds = {}  # each source's nvcc wall seconds in that build
 
 
 def nvcc_path() -> str:
@@ -54,7 +57,7 @@ def build(verbose: bool = False) -> Path:
     """Compile the sources if the library for their hash is missing.
     ``verbose`` asks ptxas for each kernel's registers, shared memory and
     spills (kept in ``build_log``)."""
-    global build_log
+    global build_log, build_seconds
     out = library_path()
     if out.exists():
         return out
@@ -63,15 +66,26 @@ def build(verbose: bool = False) -> Path:
     cus = [s for s in sources() if s.suffix == ".cu"]
     objs = [BUILD_DIR / f"{tag}.{s.stem}.o" for s in cus]
     ptxas = ["-Xptxas", "-v"] if verbose else []
+    t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc_path(), *NVCC_FLAGS, *ptxas, "-c",
                                "-o", str(o), str(s)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                               text=True)
              for s, o in zip(cus, objs)]
+    outs, secs = {}, {}
+
+    def wait(s, proc):   # one thread a source: its own end time
+        outs[s.name] = proc.communicate()[0]
+        secs[s.name] = round(time.perf_counter() - t0, 1)
+    waits = [threading.Thread(target=wait, args=a) for a in zip(cus, procs)]
+    for w in waits:
+        w.start()
+    for w in waits:
+        w.join()
     logs, failed = [], []
     for s, proc in zip(cus, procs):
-        log = proc.communicate()[0]
-        logs.append(f"== {s.name}\n{log}")
+        log = outs[s.name]
+        logs.append(f"== {s.name} ({secs[s.name]} s)\n{log}")
         if proc.returncode != 0:
             failed.append(f"{s.name} ({proc.returncode}):\n{log}")
     try:
@@ -88,6 +102,7 @@ def build(verbose: bool = False) -> Path:
         for o in objs:
             o.unlink(missing_ok=True)
     build_log = "\n".join(logs)
+    build_seconds = secs
     os.replace(tmp, out)
     return out
 

@@ -393,6 +393,20 @@ __device__ __forceinline__ uint32_t quant_byte(float v, float sa) {
   return zero ? 0u : static_cast<uint32_t>(q & 0xff);
 }
 
+// quant_byte's byte without its division, from rs = __frcp_rn(sa).  For
+// |v / sa| < 128, v * rs (two roundings) and the rounded quotient both lie
+// within 2^-16 of v / sa, so they round to the same integer unless v * rs
+// is within 2^-12 of a half-integer: there ``tie`` is set, and the caller
+// takes quant_byte instead (about one value in 2,000).  A zero v gives 0,
+// as there.
+__device__ __forceinline__ uint32_t quant_byte_rcp(float v, float rs,
+                                                   bool& tie) {
+  const float q = __fmul_rn(v, rs);
+  const float r = rintf(q);
+  tie |= fabsf(__fsub_rn(q, r)) > 0.5f - 0x1p-12f;
+  return static_cast<uint32_t>(__float2int_rn(r) & 0xff);
+}
+
 // Add this thread's largest |values| m[r] to each row's maximum amax[r]
 // (shared memory): a warp's maximum, then one atomicMax a warp.  Every
 // thread of the CTA calls it.

@@ -72,14 +72,26 @@
 //
 // I8L (the TPU kernel's ``int8_lstm``): the LSTM units' rows are int8 in
 // shared memory, with their per-row scales (4 + 4 floats a unit), half the
-// bytes of bf16.  The LSTM operands x and h reach every CTA whole, so each
-// CTA finds max|x| and max|h| itself (the same in every CTA, a maximum does
-// not depend on order), quantizes both at sa = max(m, 1e-8) * (1/127),
-// round(v / sa) by a true division, half to even, and sums each half of a
-// row with __dp4a: exact integers, so the order of the terms does not
-// matter.  The gate is (f32(sum_x) * (sa_x * s_ih) + f32(sum_h) * (sa_h *
-// s_hh)) + b, the plain version's order, and the variant equals its plain
-// version bit for bit.
+// bytes of bf16.  Each CTA quantizes the LSTM operands x and h itself at sa
+// = max(max|v|, 1e-8) * (1/127) (a maximum does not depend on order, so
+// every CTA takes the same one), round(v / sa) by a true division, half to
+// even (or by the reciprocal where that gives the same integer,
+// dot::quant_byte_rcp), and sums each half of a row with __dp4a: exact
+// integers, so the order of the terms does not matter.  The gate is
+// (f32(sum_x) * (sa_x * s_ih) + f32(sum_h) * (sa_h * s_hh)) + b, the plain
+// version's order, and the variant equals its plain version bit for bit.
+// The two halves run at different times.  The h half needs h1 and h2 of
+// the step before, final once that step's grid barrier has passed: the
+// cells store them as plain float32 in the tagged h slots (Acts::h1f and
+// h2f), phase 2 loads both whole in
+// the round trip of its own operand, and hh_dot() computes both layers' h
+// products once phase 2's outputs are out, off the LSTM phases.  An LSTM
+// phase fetches x alone: each thread keeps a running max|x| as its words
+// come, each warp's maximum rides on the fetch's closing block barrier,
+// and a warp takes a unit whole, each lane quantizing in registers the
+// 16-value chunk it dots and lanes 0-3 taking a gate each.  Two block
+// barriers from the fetch to the cell, no pass of its own for the maximum
+// or the quantization.
 //
 // What bounds it.  About 5.2 M bf16 weights (10.35 MB at the full-size
 // model) per step, spread over the grid's shared memory: a few hundred
@@ -164,14 +176,18 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
 enum { WP1, WP2, WG, WQ, WRI, WL1, WL2, WMEL, NWREG };
 
 struct Layout {
-  size_t op, encd, part, win, opf, cum, prv, sc, ploc, encp, own, ms;
+  size_t op, encd, part, win, opf, cum, prv, sc, ploc, encp, own, hh, ms;
   size_t w[NWREG];
   size_t total;
 };
 
 // With i8l the LSTM regions hold each unit's 4 rows of 2H int8 weights and
-// then its 8 float scales (ih gates, hh gates).  With glob the L-sized
-// regions take no shared memory (they are in the workspace, ws_floats).
+// then its 8 float scales (ih gates, hh gates), and hh the warps' maxima of
+// the LSTM operands (2 a warp) and the h half of both LSTMs' gates for the
+// step (2 layers x 4 gates a unit, float32); the operand region also
+// holds h1 and h2 as float32 at its end in phase 2.
+// With glob the L-sized regions take no shared memory (they are in the
+// workspace, ws_floats).
 __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
                                          int r, int G, bool i8l, bool glob) {
   Layout y;
@@ -179,6 +195,7 @@ __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
   int op_n = 2 * D + Dh;
   if (2 * H > op_n) op_n = 2 * H;
   if (NM > op_n) op_n = NM;
+  if (i8l && D + H > op_n) op_n = D + H;   // I8L: phase 2's [p1 | h1 | h2]
   const size_t nd = most(D, G), nh = most(H, G);
   const size_t Ls = glob ? 0 : (size_t)L, nl = glob ? 0 : most(L, G);
   y.op = take(at, 8 * (size_t)op_n);
@@ -192,6 +209,7 @@ __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
   y.ploc = take(at, 4 * nl * D);
   y.encp = take(at, 4 * nl * D);
   y.own = take(at, 4 * (nd + 2 * nh));
+  y.hh = take(at, i8l ? 4 * (2 * NW + 8 * nh) : 0);
   y.ms = take(at, 4 * (size_t)KTAPS * D);
   const size_t units[NWREG] = {nd, (size_t)most(Dh, G), nd, nd, nh, nh, nh,
                                (size_t)most(r * NM, G)};
@@ -435,68 +453,61 @@ __device__ __forceinline__ void copy_units(bf16* dst, const bf16* a, int KA,
   }
 }
 
-// I8L: acc[OFF + g] += the int8 dot of row g of w (rows ldw bytes apart)
-// with the operand, over 16-byte chunk c of both.
-template <int G, int OFF, int N>
-__device__ __forceinline__ void dot16(int (&acc)[N], const int8_t* w, int ldw,
-                                      int c, const uint32_t* aq) {
-  const uint4 a = reinterpret_cast<const uint4*>(aq)[c];
+// I8L: the 16 values at v (16-byte aligned) quantized at sa (rs its
+// reciprocal), packed as an int8 row's 16-byte chunk holds its columns:
+// by the reciprocal, and by quant_byte's division where one of them lies
+// near a tie (quant_byte_rcp), so the common path has no branch.
+__device__ __forceinline__ uint4 quant16(const float* v, float sa, float rs) {
+  float4 f[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) f[j] = reinterpret_cast<const float4*>(v)[j];
+  uint32_t q[4];
+  bool tie = false;
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    q[j] = dot::quant_byte_rcp(f[j].x, rs, tie) |
+           dot::quant_byte_rcp(f[j].y, rs, tie) << 8 |
+           dot::quant_byte_rcp(f[j].z, rs, tie) << 16 |
+           dot::quant_byte_rcp(f[j].w, rs, tie) << 24;
+  if (tie) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      q[j] = dot::quant_byte(f[j].x, sa) | dot::quant_byte(f[j].y, sa) << 8 |
+             dot::quant_byte(f[j].z, sa) << 16 |
+             dot::quant_byte(f[j].w, sa) << 24;
+  }
+  return make_uint4(q[0], q[1], q[2], q[3]);
+}
+
+// I8L: acc[g] += the int8 dot of row g of w (rows ldw bytes apart) with
+// the operand chunk a, over 16-byte chunk c of the rows.
+template <int G>
+__device__ __forceinline__ void dot16(int (&acc)[G], const int8_t* w, int ldw,
+                                      int c, uint4 a) {
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     const uint4 q = reinterpret_cast<const uint4*>(w + (size_t)g * ldw)[c];
-    int v = acc[OFF + g];
+    int v = acc[g];
     v = __dp4a((int)q.x, (int)a.x, v);
     v = __dp4a((int)q.y, (int)a.y, v);
     v = __dp4a((int)q.z, (int)a.z, v);
     v = __dp4a((int)q.w, (int)a.w, v);
-    acc[OFF + g] = v;
+    acc[g] = v;
   }
 }
 
-// I8L: the nu LSTM units a CTA owns, unit u's G rows [ih row | hh row] of K
-// + K int8 at w + u * G * 2K; aq the operand [x | h] quantized, packed four
-// to a word.  Groups of warps as in units(); epi(u, sums) gets 2G exact
-// int32 sums: each row's x half, then each row's h half.
-template <int G, class Epi>
-__device__ __forceinline__ void units_i8(int nu, const int8_t* w, int K,
-                                         const uint32_t* aq, int* part,
-                                         Epi epi) {
-  if (nu <= 0) return;
-  const int S = nu >= NW ? 1 : NW / nu;
-  const int groups = NW / S;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, s = warp % S;
-  const int nc = K / 16;   // 16-byte chunks of one half row
-  for (int u = warp / S; u < nu; u += groups) {
-    int acc[2 * G];
+// I8L: one warp's dot of a unit's 4 rows (ldw bytes apart from w) with the
+// H values at v quantized at sa (rs its reciprocal), lane l taking chunks
+// l, l + 32, ...: the exact int32 sums, in every lane.
+__device__ __forceinline__ void unit_i8(int (&acc)[4], const int8_t* w,
+                                        int ldw, const float* v, int H,
+                                        float sa, float rs, int lane) {
 #pragma unroll
-    for (int g = 0; g < 2 * G; ++g) acc[g] = 0;
-    const int8_t* wu = w + (size_t)u * G * 2 * K;
-    for (int c = s * 32 + lane; c < nc; c += S * 32) {
-      dot16<G, 0>(acc, wu, 2 * K, c, aq);
-      dot16<G, G>(acc, wu, 2 * K, nc + c, aq);
-    }
+  for (int g = 0; g < 4; ++g) acc[g] = 0;
+  for (int c = lane; c < H / 16; c += 32)
+    dot16<4>(acc, w, ldw, c, quant16(v + 16 * c, sa, rs));
 #pragma unroll
-    for (int g = 0; g < 2 * G; ++g) acc[g] = __reduce_add_sync(0xffffffffU, acc[g]);
-    if (S == 1) {
-      if (lane == 0) epi(u, acc);
-    } else if (lane == 0) {
-#pragma unroll
-      for (int g = 0; g < 2 * G; ++g) part[(u * S + s) * 2 * G + g] = acc[g];
-    }
-  }
-  if (S > 1) {
-    __syncthreads();
-    const int u = threadIdx.x;
-    if (u < nu) {
-      int sum[2 * G];
-#pragma unroll
-      for (int g = 0; g < 2 * G; ++g) sum[g] = 0;
-      for (int i = 0; i < S; ++i)
-#pragma unroll
-        for (int g = 0; g < 2 * G; ++g) sum[g] += part[(u * S + i) * 2 * G + g];
-      epi(u, sum);
-    }
-  }
+  for (int g = 0; g < 4; ++g) acc[g] = __reduce_add_sync(0xffffffffU, acc[g]);
 }
 
 // A segment of a phase's input: n tagged words at p, of step tag - 2.
@@ -541,6 +552,12 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   float* ha_own = reinterpret_cast<float*>(sm + y.own);
   float* c1_own = ha_own + most(D, G);
   float* c2_own = c1_own + most(H, G);
+  // I8L: the warps' maxima (2 a warp), then [layer][u][gate] f32(sum_h) *
+  // (sa_h * s_hh) for the step
+  uint32_t* wmax = reinterpret_cast<uint32_t*>(sm + y.hh);
+  float* hh_v = reinterpret_cast<float*>(wmax + 2 * NW);
+  // I8L: [h1 | h2] of the step before, f32, at the end of the operand
+  float* hf = reinterpret_cast<float*>(sm + y.encd) - 2 * H;
   uint32_t* ms = reinterpret_cast<uint32_t*>(sm + y.ms);  // [31][D] tap pairs
   bf16* w_p1 = reinterpret_cast<bf16*>(sm + y.w[WP1]);
   bf16* w_p2 = reinterpret_cast<bf16*>(sm + y.w[WP2]);
@@ -557,6 +574,7 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   struct Acts {
     unsigned long long *prev, *p1, *p2, *ha, *pq, *u, *ctx, *x, *h1, *x1, *h2,
         *x2;
+    float *h1f, *h2f;
   };
   auto acts = [&](int parity) {
     Acts t;
@@ -572,6 +590,16 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
     t.x1 = t.h1 + H;                      // [H]
     t.h2 = t.x1 + H;                      // [H]
     t.x2 = t.h2 + H;                      // [H]
+    // I8L leaves the tagged h slots unused and keeps h1 and h2 there as
+    // plain float32, 16-byte aligned: the cells store them with __stcg,
+    // and the step's grid barrier makes them visible to every CTA, as it
+    // does the mels
+    auto f16b = [](unsigned long long* q) {
+      return reinterpret_cast<float*>(
+          (reinterpret_cast<uintptr_t>(q) + 15) & ~(uintptr_t)15);
+    };
+    t.h1f = f16b(t.h1);                   // [H] f32
+    t.h2f = f16b(t.h2);                   // [H] f32
     return t;
   };
 
@@ -683,11 +711,15 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   };
 
   // the phase's operand, up to three tagged segments concatenated: f32 in
-  // opf, act(bf16(v)) chunk-major in opT.  The block first meets, so that no
-  // thread still reads the last phase's operand.
-  auto load_op = [&](Seg s0, Seg s1, Seg s2) {
+  // opf and, with act, act(bf16(v)) chunk-major in opT.  The block first
+  // meets, so that no thread still reads the last phase's operand.  I8L's
+  // work rides on the two barriers: before() runs after the first, seen(v)
+  // on each value as it comes, after() before the second.
+  auto load_op_with = [&](Seg s0, Seg s1, Seg s2, bool act, auto&& before,
+                          auto&& seen, auto&& after) {
     const int n = s0.n + s1.n + s2.n, NC = n / 8;
     __syncthreads();
+    before();
     fetch(n,
           [&](int k, const unsigned long long*& w, unsigned& tag) {
             const Seg& g = k < s0.n ? s0 : k < s0.n + s1.n ? s1 : s2;
@@ -696,11 +728,93 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
           },
           [&](int k, float v) {
             opf[k] = v;
-            opT[(k % 8) * NC + k / 8] = dot::act((double)bfr(v));
+            if (act) opT[(k % 8) * NC + k / 8] = dot::act((double)bfr(v));
+            seen(v);
           });
+    after();
     __syncthreads();
   };
+  const auto nop = [] {};
+  auto load_op = [&](Seg s0, Seg s1, Seg s2) {
+    load_op_with(s0, s1, s2, true, nop, [](float) {}, nop);
+  };
   const Seg none{nullptr, 0, 0};
+
+  // I8L, phase 2: its operand and, in the same round trip, [h1 | h2] of
+  // the step before (from h1s and h2s) into hf: a thread's first two
+  // float4 are loaded while the operand is awaited, any more after it.
+  // Each warp's max|h| of each layer rides on the closing barrier.
+  auto load_h = [&](Seg s, const float* h1s, const float* h2s) {
+    const int n4 = H / 2;   // float4 of [h1 | h2]
+    auto get = [&](int i) {
+      return __ldcg(reinterpret_cast<const float4*>(
+          i < H / 4 ? h1s + 4 * i : h2s + 4 * (i - H / 4)));
+    };
+    float4 hv[2];
+    uint32_t m1 = 0u, m2 = 0u;
+    auto keep = [&](int i, float4 v) {
+      reinterpret_cast<float4*>(hf)[i] = v;
+      const uint32_t b =
+          max(max(__float_as_uint(fabsf(v.x)), __float_as_uint(fabsf(v.y))),
+              max(__float_as_uint(fabsf(v.z)), __float_as_uint(fabsf(v.w))));
+      if (i < H / 4) m1 = max(m1, b); else m2 = max(m2, b);
+    };
+    auto before = [&] {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (tid + j * NT < n4) hv[j] = get(tid + j * NT);
+    };
+    auto after = [&] {
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        if (tid + j * NT < n4) keep(tid + j * NT, hv[j]);
+      for (int i = tid + 2 * NT; i < n4; i += NT) keep(i, get(i));
+      m1 = __reduce_max_sync(0xffffffffU, m1);
+      m2 = __reduce_max_sync(0xffffffffU, m2);
+      if (lane == 0) { wmax[2 * warp] = m1; wmax[2 * warp + 1] = m2; }
+    };
+    load_op_with(s, none, none, true, before, [](float) {}, after);
+  };
+
+  // I8L: the h half of both LSTMs' gates for the step into hh_v, from hf
+  // and the maxima load_h left: a warp takes a (layer, unit) whole
+  // (unit_i8).  It runs once phase 2's outputs are out, while phase 3's
+  // input is on its way; nothing writes hf or wmax before phase 3's
+  // load_op meets.
+  auto hh_dot = [&]() {
+    const uint32_t m1 = __reduce_max_sync(0xffffffffU, lane < NW ? wmax[2 * lane] : 0u);
+    const uint32_t m2 =
+        __reduce_max_sync(0xffffffffU, lane < NW ? wmax[2 * lane + 1] : 0u);
+    const float sh1 = dot::row_scale(m1), sh2 = dot::row_scale(m2);
+    const float rs1 = __frcp_rn(sh1), rs2 = __frcp_rn(sh2);
+    for (int i = warp; i < 2 * nh; i += NW) {
+      const int layer = i / nh, u = i % nh;
+      const float sh = layer ? sh2 : sh1;
+      const int8_t* w = reinterpret_cast<const int8_t*>(layer ? w_l2 : w_l1) +
+                        (size_t)u * 8 * H + H;    // row 0's hh half
+      int acc[4];
+      unit_i8(acc, w, 2 * H, hf + layer * H, H, sh, layer ? rs2 : rs1, lane);
+      if (lane == 0) {
+        const float* su = (layer ? l2_s : l1_s) + 8 * u + 4;
+#pragma unroll
+        for (int g = 0; g < 4; ++g)
+          hh_v[i * 4 + g] = mul(__int2float_rn(acc[g]), mul(sh, su[g]));
+      }
+    }
+  };
+
+  // I8L: an LSTM phase's operand, x alone, f32 in opf (no bf16 copy).
+  // Each warp's running max|x| is stored before the closing barrier, which
+  // makes it visible to the block.
+  auto load_x = [&](const unsigned long long* xs, unsigned xtag) {
+    uint32_t m = 0u;
+    load_op_with({xs, H, xtag}, none, none, false, nop,
+                 [&](float v) { m = max(m, __float_as_uint(fabsf(v))); },
+                 [&] {
+                   m = __reduce_max_sync(0xffffffffU, m);
+                   if (lane == 0) wmax[warp] = m;
+                 });
+  };
 
   unsigned nbar = 0;
   for (int step = 0; step < p.n_steps; ++step) {
@@ -730,14 +844,19 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
       if (lane == 0) p.stop[step - 1] = m;
     }
 
-    // 2. prenet fc2
-    load_op({nx.p1, D, tag}, none, none);
+    // 2. prenet fc2 (I8L: with h1 and h2 of the step before)
+    if constexpr (I8L)
+      load_h({nx.p1, D, tag}, first ? s_h1 : cur.h1f,
+             first ? s_h2 : cur.h2f);
+    else
+      load_op({nx.p1, D, tag}, none, none);
     stamp(step, 0);
     units<1, 0>(n_p2, w_p2, D, 0, nullptr, 0, 0, opT, D / 8, part,
                 [&](int u, const double* s) {
                   const int j = p2_0 + u;
                   put(nx.p2 + j, fmaxf(add(f32(s[0]), p.p2_b[j]), 0.f), tag);
                 });
+    if constexpr (I8L) hh_dot();
 
     // 3. attention GRU: gi = [context | p2] @ wih, gh = h_attn @ whh
     load_op({cur.ctx, D, tag_cur}, {nx.p2, Dh, tag}, {cur.ha, D, tag_cur});
@@ -859,62 +978,54 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
       float* o_c = layer ? o_c2 : o_c1;
       const bf16* w = layer ? w_l2 : w_l1;
       const float* bias = layer ? p.l2_b : p.l1_b;
-      load_op({xin, H, tag}, {hc, H, tag_cur}, none);
-      stamp(step, 6 + layer);
-      // the cell of unit u from its gates' pre-activations (bias added)
-      auto cell = [&](int u, const float (&gv)[4]) {
+      // the cell of unit u from its gates' pre-activations (bias added);
+      // opf[j] is x's value j
+      auto cell_of = [&](int u, float ig, float fg, float gg, float og) {
         const int j = h0 + u;
-        const float ig = sg(gv[0]), fg = sg(gv[1]);
-        const float gg = tanhf(gv[2]), og = sg(gv[3]);
         const float c = add(mul(fg, c_own[u]), mul(ig, gg));
         const float h = mul(og, tanhf(c));
         c_own[u] = c;
-        put(hn + j, h, tag);
+        if constexpr (I8L)
+          __stcg((layer ? nx.h2f : nx.h1f) + j, h);
+        else
+          put(hn + j, h, tag);
         put(xo + j, add(opf[j], h), tag);
         if (last) { o_h[j] = h; o_c[j] = c; }
       };
+      auto cell = [&](int u, const float (&gv)[4]) {
+        cell_of(u, sg(gv[0]), sg(gv[1]), tanhf(gv[2]), sg(gv[3]));
+      };
       if constexpr (I8L) {
-        // max|x| and max|h| (opf: [x | h]), the same in every CTA
-        uint32_t mx = 0u, mh = 0u;
-        for (int k = tid; k < H; k += NT) {
-          mx = max(mx, __float_as_uint(fabsf(opf[k])));
-          mh = max(mh, __float_as_uint(fabsf(opf[H + k])));
-        }
-        mx = __reduce_max_sync(0xffffffffU, mx);
-        mh = __reduce_max_sync(0xffffffffU, mh);
-        uint32_t* wmax = reinterpret_cast<uint32_t*>(part);
-        if (lane == 0) { wmax[2 * warp] = mx; wmax[2 * warp + 1] = mh; }
-        __syncthreads();
-        for (int i = 0; i < NW; ++i) {
-          mx = max(mx, wmax[2 * i]);
-          mh = max(mh, wmax[2 * i + 1]);
-        }
-        const float sx = dot::row_scale(mx), sh = dot::row_scale(mh);
-        uint32_t* aq = reinterpret_cast<uint32_t*>(opT);   // [x | h] int8
-        for (int i = tid; i < 2 * H / 4; i += NT) {
-          const float sa = 4 * i < H ? sx : sh;
-          uint32_t q = 0;
-#pragma unroll
-          for (int b = 0; b < 4; ++b) q |= dot::quant_byte(opf[4 * i + b], sa) << (8 * b);
-          aq[i] = q;
-        }
-        __syncthreads();
+        // the x half; the h half is hh_v's, from phase 2
+        load_x(xin, tag);
+        stamp(step, 6 + layer);
+        const uint32_t mx =
+            __reduce_max_sync(0xffffffffU, lane < NW ? wmax[lane] : 0u);
+        const float sx = dot::row_scale(mx), rsx = __frcp_rn(sx);
         const float* sc_l = layer ? l2_s : l1_s;
-        units_i8<4>(nh, reinterpret_cast<const int8_t*>(w), H, aq,
-                    reinterpret_cast<int*>(part),
-                    [&](int u, const int* s) {
-                      const int j = h0 + u;
-                      const float* su = sc_l + 8 * u;
-                      float gv[4];
-#pragma unroll
-                      for (int g = 0; g < 4; ++g)
-                        gv[g] = add(add(mul(__int2float_rn(s[g]), mul(sx, su[g])),
-                                        mul(__int2float_rn(s[4 + g]),
-                                            mul(sh, su[4 + g]))),
-                                    bias[g * H + j]);
-                      cell(u, gv);
-                    });
+        for (int u = warp; u < nh; u += NW) {
+          int acc[4];
+          unit_i8(acc, reinterpret_cast<const int8_t*>(w) + (size_t)u * 8 * H,
+                  2 * H, opf, H, sx, rsx, lane);
+          // lane g < 4 takes gate g's pre-activation and activation
+          const int g = lane & 3, j = h0 + u;
+          const int a = g == 0 ? acc[0] : g == 1 ? acc[1] : g == 2 ? acc[2] : acc[3];
+          const float gv =
+              add(add(mul(__int2float_rn(a), mul(sx, sc_l[8 * u + g])),
+                      hh_v[(layer * nh + u) * 4 + g]),
+                  bias[g * H + j]);
+          // tanh for g, sigmoid (sg's operations) for i, f and o
+          const float t = tanhf(g == 2 ? gv : mul(0.5f, gv));
+          const float act = g == 2 ? t : add(mul(0.5f, t), 0.5f);
+          const float ig = __shfl_sync(0xffffffffU, act, 0);
+          const float fg = __shfl_sync(0xffffffffU, act, 1);
+          const float gg = __shfl_sync(0xffffffffU, act, 2);
+          const float og = __shfl_sync(0xffffffffU, act, 3);
+          if (lane == 0) cell_of(u, ig, fg, gg, og);
+        }
       } else {
+        load_op({xin, H, tag}, {hc, H, tag_cur}, none);
+        stamp(step, 6 + layer);
         units<4, 0>(nh, w, 2 * H, 0, nullptr, 0, 0, opT, 2 * H / 8, part,
                     [&](int u, const double* s) {
                       const int j = h0 + u;

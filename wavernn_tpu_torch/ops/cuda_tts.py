@@ -76,7 +76,11 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
     kernel computes the same bytes and refuses a launch whose plan
     disagrees), each CTA's weight bytes, and the placement of the L-sized
     state.  ``int8_lstm`` holds an LSTM unit's rows at one byte a weight,
-    then its 8 float32 scales.
+    then its 8 float32 scales, and adds ``lstm_hh``: the warps' maxima of
+    the LSTM operands (2 a warp) and the h half of both LSTMs' gates for
+    the step (2 layers x 4 gates a unit, float32), which the kernel
+    computes after phase 2; its operand region also holds h1 and h2
+    (float32) after phase 2's operand.
 
     ``placement`` "shared" keeps the L-sized regions (context columns,
     cum, prv, scores, ploc and encp rows) in shared memory; "global" keeps
@@ -110,7 +114,8 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
         for k in ("lstm1", "lstm2"):
             unit_bytes[k] = row_w[k] + 8 * 4
     most = {k: -(-n // grid) for k, n in units.items()}
-    op_n = max(n_mels, 2 * D + Dh, 2 * H)
+    # the operand; with int8_lstm room for h1 and h2 (f32) after phase 2's
+    op_n = max(n_mels, 2 * D + Dh, 2 * H, D + H if int8_lstm else 0)
     glob = placement == "global"
     Ls, nl = (0, 0) if glob else (L, most["energies"])
     regions = [                                   # the kernel's order
@@ -123,6 +128,8 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
         ("ploc", 4 * nl * D),
         ("encp_rows", 4 * nl * D),
         ("own_state", 4 * (most["attn_gru"] + 2 * most["lstm1"])),
+    ] + ([("lstm_hh", 4 * (2 * NW + 2 * 4 * most["lstm1"]))]
+         if int8_lstm else []) + [
         ("loc_conv", 4 * (NTAP2 // 2) * D),       # bf16 tap pairs
     ] + [(f"w_{k}", most[k] * unit_bytes[k]) for k in OWNED if row_w[k]]
     nbytes = sum(_align(b) for _, b in regions)
@@ -231,23 +238,20 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
 
 
 def tts_decode_spans(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
-                     state: TTSDecodeState, n_steps: int,
-                     placement: str | None = None):
+                     state: TTSDecodeState, n_steps: int):
     """Dev only: the kernel's instantiation that stamps the card's
     nanosecond clock (``%globaltimer``, CTA 0) at the end of each of a
     step's phases: when the next phase's input has come, and after the
-    step's grid barrier.  Every variant (the packed set's) and placement
-    (``placement`` as :func:`_launch` takes it).  Returns
-    :func:`tts_decode`'s outputs and the stamps, (n_steps,
-    PHASES_PER_STEP) int64 on the card.  Not counted in
+    step's grid barrier; of the packed set's variant, in the plan's
+    placement.  Returns :func:`tts_decode`'s outputs and the stamps,
+    (n_steps, PHASES_PER_STEP) int64 on the card.  Not counted in
     ``tts_decode.launches``; nothing on the request path calls it."""
     if enc.device.type != "cuda":
         raise ValueError(f"the spans launch needs CUDA tensors, got "
                          f"{enc.device}")
     spans = torch.zeros(n_steps, PHASES_PER_STEP, dtype=torch.int64,
                         device=enc.device)
-    return _launch(packed, enc, encp, state, n_steps, spans,
-                   placement)[0], spans
+    return _launch(packed, enc, encp, state, n_steps, spans)[0], spans
 
 
 def _launch(packed, enc, encp, state, n_steps, spans, placement=None):
