@@ -70,12 +70,15 @@ order; any failure exits non-zero and prints no result line:
    ``tools.tts_phase_spans`` prints the kernel's span per phase at (b) and
    the cost of one bare grid barrier.  The kernel pinned to each
    placement of the L-sized state (shared memory, the global workspace)
-   at L = 64 (b's inputs, 750 steps) and 2,404 (96 steps): the same bits,
-   each timed in turns.  Then texts past the shared
-   placement's limit (the global placement: the L-sized state in a
-   workspace in global memory): (c)'s model and criteria at L = 2,405,
-   4,096 and 16,384 (bf16) and 3,169 (int8_lstm, every value equal),
-   r=2, 96 steps, each max |d| printed and each L timed; and a
+   at L = 64 (b's inputs, 750 steps) and at the shared placement's
+   longest text (``cuda_tts.shared_text_limit``: 2,918 symbols at full
+   width on 132 CTAs; 96 steps): the same bits, each timed in turns.
+   Then texts past the shared placement's limit (the global placement:
+   the L-sized state in a workspace in global memory): (c)'s model and
+   criteria one symbol past the limit (2,919), at 4,096 and 16,384 (bf16)
+   and one past int8_lstm's limit (3,829, every value equal), r=2, 96
+   steps, each max |d| printed and each L timed; the spans launch at
+   16,384 and at int8_lstm's 3,829, printed beside (b)'s; and a
    3,000-symbol text through
    ``TTSGenerator(backend="kernel", steps=480)``, whose global launches
    (set to 0 just before) must be one per 48-step chunk, against the same
@@ -1156,14 +1159,27 @@ def tts_timed(dev, fn, packed, enc, encp, n: int) -> float:
     return start.elapsed_time(end)
 
 
+def tts_text_limit(dev, cfg, int8_lstm: bool = False) -> int:
+    """The longest text the TTS kernel's shared placement holds for
+    ``cfg`` at r=2 on one CTA per SM (``cuda_tts.shared_text_limit``:
+    2,918 symbols at full width on 132 CTAs, 3,828 with int8_lstm)."""
+    import torch
+
+    from wavernn_tpu_torch.ops import cuda_tts
+
+    grid = torch.cuda.get_device_properties(dev).multi_processor_count
+    D = cfg.decoder_dims
+    return cuda_tts.shared_text_limit(D, D // 2, cfg.lstm_dims, cfg.n_mels,
+                                      2, grid, int8_lstm)
+
+
 def tts_placement_ab(dev, card, cfg, variables, packed, enc, encp) -> dict:
     """Phase 6's placement A/B on texts that fit shared memory: the kernel
     pinned to each placement (``cuda_tts._launch``'s ``placement``, not
-    counted) at L = 64 (phase 6's (b) inputs, 750 steps) and L = 2,404 (the
-    shared placement's longest text at full width on 132 CTAs, 96 steps):
-    the two must give the same bits, and each is timed in turns (shared,
-    global, global, shared).  Returns {L: (shared us/step, global
-    us/step)}."""
+    counted) at L = 64 (phase 6's (b) inputs, 750 steps) and at the shared
+    placement's longest text (``tts_text_limit``, 96 steps): the two must
+    give the same bits, and each is timed in turns (shared, global,
+    global, shared).  Returns {L: (shared us/step, global us/step)}."""
     import torch
 
     from wavernn_tpu_torch.ops import cuda_tts
@@ -1173,10 +1189,11 @@ def tts_placement_ab(dev, card, cfg, variables, packed, enc, encp) -> dict:
             p, e, ep, st, k, None, placement=placement)[0]
 
     shared, glob = pinned("shared"), pinned("global")
-    seq = [int(i) for i in np.random.default_rng(2_404).integers(
-        1, cfg.num_chars, 2_404)]
+    limit = tts_text_limit(dev, cfg)
+    seq = [int(i) for i in np.random.default_rng(limit).integers(
+        1, cfg.num_chars, limit)]
     out = {}
-    for L, n in ((64, 750), (2_404, 96)):
+    for L, n in ((64, 750), (limit, 96)):
         if L != enc.shape[0]:
             packed, enc, encp = tts_kernel_inputs(dev, cfg, variables, seq, L,
                                                   2)
@@ -1209,10 +1226,11 @@ def tts_placement_ab(dev, card, cfg, variables, packed, enc, encp) -> dict:
 
 def tts_long_texts(dev, card, cfg, variables) -> dict:
     """Phase 6's long texts, past the shared placement's limit at full
-    width (2,404 symbols, 3,168 with int8_lstm, on 132 CTAs): the kernel
-    in its global placement against its plain version (``tts_compare``,
-    r=2, 96 steps) and timed (plain, kernel, kernel, plain) at L = 2,405,
-    4,096 and 16,384 (bf16) and 3,169 (int8_lstm); then one 3,000-symbol
+    width (``tts_text_limit``: 2,918 symbols, 3,828 with int8_lstm, on 132
+    CTAs): the kernel in its global placement against its plain version
+    (``tts_compare``, r=2, 96 steps) and timed (plain, kernel, kernel,
+    plain) one symbol past the limit, at 4,096 and 16,384 (bf16) and one
+    past int8_lstm's limit; then one 3,000-symbol
     text through ``TTSGenerator(backend="kernel", steps=480)``, one
     launch per 48-step chunk, against the same generator with the
     kernel's plain version in its place and against the float32 plain
@@ -1231,8 +1249,9 @@ def tts_long_texts(dev, card, cfg, variables) -> dict:
     rng = np.random.default_rng(21)
     errs, rec = [], {}
     n = 96
-    for L, int8 in ((2_405, False), (4_096, False), (16_384, False),
-                    (3_169, True)):
+    for L, int8 in ((tts_text_limit(dev, cfg) + 1, False), (4_096, False),
+                    (16_384, False), (tts_text_limit(dev, cfg, True) + 1,
+                                      True)):
         seq = [int(i) for i in rng.integers(1, cfg.num_chars, L)]
         packed, enc, encp = tts_kernel_inputs(dev, cfg, variables, seq, L, 2,
                                               int8_lstm=int8)
@@ -1400,6 +1419,22 @@ def tts_phases(dev, card, wavio, voc_weights) -> dict:
     if spans["max_abs_err"] > 1e-3:
         fail("the spans launch disagrees with the plain version")
     long_texts = tts_long_texts(dev, card, full, full_vars)
+    # the spans of the long-text path beside L = 64's: 16,384 symbols and
+    # int8_lstm one past its shared limit, both in the global placement
+    for L, int8 in ((16_384, False), (tts_text_limit(dev, full, True) + 1,
+                                      True)):
+        rec = tts_phase_spans.phase_spans(*tts_phase_spans.kernel_inputs(
+            L, dev, int8_lstm=int8), 96)
+        if rec["max_abs_err"] > (0.0 if int8 else 1e-3):
+            fail(f"the spans launch at L={L} disagrees with the plain "
+                 f"version")
+        variant = "int8_lstm" if int8 else "bf16"
+        print(f"tts spans [{variant}, global], L {L}, 96 steps: " + ", ".join(
+            f"{k} {v:.2f} (L 64: {spans['phase_us'][k]:.2f})"
+            for k, v in rec["phase_us"].items())
+            + f" us; {rec['us_per_step']:.2f} us/step (L 64: "
+            f"{spans['us_per_step']:.2f}); max|d| {rec['max_abs_err']:.3g} | "
+            f"{card}", flush=True)
 
     # -- 7. the TTS gate through the kernel ------------------------------
     gt = np.load(TACO_DIR / "tiny_tacotron_gt_mel.npy") * 8.0 - 4.0

@@ -680,14 +680,17 @@ def close_to_plain(got, want, tag):
 
 
 def test_tts_kernel_raises_for_a_text_that_does_not_fit(cuda_device):
-    """A text of 12,000 symbols does not fit the shared placement on any
-    grid at this width; it no longer raises but decodes in the global
-    placement, equal to the plain version."""
+    """A text past the shared placement's limit on one CTA per SM at this
+    width (``cuda_tts.shared_text_limit``: 13,328 symbols on 132 CTAs; the
+    24-symbol text repeated to 13,344) no longer raises but decodes in the
+    global placement, equal to the plain version."""
     packed, enc, encp = taco_inputs(cuda_device, 2, 24)
     c = SMALL_TACO
-    L = 12000
-    enc, encp = enc.repeat(500, 1), encp.repeat(500, 1)
     grid = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    reps = cuda_tts.shared_text_limit(c.decoder_dims, c.decoder_dims // 2,
+                                      c.lstm_dims, c.n_mels, 2, grid) // 24 + 1
+    L = 24 * reps
+    enc, encp = enc.repeat(reps, 1), encp.repeat(reps, 1)
     plan = cuda_tts.tts_smem_plan(c.decoder_dims, c.decoder_dims // 2,
                                   c.lstm_dims, c.n_mels, 2, L, grid)
     assert plan["placement"] == "global"
@@ -700,19 +703,21 @@ def test_tts_kernel_raises_for_a_text_that_does_not_fit(cuda_device):
 
 
 def test_tts_int8_lstm_kernel_decodes_past_its_shared_limit(cuda_device):
-    """int8_lstm at full width past 3,168 symbols (its shared placement's
-    limit on 132 CTAs): the global placement, bit-equal to the plain
-    version, as the shared one is."""
+    """int8_lstm at full width one symbol past its shared placement's
+    limit (``cuda_tts.shared_text_limit``: 3,828 on 132 CTAs): the global
+    placement, bit-equal to the plain version, as the shared one is."""
     cfg = TacotronConfig()
     model = taco_from_jax(init_variables(cfg, 0), cfg, cuda_device)
-    L = 3_169
+    grid = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    L = cuda_tts.shared_text_limit(cfg.decoder_dims, cfg.decoder_dims // 2,
+                                   cfg.lstm_dims, cfg.n_mels, 2, grid,
+                                   True) + 1
     x = np.random.default_rng(L).integers(1, cfg.num_chars, (1, L))
     with torch.no_grad():
         enc, encp = model.encode(torch.from_numpy(x).to(cuda_device))
     enc, encp = enc[0].contiguous(), encp[0].contiguous()
     packed = pack_tts_weights(extract_tts_decode_weights(model), 2,
                               cfg.n_mels, int8_lstm=True)
-    grid = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     plan = cuda_tts.tts_smem_plan(cfg.decoder_dims, cfg.decoder_dims // 2,
                                   cfg.lstm_dims, cfg.n_mels, 2, L, grid,
                                   int8_lstm=True)
@@ -771,6 +776,58 @@ def test_tts_global_placement_equals_shared(cuda_device, grid, int8_lstm,
             assert torch.equal(a, b), placement
         t = torch.cat(stamps).cpu().numpy().reshape(-1)
         assert (t > 0).all() and (np.diff(t) >= 0).all()
+
+
+def drawn_attention(state, seed):
+    """``state`` with its cumulative and previous attention drawn from a
+    seeded numpy generator: prv a distribution over the text, cum a
+    running sum of earlier ones."""
+    rng = np.random.default_rng(seed)
+    L = state.cum.shape[0]
+    prv = rng.dirichlet(np.full(L, 0.5)).astype(np.float32)
+    cum = (prv + rng.uniform(0.0, 3.0, L)).astype(np.float32)
+    state.prv = torch.from_numpy(prv).to(state.prv.device)
+    state.cum = torch.from_numpy(cum).to(state.cum.device)
+    return state
+
+
+@pytest.mark.parametrize("int8_lstm", [False, True], ids=["bf16", "int8_lstm"])
+@pytest.mark.parametrize("grid,L", [(7, 700), (None, 2_048), (7, 20)],
+                         ids=["grid7_L700", "all_sms_L2048", "grid7_L20"])
+def test_tts_long_text_path_is_placement_free(cuda_device, grid, L,
+                                              int8_lstm, monkeypatch):
+    """The path that grows with the text (the conv a block of positions at
+    a time over each CTA's window of cum and prv, the energies a warp a
+    position, the context split over warps) from a drawn state whose cum
+    and prv are nonzero, over two chained 48-step launches: both
+    placements give the same bits, and the kernel holds to its plain
+    version (int8_lstm every value equal).  Grid 7 at L = 700: 100
+    positions a CTA, 13 a conv slot; one CTA per SM at L = 2,048: a
+    context column over 8 warps; grid 7 at L = 20: windows past both ends
+    of the text."""
+    monkeypatch.setattr(cuda_tts, "CTAS", grid)
+    packed, enc, encp = taco_inputs(cuda_device, 2, L, int8_lstm=int8_lstm)
+    state = lambda: drawn_attention(taco_state(cuda_device, L, True), L)
+    outs = {}
+    for placement in ("shared", "global"):
+        run = lambda p, *a: cuda_tts._launch(p, *a, None,
+                                             placement=placement)[0]
+        outs[placement] = taco_run(run, packed, enc, encp, 96, 2, state())
+    torch.cuda.synchronize()
+    for a, b in zip(outs["shared"][:3], outs["global"][:3]):
+        assert torch.equal(a, b)
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(outs["shared"][3], f),
+                           getattr(outs["global"][3], f)), f
+    want = taco_run(tts_decode_reference, packed, enc, encp, 96, 2, state())
+    close_to_plain(outs["global"], want,
+                   f"L {L} grid {grid or 'all SMs'} int8_lstm {int8_lstm}")
+    if int8_lstm:
+        for a, b in zip(outs["global"][:3], want[:3]):
+            assert torch.equal(a, b)
+        for f in STATE_FIELDS:
+            assert torch.equal(getattr(outs["global"][3], f),
+                               getattr(want[3], f)), f
 
 
 def test_tts_kernel_rejects_what_it_does_not_take(cuda_device):

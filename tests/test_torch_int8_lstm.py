@@ -37,7 +37,9 @@ from wavernn_tpu_torch.infer.tacotron import TTSGenerator
 from wavernn_tpu_torch.models.tacotron import (
     TacotronConfig, from_jax_variables, init_variables,
 )
-from wavernn_tpu_torch.ops.cuda_tts import SMEM_LIMIT, tts_smem_plan
+from wavernn_tpu_torch.ops.cuda_tts import (
+    SMEM_LIMIT, shared_text_limit, tts_smem_plan,
+)
 from wavernn_tpu_torch.ops.tts_decode import (
     LSTM_MATRICES, extract_tts_decode_weights, init_tts_decode_state,
     is_int8_lstm, pack_tts_weights, tts_decode_reference,
@@ -188,7 +190,7 @@ def test_int8_lstm_plan_bytes_are_pinned():
     bytes); the ownership is the bf16 plan's."""
     plan = tts_smem_plan(*FULL, 64, 132, int8_lstm=True)
     bf16 = tts_smem_plan(*FULL, 64, 132)
-    assert plan["bytes"] == 97_712 and bf16["bytes"] == 130_032
+    assert plan["bytes"] == 97_440 and bf16["bytes"] == 129_760
     assert plan["regions"]["w_lstm1"] == 4 * (8 * 512 + 32)
     assert plan["regions"]["lstm_hh"] == 192 and "lstm_hh" not in bf16[
         "regions"]
@@ -200,16 +202,19 @@ def test_int8_lstm_plan_bytes_are_pinned():
 
 def test_int8_lstm_moves_the_text_limit():
     """At full width on 132 CTAs (an H100's SMs) the shared placement
-    holds 2,404 symbols with bf16 LSTM rows, 3,168 with int8 ones; pinned
-    to it, a text past the limit still raises, and unpinned it plans the
-    global placement."""
-    assert text_limit(132, False) == 2_404
-    assert text_limit(132, True) == 3_168
-    plan = tts_smem_plan(*FULL, 3_168, 132, int8_lstm=True)
+    holds 2,918 symbols with bf16 LSTM rows, 3,828 with int8 ones
+    (``shared_text_limit``, and a bisection of the plan); pinned to it, a
+    text past the limit still raises, and unpinned it plans the global
+    placement."""
+    assert shared_text_limit(*FULL, 132) == text_limit(132, False) == 2_918
+    limit = shared_text_limit(*FULL, 132, True)
+    assert limit == text_limit(132, True) == 3_828
+    plan = tts_smem_plan(*FULL, limit, 132, int8_lstm=True)
     assert plan["bytes"] <= SMEM_LIMIT and plan["placement"] == "shared"
-    with pytest.raises(ValueError, match="L=3169"):
-        tts_smem_plan(*FULL, 3_169, 132, int8_lstm=True, placement="shared")
-    plan = tts_smem_plan(*FULL, 3_169, 132, int8_lstm=True)
+    with pytest.raises(ValueError, match=f"L={limit + 1}"):
+        tts_smem_plan(*FULL, limit + 1, 132, int8_lstm=True,
+                      placement="shared")
+    plan = tts_smem_plan(*FULL, limit + 1, 132, int8_lstm=True)
     assert plan["bytes"] <= SMEM_LIMIT and plan["placement"] == "global"
 
 
@@ -220,20 +225,22 @@ def test_int8_lstm_plan_is_the_layout_written_out(grid, placement):
     written out region by region (each rounded up to 16 bytes, sized for
     the most units a CTA owns): the operand as doubles and as float32 (the
     widest phase's; phase 2's p1 with h1 and h2 is narrower here), the
-    L-sized state (none in the global placement), the partials, the conv
-    window and taps, the owned state, the 8 warps' two maxima and the h
-    half of both LSTMs' gates (2 layers x 4 gates a unit, float32), and
-    the weight rows, the LSTM ones int8 with 8 float32 scales a unit."""
+    conv window (its most positions and 15 either side: [cum | prv] as
+    doubles, then cum and prv as float32), the L-sized state (none in the
+    global placement), the partials, the conv taps, the owned state, the
+    8 warps' two maxima and the h half of both LSTMs' gates (2 layers x 4
+    gates a unit, float32), and the weight rows, the LSTM ones int8 with 8
+    float32 scales a unit."""
     D, Dh, H, NM, r = FULL
     L = 64
     a = lambda n: -(-n // 16) * 16
     most = lambda n: -(-n // grid)
     Ls, nl = (L, most(L)) if placement == "shared" else (0, 0)
     op_n = max(NM, 2 * D + Dh, 2 * H, D + H)
-    nd, nh = most(D), most(H)
-    fixed = (a(8 * op_n) + a(8 * 8 * 6) + a(8 * 64) + a(4 * op_n)
-             + a(4 * (nd + 2 * nh)) + a(4 * 31 * D))
-    text = a(8 * nd * Ls) + 3 * a(4 * Ls) + 2 * a(4 * nl * D)
+    nd, nh, nw = most(D), most(H), most(L) + 30
+    fixed = (a(8 * op_n) + a(8 * 8 * 6) + a(8 * 2 * nw) + a(4 * op_n)
+             + 2 * a(4 * nw) + a(4 * (nd + 2 * nh)) + a(4 * 31 * D))
+    text = a(8 * nd * Ls) + a(4 * Ls) + 2 * a(4 * nl * D)
     hoisted = a(4 * (2 * 8 + 2 * 4 * nh))
     weights = (a(2 * nd * NM) + a(2 * most(Dh) * D)
                + a(2 * nd * (3 * (D + Dh) + 3 * D)) + a(2 * nd * D)

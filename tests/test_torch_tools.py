@@ -186,25 +186,47 @@ def test_tool_runs_plain_versions_on_cpu(name, tmp_path, capsys):
             "cpu_host_median_us_per_step"] > 0
     elif name == "tts_phase_spans":
         # the plan alone: the spans and the barrier loop need the card
-        assert rec["grid"] == 132 and rec["smem_bytes"] == 137_456
+        assert rec["grid"] == 132 and rec["smem_bytes"] == 135_664
         assert "phase_us" not in rec and "barrier_us" not in rec
     else:
         assert rec["kernel"]["steps_per_call"] == 4
         assert rec["plain"]["steps_per_call"] == 4
 
 
-@pytest.mark.parametrize("L", [256, 3_169])
+@pytest.mark.parametrize("L", [256, "limit+1"])
 def test_tts_phase_spans_int8_lstm_prints_its_plan_on_cpu(L, capsys):
     """``--int8_lstm`` on the CPU: the int8_lstm variant's plan, in the
-    shared placement or, past its 3,168 symbols, the global one; nothing
-    timed."""
+    shared placement or, past its 3,828 symbols
+    (``cuda_tts.shared_text_limit``), the global one; nothing timed."""
+    from wavernn_tpu_torch.ops.cuda_tts import shared_text_limit
+
+    if L == "limit+1":
+        L = shared_text_limit(256, 128, 512, 80, 2, 132, True) + 1
     rec = tts_phase_spans.main(["--L", str(L), "--int8_lstm", "--device",
                                 "cpu"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
     assert rec["variant"] == "int8_lstm" and rec["grid"] == 132
-    assert (rec["placement"], rec["smem_bytes"]) == (
-        ("shared", 105_136) if L == 256 else ("global", 93_872))
+    assert (L, rec["placement"], rec["smem_bytes"]) == (
+        (256, "shared", 103_344) if L == 256 else (3_829, "global", 94_800))
     assert "phase_us" not in rec and "barrier_us" not in rec
+
+
+@pytest.mark.parametrize("placement", ["shared", "global"])
+def test_tts_phase_spans_pins_a_placement_on_cpu(placement, capsys):
+    """``--placement`` pins the plan's placement of the text's state: a
+    256-symbol text, which the plan keeps in shared memory, planned in
+    either; nothing timed."""
+    from wavernn_tpu_torch.ops.cuda_tts import tts_smem_plan
+
+    rec = tts_phase_spans.main(["--L", "256", "--placement", placement,
+                                "--device", "cpu"])
+    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
+    want = tts_smem_plan(256, 128, 512, 80, 2, 256, 132, placement=placement)
+    assert (rec["placement"], rec["smem_bytes"]) == (placement, want["bytes"])
+    assert rec["smem_bytes"] == {"shared": 135_664, "global": 126_448}[
+        placement]
+    with pytest.raises(SystemExit):
+        tts_phase_spans.main(["--placement", "both", "--device", "cpu"])
 
 
 @pytest.mark.parametrize("name", sorted(TOOLS))

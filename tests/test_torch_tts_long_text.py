@@ -1,10 +1,11 @@
-"""A text past the TTS kernel's shared-memory limit (2,404 symbols at full
-width on 132 CTAs): the port's plain decoder, which the kernel's global
-placement is held to on the card, against the JAX package's Pallas kernel
-(interpret mode, float32 packing) and its flax rollout, on the CPU.
+"""A text past the TTS kernel's shared-memory limit (2,918 symbols at full
+width on 132 CTAs, ``cuda_tts.shared_text_limit``): the port's plain
+decoder, which the kernel's global placement is held to on the card,
+against the JAX package's Pallas kernel (interpret mode, float32 packing)
+and its flax rollout, on the CPU.
 
 Full-width weights drawn by the port's ``init_variables`` (flax's init
-laws, seed 0; no JAX init to compile), r = 2, L = 2,560, eight steps (the
+laws, seed 0; no JAX init to compile), r = 2, L = 2,919, eight steps (the
 Pallas kernel's step tile).  The JAX encoder and decoder step run under
 ``jax.jit`` (the same flax methods as ``tests/test_torch_tts_decode.py``'s
 eager rollout, ~4x faster at this length).  The tolerances are that file's
@@ -27,9 +28,10 @@ from wavernn_tpu.models.tacotron import init_decoder_carry as jax_carry
 from wavernn_tpu_torch.models.tacotron import (
     TacotronConfig, from_jax_variables, init_variables,
 )
-from wavernn_tpu_torch.ops.cuda_tts import tts_smem_plan
+from wavernn_tpu_torch.ops.cuda_tts import shared_text_limit, tts_smem_plan
 
-R, L, N_STEPS = 2, 2_560, 8
+R, N_STEPS = 2, 8
+L = shared_text_limit(256, 128, 512, 80, R, 132) + 1   # 2,919
 
 
 @pytest.fixture(scope="module")

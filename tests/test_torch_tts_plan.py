@@ -8,24 +8,32 @@ memory for the whole launch; its ``layout()`` computes the same bytes, and
 the wrapper refuses a launch where they differ.  Here, for the full-size
 model, the tiny trained golden and the card tests' small model on 1, 7, 64
 and 132 CTAs: every unit is owned exactly once; the full-size model fits
-on 132 CTAs (an H100's SMs) for texts of 64 and 256 symbols.  A text too
-long for shared memory plans the global placement: the weights, operands,
-partials and conv taps stay in shared memory, the L-sized state moves to a
-workspace in global memory, and the ownership is the shared plan's.  What
-still raises: a bad grid, a fixed part that does not fit, and a text too
-long for a pinned shared placement.
+on 132 CTAs (an H100's SMs) for texts of 64 and 256 symbols.  Each CTA
+keeps the cumulative and previous attention of its conv window only, and
+every position's 31 taps lie in its owner's window.  A text too long for
+shared memory (past ``shared_text_limit``) plans the global placement: the
+weights, operands, partials, conv taps and windows stay in shared memory,
+the L-sized state moves to a workspace in global memory, and the ownership
+is the shared plan's.  What still raises: a bad grid, a fixed part that
+does not fit, and a text too long for a pinned shared placement.
 """
 
 import json
 from pathlib import Path
 
+import numpy as np
 import pytest
 
-from wavernn_tpu_torch.ops.cuda_tts import SMEM_LIMIT, tts_smem_plan
+from wavernn_tpu_torch.ops.cuda_tts import (
+    SMEM_LIMIT, shared_text_limit, tts_smem_plan,
+)
 
 FULL = (256, 128, 512, 80, 2)    # D, Dh, H, n_mels, r of TacotronConfig()
 # the regions that grow with L, which the global placement moves out
-L_SIZED = ("enc_cols", "cum", "prv", "scores", "ploc", "encp_rows")
+L_SIZED = ("enc_cols", "scores", "pe_rows", "encp_rows")
+# the regions of a CTA's conv window: [cum | prv] staged as doubles, then
+# cum and prv as float32, each of its most positions and 15 either side
+WINDOW = {"window": 16, "cum": 4, "prv": 4}
 from tests.torch_cpu import one_torch_thread  # noqa: F401
 
 META = json.loads((Path(__file__).parent / "golden"
@@ -79,7 +87,58 @@ def test_full_width_fits_one_cta_per_h100_sm(L):
 def test_layout_bytes_are_pinned():
     """The bytes the kernel's layout() gives at full width, L = 64, 132
     CTAs (the wrapper compares the two on every launch)."""
-    assert tts_smem_plan(256, 128, 512, 80, 2, 64, 132)["bytes"] == 130_032
+    plan = tts_smem_plan(256, 128, 512, 80, 2, 64, 132)
+    assert plan["bytes"] == 129_760
+    for k, b in WINDOW.items():                  # 1 position + 2 x 15
+        assert plan["regions"][k] == b * 31, k
+
+
+@pytest.mark.parametrize("int8_lstm", [False, True], ids=["bf16", "int8_lstm"])
+@pytest.mark.parametrize("grid", [64, 132])
+def test_shared_text_limit_is_the_plans_edge(grid, int8_lstm):
+    """At full width: the longest text the shared placement holds is
+    pinned, its plan is the shared one and fits; one symbol more plans
+    the global placement, and pinned to the shared one raises."""
+    limit = shared_text_limit(*FULL, grid, int8_lstm)
+    assert limit == {(64, False): 372, (64, True): 1_305,
+                     (132, False): 2_918, (132, True): 3_828}[
+        grid, int8_lstm]
+    plan = tts_smem_plan(*FULL, limit, grid, int8_lstm=int8_lstm)
+    assert plan["placement"] == "shared" and plan["bytes"] <= SMEM_LIMIT
+    plan = tts_smem_plan(*FULL, limit + 1, grid, int8_lstm=int8_lstm)
+    assert plan["placement"] == "global" and plan["bytes"] <= SMEM_LIMIT
+    with pytest.raises(ValueError, match=f"L={limit + 1}"):
+        tts_smem_plan(*FULL, limit + 1, grid, int8_lstm=int8_lstm,
+                      placement="shared")
+
+
+def sampled_lengths():
+    """Text lengths from 1 to 16,384: the edges around the grids' sizes and
+    the limits, and a seeded draw."""
+    edges = [1, 2, 7, 15, 16, 30, 31, 36, 37, 38, 64, 131, 132, 133, 264,
+             1_000, 2_918, 2_919, 3_829, 4_096, 16_383, 16_384]
+    drawn = np.random.default_rng(24).integers(1, 16_385, 12).tolist()
+    return sorted(set(edges + drawn))
+
+
+@pytest.mark.parametrize("grid", [1, 7, 37, 132])
+def test_every_position_s_taps_lie_in_its_owner_s_window(grid):
+    """Every text position's 31 taps (l - 15 .. l + 15, clipped to [0,
+    L)) lie in the conv window of the CTA that owns it, and every window
+    fits its regions (its most positions and 15 either side), for L from
+    1 to 16,384."""
+    for L in sampled_lengths():
+        plan = tts_smem_plan(*FULL, L, grid, limit=None, placement="global")
+        most = plan["most"]["energies"]
+        for k, b in WINDOW.items():
+            assert plan["regions"][k] == b * (most + 30), (L, k)
+        for (l0, l1), (w0, w1) in zip(plan["ranges"]["energies"],
+                                      plan["windows"]):
+            assert w1 - w0 == l1 - l0 + 30 <= most + 30
+            pos = np.arange(l0, l1)
+            lo = np.maximum(pos - 15, 0)
+            hi = np.minimum(pos + 15, L - 1)
+            assert (w0 <= lo).all() and (hi < w1).all(), (L, l0, l1)
 
 
 @pytest.mark.parametrize("grid", [64, 132])
@@ -100,37 +159,45 @@ def test_a_text_too_long_to_fit_raises(grid):
 
 
 @pytest.mark.parametrize("int8_lstm", [False, True], ids=["bf16", "int8_lstm"])
-@pytest.mark.parametrize("L", [2_405, 4_096, 16_384])
+@pytest.mark.parametrize("L", ["limit+1", 4_096, 16_384])
 def test_a_long_text_plans_the_global_placement(L, int8_lstm):
-    """At full width on 132 CTAs: the shared bytes are the fixed part's
-    alone (the same for every L), the workspace is each CTA's cum, prv and
-    scores (16-byte aligned) and ploc (L, D), and the ownership and weight
-    bytes are those of the shared plan."""
+    """At full width on 132 CTAs: the shared bytes are the fixed part's and
+    the conv window's (which grows with the positions a CTA owns), the
+    workspace is each CTA's scores (16-byte aligned) and pe (L, D), and
+    the ownership and weight bytes are those of the shared plan."""
+    if L == "limit+1":
+        L = shared_text_limit(*FULL, 132) + 1
     plan = tts_smem_plan(*FULL, L, 132, int8_lstm=int8_lstm)
     shared = tts_smem_plan(*FULL, L, 132, limit=None, int8_lstm=int8_lstm)
-    if L > 3_168 or not int8_lstm:
+    if L > shared_text_limit(*FULL, 132, int8_lstm):
         assert plan["placement"] == "global" and shared["bytes"] > SMEM_LIMIT
     assert shared["placement"] == "shared" and shared["workspace"] == 0
     glob = tts_smem_plan(*FULL, L, 132, int8_lstm=int8_lstm,
                          placement="global")
     assert glob["bytes"] <= SMEM_LIMIT
-    assert glob["bytes"] == (93_872 if int8_lstm else 126_192)
+    assert glob["bytes"] == {2_919: (126_976, 94_656),
+                             4_096: (127_184, 94_864),
+                             16_384: (129_408, 97_088)}[L][int8_lstm]
     assert glob["bytes"] == sum(-(-b // 16) * 16
                                 for b in glob["regions"].values())
     assert all(glob["regions"][k] == 0 for k in L_SIZED)
+    for k, b in WINDOW.items():
+        assert glob["regions"][k] == b * (-(-L // 132) + 30), k
     stride = -(-L // 4) * 4                      # floats, 16-byte aligned
-    assert glob["workspace"] == 132 * 3 * stride * 4 + L * 256 * 4
-    for key in ("units", "most", "ranges", "weight_bytes"):
+    assert glob["workspace"] == 132 * stride * 4 + L * 256 * 4
+    for key in ("units", "most", "ranges", "windows", "weight_bytes"):
         assert glob[key] == shared[key], key
 
 
-@pytest.mark.parametrize("L", [64, 256, 2_404])
+@pytest.mark.parametrize("L", [64, 256, "limit"])
 def test_a_text_that_fits_keeps_the_shared_plan(L):
-    """Up to 2,404 symbols at full width on 132 CTAs the plan is the
-    shared placement's, byte for byte, with no workspace."""
+    """Up to the shared limit (2,918 symbols at full width on 132 CTAs) the
+    plan is the shared placement's, byte for byte, with no workspace."""
+    if L == "limit":
+        L = shared_text_limit(*FULL, 132)
     plan = tts_smem_plan(*FULL, L, 132)
     assert plan["placement"] == "shared" and plan["workspace"] == 0
     assert plan == tts_smem_plan(*FULL, L, 132, placement="shared")
     assert plan["bytes"] <= SMEM_LIMIT
-    assert plan["bytes"] == {64: 130_032, 256: 137_456, 2_404: 232_416}[L]
+    assert plan["bytes"] == {64: 129_760, 256: 135_664, 2_918: 232_448}[L]
     assert all(plan["regions"][k] > 0 for k in L_SIZED)

@@ -26,19 +26,23 @@
 // chunk-major in shared memory, so a warp's loads of weights and operand are
 // free of bank conflicts.
 //
-// Two placements of what grows with the text (GLOB, the plan's
-// "placement").  Shared: the context columns, the CTA's copies of the
-// cumulative and previous attention and of the scores, and its text
-// positions' ploc and encp rows sit in shared memory beside the weights
-// (~43.5 bytes a symbol at full width on 132 CTAs; up to 2,404 symbols,
-// 3,168 with I8L).  Global, for a text past that: the weights, operands,
-// partials and conv taps stay in shared memory and those L-sized regions
-// move out.  The context columns and the encp rows are read from enc_t and
-// encp themselves (the column rounded to bf16 at use, the value the shared
-// copy holds); cum, prv and the scores go to this CTA's slice of a global
-// workspace, and ploc to the CTA's own rows of an (L, D) array there.
-// Ownership, phase order and every sum's order are the same in both, so
-// both give the same bits.
+// The cumulative and previous attention: a CTA keeps them only for its
+// conv window, its text positions and PADT either side (zero outside the
+// text), in shared memory, beside the same window staged as the conv's
+// operand; phase 6 updates the window, and each position's owner writes
+// it out at the end.  Two placements of what grows with the text (GLOB,
+// the plan's "placement").  Shared: the context columns, the CTA's copy of
+// the scores, and its text positions' pe (= ploc + encp) and encp rows sit
+// in shared memory beside the weights (~35.5 bytes a symbol at full width
+// on 132 CTAs; up to 2,918 symbols, 3,828 with I8L: cuda_tts.
+// shared_text_limit).  Global, for a text past that: the weights,
+// operands, partials, conv taps and windows stay in shared memory and
+// those L-sized regions move out.  The context columns and the encp rows
+// are read from enc_t and encp themselves (the column rounded to bf16 at
+// use, the value the shared copy holds); the scores go to this CTA's
+// slice of a global workspace, and pe to the CTA's own rows of an (L, D)
+// array there.  Ownership, phase order and every sum's order are the same
+// in both, so both give the same bits.
 //
 // Between phases, no barrier: a value that crosses CTAs is written together
 // with its step (tag) in one 64-bit word, and a reader polls the words it
@@ -51,12 +55,28 @@
 // its owner needs (the attention GRU's h, the LSTM cells) stays in shared
 // memory.  Every spin is bounded: a launch whose inputs never come traps.
 //
-// The location conv is off the critical path: ploc[l, :] depends only on
-// the cumulative and previous attention, final after phase 6, so a CTA
-// computes it for its own text positions (one column d per thread, the 62
-// taps in order) at the ends of phases 6-9, while its next input is still
-// on its way, and phase 5 only adds encp, the query and the bias, takes tanh
-// and reduces the v-dot.
+// The work that grows with the text runs over all of a CTA's positions at
+// once, with no block barrier per position.  The location conv is off the
+// critical path: ploc[l, :] depends only on the cumulative and previous
+// attention, final after phase 6, so a CTA computes it for its own text
+// positions, a thread a column d, 8 positions at a time as independent
+// float64 sums (a position's 31 cum taps in order plus its 31 prv taps in
+// order; each tap loaded once for the 8), in one function that is not
+// inlined (conv_rows), spread over NWIN phase ends (those of phases 6-9,
+// whose hand-overs hide it best, take up to SLOT_MIN positions each
+// first; the rest also goes to the ends of the next step's phases 1-4),
+// while the next input is on its way, and writes pe = f32(ploc) + encp.
+// Phase 5 adds the query and the bias, takes tanh and reduces the v-dot:
+// from NW positions a CTA on a warp takes a position (energy_rows), below
+// that the CTA takes one position at a time.  Phase 6 normalises all L
+// scores in every CTA, updates the CTA's window and writes out its own
+// positions' scores; its context splits a column's L over up to NW / nd
+// warps (ctx_split) and adds their sums in order.  Code that only long
+// texts run stays out of the step's loop (the instruction cache holds
+// little more than the loop), and a text of a position or none a CTA (the
+// main path's) runs one inline conv block.  The float32 -> float64
+// conversions of the energies and the context are bf_scaled against an
+// act-scaled operand (v, the context columns), as in the dots.
 //
 // Arithmetic.  Every dot sums its exact products (bf16 x bf16 fits a double)
 // in float64 and rounds the sum once to float32, in one fixed order per
@@ -99,7 +119,11 @@
 // 48-step launch is its 10.35 MB read once (3.1 us at 3.35 TB/s).  Latency
 // sets the pace: per phase, the hand-over of its inputs through L2 (~1.7-2.7
 // us a phase on an H100, PERF.md, from the spans of tts_decode_spans), and
-// the step's barrier (~1 us bare, tts_barrier_loop).
+// the step's barrier (~1 us bare, tts_barrier_loop).  A long text adds, a
+// step and CTA, its positions' conv (256 x 62 float64 FMAs a position,
+// ~0.14 us of an SM's float64 pipe) and tanh, and passes over all L
+// scores; past ~10,000 symbols the enc_t, encp and pe bytes of a step
+// outgrow the L2 cache.
 //
 // Entry points (plain C, bound with ctypes):
 //   int tts_decode(const void* const* ptrs, const long long* dims,
@@ -134,7 +158,10 @@ constexpr int PADT = (KTAPS - 1) / 2;
 constexpr int NTAP2 = 2 * KTAPS;
 constexpr int MAXG = 6;      // the most sums of one unit (the GRU's 3 + 3)
 constexpr int NPHASE = 10;   // phases of a step
-constexpr int NWIN = 4;      // phase ends that hold the location conv
+constexpr int NWIN = 8;      // phase ends that hold the location conv
+constexpr int SLOT_MIN = 12;  // positions the conv slots of phases 6-9 take first
+constexpr int CTX_MIN = 256; // the fewest positions a warp takes of a context column
+constexpr int KE = 8;        // energy columns a thread keeps in registers
 constexpr long long SPIN_LIMIT = 1LL << 24;  // polls before a launch traps
 
 typedef __nv_bfloat16 bf16;
@@ -176,7 +203,7 @@ __host__ __device__ inline size_t take(size_t& at, size_t bytes) {
 enum { WP1, WP2, WG, WQ, WRI, WL1, WL2, WMEL, NWREG };
 
 struct Layout {
-  size_t op, encd, part, win, opf, cum, prv, sc, ploc, encp, own, hh, ms;
+  size_t op, encd, part, win, opf, cum, prv, sc, pe, encp, own, hh, ms;
   size_t w[NWREG];
   size_t total;
 };
@@ -186,8 +213,10 @@ struct Layout {
 // the LSTM operands (2 a warp) and the h half of both LSTMs' gates for the
 // step (2 layers x 4 gates a unit, float32); the operand region also
 // holds h1 and h2 as float32 at its end in phase 2.
-// With glob the L-sized regions take no shared memory (they are in the
-// workspace, ws_floats).
+// cum and prv are the CTA's conv window's alone (its positions and PADT
+// either side; win holds them staged as the conv's operand), in both
+// placements.  With glob the L-sized regions take no shared memory (they
+// are in the workspace, ws_floats).
 __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
                                          int r, int G, bool i8l, bool glob) {
   Layout y;
@@ -197,16 +226,17 @@ __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
   if (NM > op_n) op_n = NM;
   if (i8l && D + H > op_n) op_n = D + H;   // I8L: phase 2's [p1 | h1 | h2]
   const size_t nd = most(D, G), nh = most(H, G);
+  const size_t nw = most(L, G) + 2 * PADT;   // a conv window
   const size_t Ls = glob ? 0 : (size_t)L, nl = glob ? 0 : most(L, G);
   y.op = take(at, 8 * (size_t)op_n);
   y.encd = take(at, 8 * nd * Ls);
   y.part = take(at, 8 * NW * MAXG);
-  y.win = take(at, 8 * 64);
+  y.win = take(at, 8 * 2 * nw);
   y.opf = take(at, 4 * (size_t)op_n);
-  y.cum = take(at, 4 * Ls);
-  y.prv = take(at, 4 * Ls);
+  y.cum = take(at, 4 * nw);
+  y.prv = take(at, 4 * nw);
   y.sc = take(at, 4 * Ls);
-  y.ploc = take(at, 4 * nl * D);
+  y.pe = take(at, 4 * nl * D);
   y.encp = take(at, 4 * nl * D);
   y.own = take(at, 4 * (nd + 2 * nh));
   y.hh = take(at, i8l ? 4 * (2 * NW + 8 * nh) : 0);
@@ -226,12 +256,21 @@ __host__ __device__ inline Layout layout(int L, int D, int Dh, int H, int NM,
   return y;
 }
 
-// The global placement's workspace, in floats: each CTA's slice of cum, prv
-// and scores (ws_stride(L) floats each), then ploc (L, D), whose rows each
-// CTA writes for its own text positions.
+// The global placement's workspace, in floats: each CTA's slice of the
+// scores (ws_stride(L) floats), then pe (L, D), whose rows each CTA writes
+// for its own text positions.
 __host__ __device__ inline size_t ws_stride(int L) { return ((size_t)L + 3) / 4 * 4; }
 __host__ __device__ inline size_t ws_floats(int L, int D, int G) {
-  return 3 * ws_stride(L) * G + (size_t)L * D;
+  return ws_stride(L) * G + (size_t)L * D;
+}
+
+// Warps that share a context column of nd: the most (a power of two, so
+// that NW / S groups of S warps tile the CTA) that leaves each warp at
+// least CTX_MIN of the L positions; 1 keeps a warp a column.
+__device__ __forceinline__ int ctx_split(int L, int nd) {
+  int S = 1;
+  while (nd > 0 && 2 * S * nd <= NW && 2 * S * CTX_MIN <= L) S *= 2;
+  return S;
 }
 
 // ---- arithmetic ----
@@ -510,6 +549,143 @@ __device__ __forceinline__ void unit_i8(int (&acc)[4], const int8_t* w,
   for (int g = 0; g < 4; ++g) acc[g] = __reduce_add_sync(0xffffffffU, acc[g]);
 }
 
+// acc[j] += tap k of the staged window x (one of cum's or prv's, index
+// 0 at the position PADT before the CTA's first) times position j0 + j's
+// value, k = 0 .. 30 in order, for one column of ms (its 31 taps, D
+// apart): every tap loaded once for the B positions.
+template <int B>
+__device__ __forceinline__ void conv_taps(double (&acc)[B], const double* x,
+                                          const uint16_t* w, int D) {
+#pragma unroll
+  for (int t = 0; t < KTAPS; ++t) {
+    const double wt = dot::bf_scaled((uint32_t)w[(size_t)t * D] << 16);
+#pragma unroll
+    for (int j = 0; j < B; ++j) acc[j] = fma(wt, x[j + t], acc[j]);
+  }
+}
+
+// Column d of pe rows j0 .. j0 + B - 1 of a CTA's text positions: the
+// folded location conv over the staged window (wc, wp: act(bf16) of cum
+// and prv; ms: the 62 bf16 taps of each column, [62][D]), each position's
+// float64 sum taken as cum's 31 taps in order plus prv's 31 in order (two
+// chains, interleaved for one position), B positions at once; then pe =
+// f32(ploc) + encp, the plain version's first rounding of the energies.
+template <int B>
+__device__ __forceinline__ void conv_block(float* pe, const float* encp,
+                                           const double* wc, const double* wp,
+                                           const uint16_t* ms, int D, int j0,
+                                           int d) {
+  float ep[B];
+  double sum[B];
+#pragma unroll
+  for (int j = 0; j < B; ++j) ep[j] = encp[(size_t)(j0 + j) * D + d];
+  const uint16_t* w = ms + d;
+  if constexpr (B == 1) {
+    double c[1] = {0.0}, v[1] = {0.0};
+    conv_taps<1>(c, wc + j0, w, D);
+    conv_taps<1>(v, wp + j0, w + (size_t)KTAPS * D, D);
+    sum[0] = __dadd_rn(c[0], v[0]);
+  } else {
+#pragma unroll 1
+    for (int part = 0; part < 2; ++part) {
+      double acc[B];
+#pragma unroll
+      for (int j = 0; j < B; ++j) acc[j] = 0.0;
+      conv_taps<B>(acc, (part ? wp : wc) + j0, w + (size_t)part * KTAPS * D, D);
+#pragma unroll
+      for (int j = 0; j < B; ++j) sum[j] = part ? __dadd_rn(sum[j], acc[j]) : acc[j];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < B; ++j)
+    pe[(size_t)(j0 + j) * D + d] = add(f32(sum[j]), ep[j]);
+}
+
+// pe rows [ja, jb) of a CTA's text positions (conv_block): a thread a
+// column, the positions in blocks of 8 (then 4, 2, 1).  One copy of the
+// code for every phase end that calls it, so that the step's loop stays
+// small enough for the instruction cache.
+__device__ __noinline__ void conv_rows(float* pe, const float* encp,
+                                       const double* wc, const double* wp,
+                                       const uint16_t* ms, int D, int ja,
+                                       int jb) {
+  for (int d = threadIdx.x; d < D; d += NT) {
+    int j = ja;
+    for (; j + 8 <= jb; j += 8) conv_block<8>(pe, encp, wc, wp, ms, D, j, d);
+    if (j + 4 <= jb) { conv_block<4>(pe, encp, wc, wp, ms, D, j, d); j += 4; }
+    if (j + 2 <= jb) { conv_block<2>(pe, encp, wc, wp, ms, D, j, d); j += 2; }
+    if (j < jb) conv_block<1>(pe, encp, wc, wp, ms, D, j, d);
+  }
+}
+
+// Energies u[l0 + jl] = v . bf16(tanh((pe[jl] + pq) + b_q)) of a CTA's nl
+// >= NW positions (pe holding f32(ploc + encp), pq in opf): a warp a
+// position, each lane the columns lane, lane + 32, ..., of which it keeps
+// KE's v (act-scaled), b_q and pq in registers for all its positions, the
+// next position's pe loaded while it works on this one; the bf16 of tanh
+// enters as bf_scaled against the act-scaled v (exact products, no
+// conversion on the float64 pipe), the warp's shuffle tree sums, lane 0
+// puts.  Not inlined: the main path's texts give a CTA fewer positions.
+__device__ __noinline__ void energy_rows(const float* pe, const float* opf,
+                                         const float* b_q, const bf16* v,
+                                         int D, int nl, unsigned long long* u,
+                                         unsigned tag) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nk = lane < D ? (D - lane + 31) / 32 : 0;   // this lane's columns
+  double va[KE];
+  float bq[KE], pq[KE];
+#pragma unroll
+  for (int k = 0; k < KE; ++k) {
+    const int d = lane + 32 * k;
+    va[k] = k < nk ? dot::act((double)__bfloat162float(v[d])) : 0.0;
+    bq[k] = k < nk ? __ldg(b_q + d) : 0.f;
+    pq[k] = k < nk ? opf[d] : 0.f;
+  }
+  auto row = [&](int jl, float (&x)[KE]) {
+#pragma unroll
+    for (int k = 0; k < KE; ++k)
+      x[k] = k < nk && jl < nl ? pe[(size_t)jl * D + lane + 32 * k] : 0.f;
+  };
+  float x[KE];
+  row(warp, x);
+  for (int jl = warp; jl < nl; jl += NW) {
+    float xn[KE];
+    row(jl + NW, xn);
+    double e = 0.0;
+#pragma unroll
+    for (int k = 0; k < KE; ++k)
+      if (k < nk) {
+        const float t = bfr(tanhf(add(add(x[k], pq[k]), bq[k])));
+        e = fma(va[k], dot::bf_scaled(__float_as_uint(t)), e);
+      }
+    for (int k = KE; k < nk; ++k) {   // D past 32 KE columns
+      const int d = lane + 32 * k;
+      const float t = bfr(tanhf(add(add(pe[(size_t)jl * D + d], opf[d]),
+                                    __ldg(b_q + d))));
+      e = fma(dot::act((double)__bfloat162float(v[d])),
+              dot::bf_scaled(__float_as_uint(t)), e);
+    }
+    e = warp_sum(e);
+    if (lane == 0) put(u + jl, f32(e), tag);
+#pragma unroll
+    for (int k = 0; k < KE; ++k) x[k] = xn[k];
+  }
+}
+
+// The first of a CTA's nl positions that conv slot w takes (slot w takes
+// [slot_start(nl, w), slot_start(nl, w + 1))): the slots at the ends of
+// phases 6-9 (w < NWIN / 2), whose hand-overs hide the conv best, first
+// take up to SLOT_MIN each, and the rest is spread over all NWIN slots.
+__device__ __forceinline__ int slot_start(int nl, int w) {
+  const int first = min(nl, NWIN / 2 * SLOT_MIN), rest = nl - first;
+  const int per = most(rest, NWIN);
+  int a = 0;
+  for (int v = 0; v < w; ++v)
+    a += (v < NWIN / 2 ? max(0, min(SLOT_MIN, first - v * SLOT_MIN)) : 0) +
+         max(0, min(per, rest - v * per));
+  return a;
+}
+
 // A segment of a phase's input: n tagged words at p, of step tag - 2.
 struct Seg {
   const unsigned long long* p;
@@ -534,19 +710,20 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   const int m0 = own0(RM, cta, G), nm = own0(RM, cta + 1, G) - m0;
 
   extern __shared__ __align__(16) unsigned char sm[];
-  // GLOB: this CTA's slice of the workspace (cum | prv | scores)
+  // the conv window: positions [wl0, wl0 + nw), zero outside [0, L)
+  const int wl0 = l0 - PADT, nw = nl + 2 * PADT;
+  // GLOB: this CTA's slice of the workspace (the scores)
   const size_t wst = ws_stride(L);
-  float* wsc = GLOB ? p.ws + (size_t)cta * 3 * wst : nullptr;
   double* opT = reinterpret_cast<double*>(sm + y.op);     // the operand
-  double* encd = reinterpret_cast<double*>(sm + y.encd);  // [nd][L], shared placement
+  double* encd = reinterpret_cast<double*>(sm + y.encd);  // [nd][L] act(bf16), shared placement
   double* part = reinterpret_cast<double*>(sm + y.part);  // partial sums
-  double* win = reinterpret_cast<double*>(sm + y.win);    // a conv window
+  double* win = reinterpret_cast<double*>(sm + y.win);    // [cum | prv] staged, [2][nw]
   float* opf = reinterpret_cast<float*>(sm + y.opf);      // operand, f32
-  float* cum = GLOB ? wsc : reinterpret_cast<float*>(sm + y.cum);
-  float* prv = GLOB ? wsc + wst : reinterpret_cast<float*>(sm + y.prv);
-  float* sc = GLOB ? wsc + 2 * wst : reinterpret_cast<float*>(sm + y.sc);
-  float* ploc = GLOB ? p.ws + 3 * wst * G + (size_t)l0 * D   // [nl][D]
-                     : reinterpret_cast<float*>(sm + y.ploc);
+  float* cum = reinterpret_cast<float*>(sm + y.cum);      // [nw], the window's
+  float* prv = reinterpret_cast<float*>(sm + y.prv);      // [nw]
+  float* sc = GLOB ? p.ws + (size_t)cta * wst : reinterpret_cast<float*>(sm + y.sc);
+  float* pe = GLOB ? p.ws + wst * G + (size_t)l0 * D      // [nl][D], ploc + encp
+                   : reinterpret_cast<float*>(sm + y.pe);
   float* encp_s = reinterpret_cast<float*>(sm + y.encp);  // [nl][D], shared placement
   const float* encp = GLOB ? p.encp + (size_t)l0 * D : encp_s;
   float* ha_own = reinterpret_cast<float*>(sm + y.own);
@@ -558,7 +735,7 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   float* hh_v = reinterpret_cast<float*>(wmax + 2 * NW);
   // I8L: [h1 | h2] of the step before, f32, at the end of the operand
   float* hf = reinterpret_cast<float*>(sm + y.encd) - 2 * H;
-  uint32_t* ms = reinterpret_cast<uint32_t*>(sm + y.ms);  // [31][D] tap pairs
+  uint16_t* ms = reinterpret_cast<uint16_t*>(sm + y.ms);  // [62][D] conv taps
   bf16* w_p1 = reinterpret_cast<bf16*>(sm + y.w[WP1]);
   bf16* w_p2 = reinterpret_cast<bf16*>(sm + y.w[WP2]);
   bf16* w_gi = reinterpret_cast<bf16*>(sm + y.w[WG]);
@@ -649,18 +826,24 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   copy_units(w_mel, p.mel_w, H, nullptr, 0, m0, nm, 1, RM);
   if (nl > 0) {
     const uint16_t* m = reinterpret_cast<const uint16_t*>(p.M_loc);
-    for (int i = tid; i < KTAPS * D; i += NT) {   // ms[tp][d] = taps 2tp, 2tp+1
-      const int tp = i / D, d = i % D;
-      ms[i] = (uint32_t)m[(size_t)d * NTAP2 + 2 * tp] |
-              ((uint32_t)m[(size_t)d * NTAP2 + 2 * tp + 1] << 16);
-    }
+    for (int i = tid; i < NTAP2 * D; i += NT)     // ms[k][d] = tap k of d
+      ms[i] = m[(size_t)(i % D) * NTAP2 + i / D];
     if constexpr (!GLOB)
       for (int i = tid; i < nl * D; i += NT) encp_s[i] = __ldg(p.encp + (size_t)l0 * D + i);
   }
   if constexpr (!GLOB)
     for (int i = tid; i < nd * L; i += NT)
-      encd[i] = (double)bfr(__ldg(p.enc_t + (size_t)d0 * L + i));
-  for (int i = tid; i < L; i += NT) { cum[i] = s_cum[i]; prv[i] = s_prv[i]; }
+      encd[i] = dot::act((double)bfr(__ldg(p.enc_t + (size_t)d0 * L + i)));
+  // the window's cum and prv, and the same staged as the conv's operand
+  for (int i = tid; i < nw; i += NT) {
+    const int l = wl0 + i;
+    const bool in = l >= 0 && l < L;
+    const float c = in ? s_cum[l] : 0.f, v = in ? s_prv[l] : 0.f;
+    cum[i] = c;
+    prv[i] = v;
+    win[i] = dot::act((double)bfr(c));
+    win[nw + i] = dot::act((double)bfr(v));
+  }
   for (int i = tid; i < nd; i += NT) ha_own[i] = s_ha[d0 + i];
   for (int i = tid; i < nh; i += NT) { c1_own[i] = s_c1[h0 + i]; c2_own[i] = s_c2[h0 + i]; }
   {  // the state coming in, each value by its owner, as step -1's (slot 1)
@@ -679,29 +862,13 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
   }
   __syncthreads();
 
-  // ploc[jl][:] of text position l0 + jl from cum and prv: one column d per
-  // thread, the 62 taps in order (all threads)
-  auto ploc_row = [&](int jl) {
-    const int l = l0 + jl;
-    if (tid < NTAP2) {
-      const int src = l + (tid < KTAPS ? tid : tid - KTAPS) - PADT;
-      const float* row = tid < KTAPS ? cum : prv;
-      win[tid] = (src >= 0 && src < L) ? dot::act((double)bfr(row[src])) : 0.0;
-    }
-    __syncthreads();
-    for (int d = tid; d < D; d += NT) {
-      double s = 0.0;
-#pragma unroll
-      for (int tp = 0; tp < KTAPS; ++tp) {
-        const uint32_t w2 = ms[tp * D + d];
-        s = fma(dot::lo_bf(w2), win[2 * tp], s);
-        s = fma(dot::hi_bf(w2), win[2 * tp + 1], s);
-      }
-      ploc[jl * D + d] = f32(s);
-    }
-    __syncthreads();
+  // pe rows [ja, jb) of this CTA's positions from the staged window.  No
+  // barrier: the window was staged before a barrier, and pe is read after
+  // the next phase's fetch has met.
+  auto conv = [&](int ja, int jb) {
+    if (ja < jb) conv_rows(pe, encp, win, win + nw, ms, D, ja, jb);
   };
-  for (int jl = 0; jl < nl; ++jl) ploc_row(jl);
+  conv(0, nl);
 
   // CTA 0 stamps the clock when phase k + 1's input has come (k = 9: the
   // step's barrier)
@@ -821,10 +988,18 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
     const bool first = step == 0, last = step == p.n_steps - 1;
     const unsigned tag = step + 2, tag_cur = step + 1;   // this step, the last
     const Acts nx = acts(step & 1), cur = acts((step & 1) ^ 1);
-    // the next step's conv, spread over the ends of phases 6-9
-    auto conv_window = [&](int w) {
-      if (!last)
-        for (int jl = w; jl < nl; jl += NWIN) ploc_row(jl);
+    // the next step's conv is spread over NWIN phase ends, slot w's share
+    // of the positions (slot_start): slots 0-3 at the ends of this step's
+    // phases 6-9, 4-7 at the ends of the next step's phases 1-4
+    auto conv_here = [&](int w) {
+      if (w < NWIN / 2 ? last : first) return;
+      const int ja = slot_start(nl, w), jb = slot_start(nl, w + 1);
+      if (w == 0 && jb == ja + 1) {   // the main path's one position, inline
+        for (int d = tid; d < D; d += NT)
+          conv_block<1>(pe, encp, win, win + nw, ms, D, ja, d);
+      } else {
+        conv(ja, jb);
+      }
     };
 
     // 1. prenet fc1 on the previous mel frame
@@ -843,6 +1018,7 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
         m = fmaxf(m, __shfl_xor_sync(0xffffffffU, m, o));
       if (lane == 0) p.stop[step - 1] = m;
     }
+    conv_here(4);
 
     // 2. prenet fc2 (I8L: with h1 and h2 of the step before)
     if constexpr (I8L)
@@ -857,6 +1033,7 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
                   put(nx.p2 + j, fmaxf(add(f32(s[0]), p.p2_b[j]), 0.f), tag);
                 });
     if constexpr (I8L) hh_dot();
+    conv_here(5);
 
     // 3. attention GRU: gi = [context | p2] @ wih, gh = h_attn @ whh
     load_op({cur.ctx, D, tag_cur}, {nx.p2, Dh, tag}, {cur.ha, D, tag_cur});
@@ -879,32 +1056,40 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
                   put(nx.ha + j, h, tag);
                   if (last) o_ha[j] = h;
                 });
+    conv_here(6);
 
     // 4. query projection pq = h_attn @ W
     load_op({nx.ha, D, tag}, none, none);
     stamp(step, 2);
     units<1, 0>(nd, w_q, D, 0, nullptr, 0, 0, opT, D / 8, part,
                 [&](int u, const double* s) { put(nx.pq + d0 + u, f32(s[0]), tag); });
+    conv_here(7);
 
-    // 5. location energies u[l] = v . tanh(((ploc + encp) + pq) + b_q)
+    // 5. location energies u[l] = v . tanh(((ploc + encp) + pq) + b_q), pe
+    // holding f32(ploc + encp): from NW positions a CTA on, a warp a
+    // position (energy_rows); below, a position at a time over the CTA (a
+    // thread a column, the warps' sums added in order by thread 0)
     load_op({nx.pq, D, tag}, none, none);    // pq in opf
     stamp(step, 3);
-    for (int jl = 0; jl < nl; ++jl) {
-      double e = 0.0;
-      for (int d = tid; d < D; d += NT) {
-        const float targ = tanhf(add(add(add(ploc[jl * D + d], encp[jl * D + d]),
-                                         opf[d]), __ldg(p.b_q + d)));
-        e = fma((double)__bfloat162float(p.v[d]), (double)bfr(targ), e);
+    if (nl >= NW) {
+      energy_rows(pe, opf, p.b_q, p.v, D, nl, nx.u + l0, tag);
+    } else {
+      for (int jl = 0; jl < nl; ++jl) {
+        double e = 0.0;
+        for (int d = tid; d < D; d += NT) {
+          const float targ = tanhf(add(add(pe[jl * D + d], opf[d]), __ldg(p.b_q + d)));
+          e = fma((double)__bfloat162float(p.v[d]), (double)bfr(targ), e);
+        }
+        e = warp_sum(e);
+        if (lane == 0) part[warp] = e;
+        __syncthreads();
+        if (tid == 0) {
+          double t = 0.0;
+          for (int w = 0; w < NW; ++w) t += part[w];
+          put(nx.u + l0 + jl, f32(t), tag);
+        }
+        __syncthreads();
       }
-      e = warp_sum(e);
-      if (lane == 0) part[warp] = e;
-      __syncthreads();
-      if (tid == 0) {
-        double t = 0.0;
-        for (int w = 0; w < NW; ++w) t += part[w];
-        put(nx.u + l0 + jl, f32(t), tag);
-      }
-      __syncthreads();
     }
 
     // 6. scores in every CTA (the sum is over all of L), then the context
@@ -928,33 +1113,63 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
       double tot = 0.0;
       for (int w = 0; w < NW; ++w) tot += part[w];
       const float total = f32(tot);
+      // the scores normalised (each by the thread that fetched it), its own
+      // positions' written out; the window's cum and prv updated and staged
       for (int l = tid; l < L; l += NT) {
         const float s = __fdiv_rn(sc[l], total);
         sc[l] = s;
-        cum[l] = add(cum[l], s);
-        prv[l] = s;
-        if (cta == 0) p.scores[(size_t)step * L + l] = s;
+        const int i = l - wl0;
+        if (i >= 0 && i < nw) {
+          const float c = add(cum[i], s);
+          cum[i] = c;
+          prv[i] = s;
+          win[i] = dot::act((double)bfr(c));
+          win[nw + i] = dot::act((double)bfr(s));
+          if (i >= PADT && i < PADT + nl) p.scores[(size_t)step * L + l] = s;
+        }
       }
       __syncthreads();
-      for (int jd = warp; jd < nd; jd += NW) {
+      // the context: column jd by a group of S warps, each a contiguous
+      // range of L with its lanes interleaved, each score entering as
+      // bf_scaled against the act-scaled column; the S sums added in order
+      const int S = ctx_split(L, nd), sw = warp % S;
+      const int la = S == 1 ? 0 : L * sw / S, lb = S == 1 ? L : L * (sw + 1) / S;
+      for (int jd = warp / S; jd < nd; jd += NW / S) {
         double acc = 0.0;
         if constexpr (GLOB) {   // the column as the shared copy holds it
           const float* col = p.enc_t + (size_t)(d0 + jd) * L;
-          for (int l = lane; l < L; l += 32)
-            acc = fma((double)bfr(sc[l]), (double)bfr(__ldg(col + l)), acc);
+#pragma unroll 8
+          for (int l = la + lane; l < lb; l += 32)
+            acc = fma(dot::bf_scaled(__float_as_uint(bfr(sc[l]))),
+                      dot::act((double)bfr(__ldg(col + l))), acc);
         } else {
-          for (int l = lane; l < L; l += 32)
-            acc = fma((double)bfr(sc[l]), encd[jd * L + l], acc);
+          for (int l = la + lane; l < lb; l += 32)
+            acc = fma(dot::bf_scaled(__float_as_uint(bfr(sc[l]))),
+                      encd[jd * L + l], acc);
         }
         acc = warp_sum(acc);
         if (lane == 0) {
-          const float c = f32(acc);
-          put(nx.ctx + d0 + jd, c, tag);
-          if (last) o_ctx[d0 + jd] = c;
+          if (S == 1) {
+            const float c = f32(acc);
+            put(nx.ctx + d0 + jd, c, tag);
+            if (last) o_ctx[d0 + jd] = c;
+          } else {
+            part[jd * S + sw] = acc;
+          }
+        }
+      }
+      if (S > 1) {
+        __syncthreads();
+        if (tid < nd) {
+          double t = 0.0;
+          for (int i = 0; i < S; ++i) t += part[tid * S + i];
+          const float c = f32(t);
+          put(nx.ctx + d0 + tid, c, tag);
+          if (last) o_ctx[d0 + tid] = c;
         }
       }
     }
-    conv_window(0);
+    conv_here(0);
 
     // 7. rnn_input: x = [context | h_attn] @ ri + ri_b
     load_op({nx.ctx, D, tag}, {nx.ha, D, tag}, none);
@@ -964,7 +1179,7 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
                   const int j = h0 + u;
                   put(nx.x + j, add(f32(s[0]), p.ri_b[j]), tag);
                 });
-    conv_window(1);
+    conv_here(1);
 
     // 8./9. the residual LSTMs
 #pragma unroll 1
@@ -1035,7 +1250,7 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
                       cell(u, gv);
                     });
       }
-      conv_window(2 + layer);
+      conv_here(2 + layer);
     }
 
     // 10. mel projection: r frames; the last one feeds the next step
@@ -1076,7 +1291,11 @@ __global__ void __launch_bounds__(NT, 1) tts_decode_kernel(Params p) {
         m = fmaxf(m, __shfl_xor_sync(0xffffffffU, m, o));
       if (lane == 0) p.stop[n - 1] = m;
     }
-    for (int i = tid; i < L; i += NT) { o_cum[i] = cum[i]; o_prv[i] = prv[i]; }
+  }
+  // the attention going out, each position by its owner
+  for (int i = tid; i < nl; i += NT) {
+    o_cum[l0 + i] = cum[PADT + i];
+    o_prv[l0 + i] = prv[PADT + i];
   }
 }
 

@@ -10,10 +10,13 @@ packed set's: bf16, or ``int8_lstm`` (int8 LSTM rows).
 ``tts_decode.launches_int8_lstm`` those of ``int8_lstm`` and
 ``tts_decode.launches_global`` those in the global placement.
 :func:`tts_smem_plan` is the kernel's memory plan: which output units,
-text positions and context columns each CTA owns, the shared bytes every
+text positions and context columns each CTA owns, the conv window of
+cumulative and previous attention each CTA keeps, the shared bytes every
 CTA allocates and, for a text too long for shared memory, the global
-workspace its L-sized state moves to (the plan's ``placement``).  A text
-of any length decodes; only a grid whose fixed part does not fit raises.
+workspace its L-sized state moves to (the plan's ``placement``);
+:func:`shared_text_limit` is the longest text the shared placement holds.
+A text of any length decodes; only a grid whose fixed part does not fit
+raises.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ SMEM_LIMIT = 232_448   # shared memory one CTA may use on Hopper (227 KB)
 NW = 8                 # warps of a CTA (256 threads)
 MAXG = 6               # the most sums of one unit (the attention GRU's)
 NTAP2 = 62             # taps of the folded location conv: [cum | prv]
+PAD = (NTAP2 // 2 - 1) // 2  # the conv reaches 15 positions either side
 PHASES_PER_STEP = 10   # phases of a decoder step (one span stamp each)
 # What a CTA owns (contiguous, [i*n // grid, (i+1)*n // grid)): its output
 # rows or units of each phase, its text positions (energies) and its
@@ -60,6 +64,14 @@ OWNED = ("prenet1", "prenet2", "attn_gru", "query", "energies", "context",
 def owned(n: int, cta: int, grid: int) -> tuple:
     """[start, stop) of the ``n`` units that CTA ``cta`` of ``grid`` owns."""
     return cta * n // grid, (cta + 1) * n // grid
+
+
+def conv_window(L: int, cta: int, grid: int) -> tuple:
+    """[start, stop) of the text positions whose cumulative and previous
+    attention CTA ``cta`` of ``grid`` keeps: its own positions and the
+    conv's reach either side (positions outside [0, L) count as zero)."""
+    l0, l1 = owned(L, cta, grid)
+    return l0 - PAD, l1 + PAD
 
 
 def _align(n: int) -> int:
@@ -82,15 +94,20 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
     computes after phase 2; its operand region also holds h1 and h2
     (float32) after phase 2's operand.
 
-    ``placement`` "shared" keeps the L-sized regions (context columns,
-    cum, prv, scores, ploc and encp rows) in shared memory; "global" keeps
-    them out of it: the context columns and encp rows are read from the
-    kernel's inputs, and cum, prv and the scores (one slice per CTA) and
-    ploc ((L, D), each CTA its rows) go to a workspace of ``workspace``
-    bytes.  None picks "shared" when it fits ``limit`` (or ``limit`` is
-    None), else "global".  Raises ``ValueError`` when the layout exceeds
-    ``limit`` bytes: naming L in the shared placement, the grid in the
-    global one (its fixed part alone does not fit)."""
+    Every CTA keeps the cumulative and previous attention of its conv
+    window only (``windows``, :func:`conv_window`: its positions and 15
+    either side, float32) and the same window staged as the conv's
+    operand (``window``: bf16-rounded, act-scaled doubles), in shared
+    memory in both placements.  ``placement`` "shared" keeps the L-sized
+    regions (context columns, scores, pe = ploc + encp rows and encp rows)
+    in shared memory too; "global" keeps them out of it: the context
+    columns and encp rows are read from the kernel's inputs, and the
+    scores (one slice per CTA) and pe ((L, D), each CTA its rows) go to a
+    workspace of ``workspace`` bytes.  None picks "shared" when it fits
+    ``limit`` (or ``limit`` is None), else "global".  Raises
+    ``ValueError`` when the layout exceeds ``limit`` bytes: naming L in
+    the shared placement, the grid in the global one (its fixed part
+    alone does not fit)."""
     if grid < 1:
         raise ValueError(f"grid must be >= 1, got {grid}")
     if placement not in (None, "shared", "global"):
@@ -118,19 +135,20 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
     op_n = max(n_mels, 2 * D + Dh, 2 * H, D + H if int8_lstm else 0)
     glob = placement == "global"
     Ls, nl = (0, 0) if glob else (L, most["energies"])
+    nw = most["energies"] + 2 * PAD               # a CTA's conv window
     regions = [                                   # the kernel's order
         ("operand", 8 * op_n),                    # act-scaled doubles
-        ("enc_cols", 8 * most["context"] * Ls),   # bf16-rounded doubles
+        ("enc_cols", 8 * most["context"] * Ls),   # act(bf16) doubles
         ("partials", 8 * NW * MAXG),
-        ("window", 8 * 64),                       # one conv window
+        ("window", 8 * 2 * nw),                   # [cum | prv], staged
         ("operand_f32", 4 * op_n),
-        ("cum", 4 * Ls), ("prv", 4 * Ls), ("scores", 4 * Ls),
-        ("ploc", 4 * nl * D),
+        ("cum", 4 * nw), ("prv", 4 * nw), ("scores", 4 * Ls),
+        ("pe_rows", 4 * nl * D),
         ("encp_rows", 4 * nl * D),
         ("own_state", 4 * (most["attn_gru"] + 2 * most["lstm1"])),
     ] + ([("lstm_hh", 4 * (2 * NW + 2 * 4 * most["lstm1"]))]
          if int8_lstm else []) + [
-        ("loc_conv", 4 * (NTAP2 // 2) * D),       # bf16 tap pairs
+        ("loc_conv", 2 * NTAP2 * D),              # bf16 taps, [62][D]
     ] + [(f"w_{k}", most[k] * unit_bytes[k]) for k in OWNED if row_w[k]]
     nbytes = sum(_align(b) for _, b in regions)
     ranges = {k: [owned(n, i, grid) for i in range(grid)]
@@ -145,13 +163,34 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
             f"a text of L={L} symbols does not fit the TTS kernel's shared "
             f"placement on {grid} CTAs: it needs {nbytes} bytes of shared "
             f"memory per CTA, the limit is {limit}")
-    # the workspace: each CTA's cum | prv | scores (16-byte aligned), then
-    # ploc (L, D)
-    workspace = 4 * (3 * -(-L // 4) * 4 * grid + L * D) if glob else 0
+    # the workspace: each CTA's scores (16-byte aligned), then pe (L, D)
+    workspace = 4 * (-(-L // 4) * 4 * grid + L * D) if glob else 0
+    windows = [conv_window(L, i, grid) for i in range(grid)]
     return dict(grid=grid, units=units, most=most, ranges=ranges,
-                regions=dict(regions), bytes=nbytes,
+                windows=windows, regions=dict(regions), bytes=nbytes,
                 weight_bytes=weight_bytes, placement=placement,
                 workspace=workspace)
+
+
+@functools.lru_cache(maxsize=64)
+def shared_text_limit(D: int, Dh: int, H: int, n_mels: int, r: int,
+                      grid: int, int8_lstm: bool = False) -> int:
+    """The longest text whose shared placement fits one CTA's shared
+    memory on ``grid`` CTAs (0 when none does): a text one symbol longer
+    plans the global placement."""
+    def fits(L):
+        return tts_smem_plan(D, Dh, H, n_mels, r, L, grid, None, int8_lstm,
+                             "shared")["bytes"] <= SMEM_LIMIT
+
+    if not fits(1):
+        return 0
+    lo, hi = 1, 2
+    while fits(hi):
+        lo, hi = hi, 2 * hi
+    while hi - lo > 1:                  # fits(lo), not fits(hi)
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    return lo
 
 
 @functools.lru_cache(maxsize=64)
@@ -238,20 +277,23 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
 
 
 def tts_decode_spans(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
-                     state: TTSDecodeState, n_steps: int):
+                     state: TTSDecodeState, n_steps: int,
+                     placement: str | None = None):
     """Dev only: the kernel's instantiation that stamps the card's
     nanosecond clock (``%globaltimer``, CTA 0) at the end of each of a
     step's phases: when the next phase's input has come, and after the
     step's grid barrier; of the packed set's variant, in the plan's
-    placement.  Returns :func:`tts_decode`'s outputs and the stamps,
-    (n_steps, PHASES_PER_STEP) int64 on the card.  Not counted in
+    placement or the one ``placement`` pins (as :func:`_launch`).  Returns
+    :func:`tts_decode`'s outputs and the stamps, (n_steps,
+    PHASES_PER_STEP) int64 on the card.  Not counted in
     ``tts_decode.launches``; nothing on the request path calls it."""
     if enc.device.type != "cuda":
         raise ValueError(f"the spans launch needs CUDA tensors, got "
                          f"{enc.device}")
     spans = torch.zeros(n_steps, PHASES_PER_STEP, dtype=torch.int64,
                         device=enc.device)
-    return _launch(packed, enc, encp, state, n_steps, spans)[0], spans
+    return _launch(packed, enc, encp, state, n_steps, spans,
+                   placement)[0], spans
 
 
 def _launch(packed, enc, encp, state, n_steps, spans, placement=None):
