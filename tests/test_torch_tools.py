@@ -211,24 +211,6 @@ def test_tts_phase_spans_int8_lstm_prints_its_plan_on_cpu(L, capsys):
     assert "phase_us" not in rec and "barrier_us" not in rec
 
 
-@pytest.mark.parametrize("placement", ["shared", "global"])
-def test_tts_phase_spans_pins_a_placement_on_cpu(placement, capsys):
-    """``--placement`` pins the plan's placement of the text's state: a
-    256-symbol text, which the plan keeps in shared memory, planned in
-    either; nothing timed."""
-    from wavernn_tpu_torch.ops.cuda_tts import tts_smem_plan
-
-    rec = tts_phase_spans.main(["--L", "256", "--placement", placement,
-                                "--device", "cpu"])
-    assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
-    want = tts_smem_plan(256, 128, 512, 80, 2, 256, 132, placement=placement)
-    assert (rec["placement"], rec["smem_bytes"]) == (placement, want["bytes"])
-    assert rec["smem_bytes"] == {"shared": 135_664, "global": 126_448}[
-        placement]
-    with pytest.raises(SystemExit):
-        tts_phase_spans.main(["--placement", "both", "--device", "cpu"])
-
-
 @pytest.mark.parametrize("name", sorted(TOOLS))
 def test_tool_on_cuda_without_a_card_raises(name):
     if torch.cuda.is_available():

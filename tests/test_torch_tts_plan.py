@@ -15,7 +15,8 @@ shared memory (past ``shared_text_limit``) plans the global placement: the
 weights, operands, partials, conv taps and windows stay in shared memory,
 the L-sized state moves to a workspace in global memory, and the ownership
 is the shared plan's.  What still raises: a bad grid, a fixed part that
-does not fit, and a text too long for a pinned shared placement.
+does not fit, a text too long for a pinned shared placement, and a text
+whose conv window no longer fits beside the global placement's fixed part.
 """
 
 import json
@@ -124,17 +125,17 @@ def sampled_lengths():
 @pytest.mark.parametrize("grid", [1, 7, 37, 132])
 def test_every_position_s_taps_lie_in_its_owner_s_window(grid):
     """Every text position's 31 taps (l - 15 .. l + 15, clipped to [0,
-    L)) lie in the conv window of the CTA that owns it, and every window
-    fits its regions (its most positions and 15 either side), for L from
-    1 to 16,384."""
+    L)) lie in the conv window its owner allocates: the window starts 15
+    positions before the CTA's first and holds as many positions as the
+    ``cum`` region (the ``prv`` and staged ``window`` regions the same),
+    for L from 1 to 16,384."""
     for L in sampled_lengths():
         plan = tts_smem_plan(*FULL, L, grid, limit=None, placement="global")
-        most = plan["most"]["energies"]
+        nw = plan["regions"]["cum"] // WINDOW["cum"]
         for k, b in WINDOW.items():
-            assert plan["regions"][k] == b * (most + 30), (L, k)
-        for (l0, l1), (w0, w1) in zip(plan["ranges"]["energies"],
-                                      plan["windows"]):
-            assert w1 - w0 == l1 - l0 + 30 <= most + 30
+            assert plan["regions"][k] == b * nw, (L, k)
+        for l0, l1 in plan["ranges"]["energies"]:
+            w0, w1 = l0 - 15, l0 - 15 + nw
             pos = np.arange(l0, l1)
             lo = np.maximum(pos - 15, 0)
             hi = np.minimum(pos + 15, L - 1)
@@ -185,8 +186,26 @@ def test_a_long_text_plans_the_global_placement(L, int8_lstm):
         assert glob["regions"][k] == b * (-(-L // 132) + 30), k
     stride = -(-L // 4) * 4                      # floats, 16-byte aligned
     assert glob["workspace"] == 132 * stride * 4 + L * 256 * 4
-    for key in ("units", "most", "ranges", "windows", "weight_bytes"):
+    for key in ("units", "most", "ranges", "weight_bytes"):
         assert glob[key] == shared[key], key
+
+
+@pytest.mark.parametrize("int8_lstm", [False, True], ids=["bf16", "int8_lstm"])
+@pytest.mark.parametrize("grid", [64, 132])
+def test_a_text_past_the_global_window_s_edge_raises(grid, int8_lstm):
+    """The global placement keeps each CTA's conv window in shared memory
+    (24 bytes a position it owns), so at full width it holds texts up to
+    a pinned edge: the longest text plans the global placement and fits,
+    one symbol more raises naming L and its window, not the grid."""
+    edge = {(64, False): 68_800, (64, True): 241_344,
+            (132, False): 583_176, (132, True): 760_980}[grid, int8_lstm]
+    plan = tts_smem_plan(*FULL, edge, grid, int8_lstm=int8_lstm)
+    assert plan["placement"] == "global" and plan["bytes"] <= SMEM_LIMIT
+    nw = -(-(edge + 1) // grid) + 30
+    with pytest.raises(ValueError,
+                       match=f"L={edge + 1} .*global placement.*window of "
+                             f"{nw} positions"):
+        tts_smem_plan(*FULL, edge + 1, grid, int8_lstm=int8_lstm)
 
 
 @pytest.mark.parametrize("L", [64, 256, "limit"])

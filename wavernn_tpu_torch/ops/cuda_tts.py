@@ -10,13 +10,16 @@ packed set's: bf16, or ``int8_lstm`` (int8 LSTM rows).
 ``tts_decode.launches_int8_lstm`` those of ``int8_lstm`` and
 ``tts_decode.launches_global`` those in the global placement.
 :func:`tts_smem_plan` is the kernel's memory plan: which output units,
-text positions and context columns each CTA owns, the conv window of
-cumulative and previous attention each CTA keeps, the shared bytes every
+text positions and context columns each CTA owns, the shared bytes every
 CTA allocates and, for a text too long for shared memory, the global
 workspace its L-sized state moves to (the plan's ``placement``);
 :func:`shared_text_limit` is the longest text the shared placement holds.
-A text of any length decodes; only a grid whose fixed part does not fit
-raises.
+Past it the global placement keeps only each CTA's conv window of
+cumulative and previous attention in shared memory, 24 bytes a position
+it owns: a text raises only once that window no longer fits beside the
+fixed part (past ~580,000 symbols at full width on 132 CTAs, sooner on
+fewer), and a grid whose fixed part alone does not fit raises for any
+text.
 """
 
 from __future__ import annotations
@@ -66,14 +69,6 @@ def owned(n: int, cta: int, grid: int) -> tuple:
     return cta * n // grid, (cta + 1) * n // grid
 
 
-def conv_window(L: int, cta: int, grid: int) -> tuple:
-    """[start, stop) of the text positions whose cumulative and previous
-    attention CTA ``cta`` of ``grid`` keeps: its own positions and the
-    conv's reach either side (positions outside [0, L) count as zero)."""
-    l0, l1 = owned(L, cta, grid)
-    return l0 - PAD, l1 + PAD
-
-
 def _align(n: int) -> int:
     return -(-n // 16) * 16
 
@@ -95,10 +90,10 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
     (float32) after phase 2's operand.
 
     Every CTA keeps the cumulative and previous attention of its conv
-    window only (``windows``, :func:`conv_window`: its positions and 15
-    either side, float32) and the same window staged as the conv's
-    operand (``window``: bf16-rounded, act-scaled doubles), in shared
-    memory in both placements.  ``placement`` "shared" keeps the L-sized
+    window only (``cum``, ``prv``: its most positions and 15 either side,
+    float32) and the same window staged as the conv's operand
+    (``window``: bf16-rounded, act-scaled doubles), in shared memory in
+    both placements.  ``placement`` "shared" keeps the L-sized
     regions (context columns, scores, pe = ploc + encp rows and encp rows)
     in shared memory too; "global" keeps them out of it: the context
     columns and encp rows are read from the kernel's inputs, and the
@@ -106,8 +101,9 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
     workspace of ``workspace`` bytes.  None picks "shared" when it fits
     ``limit`` (or ``limit`` is None), else "global".  Raises
     ``ValueError`` when the layout exceeds ``limit`` bytes: naming L in
-    the shared placement, the grid in the global one (its fixed part
-    alone does not fit)."""
+    the shared placement and in a global one whose conv window does not
+    fit, the grid where the fixed part alone (the window of one position)
+    does not fit."""
     if grid < 1:
         raise ValueError(f"grid must be >= 1, got {grid}")
     if placement not in (None, "shared", "global"):
@@ -156,18 +152,24 @@ def tts_smem_plan(D: int, Dh: int, H: int, n_mels: int, r: int, L: int,
     weight_bytes = [sum((ranges[k][i][1] - ranges[k][i][0]) * unit_bytes[k]
                         for k in OWNED) for i in range(grid)]
     if limit is not None and nbytes > limit:
+        # the window's regions at one position a CTA: the fixed part alone
+        fixed = nbytes - sum(_align(b * nw) - _align(b * (1 + 2 * PAD))
+                             for b in (16, 4, 4))
+        if glob and fixed > limit:
+            raise ValueError(
+                f"the TTS kernel's fixed part does not fit on grid={grid} "
+                f"CTAs: it needs {fixed} bytes of shared memory per CTA, the "
+                f"limit is {limit}")
         raise ValueError(
-            f"the TTS kernel's fixed part does not fit on grid={grid} CTAs: "
-            f"it needs {nbytes} bytes of shared memory per CTA, the limit is "
-            f"{limit}" if glob else
-            f"a text of L={L} symbols does not fit the TTS kernel's shared "
-            f"placement on {grid} CTAs: it needs {nbytes} bytes of shared "
-            f"memory per CTA, the limit is {limit}")
+            f"a text of L={L} symbols does not fit the TTS kernel's "
+            f"{placement} placement on {grid} CTAs: it needs {nbytes} bytes "
+            f"of shared memory per CTA"
+            + (f" (its conv window of {nw} positions)" if glob else "")
+            + f", the limit is {limit}")
     # the workspace: each CTA's scores (16-byte aligned), then pe (L, D)
     workspace = 4 * (-(-L // 4) * 4 * grid + L * D) if glob else 0
-    windows = [conv_window(L, i, grid) for i in range(grid)]
     return dict(grid=grid, units=units, most=most, ranges=ranges,
-                windows=windows, regions=dict(regions), bytes=nbytes,
+                regions=dict(regions), bytes=nbytes,
                 weight_bytes=weight_bytes, placement=placement,
                 workspace=workspace)
 
@@ -277,23 +279,20 @@ def tts_decode(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
 
 
 def tts_decode_spans(packed: dict, enc: torch.Tensor, encp: torch.Tensor,
-                     state: TTSDecodeState, n_steps: int,
-                     placement: str | None = None):
+                     state: TTSDecodeState, n_steps: int):
     """Dev only: the kernel's instantiation that stamps the card's
     nanosecond clock (``%globaltimer``, CTA 0) at the end of each of a
     step's phases: when the next phase's input has come, and after the
     step's grid barrier; of the packed set's variant, in the plan's
-    placement or the one ``placement`` pins (as :func:`_launch`).  Returns
-    :func:`tts_decode`'s outputs and the stamps, (n_steps,
-    PHASES_PER_STEP) int64 on the card.  Not counted in
+    placement.  Returns :func:`tts_decode`'s outputs and the stamps,
+    (n_steps, PHASES_PER_STEP) int64 on the card.  Not counted in
     ``tts_decode.launches``; nothing on the request path calls it."""
     if enc.device.type != "cuda":
         raise ValueError(f"the spans launch needs CUDA tensors, got "
                          f"{enc.device}")
     spans = torch.zeros(n_steps, PHASES_PER_STEP, dtype=torch.int64,
                         device=enc.device)
-    return _launch(packed, enc, encp, state, n_steps, spans,
-                   placement)[0], spans
+    return _launch(packed, enc, encp, state, n_steps, spans)[0], spans
 
 
 def _launch(packed, enc, encp, state, n_steps, spans, placement=None):

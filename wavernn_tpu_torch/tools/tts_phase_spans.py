@@ -2,16 +2,15 @@
 a step's ten phases in one launch, and the cost of one bare grid barrier.
 
     python -m wavernn_tpu_torch.tools.tts_phase_spans [--steps 750]
-        [--L 64] [--int8_lstm] [--placement shared|global]
-        [--barriers 20000] [--device cuda|cpu]
+        [--L 64] [--int8_lstm] [--barriers 20000] [--device cuda|cpu]
 
 On the card: ``TacotronConfig()`` with seeded weights
 (``init_variables(cfg, 0)``), r = 2, a 60-symbol text from
 ``np.random.default_rng(0)`` padded to ``L`` symbols, packed with bf16
 LSTM rows or, with ``--int8_lstm``, int8 ones, one launch of the
 kernel's spans instantiation in the plan's placement (the global one past
-the shared placement's longest text) or the one ``--placement`` pins
-(``cuda_tts.tts_decode_spans``: CTA 0 stamps
+the shared placement's longest text; ``cuda_tts.tts_decode_spans``: CTA 0
+stamps
 ``%globaltimer`` at the end of each phase of every step, when the next
 phase's input has come, and after the step's grid barrier).  A phase's
 span runs from the previous stamp to its own, so it holds the phase's work
@@ -69,12 +68,10 @@ def kernel_inputs(L: int, dev: torch.device, int8_lstm: bool = False):
     return cfg, packed, enc[0].contiguous(), encp[0].contiguous()
 
 
-def phase_spans(cfg, packed, enc, encp, n_steps: int,
-                placement: str | None = None) -> dict:
+def phase_spans(cfg, packed, enc, encp, n_steps: int) -> dict:
     """Mean us of each phase (work and hand-over) over steps 1 .. n-1 of one
-    spans launch (in ``placement``, None the plan's), the us per step
-    between the stamps, and the launch's max |d| to the plain version (mels
-    and scores)."""
+    spans launch, the us per step between the stamps, and the launch's max
+    |d| to the plain version (mels and scores)."""
     from wavernn_tpu_torch.ops import cuda_tts
     from wavernn_tpu_torch.ops.tts_decode import (
         init_tts_decode_state, tts_decode_reference,
@@ -86,7 +83,7 @@ def phase_spans(cfg, packed, enc, encp, n_steps: int,
                                           enc.shape[0], cfg.n_mels,
                                           enc.device)
     (mels, scores, _, _), stamps = cuda_tts.tts_decode_spans(
-        packed, enc, encp, state(), n_steps, placement)
+        packed, enc, encp, state(), n_steps)
     torch.cuda.synchronize(enc.device)
     want = tts_decode_reference(packed, enc, encp, state(), n_steps)
     err = max(float((mels - want[0]).abs().max()),
@@ -135,9 +132,6 @@ def main(argv=None) -> dict:
     ap.add_argument("--L", type=int, default=64)
     ap.add_argument("--int8_lstm", action="store_true",
                     help="int8 LSTM rows (the kernel's int8_lstm variant)")
-    ap.add_argument("--placement", choices=("shared", "global"),
-                    help="pin the placement of the text's state (default: "
-                         "the plan's)")
     ap.add_argument("--barriers", type=int, default=20000)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
@@ -151,8 +145,7 @@ def main(argv=None) -> dict:
     sms = (torch.cuda.get_device_properties(dev).multi_processor_count
            if dev.type == "cuda" else H100_SMS)
     plan = tts_smem_plan(c.decoder_dims, c.decoder_dims // 2, c.lstm_dims,
-                         c.n_mels, R, args.L, sms, int8_lstm=args.int8_lstm,
-                         placement=args.placement)
+                         c.n_mels, R, args.L, sms, int8_lstm=args.int8_lstm)
     variant = "int8_lstm" if args.int8_lstm else "bf16"
     rec = {"device": tag, "L": args.L, "r": R, "grid": sms,
            "variant": variant, "placement": plan["placement"],
@@ -164,8 +157,7 @@ def main(argv=None) -> dict:
           f"{max(plan['weight_bytes'])}", flush=True)
     if dev.type == "cuda":
         cfg, packed, enc, encp = kernel_inputs(args.L, dev, args.int8_lstm)
-        spans = phase_spans(cfg, packed, enc, encp, args.steps,
-                            args.placement)
+        spans = phase_spans(cfg, packed, enc, encp, args.steps)
         rec.update(steps=args.steps, **spans)
         print(f"[{tag}] spans ({variant}, {plan['placement']}), "
               f"{args.steps} steps: " + ", ".join(
