@@ -21,8 +21,10 @@ the ``gen_int8`` path, ``int8_lstm``), and the quality and golden tools
 (``wavernn_tpu_torch/tools/``: ``check_mel_parity``, ``kernel_quality``,
 ``tts_kernel_parity``, ``tts_train_probe``, ``train_golden``), and the
 examples (``wavernn_tpu_torch/examples/``: NB2, NB3, NB4, the pruning
-example, the serving demo and the end-to-end TTS example).  Phases, in
-order; any failure exits non-zero and prints no result line:
+example, the serving demo and the end-to-end TTS example), and the
+vocoder trainer's two JAX training options (sequence-chunked BPTT and
+bf16 GRU matmuls).  Phases, in order; any failure exits non-zero and
+prints no result line:
 
 1. CUDA must be available.  Prints the card's name and power limit and the
    toolchain (torch, CUDA, nvcc).
@@ -472,6 +474,29 @@ the gates and says that it skips those checks:
    ``measure_gates`` printed: three WAVs and attention matrices, finite
    gates; both counters must rise (``gen_tacotron``).
 
+Phase 54 trains ``hparams.py``'s vocoder at full width (32 x 1,375) with
+the JAX CLI's two training options, on phase 25's corpus:
+
+54. (a) ``wavernn_tpu_torch.train_wavernn`` in process (``cli_output``)
+   from a fresh checkpoint under ``build/chip_smoke/train_options/``,
+   with an hp file that sets ``voc_seq_chunks = 5``, ``voc_chunk_warmup
+   = 128`` and ``voc_compute_dtype = "bfloat16"``: 3 steps with one
+   audition at step 3; the losses it fetched must be finite, the decode
+   kernel's counter, set to 0 just before, must read 1 just after, the
+   written weights must load, and ``gen_wavernn`` on them must write a
+   WAV that parses.  (b) ``voc_train_ms_per_step`` on one fixed batch of
+   the corpus (2 warm-up steps, the median of 4 by CUDA events) for four
+   arms, each printed beside phase 26's float32 figure: float32
+   unchunked, chunked k = 5, bf16, and both; each arm's last loss must be
+   below its first.  (c) With memoryless GRUs (w_hh zeroed, the update
+   gate killed) the chunked train-mode forward must equal the unchunked
+   one within 1e-5 (B=4); the bf16 GRU sequence at the shape rnn2 takes
+   under both options (160 rows x 403 steps, 544 -> 512) on the card's
+   product (``torch.mm`` of bf16 operands to float32) against its plain
+   version (the float32 matmul of the rounded operands): outputs within
+   1e-3 and every gradient within 5e-3 relative L2 (a state element's
+   bf16 rounding may flip where the two float32 sums differ in order).
+
 The decode kernel's launch counts (all launches, those of the cluster
 design, those with int8 feed-forward matrices and those of int8_gates) are
 set to 0 just before each main-path run and read just after, and every
@@ -479,8 +504,8 @@ launch must be the cluster design's (int8_gates' too; the row design is
 left to the A/B arms, the ablations and the breakdown, none of them on
 the main path); the record's ``launches`` sum
 phase 4's, phases 15-21's, phase 25's, phases 29-30's, phase 32's, phase
-35's, phases 38-39's, phases 41-42's, phase 44's, phase 47's and phases
-49-53's, split between the three variants, and the TTS kernel's sums
+35's, phases 38-39's, phases 41-42's, phase 44's, phase 47's, phases
+49-53's and phase 54's, split between the three variants, and the TTS kernel's sums
 phase 8's, phases 20-21's, phase 32's, phase 39's, phase 45's and phases
 52-53's (bf16) and phase 42's and phase 45's (int8_lstm; phase 37 runs no
 hand-written kernel: the JAX package scans the DeepMind cell with XLA
@@ -601,9 +626,9 @@ def in_turns(run_plain, run_kernel):
 
 
 # the decode kernel's launches in the main path's runs (phases 4, 15-21,
-# 25, 29-30, 32, 35, 38-39, 41-42, 44 and 47): all of them, those of the
-# cluster design, those with int8 feed-forward matrices and those of
-# int8_gates
+# 25, 29-30, 32, 35, 38-39, 41-42, 44, 47, 49-53 and 54): all of them,
+# those of the cluster design, those with int8 feed-forward matrices and
+# those of int8_gates
 MAIN_DECODE = {"all": 0, "cluster": 0, "int8_ff": 0, "int8_gates": 0}
 
 
@@ -959,6 +984,8 @@ def main():
     clock("43-47")
     examples = example_phases(dev, card)
     clock("48-53")
+    options = train_option_phases(dev, card, training["ms_per_step"])
+    clock("54")
 
     # -- the record -----------------------------------------------------
     n_ff = MAIN_DECODE["int8_ff"]
@@ -976,7 +1003,8 @@ def main():
           f"{wts['decode_launches']}, the gen_int8 path "
           f"{i8['int8_gates']['launches']}, the quality tools "
           f"{tools['decode_launches']}, the examples "
-          f"{examples['decode']})")
+          f"{examples['decode']}, the training options "
+          f"{options['decode_launches']})")
     if n_bf == 0 or n_ff == 0 or n_g == 0 or i8["int8_lstm"]["launches"] == 0:
         fail("a kernel variant was not launched on the main path")
     if MAIN_DECODE["cluster"] != n_bf + n_ff + n_g:
@@ -4474,6 +4502,212 @@ def example_phases(dev, card) -> dict:
             u["audio_s"] for u in gates["utterances"]) <= 0:
         fail("phase 53: the gates are not three utterances' finite numbers")
     return launches
+
+
+# phase 54: the trainer's JAX options, sequence-chunked BPTT (k = 5
+# chunks of 275 + 128 samples of each 1,375-sample window) and bf16 GRU
+# matmuls; the CLI run's steps, then each timed arm's warm-up and timed
+# steps (the bf16 arms run their recurrences step by step from Python)
+OPTION_CHUNKS, OPTION_WARMUP, OPTION_CLI_STEPS = 5, 128, 3
+OPTION_WARM, OPTION_TIMED = 2, 4
+
+
+def train_option_phases(dev, card, f32_ms: float) -> dict:
+    """Phase 54: ``train_wavernn`` with ``voc_seq_chunks``,
+    ``voc_chunk_warmup`` and ``voc_compute_dtype`` at full width on phase
+    25's corpus, the four arms' ms/step beside phase 26's float32 figure
+    (``f32_ms``), and each option held against a known result.  Returns
+    the decode kernel's launches (also added to the main path's tally)."""
+    import dataclasses
+    import re
+    import shutil
+
+    import torch
+
+    from wavernn_tpu_torch import gen_wavernn, train_wavernn
+    from wavernn_tpu_torch.config import hp
+    from wavernn_tpu_torch.data.dataset import get_vocoder_datasets
+    from wavernn_tpu_torch.dsp import wavio
+    from wavernn_tpu_torch.models.wavernn import (
+        GRUCell, WaveRNN, WaveRNNConfig, gru_sequence_low, load_jax_variables,
+    )
+    from wavernn_tpu_torch.ops.rnn import low_product, low_product_reference
+    from wavernn_tpu_torch.paths import Paths
+    from wavernn_tpu_torch.training.state import (
+        make_optimizer, new_train_state,
+    )
+    from wavernn_tpu_torch.training.wavernn import batch_to, make_train_step
+    from wavernn_tpu_torch.utils.checkpoints import load_pytree
+
+    t_phase = time.perf_counter()
+    work = SMOKE_DIR / "train_options"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = SMOKE_DIR / "train" / "data"          # phase 25's corpus
+    overrides = dict(data_path=str(data), voc_total_steps=OPTION_CLI_STEPS,
+                     voc_checkpoint_every=OPTION_CLI_STEPS,
+                     voc_gen_at_checkpoint=1, voc_test_samples=2,
+                     voc_seq_chunks=OPTION_CHUNKS,
+                     voc_chunk_warmup=OPTION_WARMUP,
+                     voc_compute_dtype="bfloat16")
+    hp_file = work / "hp_options.py"
+    hp_file.write_text(
+        "import runpy\n"
+        f"globals().update({{k: v for k, v in runpy.run_path("
+        f"{str(REPO / 'hparams.py')!r}).items() if not k.startswith('__')}})\n"
+        + "".join(f"{k} = {v!r}\n" for k, v in overrides.items()))
+
+    # -- (a) the CLI from a fresh checkpoint, one audition ----------------
+    torch.cuda.synchronize()
+    zero_decode_counts()
+    out, secs = cli_output(train_wavernn.main, [
+        "--hp_file", str(hp_file), "--device", str(dev)], work)
+    launches = count_main_decode()
+    losses = [float(x) for x in re.findall(r"Loss: (\S+) \|", out)]
+    hp.reset()
+    hp.configure(hp_file)
+    cfg = WaveRNNConfig.from_hp(hp)
+    B, T = hp.voc_batch_size, hp.voc_seq_len
+    paths = Paths(hp.data_path, hp.voc_model_id, hp.tts_model_id, base=work)
+    blob = load_pytree(paths.voc_latest_weights)
+    print(f"phase 54 (a): train_wavernn with voc_seq_chunks "
+          f"{cfg.seq_chunks}, voc_chunk_warmup {cfg.chunk_warmup}, "
+          f"voc_compute_dtype {cfg.compute_dtype!r} (chunked at {T}: "
+          f"{cfg.chunks(T)}), {OPTION_CLI_STEPS} steps of {B} x {T} in "
+          f"{secs:.1f} s: losses {losses}, decode launches {launches}, "
+          f"written step {int(blob['step'])} | {card}", flush=True)
+    if not (cfg.chunks(T) and cfg.compute_dtype == "bfloat16"):
+        fail("phase 54: the hp file's options did not reach the config")
+    if not losses or not np.isfinite(losses).all():
+        fail("phase 54: a loss of the options' run is not finite")
+    if launches != 1:
+        fail(f"phase 54: the audition launched the decode kernel {launches} "
+             "times, want 1")
+    if int(blob["step"]) != OPTION_CLI_STEPS:
+        fail(f"phase 54: written step {blob['step']}")
+    model = WaveRNN(cfg)
+    load_jax_variables(model, blob)
+    train_set, test_set = get_vocoder_datasets(paths.data, B, False)
+    mel = paths.mel / f"{test_set.dataset.metadata[0]}.npy"
+    zero_decode_counts()
+    cli_output(gen_wavernn.main, [
+        "--hp_file", str(hp_file), "--file", str(mel), "--output_dir",
+        str(work / "gen"), "--device", str(dev)], work)
+    gen_launches = count_main_decode()
+    wavs = sorted((work / "gen").glob("*.wav"))
+    if len(wavs) != 1 or gen_launches < 1:
+        fail(f"phase 54: gen_wavernn wrote {wavs}, {gen_launches} launches")
+    pcm, sr = wavio.read_wav_raw(wavs[0])
+    print(f"phase 54 (a): the written weights load; gen_wavernn on them: "
+          f"{wavs[0].name}, {pcm.shape[0]} samples at {sr} Hz, finite "
+          f"{bool(np.isfinite(pcm).all())}", flush=True)
+    if sr != hp.sample_rate or not np.isfinite(pcm).all() or not len(pcm):
+        fail("phase 54: gen_wavernn's WAV on the options' weights")
+
+    # -- (b) the four arms on one fixed batch ------------------------------
+    np.random.seed(2)
+    train_set.num_workers = 0
+    batch = batch_to(dev, *next(iter(train_set)))
+    plain_cfg = dataclasses.replace(cfg, seq_chunks=1, compute_dtype=None)
+    arms = {"float32": plain_cfg,
+            f"chunked k={cfg.seq_chunks}": dataclasses.replace(
+                plain_cfg, seq_chunks=cfg.seq_chunks),
+            "bf16": dataclasses.replace(plain_cfg,
+                                        compute_dtype=cfg.compute_dtype),
+            f"chunked k={cfg.seq_chunks} + bf16": cfg}
+    arm_ms = {}
+    for name, acfg in arms.items():
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            m = WaveRNN(acfg).to(dev)
+        opt = make_optimizer(hp.voc_lr, hp.voc_clip_grad_norm)
+        state = new_train_state(m, opt)
+        step = make_train_step(opt, acfg.mode)
+        events, arm_losses = [], []
+        for i in range(OPTION_WARM + OPTION_TIMED):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            _, loss, _ = step(state, *batch)
+            b.record()
+            events.append((a, b))
+            arm_losses.append(loss)
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(b) for a, b in events[OPTION_WARM:]]
+        arm_losses = [float(x) for x in arm_losses]
+        arm_ms[name] = float(np.median(ms))
+        print(f"voc_train_ms_per_step [{name}] ({acfg.mode}, B={B} x {T}, "
+              f"TF32 off): median {arm_ms[name]:.2f} ms over {OPTION_TIMED} "
+              f"steps (min {min(ms):.2f}, max {max(ms):.2f}) beside phase "
+              f"26's float32 {f32_ms:.2f} ms; loss {arm_losses[0]:.6f} -> "
+              f"{arm_losses[-1]:.6f} | {card}", flush=True)
+        if not (np.isfinite(arm_losses).all()
+                and arm_losses[-1] < arm_losses[0]):
+            fail(f"phase 54: the [{name}] arm does not learn")
+        del state, m
+
+    # -- (c) each option against a known result ----------------------------
+    # chunking: with w_hh zeroed and the update gate killed (h_t = n_t) the
+    # GRUs have no memory, so the chunked forward equals the unchunked one
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        base = WaveRNN(plain_cfg)
+    H = plain_cfg.rnn_dims
+    with torch.no_grad():
+        for cell in (base.rnn1, base.rnn2):
+            cell.weight_hh.zero_()
+            cell.bias_hh[H:2 * H] = -60.0
+            cell.bias_ih[H:2 * H] = -60.0
+    outs = []
+    for acfg in (arms[f"chunked k={cfg.seq_chunks}"], plain_cfg):
+        m = WaveRNN(acfg)
+        m.load_state_dict(base.state_dict())
+        with torch.no_grad():
+            outs.append(m.to(dev).train()(batch[0][:4], batch[2][:4]))
+    d_chunk = float((outs[0] - outs[1]).abs().max())
+    print(f"phase 54 (c): memoryless GRUs, chunked (k={cfg.seq_chunks}, "
+          f"warmup {cfg.chunk_warmup}) against unchunked forward, B=4 x "
+          f"{T}: max|d| {d_chunk:.3g} (tolerance 1e-5)", flush=True)
+    if not d_chunk <= 1e-5:
+        fail("phase 54: the chunked forward differs from the unchunked one")
+    # bf16: the GRU sequence on the card's product against its plain
+    # version (the float32 matmul of the rounded operands), at the shape
+    # rnn2 sees with both options: B*k rows of warmup + T/k steps
+    rows, steps = B * cfg.seq_chunks, cfg.chunk_warmup + T // cfg.seq_chunks
+    gen = torch.Generator().manual_seed(0)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        cell = GRUCell(H + cfg.aux_dims, H).to(dev)
+    x = torch.randn(rows, steps, H + cfg.aux_dims, generator=gen).to(dev)
+    cot = torch.randn(rows, steps, H, generator=gen).to(dev)
+    res, secs = [], []
+    for product in (low_product, low_product_reference):
+        cell.zero_grad()
+        xg = x.clone().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ys = gru_sequence_low(cell, xg, cfg.compute_dtype, product)
+        (ys * cot).sum().backward()
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        res.append([ys.detach(), xg.grad] + [p.grad.clone()
+                                             for p in cell.parameters()])
+    rel = lambda u, v: float((u - v).norm() / v.norm())
+    d_out = rel(res[0][0], res[1][0])
+    d_grad = max(rel(u, v) for u, v in zip(res[0][1:], res[1][1:]))
+    print(f"phase 54 (c): bf16 GRU sequence ({rows} x {steps}, {H} wide), "
+          f"the card's product (torch.mm bf16 -> float32) against its plain "
+          f"version: outputs rel L2 {d_out:.3g} (tolerance 1e-3), worst "
+          f"gradient rel L2 {d_grad:.3g} (tolerance 5e-3; a state "
+          f"element's bf16 rounding may flip where the float32 sums "
+          f"differ in order); forward + backward {secs[0]:.2f} s / "
+          f"{secs[1]:.2f} s | {card}", flush=True)
+    if not (d_out <= 1e-3 and d_grad <= 5e-3):
+        fail("phase 54: the bf16 GRU sequence on the card's product "
+             "disagrees with its plain version")
+    hp.reset()
+    print(f"phase 54: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"decode_launches": launches + gen_launches, "ms": arm_ms}
 
 
 if __name__ == "__main__":

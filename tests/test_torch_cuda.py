@@ -1146,3 +1146,45 @@ def test_generator_mesh_on_one_card_equals_meshless(cuda_device, det):
     got = gen(mel, **geom)
     assert cuda_decode.decode.launches == n + 2
     assert got.dtype == np.int16 and np.array_equal(got, want)
+
+
+def test_bf16_gru_on_card_matches_plain(cuda_device):
+    """``compute_dtype="bfloat16"`` on the card: ``ops.rnn.low_product``
+    (cuBLAS's bf16 GEMM with float32 output) against its plain version
+    (the float32 matmul of the rounded operands) at the hoisted input
+    projection's shape, within 1e-5 of the largest |value| (the products
+    are exact, the float32 sums' order differs); then the bf16 GRU
+    sequence (``gru_sequence_low``, 512 wide, 8 x 64 steps) on each
+    product: outputs within 1e-3 relative L2 and every gradient within
+    5e-3, as a state element's bf16 rounding may flip where the two
+    float32 sums straddle a boundary (``tests/test_torch_bf16_train.py``
+    holds the CPU against JAX to the same bounds)."""
+    from wavernn_tpu_torch.models.wavernn import GRUCell, gru_sequence_low
+    from wavernn_tpu_torch.ops.rnn import low_product, low_product_reference
+
+    gen = torch.Generator().manual_seed(0)
+    a = torch.randn(4096, 544, generator=gen).to(cuda_device).bfloat16()
+    b = (0.04 * torch.randn(544, 1536, generator=gen)).to(
+        cuda_device).bfloat16()
+    want = low_product_reference(a, b)
+    got = low_product(a, b)
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        cell = GRUCell(544, 512).to(cuda_device)
+    x = torch.randn(8, 64, 544, generator=gen).to(cuda_device)
+    cot = torch.randn(8, 64, 512, generator=gen).to(cuda_device)
+    outs = []
+    for product in (low_product, low_product_reference):
+        cell.zero_grad()
+        xg = x.clone().requires_grad_()
+        ys = gru_sequence_low(cell, xg, "bfloat16", product)
+        (ys * cot).sum().backward()
+        outs.append([ys.detach(), xg.grad] + [p.grad.clone() for p in
+                                              cell.parameters()])
+    rel = lambda u, v: float((u - v).norm() / v.norm())
+    assert rel(outs[0][0], outs[1][0]) <= 1e-3
+    for u, v in zip(outs[0][1:], outs[1][1:]):
+        assert rel(u, v) <= 5e-3

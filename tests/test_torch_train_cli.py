@@ -2,8 +2,8 @@
 on the CPU (``--device cpu``): preprocess a tiny sine corpus, train 4
 steps with a checkpoint and an audition, re-run to resume at the stored
 step, vocode with ``gen_wavernn``.  Without ``--device`` the trainer asks
-for CUDA and, on a machine without it, exits non-zero; the options it
-does not port raise.  Two CPU ranks under torchrun's variables resume the
+for CUDA and, on a machine without it, exits non-zero; a local device
+plan raises where a world plan is needed.  Two CPU ranks under torchrun's variables resume the
 same workspace data-parallel.
 
 The model is tiny (RAW, 32-wide) and the auditions short, so the plain
@@ -23,7 +23,7 @@ from wavernn_tpu_torch.dsp import wavio
 from wavernn_tpu_torch.parallel.mesh import make_mesh, shard_batch_fn
 from wavernn_tpu_torch.tools.multihost_smoke import free_port
 from wavernn_tpu_torch.training.wavernn import (
-    check_ported_options, make_train_step, voc_train_loop,
+    make_train_step, voc_train_loop,
 )
 from wavernn_tpu_torch.utils.checkpoints import load_pytree
 
@@ -135,22 +135,10 @@ def test_train_without_device_needs_cuda(trained):
 
 
 def test_options_not_ported_raise():
-    """``voc_seq_chunks > 1`` and ``voc_compute_dtype`` raise instead of
-    training otherwise; data parallelism takes a world plan (one process
-    per device), so a local plan's ``shard_batch`` or train step is a
-    wrong plan."""
-    class HP(dict):
-        get = dict.get
-
-        def __getattr__(self, k):
-            return self[k]
-
-    check_ported_options(HP())
-    for bad, word in ((HP(voc_seq_chunks=4), "voc_seq_chunks"),
-                      (HP(voc_compute_dtype="bfloat16"),
-                       "voc_compute_dtype")):
-        with pytest.raises(NotImplementedError, match=word):
-            check_ported_options(bad)
+    """Data parallelism takes a world plan (one process per device), so a
+    local plan's ``shard_batch`` or train step is a wrong plan and
+    raises.  (The JAX CLI's ``voc_seq_chunks`` and ``voc_compute_dtype``
+    train: ``tests/test_torch_train_options_cli.py``.)"""
     local = make_mesh(devices=["cpu"] * 2)
     with pytest.raises(ValueError, match="world plan"):
         voc_train_loop(None, None, None, None, [], [], 1,

@@ -26,7 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from wavernn_tpu_torch.ops.rnn import gru_cell_step
+from wavernn_tpu_torch.ops.rnn import (
+    gru_cell_step, gru_steps, low_dot, low_product,
+)
 from wavernn_tpu_torch.parallel.mesh import MeshPlan, all_reduce_sum
 from wavernn_tpu_torch.parallel.tensor_parallel import (
     full_parameters, local_tensors,
@@ -35,11 +37,10 @@ from wavernn_tpu_torch.parallel.tensor_parallel import (
 
 @dataclass(frozen=True)
 class WaveRNNConfig:
-    """The model's shape.  The JAX config's XLA-scan tuning knobs
-    (``seq_chunks``, ``chunk_warmup``, ``scan_unroll``, ``scan_remat``) and
-    its reduced-precision training knob (``compute_dtype``) have no
-    counterpart here: the training CLI refuses the two that change results
-    (``training.wavernn.check_ported_options``)."""
+    """The model's shape and its two training options.  The JAX config's
+    ``scan_unroll`` and ``scan_remat`` have no counterpart here: they tune
+    XLA's scan (its unroll factor, a rematerialized backward) and change
+    no result."""
 
     rnn_dims: int = 512
     fc_dims: int = 512
@@ -53,6 +54,20 @@ class WaveRNNConfig:
     hop_length: int = 275
     sample_rate: int = 22050
     mode: str = "MOL"  # 'RAW' | 'MOL'
+    # reduced-precision training matmuls ('bfloat16'): the GRUs' two
+    # matmuls take operands of this dtype and give float32 results, with
+    # the gradients rounded to it as JAX's are; the gate math, the state
+    # and every other layer stay float32.  None = float32 throughout.
+    compute_dtype: Optional[str] = None
+    # sequence-chunked BPTT (train mode only): seq_chunks > 1 splits each
+    # (B, T) window into (B*k, chunk_warmup + T/k) rows, each prefixed with
+    # the previous chunk's last chunk_warmup teacher-forced samples (zeros
+    # for the first), so the recurrences run k times shorter and the
+    # gradients truncate at chunk boundaries.  It applies only when k
+    # divides T and 0 <= chunk_warmup <= T/k; otherwise the forward runs
+    # unchunked.  1 = the reference's semantics.
+    seq_chunks: int = 1
+    chunk_warmup: int = 128
 
     @property
     def n_classes(self) -> int:
@@ -88,7 +103,15 @@ class WaveRNNConfig:
             hop_length=hp.hop_length,
             sample_rate=hp.sample_rate,
             mode=hp.voc_mode,
+            compute_dtype=hp.get("voc_compute_dtype", None),
+            seq_chunks=hp.get("voc_seq_chunks", 1),
+            chunk_warmup=hp.get("voc_chunk_warmup", 128),
         )
+
+    def chunks(self, T: int) -> bool:
+        """Whether a train-mode forward over T samples is chunked."""
+        k = self.seq_chunks
+        return k > 1 and T % k == 0 and 0 <= self.chunk_warmup <= T // k
 
 
 class FlaxBatchNorm(nn.BatchNorm1d):
@@ -199,6 +222,26 @@ class MelResNet(nn.Module):
         return self.conv_out(x)
 
 
+def chunk_sequence(t: torch.Tensor, k: int, warmup: int) -> torch.Tensor:
+    """(B, T, C) -> (B*k, warmup + T/k, C): the time axis split into k
+    chunks, each prefixed with the previous chunk's last ``warmup`` frames
+    (zeros for chunk 0, the window start, where the reference also starts
+    cold)."""
+    B, T, C = t.shape
+    L = T // k
+    ch = t.reshape(B, k, L, C)
+    tails = F.pad(ch[:, :-1, L - warmup:, :], (0, 0, 0, 0, 1, 0))
+    return torch.cat([tails, ch], dim=2).reshape(B * k, warmup + L, C)
+
+
+def unchunk_sequence(y: torch.Tensor, batch: int, k: int,
+                     warmup: int) -> torch.Tensor:
+    """The inverse of :func:`chunk_sequence` without the warmup frames:
+    (B*k, warmup + L, C) -> (B, k*L, C)."""
+    _, LW, C = y.shape
+    return y.reshape(batch, k, LW, C)[:, :, warmup:, :].reshape(batch, -1, C)
+
+
 def stretch_time(x: torch.Tensor, scale: int) -> torch.Tensor:
     """Nearest-neighbour upsample along time: (B, T, C) -> (B, T*scale, C)."""
     return torch.repeat_interleave(x, scale, dim=1)
@@ -283,12 +326,20 @@ class GRUCell(nn.Module):
         self.bias_hh = u(3 * hidden)
 
 
-def gru_sequence(cell: GRUCell, x: torch.Tensor) -> torch.Tensor:
+def gru_sequence(cell: GRUCell, x: torch.Tensor,
+                 compute_dtype=None) -> torch.Tensor:
     """The GRU over a whole (B, T, I) sequence from a zero state ->
-    (B, T, H): cuDNN's fused GRU on the card, ATen's on the CPU.  Its
-    equations are the JAX scan's (``wavernn_tpu/ops/rnn.py:171-177``),
-    ``n = tanh(gi_n + r * (W_hn h + b_hn))`` with gates in r, z, n order;
-    :func:`gru_sequence_reference` is the same recurrence step by step."""
+    (B, T, H).  Its equations are the JAX scan's
+    (``wavernn_tpu/ops/rnn.py:171-177``), ``n = tanh(gi_n + r * (W_hn h +
+    b_hn))`` with gates in r, z, n order.  In float32 it is cuDNN's fused
+    GRU on the card, ATen's on the CPU; :func:`gru_sequence_reference` is
+    the same recurrence step by step.  With ``compute_dtype`` (JAX's
+    ``GRU.compute_dtype``) the input projection of the whole sequence is
+    one product of operands in that dtype and the recurrence runs step by
+    step with a float32 state (``ops.rnn.gru_steps``): cuDNN run on bf16
+    tensors would keep the state in bf16."""
+    if compute_dtype is not None:
+        return gru_sequence_low(cell, x, compute_dtype)
     h0 = x.new_zeros(1, x.shape[0], cell.weight_hh.shape[1])
     weights = [cell.weight_ih, cell.weight_hh, cell.bias_ih, cell.bias_hh]
     with warnings.catch_warnings():
@@ -298,6 +349,21 @@ def gru_sequence(cell: GRUCell, x: torch.Tensor) -> torch.Tensor:
         out, _ = torch._VF.gru(x, h0, weights, True, 1, 0.0,
                                torch.is_grad_enabled(), False, True)
     return out
+
+
+def gru_sequence_low(cell: GRUCell, x: torch.Tensor, compute_dtype,
+                     product=low_product) -> torch.Tensor:
+    """:func:`gru_sequence` with ``compute_dtype``: the hoisted input
+    projection (``wavernn_tpu/ops/rnn.py:160-167``), then the recurrence
+    with the reduced-precision hidden matmul.  ``product`` multiplies the
+    rounded operands (``ops.rnn.low_product``: cuBLAS's bf16 GEMM with
+    float32 output on the card; ``low_product_reference`` is its plain
+    version)."""
+    gi = low_dot(x, cell.weight_ih.T, compute_dtype,
+                 product=product) + cell.bias_ih
+    h0 = x.new_zeros(x.shape[0], cell.weight_hh.shape[1])
+    return gru_steps(gi, h0, cell.weight_hh.T, cell.bias_hh, compute_dtype,
+                     product)[0]
 
 
 def gru_sequence_reference(cell: GRUCell, x: torch.Tensor) -> torch.Tensor:
@@ -336,16 +402,27 @@ class WaveRNN(nn.Module):
 
         x: (B, T) float samples; mels: (B, T/hop + 2*pad, feat) ->
         (B, T, n_classes).  In train mode the BatchNorm layers use and
-        update the batch statistics."""
-        d = self.cfg.aux_dims
+        update the batch statistics, and with ``cfg.seq_chunks`` the
+        layers after the upsampler run on the chunked rows
+        (:func:`chunk_sequence`; the upsampler sees the whole windows)."""
+        c = self.cfg
+        d, k, w = c.aux_dims, c.seq_chunks, c.chunk_warmup
         mels_up, aux = self.upsample(mels)
+        B, T = x.shape
+        chunked = self.training and c.chunks(T)
+        if chunked:
+            x = chunk_sequence(x.unsqueeze(-1), k, w)[..., 0]
+            mels_up = chunk_sequence(mels_up, k, w)
+            aux = chunk_sequence(aux, k, w)
         a1, a2, a3, a4 = (aux[..., i * d:(i + 1) * d] for i in range(4))
         x = self.I(torch.cat([x.unsqueeze(-1), mels_up, a1], dim=-1))
-        x = x + gru_sequence(self.rnn1, x)
-        x = x + gru_sequence(self.rnn2, torch.cat([x, a2], dim=-1))
+        x = x + gru_sequence(self.rnn1, x, c.compute_dtype)
+        x = x + gru_sequence(self.rnn2, torch.cat([x, a2], dim=-1),
+                             c.compute_dtype)
         x = F.relu(self.fc1(torch.cat([x, a3], dim=-1)))
         x = F.relu(self.fc2(torch.cat([x, a4], dim=-1)))
-        return self.fc3(x)
+        out = self.fc3(x)
+        return unchunk_sequence(out, B, k, w) if chunked else out
 
     def upsample_only(self, mels: torch.Tensor):
         """(B, T_mel, feat) mels -> (mels_up, aux), both at sample rate."""

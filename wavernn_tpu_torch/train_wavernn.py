@@ -25,7 +25,10 @@ alone writes checkpoints.  ``hp.mesh_shape`` with a model axis, e.g.
 axis only; the ranks of one data index train on the same rows (and the
 same random crops) with the parameters replicated, as the JAX CLI does.
 
-Not ported (each raises): ``voc_seq_chunks > 1`` and ``voc_compute_dtype``.
+The JAX CLI's training options reach the model through
+``WaveRNNConfig.from_hp``: ``voc_seq_chunks`` / ``voc_chunk_warmup``
+(sequence-chunked BPTT) and ``voc_compute_dtype`` (``"bfloat16"``: the
+GRUs' matmuls on bf16 operands with float32 results and state).
 """
 
 from __future__ import annotations
@@ -44,9 +47,7 @@ from wavernn_tpu_torch.parallel import distributed
 from wavernn_tpu_torch.parallel.mesh import ShardBatch, make_mesh, shard_batch_fn
 from wavernn_tpu_torch.paths import Paths
 from wavernn_tpu_torch.training.state import make_optimizer, new_train_state
-from wavernn_tpu_torch.training.wavernn import (
-    check_ported_options, voc_train_loop,
-)
+from wavernn_tpu_torch.training.wavernn import voc_train_loop
 from wavernn_tpu_torch.utils.checkpoints import restore_checkpoint
 from wavernn_tpu_torch.utils.display import simple_table
 from wavernn_tpu_torch.utils.profiling import trace
@@ -112,7 +113,6 @@ def main(argv=None):
     args = parser.parse_args(argv)
 
     hp.configure(args.hp_file)
-    check_ported_options(hp)
     if args.lr is None:
         args.lr = hp.voc_lr
     if args.batch_size is None:

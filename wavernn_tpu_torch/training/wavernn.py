@@ -1,8 +1,10 @@
 """WaveRNN vocoder training runtime (ports
 ``wavernn_tpu/training/wavernn.py``; ref: train_wavernn.py:91-155).
 
-One train step is the teacher-forced forward, the loss (RAW cross-entropy
-or the MOL loss), the backward, optax's clipped Adam (``training.state``)
+One train step is the teacher-forced forward (chunked, and with
+reduced-precision GRU matmuls, as the model's config says:
+``WaveRNNConfig.seq_chunks`` / ``compute_dtype``), the loss over the
+whole (B, T) logits (RAW cross-entropy or the MOL loss), the backward, optax's clipped Adam (``training.state``)
 and the BatchNorm statistics update.  The epoch loop streams progress,
 runs the audition generation (through the decode kernel on the card) and
 the named checkpoint every ``voc_checkpoint_every`` steps, and rewrites the
@@ -49,21 +51,6 @@ def append_log(path, msg: str) -> None:
     """Append-only text log (ref: models/fatchord_version.py:410-412)."""
     with open(path, "a") as f:
         print(msg, file=f)
-
-
-def check_ported_options(hp) -> None:
-    """Raise on the JAX package's training options that the port does not
-    have: ``voc_seq_chunks > 1`` (sequence-chunked BPTT) and
-    ``voc_compute_dtype`` (reduced-precision matmuls), both tuned for the
-    TPU's scan; they would change what is trained."""
-    if hp.get("voc_seq_chunks", 1) != 1:
-        raise NotImplementedError(
-            f"voc_seq_chunks={hp.voc_seq_chunks}: sequence-chunked BPTT is "
-            "not ported; set voc_seq_chunks = 1")
-    if hp.get("voc_compute_dtype", None) is not None:
-        raise NotImplementedError(
-            f"voc_compute_dtype={hp.voc_compute_dtype!r}: reduced-precision "
-            "training matmuls are not ported; set voc_compute_dtype = None")
 
 
 def batch_to(device, x, y, mels):
